@@ -1,0 +1,87 @@
+"""Architecture registry: ``<arch>`` / ``<arch>@<variant>`` lookup.
+
+The port serves the paper's three dense decoders; the other reference
+configs are not ported yet.  ``reduced`` and ``tiny`` are copies of the
+reference transforms (only the branches a dense decoder reaches)."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+from repro_torch.configs import llama3_8b, qwen2_1_5b, qwen2_7b
+from repro_torch.configs.base import ModelConfig
+
+PAPER_MODELS = {
+    "qwen2-7b": qwen2_7b.CONFIG,
+    "qwen2-1.5b": qwen2_1_5b.CONFIG,
+    "llama3-8b": llama3_8b.CONFIG,
+}
+
+ARCHS: Dict[str, ModelConfig] = dict(PAPER_MODELS)
+
+VARIANTS = ("reduced", "tiny", "tiny-moe")
+
+
+def get(arch: str) -> ModelConfig:
+    """Look up ``<arch>`` or ``<arch>@<variant>``."""
+    base, _, variant = arch.partition("@")
+    if base not in ARCHS:
+        raise KeyError(f"unknown arch {base!r}; known: {sorted(ARCHS)}")
+    cfg = ARCHS[base]
+    if not variant:
+        return cfg
+    if variant == "reduced":
+        return reduced(cfg)
+    if variant == "tiny":
+        return tiny(cfg)
+    if variant == "tiny-moe":
+        raise KeyError(f"{cfg.name!r} has no MoE layers; "
+                       "@tiny-moe needs an MoE architecture")
+    raise KeyError(f"unknown variant {variant!r} for {base!r}; "
+                   f"known: {VARIANTS}")
+
+
+def reduced(cfg: ModelConfig) -> ModelConfig:
+    """Same-family smoke variant: 2 layers, d_model 256, head_dim 64,
+    d_ff 512, vocab 512."""
+    d_model = 256
+    head_dim = 64
+    num_heads = max(2, d_model // head_dim)
+    num_kv = min(cfg.num_kv_heads, num_heads)
+    if num_heads % num_kv:
+        num_kv = 1
+    num_layers = min(len(cfg.period), 2) if len(cfg.period) > 1 else 2
+    return dataclasses.replace(
+        cfg,
+        name=cfg.name + "-reduced",
+        num_layers=num_layers,
+        encoder_layers=2 if cfg.encoder_layers else 0,
+        d_model=d_model,
+        num_heads=num_heads,
+        num_kv_heads=num_kv,
+        head_dim=head_dim,
+        d_ff=512,
+        vocab_size=512,
+        num_experts=min(cfg.num_experts, 4),
+        experts_per_tok=min(cfg.experts_per_tok, 2),
+        rwkv_head_dim=64,
+    )
+
+
+def tiny(cfg: ModelConfig) -> ModelConfig:
+    """Scaled-down variant that keeps >= 6 layer groups and GQA."""
+    return dataclasses.replace(
+        cfg,
+        name=cfg.name + "-tiny",
+        num_layers=max(6, 3 * len(cfg.period)),
+        encoder_layers=2 if cfg.encoder_layers else 0,
+        d_model=256,
+        num_heads=4,
+        num_kv_heads=2 if cfg.num_kv_heads < cfg.num_heads else 4,
+        head_dim=64,
+        d_ff=512,
+        vocab_size=512,
+        num_experts=min(cfg.num_experts, 4),
+        experts_per_tok=min(cfg.experts_per_tok, 2),
+        rwkv_head_dim=64,
+    )

@@ -1,0 +1,406 @@
+"""Block-paged quantized KV pool — port of ``repro.core.kv_pool`` (the
+full-attention pool, its reference attention, and the host allocator).
+
+* ``PagedLayerKV`` — the page pools of a stack of layers: ``k_q`` int8
+  ``[L, P, page, H_kv, D]``, ``k_scale``/``k_zero`` float32
+  ``[L, P, page, H_kv]``, ``v`` fp8 ``[L, P, page, H_kv, D]``.  Page
+  ``num_pages`` is the trash page (table entries of unallocated logical
+  pages point at it); the reference's staging reserve sits past it.
+  Unlike the reference's immutable arrays, appends write the pool in
+  place — the pool is the largest device allocation and is never copied.
+* ``KVPoolManager`` — the host-side allocator, with the reference's
+  deterministic free list, page refcounts and SHA-256 token-hash prefix
+  index, so allocation and adoption follow the reference step for step.
+  The reference's Flash residency machine (spill/stage/restore) is not
+  ported; ``cold_pages`` is kept so the engine can tell when the reference
+  would spill.
+"""
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import kv_cache as kvc
+from repro_torch.core import quantization as q
+from repro_torch.core.precision import DEFAULT_POLICY, PrecisionPolicy
+from repro_torch.kernels import flash_prefill as FP
+from repro_torch.kernels import quant_attention as QA
+
+
+@dataclasses.dataclass(frozen=True)
+class PoolGeometry:
+    """``page_size`` tokens per page, ``num_pages`` allocatable pages (the
+    trash page is extra), ``pages_per_row`` table width, ``staging_pages``
+    the reference's staging reserve past the trash page."""
+    page_size: int
+    num_pages: int
+    pages_per_row: int
+    staging_pages: int = 0
+
+    @property
+    def trash_page(self) -> int:
+        return self.num_pages
+
+    @property
+    def total_device_pages(self) -> int:
+        return self.num_pages + 1 + self.staging_pages
+
+    @property
+    def max_seq(self) -> int:
+        return self.page_size * self.pages_per_row
+
+    def pages_for(self, tokens: int) -> int:
+        return -(-int(tokens) // self.page_size)
+
+
+@dataclasses.dataclass(frozen=True)
+class SpillPolicy:
+    """The reference's proactive-spill watermarks (``plan.kv_spill_policy``)."""
+    staging_pages: int
+    hot_pages: int
+    low_watermark: int
+    high_watermark: int
+    flash_budget_pages: int
+
+
+@dataclasses.dataclass
+class PagedLayerKV:
+    """Page pools of one layer, or of a stack of layers (leading [L] axis);
+    ``layer(i)`` is a view of layer i's pools."""
+    k_q: torch.Tensor
+    k_scale: torch.Tensor
+    k_zero: torch.Tensor
+    v: torch.Tensor
+    window: int = 0
+    key_bits: int = 8
+    staging: int = 0
+
+    @property
+    def page_size(self) -> int:
+        return self.k_q.shape[-3]
+
+    @property
+    def num_pages(self) -> int:
+        return self.k_q.shape[-4]
+
+    def layer(self, i: int) -> "PagedLayerKV":
+        return PagedLayerKV(self.k_q[i], self.k_scale[i], self.k_zero[i],
+                            self.v[i], window=self.window,
+                            key_bits=self.key_bits, staging=self.staging)
+
+
+def init_paged_layer(geom: PoolGeometry, kv_heads: int, head_dim: int, *,
+                     layers: int = 0, window: int = 0, key_bits: int = 8,
+                     value_fp8: bool = True,
+                     device: torch.device = torch.device("cpu")) -> PagedLayerKV:
+    """Zero-initialized full-attention pool of ``geom.total_device_pages``
+    pages (scales start at 1, as in the reference)."""
+    if window:
+        raise NotImplementedError(
+            "windowed ring pools are not ported yet (ROADMAP queue 1 item 13)")
+    pages = geom.total_device_pages
+    ps = geom.page_size
+    kd = head_dim // 2 if key_bits == 4 else head_dim
+    lead = (layers,) if layers else ()
+    vdt = q.FP8_DTYPE if value_fp8 else torch.bfloat16
+    return PagedLayerKV(
+        k_q=torch.zeros((*lead, pages, ps, kv_heads, kd), dtype=torch.int8,
+                        device=device),
+        k_scale=torch.ones((*lead, pages, ps, kv_heads), dtype=torch.float32,
+                           device=device),
+        k_zero=torch.zeros((*lead, pages, ps, kv_heads), dtype=torch.float32,
+                           device=device),
+        v=torch.zeros((*lead, pages, ps, kv_heads, head_dim), dtype=vdt,
+                      device=device),
+        window=0, key_bits=key_bits, staging=geom.staging_pages)
+
+
+def _write(pool: PagedLayerKV, page, off, kq, ks, kz, v_cast) -> None:
+    pool.k_q[page, off] = kq
+    pool.k_scale[page, off] = ks
+    pool.k_zero[page, off] = kz
+    pool.v[page, off] = v_cast
+
+
+def append_paged(pool: PagedLayerKV, k_new: torch.Tensor, v_new: torch.Tensor,
+                 pos: torch.Tensor, table: torch.Tensor) -> None:
+    """Append one decode token per row (k_new/v_new [B, 1, Hkv, D]) at
+    per-row positions ``pos`` [B], through ``table`` [B, pages_per_row]
+    (rows masked to the trash page write there).  In place."""
+    b, t = k_new.shape[:2]
+    if t != 1:
+        raise ValueError("paged append is the decode hot path (one token per row)")
+    ps = pool.page_size
+    kq, ks, kz = kvc.quantize_keys(k_new, bits=pool.key_bits)
+    v_cast = kvc.cast_values(v_new, pool.v.dtype)
+    pos = pos.long()
+    rows = torch.arange(b, device=pos.device)
+    page = table[rows, pos // ps].long()
+    off = pos % ps
+    _write(pool, page, off, kq[:, 0], ks[:, 0], kz[:, 0], v_cast[:, 0])
+
+
+def append_paged_prompt(pool: PagedLayerKV, k_new: torch.Tensor,
+                        v_new: torch.Tensor, pos0: int,
+                        table_row: torch.Tensor) -> None:
+    """Append a C-token prompt chunk for ONE row (k_new/v_new [1, C, Hkv,
+    D]) at positions [pos0, pos0 + C) through ``table_row``
+    [pages_per_row]; positions past the table land in the trash page.  In
+    place; quantization matches the decode append bit for bit."""
+    b, C = k_new.shape[:2]
+    if b != 1:
+        raise ValueError("prompt chunks are per-row (B=1)")
+    ps = pool.page_size
+    kq, ks, kz = kvc.quantize_keys(k_new, bits=pool.key_bits)
+    v_cast = kvc.cast_values(v_new, pool.v.dtype)
+    positions = int(pos0) + torch.arange(C, device=table_row.device)
+    logical = positions // ps
+    n_p = table_row.shape[0]
+    trash = pool.num_pages - 1 - pool.staging
+    page = torch.where(logical < n_p,
+                       table_row[logical.clamp(0, n_p - 1)].long(),
+                       torch.full_like(logical, trash))
+    _write(pool, page, positions % ps, kq[0], ks[0], kz[0], v_cast[0])
+
+
+def gather_pages(pool: PagedLayerKV, table: torch.Tensor):
+    """Page-table-indexed dense view [B, n_pages*page, ...] of each field."""
+    return tuple(QA.gather_rows(x, table)
+                 for x in (pool.k_q, pool.k_scale, pool.k_zero, pool.v))
+
+
+def paged_prefill_attention_ref(qh: torch.Tensor, pool: PagedLayerKV,
+                                table: torch.Tensor, pos0: int,
+                                policy: PrecisionPolicy = DEFAULT_POLICY
+                                ) -> torch.Tensor:
+    """Chunk prefill attention through the page table (reference path):
+    qh [1, C, H, D] pre-scaled at absolute positions [pos0, pos0 + C);
+    table [1, pages_per_row].  Returns the compute dtype."""
+    pos0 = torch.full((qh.shape[0],), int(pos0), dtype=torch.int32,
+                      device=qh.device)
+    out = FP.paged_flash_prefill_attention_plain(
+        qh, pool.k_q, pool.k_scale, pool.k_zero, pool.v, table, pos0,
+        key_bits=pool.key_bits, policy=policy)
+    return out.to(policy.compute_dtype)
+
+
+def paged_decode_attention_ref(qh: torch.Tensor, pool: PagedLayerKV,
+                               table: torch.Tensor, base: Optional[torch.Tensor],
+                               pos: torch.Tensor,
+                               policy: PrecisionPolicy = DEFAULT_POLICY
+                               ) -> torch.Tensor:
+    """One-token attention over the paged pool (reference path): qh
+    [B, 1, H, D] pre-scaled; ``pos`` [B] live lengths; ``base`` the logical
+    page of table column 0 (None => 0).  Returns the compute dtype."""
+    B, T = qh.shape[:2]
+    if T != 1:
+        raise ValueError("paged decode attends one query token per row")
+    if base is None:
+        base = torch.zeros((B,), dtype=torch.int32, device=qh.device)
+    out = QA.paged_quant_decode_attention_plain(
+        qh[:, 0], pool.k_q, pool.k_scale, pool.k_zero, pool.v, table, base,
+        pos, window=pool.window, key_bits=pool.key_bits,
+        compute_dtype=policy.compute_dtype)
+    return out[:, None].to(policy.compute_dtype)
+
+
+class KVPoolManager:
+    """Free-list page allocator + page-table bookkeeping (host side), a
+    copy of the reference's: deterministic allocation (low page ids
+    first), allocate-on-append, refcounted copy-free reclaim, and the
+    token-hash chain prefix index (full prompt pages registered after
+    prefill hold one pin each and are adopted copy-free by later prompts
+    with the same prefix, capped before the prompt's last token; pins are
+    evicted newest-first when the free list runs short)."""
+
+    def __init__(self, geom: PoolGeometry, num_slots: int):
+        self.geom = geom
+        self.num_slots = num_slots
+        self._free: List[int] = list(range(geom.num_pages - 1, -1, -1))
+        self.table = np.full((num_slots, geom.pages_per_row),
+                             geom.trash_page, np.int32)
+        self.row_pages: List[List[int]] = [[] for _ in range(num_slots)]
+        self.row_pos = np.zeros(num_slots, np.int64)
+        self.refcount = np.zeros(geom.num_pages, np.int64)
+        self._page_of_chain: Dict[bytes, int] = {}
+        self._chain_of_page: Dict[int, bytes] = {}
+        self._index_order: List[int] = []
+        self.row_shared = np.zeros(num_slots, np.int64)
+        self.alloc_failures = 0
+        self.prefix_hits = 0
+        self.prefix_misses = 0
+        self.prefix_evictions = 0
+
+    # --- accounting --------------------------------------------------------
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
+    def reclaimable_pages(self) -> int:
+        """Indexed pages held only by their index pin."""
+        return sum(1 for p in self._chain_of_page if self.refcount[p] == 1)
+
+    @property
+    def available_pages(self) -> int:
+        return len(self._free) + self.reclaimable_pages
+
+    @property
+    def pages_in_use(self) -> int:
+        return self.geom.num_pages - len(self._free)
+
+    def pages_for(self, tokens: int) -> int:
+        return self.geom.pages_for(tokens)
+
+    def pages_held(self, row: int) -> int:
+        return len(self.row_pages[row])
+
+    # --- prefix index ------------------------------------------------------
+    def _chain_keys(self, token_ids, salt: str) -> List[bytes]:
+        """One key per full prompt page: a chained SHA-256 digest of
+        (salt, every token through that page), over int64 token bytes."""
+        ps = self.geom.page_size
+        h = hashlib.sha256(("kv-prefix:" + salt).encode()).digest()
+        out = []
+        for i in range(len(token_ids) // ps):
+            page = np.asarray(token_ids[i * ps:(i + 1) * ps], np.int64)
+            h = hashlib.sha256(h + page.tobytes()).digest()
+            out.append(h)
+        return out
+
+    def _shareable_pages(self, n_tokens: int) -> int:
+        """Adoption cap: full pages covering at most tokens [0, T-1)."""
+        return max(0, (int(n_tokens) - 1) // self.geom.page_size)
+
+    def _lookup_chain(self, token_ids, salt: str) -> List[int]:
+        pages = []
+        cap = self._shareable_pages(len(token_ids))
+        for key in self._chain_keys(token_ids, salt)[:cap]:
+            p = self._page_of_chain.get(key)
+            if p is None:
+                break
+            pages.append(p)
+        return pages
+
+    def probe_admission_discount(self, token_ids, salt: str = "") -> int:
+        """Adoptable pages another row still holds (refcount >= 2) — they
+        cost an admission nothing."""
+        return sum(1 for p in self._lookup_chain(token_ids, salt)
+                   if self.refcount[p] >= 2)
+
+    def register_prefix(self, row: int, token_ids, salt: str = "") -> int:
+        """Index the row's full prompt pages; returns pages newly pinned."""
+        pages = self.row_pages[row]
+        pinned = 0
+        for i, key in enumerate(self._chain_keys(token_ids, salt)):
+            if key in self._page_of_chain or i >= len(pages):
+                continue
+            p = pages[i]
+            if p in self._chain_of_page:
+                continue
+            self._page_of_chain[key] = p
+            self._chain_of_page[p] = key
+            self.refcount[p] += 1
+            self._index_order.append(p)
+            pinned += 1
+        return pinned
+
+    def _unpin(self, page: int) -> None:
+        key = self._chain_of_page.pop(page)
+        del self._page_of_chain[key]
+        self.refcount[page] -= 1
+        if self.refcount[page] == 0:
+            self._free.append(page)
+        self.prefix_evictions += 1
+
+    def _reserve(self, need: int) -> bool:
+        """Make ``need`` pages free, evicting index pins newest first."""
+        while len(self._free) < need:
+            victim = next((p for p in reversed(self._index_order)
+                           if p in self._chain_of_page
+                           and self.refcount[p] == 1), None)
+            if victim is None:
+                return False
+            self._index_order.remove(victim)
+            self._unpin(victim)
+        return True
+
+    # --- transitions -------------------------------------------------------
+    def alloc_row(self, row: int, tokens: int, token_ids=None,
+                  salt: str = "") -> bool:
+        """All-or-nothing allocation of the pages holding ``tokens``; with
+        ``token_ids`` the longest indexed prefix is adopted copy-free and
+        ``row_shared[row]`` records the adopted token count."""
+        if self.row_pages[row]:
+            raise RuntimeError(f"row {row} still holds pages")
+        total = self.pages_for(tokens)
+        shared = (self._lookup_chain(token_ids, salt)
+                  if token_ids is not None else [])
+        for p in shared:                 # adoption refs BEFORE reserving
+            self.refcount[p] += 1
+        if not self._reserve(total - len(shared)):
+            for p in shared:
+                self.refcount[p] -= 1
+            self.alloc_failures += 1
+            return False
+        fresh = [self._free.pop() for _ in range(total - len(shared))]
+        for p in fresh:
+            self.refcount[p] = 1
+        pages = shared + fresh
+        self.table[row, :total] = pages
+        self.row_pages[row] = pages
+        self.row_shared[row] = len(shared) * self.geom.page_size
+        self.prefix_hits += len(shared)
+        if token_ids is not None:
+            self.prefix_misses += self._shareable_pages(tokens) - len(shared)
+        return True
+
+    def ensure(self, row: int, pos: int) -> bool:
+        """Allocate-on-append for an append at position ``pos``."""
+        idx = int(pos) // self.geom.page_size
+        held = self.row_pages[row]
+        if idx < len(held):
+            return True
+        if idx != len(held):
+            raise RuntimeError(f"row {row}: append at {pos} skips a page")
+        if not self._reserve(1):
+            self.alloc_failures += 1
+            return False
+        page = self._free.pop()
+        self.refcount[page] = 1
+        held.append(page)
+        self.table[row, idx] = page
+        return True
+
+    def free_row(self, row: int) -> int:
+        """Refcount-decrement reclaim; returns pages actually freed."""
+        freed = 0
+        for p in reversed(self.row_pages[row]):
+            self.refcount[p] -= 1
+            if self.refcount[p] < 0:
+                raise RuntimeError(f"double free of page {p}")
+            if self.refcount[p] == 0:
+                self._free.append(p)
+                freed += 1
+        self.row_pages[row] = []
+        self.table[row, :] = self.geom.trash_page
+        self.row_pos[row] = 0
+        self.row_shared[row] = 0
+        return freed
+
+    def cold_pages(self, row: int, hot_pages: int = 1) -> List[int]:
+        """The reference's spill candidates for one row, oldest first: full
+        pages outside the trailing ``hot_pages`` owned by this row alone
+        and not pinned by the prefix index."""
+        full = int(self.row_pos[row]) // self.geom.page_size
+        out = []
+        for i in range(min(full - hot_pages, len(self.row_pages[row]))):
+            p = self.row_pages[row][i]
+            if self.refcount[p] != 1 or p in self._chain_of_page:
+                continue
+            out.append(i)
+        return out

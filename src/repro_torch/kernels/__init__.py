@@ -1,0 +1,31 @@
+"""The serving main path's hand-written Hopper kernels.
+
+Each module holds one kernel's wrapper and its plain PyTorch version.  The
+wrapper takes the plain version only for tensors on the CPU; for CUDA
+tensors it launches the kernel (built from ``repro_torch/csrc`` by
+``loader``) or raises.  Every wrapper counts its launches in
+``<wrapper>.launches``.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+
+def wrappers() -> Dict[str, object]:
+    """name -> kernel wrapper, for every kernel of the serving path."""
+    from repro_torch.kernels import flash_prefill, quant_attention, rmsnorm, w4a8_matmul
+    return {"w4a8_matmul": w4a8_matmul.w4a8_matmul,
+            "paged_quant_decode_attention":
+                quant_attention.paged_quant_decode_attention,
+            "paged_flash_prefill_attention":
+                flash_prefill.paged_flash_prefill_attention,
+            "rmsnorm": rmsnorm.rmsnorm}
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: fn.launches for name, fn in wrappers().items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in wrappers().values():
+        fn.launches = 0

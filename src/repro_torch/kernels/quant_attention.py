@@ -1,0 +1,116 @@
+"""Paged decode attention over the quantized KV pool: wrapper + plain version.
+
+Port of ``repro/kernels/quant_attention.py::paged_quant_decode_attention``;
+the CUDA kernel is ``csrc/paged_decode_attention.cu``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import kv_cache as kvc
+from repro_torch.core import quantization as q
+from repro_torch.kernels import loader
+
+NEG_INF = -1e30
+MAX_GROUP = 8        # query heads per KV head the kernel holds in registers
+
+
+def gather_rows(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Pool array [P, page, ...] -> per-row dense view [B, n_pages*page, ...]
+    in logical page order."""
+    y = x[table.long()]
+    return y.reshape(table.shape[0], y.shape[1] * y.shape[2], *y.shape[3:])
+
+
+def paged_quant_decode_attention_plain(
+        q_: torch.Tensor, k_q: torch.Tensor, k_scale: torch.Tensor,
+        k_zero: torch.Tensor, v: torch.Tensor, table: torch.Tensor,
+        base: torch.Tensor, length: torch.Tensor, *, window: int = 0,
+        key_bits: int = 8, compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """The reference paged decode (``kv_pool.paged_decode_attention_ref``)
+    op for op: keys dequantized to the compute dtype, bf16 scores with f32
+    accumulation, f32 softmax, probabilities cast to the compute dtype
+    before P.V.  Returns f32 [B, H, D] (the reference casts it to the
+    compute dtype)."""
+    B, H, D = q_.shape
+    Hkv = k_q.shape[-2]
+    G = H // Hkv
+    ps = k_q.shape[1]
+    k = kvc.dequantize_keys(gather_rows(k_q, table), gather_rows(k_scale, table),
+                            gather_rows(k_zero, table), compute_dtype,
+                            bits=key_bits)                       # [B,S,Hkv,D]
+    vv = gather_rows(v, table).to(compute_dtype)
+    S = k.shape[1]
+    qg = q_.reshape(B, Hkv, G, D).to(compute_dtype)
+    s = torch.einsum("bkgd,bskd->bkgs", qg.float(), k.float())
+    kpos = (base.long()[:, None] * ps
+            + torch.arange(S, device=q_.device)[None])
+    length = length.long()[:, None]
+    mask = (kpos >= 0) & (kpos < length)
+    if window:
+        mask = mask & (kpos >= length - window)
+    s = torch.where(mask[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p.to(compute_dtype).float(), vv.float())
+    return out.reshape(B, H, D)
+
+
+def paged_quant_decode_attention(
+        q_: torch.Tensor, k_q: torch.Tensor, k_scale: torch.Tensor,
+        k_zero: torch.Tensor, v: torch.Tensor, table: torch.Tensor,
+        base: torch.Tensor, length: torch.Tensor, *, window: int = 0,
+        key_bits: int = 8) -> torch.Tensor:
+    """One pre-scaled query per row [B, H, D] (bf16 on the card) against its pool pages
+    (pool arrays [P, page, Hkv, D(k)]) through ``table`` [B, n_pages];
+    ``base`` [B] is the logical page of table column 0, ``length`` [B] the
+    live prefix.  Returns f32 [B, H, D]."""
+    B, H, D = q_.shape
+    P, ps, Hkv = k_q.shape[0], k_q.shape[1], k_q.shape[2]
+    if H % Hkv:
+        raise ValueError(f"H={H} not a multiple of Hkv={Hkv}")
+    if table.shape[0] != B or base.shape != (B,) or length.shape != (B,):
+        raise ValueError(f"table {tuple(table.shape)}, base {tuple(base.shape)}, "
+                         f"length {tuple(length.shape)} for B={B}")
+    devs = {t.device for t in (q_, k_q, k_scale, k_zero, v, table, base, length)}
+    if len(devs) != 1:
+        raise ValueError(f"operands on several devices: {devs}")
+    dev = q_.device
+    if dev.type == "cpu":
+        return paged_quant_decode_attention_plain(
+            q_, k_q, k_scale, k_zero, v, table, base, length, window=window,
+            key_bits=key_bits)
+    if dev.type != "cuda":
+        raise NotImplementedError(f"no decode-attention kernel for {dev}")
+    G = H // Hkv
+    if key_bits != 8 or k_q.shape[-1] != D:
+        raise NotImplementedError("int4 keys: no CUDA decode kernel yet")
+    if v.dtype != q.FP8_DTYPE:
+        raise NotImplementedError(f"values {v.dtype}: the kernel reads fp8 e4m3")
+    if G > MAX_GROUP or D % 16 or D > 128:
+        raise NotImplementedError(f"G={G}, D={D}: kernel takes G <= {MAX_GROUP}, "
+                                  "D a multiple of 16 up to 128")
+    if (k_q.dtype, k_scale.dtype, k_zero.dtype) != (torch.int8, torch.float32,
+                                                    torch.float32):
+        raise TypeError("pool dtypes must be int8 keys, float32 scale/zero")
+    if {table.dtype, base.dtype, length.dtype} != {torch.int32}:
+        raise TypeError("table/base/length must be int32")
+    if q_.dtype != torch.bfloat16:
+        raise TypeError(f"q dtype {q_.dtype}: the kernel reads bf16 queries")
+    operands = (q_, k_q, k_scale, k_zero, v, table, base, length)
+    if not all(t.is_contiguous() for t in operands):
+        raise ValueError("decode-attention operands must be contiguous")
+    out = torch.empty((B, H, D), dtype=torch.float32, device=dev)
+    if B == 0:
+        return out
+    lib = loader.build()
+    code = lib.paged_decode_attention_launch(
+        q_.data_ptr(), k_q.data_ptr(), k_scale.data_ptr(), k_zero.data_ptr(),
+        v.data_ptr(), table.data_ptr(), base.data_ptr(), length.data_ptr(),
+        out.data_ptr(), B, Hkv, G, D, ps, table.shape[1], int(window),
+        loader.stream_ptr(dev))
+    loader.check(code, "paged_quant_decode_attention")
+    paged_quant_decode_attention.launches += 1
+    return out
+
+
+paged_quant_decode_attention.launches = 0

@@ -1,0 +1,53 @@
+"""Fused RMSNorm: wrapper + plain version.
+
+Port of ``repro/kernels/rmsnorm.py::rmsnorm``; the CUDA kernel is
+``csrc/rmsnorm.cu``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import loader
+
+
+def rmsnorm_plain(x: torch.Tensor, weight: torch.Tensor,
+                  eps: float = 1e-5) -> torch.Tensor:
+    """The reference dispatcher's entry op for op: float32 math, output in
+    x's dtype."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * weight.float()).to(x.dtype)
+
+
+def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """x [..., D] bf16/float32; weight [D] -> x's shape and dtype."""
+    D = x.shape[-1]
+    if weight.shape != (D,):
+        raise ValueError(f"weight {tuple(weight.shape)} for D={D}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"x dtype {x.dtype}")
+    if x.device != weight.device:
+        raise ValueError(f"x on {x.device}, weight on {weight.device}")
+    if x.device.type == "cpu":
+        return rmsnorm_plain(x, weight, eps)
+    if x.device.type != "cuda":
+        raise NotImplementedError(f"no rmsnorm kernel for {x.device}")
+    if weight.dtype != torch.float32:
+        raise TypeError(f"weight dtype {weight.dtype}: the kernel takes float32")
+    if not (x.is_contiguous() and weight.is_contiguous()):
+        raise ValueError("rmsnorm operands must be contiguous")
+    y = torch.empty_like(x)
+    rows = x.numel() // D if D else 0
+    if rows == 0:
+        return y
+    lib = loader.build()
+    code = lib.rmsnorm_launch(x.data_ptr(), weight.data_ptr(), y.data_ptr(), rows,
+                              D, float(eps), int(x.dtype == torch.bfloat16),
+                              loader.stream_ptr(x.device))
+    loader.check(code, "rmsnorm")
+    rmsnorm.launches += 1
+    return y
+
+
+rmsnorm.launches = 0

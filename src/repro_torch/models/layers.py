@@ -1,0 +1,136 @@
+"""Shared layers and the parameter builder — port of ``repro.models.layers``
+(the dense-decoder parts: linear, RMSNorm, RoPE, SwiGLU FFN).
+
+Hot ops (every linear matmul and every RMSNorm) route through the
+``runtime.dispatch.Dispatcher``: Hopper kernels for CUDA tensors, their
+plain PyTorch versions for CPU tensors.  Every cast sits where the
+reference casts, so the CPU path reproduces the reference's bf16 rounding.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import quantization as q
+from repro_torch.runtime import dispatch as D
+from repro_torch.runtime import plan as RP
+
+
+class ParamBuilder:
+    """Builds a model's serving parameters on ``device`` from a
+    ``torch.Generator``: quantized linears in the packed kernel-native
+    layout (``runtime.plan.PackedLinear``), bf16 biases (zero-initialized,
+    as in the reference) and float32 norms (ones).  Random weights are
+    N(0, 0.02) in float32 before quantization, the reference's recipe;
+    torch cannot reproduce JAX's random bits, so parity tests convert the
+    reference's own parameters instead (``repro_torch.convert``)."""
+
+    def __init__(self, generator: torch.Generator, device: torch.device,
+                 qcfg: Optional[q.QuantConfig] = None):
+        self.gen = generator
+        self.device = torch.device(device)
+        self.qcfg = qcfg or q.QuantConfig()
+
+    def norm(self, dim: int, lead: tuple = ()) -> torch.Tensor:
+        return torch.ones((*lead, dim), dtype=torch.float32, device=self.device)
+
+    def bias(self, dim: int, lead: tuple = ()) -> torch.Tensor:
+        return torch.zeros((*lead, dim), dtype=torch.bfloat16, device=self.device)
+
+    def linear(self, in_dim: int, out_dim: int, *, bits: Optional[int] = None,
+               lead: tuple = (), scale: float = 0.02) -> dict:
+        """{"w": PackedLinear} with data [*lead, Kp, Np/2 | Np]; each
+        leading index is drawn and quantized separately, so the peak
+        float32 transient is one [in_dim, out_dim] matrix."""
+        bits = self.qcfg.weight_bits if bits is None else bits
+        if bits >= 16:
+            raise NotImplementedError("unquantized (bits=16) linears have no "
+                                      "kernel on the serving path")
+        gs = self.qcfg.group_size
+        n_lead = int(np.prod(lead)) if lead else 1
+        packed = []
+        for _ in range(n_lead):
+            wf = torch.randn((in_dim, out_dim), generator=self.gen,
+                             device=self.device, dtype=torch.float32) * scale
+            packed.append(RP.pack_linear(q.quantize(wf, bits, group_size=gs)))
+            del wf
+        first = packed[0]
+        if not lead:
+            return {"w": first}
+        data = torch.stack([p.data for p in packed]).reshape(*lead, *first.data.shape)
+        scale_t = torch.stack([p.scale for p in packed]).reshape(*lead, *first.scale.shape)
+        zero_t = torch.stack([p.zero for p in packed]).reshape(*lead, *first.zero.shape)
+        return {"w": RP.PackedLinear(data=data, scale=scale_t, zero=zero_t,
+                                     bits=bits, k=first.k, n=first.n)}
+
+
+def apply_linear(x: torch.Tensor, p: dict, qcfg: q.QuantConfig,
+                 dispatch: D.Dispatcher, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """y = x @ w (+b) through the dispatcher."""
+    y = dispatch.linear(x, p["w"], qcfg, out_dtype=out_dtype)
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return y
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
+             dispatch: D.Dispatcher) -> torch.Tensor:
+    return dispatch.rmsnorm(x, weight, eps)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x [B, T, H, D]; positions [B, T] int -> x's dtype.  float32 math with
+    the reference's op order (angles in float32, rotate-half layout)."""
+    d = x.shape[-1]
+    freqs = torch.tensor(rope_freqs(d, theta), dtype=torch.float32, device=x.device)
+    ang = positions[..., None].float() * freqs                      # [B,T,D/2]
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def positional(qk: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor) -> torch.Tensor:
+    if cfg.rope_kind == "none":
+        return qk
+    if cfg.rope_kind != "rope":
+        raise NotImplementedError(f"rope_kind={cfg.rope_kind!r} is not ported "
+                                  "(ROADMAP queue 1 item 15)")
+    return apply_rope(qk, positions, cfg.rope_theta)
+
+
+def swiglu(x: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
+    """silu(gate) in float32, cast to x's dtype, times x (the reference's
+    casts: ``jax.nn.silu`` is g * sigmoid(g))."""
+    g = gate.float()
+    return (g * torch.sigmoid(g)).to(x.dtype) * x
+
+
+def ffn_params(b: ParamBuilder, cfg: ModelConfig, lead: tuple = ()) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.act != "swiglu":
+        raise NotImplementedError(f"act={cfg.act!r}: only swiglu is ported")
+    return {"w_gate": b.linear(d, f, lead=lead),
+            "w_up": b.linear(d, f, lead=lead),
+            "w_down": b.linear(f, d, lead=lead)}
+
+
+def apply_ffn(x: torch.Tensor, p: dict, cfg: ModelConfig,
+              dispatch: D.Dispatcher) -> torch.Tensor:
+    if cfg.act != "swiglu":
+        raise NotImplementedError(f"act={cfg.act!r}: only swiglu is ported")
+    g = apply_linear(x, p["w_gate"], cfg.quant, dispatch)
+    u = apply_linear(x, p["w_up"], cfg.quant, dispatch)
+    return apply_linear(swiglu(u, g), p["w_down"], cfg.quant, dispatch)

@@ -1,0 +1,109 @@
+"""Kernel dispatch for the serving main path — port of
+``repro.runtime.dispatch`` (ops ``linear``, ``rmsnorm``,
+``paged_decode_attention``, ``paged_prefill_attention``).
+
+Each op calls its kernel's wrapper (``repro_torch.kernels``), which picks
+by the tensors' device: the plain PyTorch version for CPU tensors, the
+Hopper kernel for CUDA tensors — or it raises.  Unlike the reference, the
+dispatcher never falls back: a configuration the kernels do not take on
+the card (int4 keys, windowed pools, group-wise weight scales, A16) raises
+``NotImplementedError`` there, so a run that finishes went through the
+kernels.  ``fallbacks`` stays empty by construction; callers assert it.
+
+``backend="reference"`` runs the plain versions on any device — the only
+use is holding the kernel path against the plain path on the card.
+"""
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import torch
+
+from repro_torch.core import quantization as q
+from repro_torch.core.precision import PrecisionPolicy
+from repro_torch.kernels import flash_prefill as FP
+from repro_torch.kernels import quant_attention as QA
+from repro_torch.kernels import rmsnorm as RN
+from repro_torch.kernels import w4a8_matmul as WM
+from repro_torch.runtime import plan as planlib
+
+BACKENDS = ("kernel", "reference")
+
+
+class Dispatcher:
+    """Resolves every hot op of the serving path to a kernel wrapper (or,
+    with ``backend="reference"``, to its plain version)."""
+
+    def __init__(self, backend: str = "kernel"):
+        if backend not in BACKENDS:
+            raise ValueError(f"backend {backend!r}; expected one of {BACKENDS}")
+        self.backend = backend
+        self.fallbacks: List[Tuple[str, str, str]] = []
+
+    @property
+    def _plain(self) -> bool:
+        return self.backend == "reference"
+
+    def linear(self, x: torch.Tensor, w, qcfg: q.QuantConfig,
+               out_dtype=torch.bfloat16) -> torch.Tensor:
+        """y = x @ w for a ``PackedLinear`` weight."""
+        if w.data.dim() != 2:
+            raise ValueError("stacked weights: slice one layer first")
+        eligible = (qcfg.act_bits == 8 and w.scale.shape[-2] == 1
+                    and w.bits in (4, 8))
+        if not eligible:
+            if x.is_cuda:
+                raise NotImplementedError(
+                    f"W{w.bits}A{qcfg.act_bits} with {w.scale.shape[-2]} scale "
+                    "groups: only per-channel W4A8/W8A8 has a CUDA kernel")
+            return q.quant_matmul(x, planlib.unpack_linear(w), qcfg,
+                                  out_dtype=out_dtype)
+        lead, K = x.shape[:-1], x.shape[-1]
+        if K != w.k:
+            raise ValueError(f"reduction dim {K} != weight {w.k}")
+        xq, sx = q.quantize_activations(x.reshape(-1, K))
+        fn = WM.w4a8_matmul_plain if self._plain else WM.w4a8_matmul
+        y = fn(xq, sx, w.data, w.scale[0], w.zero[0], bits=w.bits)
+        return y[:, :w.n].reshape(*lead, w.n).to(out_dtype)
+
+    def rmsnorm(self, x: torch.Tensor, weight: torch.Tensor,
+                eps: float = 1e-5) -> torch.Tensor:
+        fn = RN.rmsnorm_plain if self._plain else RN.rmsnorm
+        return fn(x, weight, eps)
+
+    def paged_decode_attention(self, qh: torch.Tensor, pool, table: torch.Tensor,
+                               pos: torch.Tensor,
+                               policy: PrecisionPolicy) -> torch.Tensor:
+        """Decode over the paged pool: qh [B, 1, H, D] pre-scaled, ``pos``
+        [B] live lengths, ``table`` [B, pages_per_row]."""
+        B, T = qh.shape[:2]
+        if T != 1:
+            raise ValueError("decode attends one query token per row")
+        base = torch.zeros((B,), dtype=torch.int32, device=qh.device)
+        args = (qh[:, 0], pool.k_q, pool.k_scale, pool.k_zero, pool.v, table,
+                base, pos.to(torch.int32))
+        if self._plain:
+            out = QA.paged_quant_decode_attention_plain(
+                *args, window=pool.window, key_bits=pool.key_bits,
+                compute_dtype=policy.compute_dtype)
+        else:
+            out = QA.paged_quant_decode_attention(
+                *args, window=pool.window, key_bits=pool.key_bits)
+        return out[:, None].to(policy.compute_dtype)
+
+    def paged_prefill_attention(self, qh: torch.Tensor, pool, table: torch.Tensor,
+                                pos0: int, policy: PrecisionPolicy) -> torch.Tensor:
+        """Prompt-chunk attention: qh [B, C, H, D] pre-scaled at absolute
+        positions pos0 + arange(C) over ``table`` [B, pages_per_row]."""
+        if pool.window:
+            raise NotImplementedError("windowed pools prefill chunk-locally "
+                                      "(ROADMAP queue 1 item 13)")
+        pos0_arr = torch.full((qh.shape[0],), int(pos0), dtype=torch.int32,
+                              device=qh.device)
+        args = (qh, pool.k_q, pool.k_scale, pool.k_zero, pool.v, table, pos0_arr)
+        if self._plain:
+            out = FP.paged_flash_prefill_attention_plain(
+                *args, key_bits=pool.key_bits, policy=policy)
+        else:
+            out = FP.paged_flash_prefill_attention(*args, key_bits=pool.key_bits)
+        return out.to(policy.compute_dtype)

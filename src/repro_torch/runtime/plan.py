@@ -1,0 +1,176 @@
+"""Load-time layout and geometry decisions — the parts of
+``repro.runtime.plan`` the serving main path uses.
+
+* ``PackedLinear`` — a quantized linear weight in the kernel-native padded
+  layout: reduction dim padded to a multiple of 128, output channels to a
+  multiple of 256 (int4 nibble pairs never straddle the pad).  Padding is
+  exact: pad columns hold q=0 with scale=1/zero=0 and dequantize to 0, pad
+  rows hold q=0 and only ever meet the zero-padded activation columns.
+* KV pool geometry (page size, pages per row, the DRAM page inventory),
+  the decode batch-bucket ladder and the prefill chunk cap — the same
+  geometry as the reference, so allocation and scheduling follow it step
+  for step.
+
+The reference's TPU tile solver and weight streaming are not part of the
+port: tiles are the CUDA kernels' own, and every weight stays resident.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import kv_pool
+from repro_torch.core import quantization as q
+
+LANE = 128            # K alignment
+N_ALIGN = 2 * LANE    # output-channel alignment (nibble pairs stay aligned)
+M_ALIGN = 8
+
+
+def _ceil_to(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+@dataclasses.dataclass
+class PackedLinear:
+    """data:  int8 [..., Kp, Np//2] (bits=4) or [..., Kp, Np] (bits=8);
+    scale/zero: float32 [..., g, Np]; k, n: the logical dims."""
+    data: torch.Tensor
+    scale: torch.Tensor
+    zero: torch.Tensor
+    bits: int
+    k: int
+    n: int
+
+    @property
+    def kp(self) -> int:
+        return _ceil_to(self.k, LANE)
+
+    @property
+    def np_pad(self) -> int:
+        return _ceil_to(self.n, N_ALIGN)
+
+    def layer(self, i: int) -> "PackedLinear":
+        """Slice one layer of a stacked [L, ...] weight (a contiguous view)."""
+        return PackedLinear(self.data[i], self.scale[i], self.zero[i],
+                            self.bits, self.k, self.n)
+
+
+def pack_linear(qt: q.QuantizedTensor) -> PackedLinear:
+    """Repack a QuantizedTensor into the padded kernel-native layout."""
+    k, n = int(qt.shape[-2]), int(qt.shape[-1])
+    kp, np_ = _ceil_to(k, LANE), _ceil_to(n, N_ALIGN)
+    dcols = n // 2 if qt.bits == 4 else n
+    pcols = np_ // 2 if qt.bits == 4 else np_
+    data = F.pad(qt.data, (0, pcols - dcols, 0, kp - k))
+    scale = F.pad(qt.scale, (0, np_ - n), value=1.0)
+    zero = F.pad(qt.zero, (0, np_ - n), value=0.0)
+    return PackedLinear(data=data, scale=scale, zero=zero, bits=qt.bits,
+                        k=k, n=n)
+
+
+def unpack_linear(pl: PackedLinear) -> q.QuantizedTensor:
+    """Slice the padding back off -> the original QuantizedTensor values."""
+    dcols = pl.n // 2 if pl.bits == 4 else pl.n
+    data = pl.data[..., :pl.k, :dcols]
+    return q.QuantizedTensor(data=data, scale=pl.scale[..., :pl.n],
+                             zero=pl.zero[..., :pl.n], bits=pl.bits,
+                             shape=(*data.shape[:-2], pl.k, pl.n))
+
+
+def decode_buckets(max_slots: int, uniform: bool = True) -> Tuple[int, ...]:
+    """Batch-size ladder for bucketed decode: 1/2/4/... below
+    ``max_slots``, topped by ``max_slots`` itself."""
+    if not uniform or max_slots <= 1:
+        return (max(1, int(max_slots)),)
+    ladder = []
+    b = 1
+    while b < max_slots:
+        ladder.append(b)
+        b *= 2
+    ladder.append(max_slots)
+    return tuple(ladder)
+
+
+def kv_page_size(max_seq: int) -> int:
+    """Largest power-of-two divisor of ``max_seq`` capped at LANE and at
+    max_seq // 4 (floored at M_ALIGN)."""
+    cap = max(M_ALIGN, min(LANE, max_seq // 4))
+    ps = 1
+    while ps * 2 <= cap and max_seq % (ps * 2) == 0:
+        ps *= 2
+    return ps
+
+
+def prefill_chunk_schedule(cfg, prefill_chunk: int, page_size: int) -> int:
+    """The engine's prefill chunk cap: a multiple of 8; windowed stacks
+    round down to the largest power of two <= min(cap, page_size)."""
+    cap = max(8, (int(prefill_chunk) // 8) * 8)
+    windowed = any(pat.kind == "attn" and pat.window > 0
+                   for pats, _count in cfg.layer_plan() for pat in pats)
+    if windowed:
+        b = 8
+        while b * 2 <= min(cap, page_size):
+            b *= 2
+        cap = b
+    return cap
+
+
+def kv_page_bytes(cfg, page_size: int) -> int:
+    """Device bytes one pool page costs across every full-attention layer."""
+    H, D = cfg.num_kv_heads, cfg.resolved_head_dim
+    kd = D // 2 if cfg.quant.kv_key_bits == 4 else D
+    vb = 1 if cfg.quant.kv_value_fp8 else 2
+    per_tok = H * kd + 2 * 4 * H + H * D * vb
+    n_full = sum(count for pats, count in cfg.layer_plan()
+                 for pat in pats if pat.kind == "attn" and pat.window == 0)
+    return page_size * per_tok * n_full
+
+
+@dataclasses.dataclass
+class ExecutionPlan:
+    """Decided once per model: the packed params and the pool geometry."""
+    quant_tag: str
+    params: Any
+
+    def decode_buckets(self, max_slots: int,
+                       uniform: bool = True) -> Tuple[int, ...]:
+        return decode_buckets(max_slots, uniform=uniform)
+
+    def kv_pool_geometry(self, cfg, max_seq: int, max_slots: int,
+                         dram_budget_bytes: Optional[int] = None,
+                         staging_pages: Optional[int] = None
+                         ) -> kv_pool.PoolGeometry:
+        """Page size from the lane grid; page inventory from the DRAM
+        budget, clamped to [one full row, the full per-slot reservation].
+        ``staging_pages`` sizes the reference's Flash staging reserve (the
+        pool arrays keep its pages so the trash page id and pool shapes
+        match the reference; the port never stages into them)."""
+        ps = kv_page_size(max_seq)
+        ppr = -(-max_seq // ps)
+        if dram_budget_bytes is None:
+            num = max_slots * ppr
+        else:
+            pb = kv_page_bytes(cfg, ps)
+            num = dram_budget_bytes // pb if pb else max_slots * ppr
+        num = max(min(int(num), max_slots * ppr), ppr)
+        if staging_pages is None:
+            staging_pages = max(2, ppr - 2)
+        return kv_pool.PoolGeometry(page_size=ps, num_pages=num,
+                                    pages_per_row=ppr,
+                                    staging_pages=int(staging_pages))
+
+    def kv_spill_policy(self, cfg, geom: kv_pool.PoolGeometry,
+                        max_slots: int) -> kv_pool.SpillPolicy:
+        """The reference's proactive-spill watermarks (default Flash
+        budget).  The port reads them only to detect the steps where the
+        reference would spill — and raises there."""
+        low = max(1, geom.num_pages // 8)
+        high = max(low, geom.num_pages // 4)
+        return kv_pool.SpillPolicy(
+            staging_pages=geom.staging_pages, hot_pages=1,
+            low_watermark=low, high_watermark=high,
+            flash_budget_pages=max_slots * geom.pages_per_row)

@@ -1,0 +1,553 @@
+"""Serving engine — port of ``repro.serving.engine``: the continuous-batching
+``EngineLoop`` over the paged quantized KV pool, on the card.
+
+  * The embedding table lives on Flash (C2): every step gathers only its
+    tokens' rows from a disk memmap (``core.hybrid_storage``).
+  * Weights are W4A8 with an int8 ``lm_head`` (C1), in the packed
+    kernel-native layout; every linear, RMSNorm and attention call goes
+    through the ``runtime.dispatch.Dispatcher`` to a Hopper kernel.
+  * KV is int8 keys / fp8 values in a block-paged pool (C1); one unified
+    step runs prompt chunks under a token budget, samples one token per
+    decodable row, and decodes the active rows gathered into the smallest
+    covering batch bucket.  Prompt prefixes are adopted copy-free from the
+    pool's token-hash index.
+
+Not ported (ROADMAP queue 1 items 10, 11, 16 and 17): Flash spill of KV
+pages (proactive spill, preemption to Flash), weight and expert streaming,
+LoRA and the legacy ``generate``.  Where the reference loop would take one
+of those branches, the port raises ``NotImplementedError``; with the
+default DRAM budget the pool holds every slot's full row, so a trace that
+fits never reaches one.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
+(the tests do); without a card they raise instead of falling back.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import hybrid_storage as HS
+from repro_torch.core import kv_pool as KP
+from repro_torch.kernels import loader
+from repro_torch.models import transformer as T
+from repro_torch.runtime import dispatch as D
+from repro_torch.runtime import plan as RP
+from repro_torch.serving import sampling as SM
+from repro_torch.serving.scheduler import (AdmissionError, ContinuousScheduler,
+                                           QueueFullError, Request)
+
+__all__ = ["AdmissionError", "QueueFullError", "Engine", "EngineLoop",
+           "EngineStats", "RequestStats", "Request", "TokenEvent",
+           "bucket_cover", "build_engine", "percentile", "resolve_device"]
+
+DEFAULT_FLASH_DIR = loader.BUILD_ROOT.parent / "flash"
+
+
+def resolve_device(device=None) -> torch.device:
+    """``cuda`` unless the caller names a device; a CUDA device without a
+    card raises — the port never quietly runs on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run the "
+                           "plain PyTorch path on the CPU")
+    return dev
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def bucket_cover(buckets: Sequence[int], wave: Sequence[int], max_slots: int):
+    """Gather plan for one decode wave: the smallest ladder bucket covering
+    the wave's slots, padded with DISTINCT idle slots (masked inactive;
+    their table rows upload as all-trash, so they write nothing).  Returns
+    (slot_idx int32 [bucket], active bool [bucket]), wave slots first."""
+    n = len(wave)
+    bucket = next(b for b in buckets if b >= n)
+    idx = sorted(int(s) for s in wave)
+    taken = set(idx)
+    for s in range(max_slots):
+        if len(idx) >= bucket:
+            break
+        if s not in taken:
+            idx.append(s)
+    if len(idx) != bucket:
+        raise ValueError(f"cannot cover {tuple(wave)} with {tuple(buckets)} "
+                         f"over {max_slots} slots")
+    active = np.zeros((bucket,), bool)
+    active[:n] = True
+    return np.asarray(idx, np.int32), active
+
+
+@dataclasses.dataclass
+class RequestStats:
+    """Per-request serving latency record."""
+    uid: int
+    ttft_s: float          # arrival -> first token
+    tpot_s: float          # mean inter-token time after the first
+    latency_s: float       # arrival -> completion
+    new_tokens: int
+
+
+def percentile(xs: Sequence[float], p: float) -> float:
+    if not xs:
+        return 0.0
+    return float(np.percentile(np.asarray(xs, np.float64), p))
+
+
+@dataclasses.dataclass(frozen=True)
+class TokenEvent:
+    """One committed token, emitted by ``EngineLoop.step()`` when the
+    sampling phase appends it.  ``done`` marks the request's final token."""
+    uid: int
+    token: int
+    index: int
+    done: bool
+    request: Request = dataclasses.field(repr=False, compare=False)
+
+
+@dataclasses.dataclass
+class EngineStats:
+    prefill_tokens: int = 0
+    decode_tokens: int = 0
+    prefill_s: float = 0.0
+    decode_s: float = 0.0
+    flash_bytes: int = 0
+    # prefix sharing: prompt tokens adopted from the page index, and prompt
+    # chunks run by the unified step
+    shared_prompt_tokens: int = 0
+    prefill_chunks: int = 0
+    requests: List[RequestStats] = dataclasses.field(default_factory=list)
+
+    @property
+    def prefill_tps(self) -> float:
+        return self.prefill_tokens / self.prefill_s if self.prefill_s else 0.0
+
+    @property
+    def decode_tps(self) -> float:
+        return self.decode_tokens / self.decode_s if self.decode_s else 0.0
+
+    def ttft(self, p: float = 50.0) -> float:
+        return percentile([r.ttft_s for r in self.requests], p)
+
+    def tpot(self, p: float = 50.0) -> float:
+        return percentile([r.tpot_s for r in self.requests], p)
+
+    def latency(self, p: float = 50.0) -> float:
+        return percentile([r.latency_s for r in self.requests], p)
+
+
+class Engine:
+    """Model parameters (resident on ``device``), the Flash embedding, the
+    dispatcher and the serving stats."""
+
+    def __init__(self, cfg: ModelConfig, params: dict,
+                 embedding: HS.EmbeddingStore, max_seq: int = 256,
+                 device=None, backend: str = "kernel"):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.plan = RP.ExecutionPlan(quant_tag=cfg.quant.tag(), params=params)
+        self.params = params
+        self.dispatch = D.Dispatcher(backend=backend)
+        self.max_seq = max_seq
+        self.embedding = embedding
+        self.stats = EngineStats()
+
+    def embed(self, token_ids: np.ndarray) -> torch.Tensor:
+        """bf16 rows gathered from Flash (C2), on the engine's device."""
+        rows = self.embedding.lookup(token_ids, self.device)
+        self.stats.flash_bytes = self.embedding.flash.bytes_read
+        return rows
+
+
+class EngineLoop:
+    """Step-driven continuous-batching loop on the paged KV pool: one unified
+    step runs pending prompt chunks and the decode batch together.
+    ``submit(req)`` enqueues (``AdmissionError`` for a request that can
+    never fit, ``QueueFullError`` past ``max_queue``), ``step()`` advances
+    one unified step and returns the ``TokenEvent``s it committed,
+    ``poll(uid)`` drains a request's tokens, ``drain()`` steps until idle
+    and ``run()`` replays a whole trace.  Per-request TTFT/TPOT/latency land
+    in ``engine.stats.requests``."""
+
+    def __init__(self, engine: Engine, max_slots: int = 4,
+                 dram_budget_bytes: Optional[int] = None,
+                 prefill_chunk: int = 64,
+                 prefill_token_budget: Optional[int] = None,
+                 default_sampling: Optional[SM.SamplingParams] = None,
+                 max_queue: Optional[int] = None,
+                 on_token: Optional[Callable[[Request, int, bool], None]] = None,
+                 seed: int = 0):
+        cfg = engine.cfg
+        self.eng = engine
+        self.cfg = cfg
+        self.device = engine.device
+        self.max_slots = max_slots
+        # the reference's geometry, staging reserve included, so that the
+        # trash page id, pool shapes and allocation match it step for step
+        self.geom = engine.plan.kv_pool_geometry(
+            cfg, engine.max_seq, max_slots, dram_budget_bytes=dram_budget_bytes)
+        self.spill_policy = engine.plan.kv_spill_policy(cfg, self.geom, max_slots)
+        self.prefill_chunk = RP.prefill_chunk_schedule(cfg, prefill_chunk,
+                                                       self.geom.page_size)
+        self.prefill_token_budget = (prefill_token_budget
+                                     if prefill_token_budget is not None
+                                     else max(prefill_chunk, 64))
+        self.pool = KP.KVPoolManager(self.geom, max_slots)
+        self.scheduler = ContinuousScheduler(
+            max_slots, engine.max_seq, pool=self.pool,
+            spill_headroom=self._spill_headroom)
+        self.cache = T.init_paged_cache(cfg, max_slots, self.geom, self.device)
+        self.logits = torch.zeros((max_slots, cfg.padded_vocab_size),
+                                  dtype=torch.float32, device=self.device)
+        self._prefilling: Dict[int, dict] = {}
+        self._prefill_rr = 0
+        self.peak_active = 0
+        self.peak_kv_pages = 0
+        self.default_sampling = default_sampling
+        self.max_queue = max_queue
+        self.on_token = on_token
+        self._step_no = 0
+        self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        self._streams: Dict[int, dict] = {}
+        self.rejected = 0
+        self.buckets = engine.plan.decode_buckets(max_slots)
+
+    # --- where the reference would leave the ported slice ------------------
+    def _cold_candidates(self) -> List:
+        """The reference's proactive-spill candidates, (logical page, slot)
+        oldest first: full single-owner pages outside each running row's
+        hot tail.  Nothing is ever on Flash here, so every row has its full
+        staging room and the whole Flash budget is left."""
+        out = []
+        for slot, req in enumerate(self.scheduler.running):
+            if req is None or slot in self._prefilling:
+                continue
+            idxs = self.pool.cold_pages(slot, self.spill_policy.hot_pages)
+            out.extend((i, slot) for i in idxs[:self.spill_policy.staging_pages])
+        out.sort()
+        return out[:self.spill_policy.flash_budget_pages]
+
+    def _spill_headroom(self) -> int:
+        """Pages admission may oversubscribe the pool by, as the reference
+        counts them (its scheduler calls this through ``_fits``)."""
+        return len(self._cold_candidates())
+
+    @staticmethod
+    def _not_ported(what: str) -> NotImplementedError:
+        return NotImplementedError(
+            f"the reference loop would {what}: KV spill to Flash is not "
+            "ported (ROADMAP queue 1 item 10)")
+
+    def _proactive_spill(self) -> None:
+        if (self.pool.free_pages < self.spill_policy.low_watermark
+                and self._cold_candidates()):
+            raise self._not_ported("spill cold pages of running rows")
+
+    # --- admission + the unified prefill step ------------------------------
+    def _upload_table(self, visible) -> None:
+        """Upload the page table with every slot outside ``visible`` masked
+        to the trash page (rows mid-prefill and empty rows never see
+        dispatch; their ride-along appends land in the trash)."""
+        table = self.pool.table
+        hidden = [s for s in range(self.max_slots) if s not in visible]
+        if hidden:
+            table = table.copy()
+            table[hidden] = self.geom.trash_page
+        self.cache["table"] = torch.as_tensor(table, device=self.device)
+
+    def _admit_into_slot(self, req: Request, slot: int) -> None:
+        toks = list(req.prompt_tokens)
+        t = len(toks)
+        ok = self.pool.alloc_row(slot, t, token_ids=toks, salt=req.adapter or "")
+        if not ok:
+            if any(s != slot for _i, s in self._cold_candidates()):
+                raise self._not_ported("spill cold pages to admit a request")
+            raise RuntimeError("admission checked that the pages were free")
+        shared = int(self.pool.row_shared[slot])
+        self.eng.stats.shared_prompt_tokens += shared
+        self._prefilling[slot] = {"req": req, "tokens": toks, "t": t,
+                                  "next": shared}
+
+    def _next_chunk(self, remaining: int) -> int:
+        """Full ``prefill_chunk`` slabs, then one power-of-two final chunk
+        (padded; at least 8)."""
+        if remaining >= self.prefill_chunk:
+            return self.prefill_chunk
+        c = 8
+        while c < remaining:
+            c *= 2
+        return c
+
+    def _run_prefill_chunks(self) -> None:
+        """Advance prefilling rows by whole chunks until the per-step token
+        budget runs out, round-robin across rows and across steps; only the
+        step's first chunk may overshoot the budget.  A row whose final
+        chunk lands here decodes in this same step."""
+        if not self._prefilling:
+            return
+        eng = self.eng
+        budget = self.prefill_token_budget
+        t0 = time.perf_counter()
+        ran = False
+        self.cache["table"] = torch.as_tensor(self.pool.table, device=self.device)
+        while budget > 0 and self._prefilling:
+            advanced = False
+            order = sorted(self._prefilling)
+            pivot = sum(1 for s in order if s < self._prefill_rr)
+            for slot in order[pivot:] + order[:pivot]:
+                if budget <= 0:
+                    break
+                st = self._prefilling[slot]
+                req, toks, t = st["req"], st["tokens"], st["t"]
+                c = self._next_chunk(t - st["next"])
+                valid = min(c, t - st["next"])
+                if ran and valid > budget:
+                    continue
+                self._prefill_rr = slot + 1
+                ids = np.zeros((1, c), np.int64)
+                ids[0, :valid] = np.asarray(toks[st["next"]:st["next"] + valid])
+                last_idx = t - 1 - st["next"] if st["next"] + c >= t else c - 1
+                logits1 = T.prefill_chunk_paged(
+                    eng.params, self.cfg, eng.embed(ids), self.cache, slot,
+                    st["next"], last_idx, eng.dispatch)
+                st["next"] += valid
+                budget -= valid
+                ran = advanced = True
+                eng.stats.prefill_tokens += valid
+                eng.stats.prefill_chunks += 1
+                if st["next"] >= t:
+                    self.logits[slot] = logits1[0]
+                    self.cache["pos"][slot] = t
+                    self.pool.row_pos[slot] = t
+                    self.pool.register_prefix(slot, toks, salt=req.adapter or "")
+                    del self._prefilling[slot]
+            if not advanced:
+                break
+        if ran:
+            _sync(self.device)
+            eng.stats.prefill_s += time.perf_counter() - t0
+
+    # --- the incremental serving API ---------------------------------------
+    def _validate(self, req: Request) -> None:
+        need = req.length + req.max_new_tokens
+        if need > self.eng.max_seq:
+            raise AdmissionError(
+                f"request {req.uid}: prompt+decode budget {need} exceeds "
+                f"max_seq={self.eng.max_seq}", uid=req.uid)
+        if need > self.scheduler.token_budget:
+            raise AdmissionError(
+                f"request {req.uid}: {need} tokens exceed the scheduler "
+                f"token budget {self.scheduler.token_budget}", uid=req.uid)
+        if self.pool.pages_for(need) > self.geom.num_pages:
+            raise AdmissionError(
+                f"request {req.uid}: needs {self.pool.pages_for(need)} KV "
+                f"pages, pool holds {self.geom.num_pages}", uid=req.uid)
+
+    def submit(self, req: Request, arrival_step: Optional[int] = None) -> int:
+        """Enqueue one request at any time; returns its uid."""
+        if req.sampling is None:
+            if self.default_sampling is None:
+                raise ValueError(f"request {req.uid} has no SamplingParams and "
+                                 "the loop has no default_sampling")
+            req.sampling = self.default_sampling
+        if req.adapter is not None:
+            raise NotImplementedError("LoRA adapters are not ported "
+                                      "(ROADMAP queue 1 item 16)")
+        self._validate(req)
+        if (self.max_queue is not None
+                and len(self.scheduler.waiting) >= self.max_queue):
+            self.rejected += 1
+            raise QueueFullError(
+                f"request {req.uid}: submit queue full "
+                f"({len(self.scheduler.waiting)} waiting, bound "
+                f"{self.max_queue})", uid=req.uid)
+        if req.arrival_t == 0.0:
+            req.arrival_t = time.perf_counter()
+        self.scheduler.submit(req, arrival_step=self._step_no
+                              if arrival_step is None else arrival_step)
+        self._streams[req.uid] = {"toks": [], "cursor": 0, "done": False}
+        return req.uid
+
+    def poll(self, uid: int):
+        """Tokens committed for ``uid`` since the last poll, and the done
+        flag; the record drops once done and fully consumed."""
+        st = self._streams[uid]
+        new = st["toks"][st["cursor"]:]
+        st["cursor"] = len(st["toks"])
+        if st["done"] and st["cursor"] == len(st["toks"]):
+            del self._streams[uid]
+        return new, st["done"]
+
+    def has_work(self) -> bool:
+        return self.scheduler.has_work()
+
+    def _emit(self, req: Request, token: int, done: bool,
+              events: List[TokenEvent]) -> None:
+        events.append(TokenEvent(uid=req.uid, token=token,
+                                 index=len(req.generated) - 1, done=done,
+                                 request=req))
+        st = self._streams.get(req.uid)
+        if st is not None:
+            st["toks"].append(token)
+            st["done"] = done
+        if self.on_token is not None:
+            self.on_token(req, token, done)
+
+    def _sample(self) -> np.ndarray:
+        """One token per decodable slot; rows are grouped by their request's
+        ``SamplingParams`` and each group samples the full logits."""
+        groups: Dict[SM.SamplingParams, List[int]] = {}
+        for slot, req in enumerate(self.scheduler.running):
+            if req is None or slot in self._prefilling:
+                continue
+            groups.setdefault(req.sampling, []).append(slot)
+        tok = np.zeros((self.max_slots,), np.int64)
+        for sp, slots in sorted(groups.items(), key=lambda kv: kv[1][0]):
+            t = SM.sample(self.logits, sp, self.cfg.vocab_size, self._gen)
+            tok[slots] = t.cpu().numpy()[slots]
+        return tok
+
+    def step(self) -> List[TokenEvent]:
+        """Advance the loop by ONE unified step: admit from the queue, run
+        prompt chunks under the token budget, sample one token for every
+        decodable row (emitted here), then decode the active rows gathered
+        into their smallest covering batch bucket."""
+        eng, sched = self.eng, self.scheduler
+        events: List[TokenEvent] = []
+        sched.step = self._step_no
+        t_step = time.perf_counter()
+        pf0 = eng.stats.prefill_s
+        self._proactive_spill()
+        for slot, req in sched.admit():
+            self._admit_into_slot(req, slot)
+        self.peak_kv_pages = max(self.peak_kv_pages, sum(
+            self.pool.pages_held(s) for s in range(self.max_slots)))
+        self._run_prefill_chunks()
+        running = list(sched.running)
+        n_active = sum(r is not None for r in running)
+        self.peak_active = max(self.peak_active, n_active)
+        if n_active == 0:
+            self._step_no += 1
+            return events
+
+        tok_np = self._sample()
+        now = time.perf_counter()
+        for slot, req in enumerate(running):
+            if req is None or slot in self._prefilling:
+                continue
+            t_id = int(tok_np[slot])
+            req.generated.append(t_id)
+            if req.first_token_t == 0.0:
+                req.first_token_t = now
+            sp = req.sampling
+            finished = ((sp.eos_token >= 0 and t_id == sp.eos_token)
+                        or len(req.generated) >= req.decode_cap)
+            self._emit(req, t_id, finished, events)
+            if finished:
+                req.finish_t = now
+                sched.finish(req)
+                self.pool.free_row(slot)
+                T.free_slots(self.cache, [slot])
+                eng.stats.requests.append(RequestStats(
+                    uid=req.uid, ttft_s=req.ttft, tpot_s=req.tpot,
+                    latency_s=req.finish_t - req.arrival_t,
+                    new_tokens=len(req.generated)))
+
+        # allocate-on-append: rows crossing a page boundary take a page
+        act_slots = []
+        for slot, req in enumerate(sched.running):
+            if req is None or slot in self._prefilling:
+                continue
+            if not self.pool.ensure(slot, int(self.pool.row_pos[slot])):
+                raise self._not_ported("spill or preempt under page pressure")
+            act_slots.append(slot)
+        if not act_slots:
+            self._step_no += 1
+            eng.stats.decode_s += ((time.perf_counter() - t_step)
+                                   - (eng.stats.prefill_s - pf0))
+            return events
+
+        ids = np.zeros((self.max_slots, 1), np.int64)
+        for slot in act_slots:
+            ids[slot, 0] = sched.running[slot].generated[-1]
+        self._upload_table(visible=set(act_slots))
+        slot_idx, act_b = bucket_cover(self.buckets, act_slots, self.max_slots)
+        idx_t = torch.as_tensor(slot_idx, dtype=torch.long, device=self.device)
+        act_t = torch.as_tensor(act_b, device=self.device)
+        logits_b, self.cache = T.decode_step_bucketed(
+            eng.params, self.cfg, eng.embed(ids[slot_idx]), self.cache, idx_t,
+            eng.dispatch, active=act_t)
+        self.logits[idx_t[act_t]] = logits_b[act_t]
+        for slot in act_slots:
+            self.pool.row_pos[slot] += 1
+        eng.stats.decode_tokens += len(act_slots)
+        self._step_no += 1
+        eng.stats.decode_s += ((time.perf_counter() - t_step)
+                               - (eng.stats.prefill_s - pf0))
+        return events
+
+    def drain(self) -> None:
+        """Step until the loop is idle."""
+        while self.scheduler.has_work():
+            self.step()
+        _sync(self.device)
+
+    def run(self, requests: Sequence[Request],
+            sampling: Optional[SM.SamplingParams] = None,
+            arrivals: Optional[Sequence[int]] = None) -> List[Request]:
+        """Serve a whole trace to completion through ``submit()``/``step()``;
+        ``arrivals``: per-request arrival step relative to the call.
+        ``sampling`` applies to requests without their own."""
+        arrivals = list(arrivals) if arrivals is not None else [0] * len(requests)
+        if len(arrivals) != len(requests):
+            raise ValueError("one arrival step per request")
+        for req in requests:
+            if req.sampling is None:
+                req.sampling = sampling
+            if req.sampling is None:
+                raise ValueError(f"request {req.uid} has no SamplingParams")
+            self._validate(req)
+        base = self._step_no
+        pending = sorted(zip(arrivals, requests), key=lambda p: (p[0], p[1].uid))
+        self.peak_active = 0
+        while pending or self.scheduler.has_work():
+            now = time.perf_counter()
+            while pending and pending[0][0] + base <= self._step_no:
+                _, req = pending.pop(0)
+                req.arrival_t = now
+                self.submit(req)
+            self.step()
+        _sync(self.device)
+        for req in requests:
+            self._streams.pop(req.uid, None)
+        return list(requests)
+
+
+def build_engine(cfg: ModelConfig, seed: int = 0, max_seq: int = 256,
+                 flash_dir: Optional[str] = None, device=None,
+                 params: Optional[dict] = None,
+                 embedding: Optional[HS.EmbeddingStore] = None) -> Engine:
+    """A serving engine with random weights drawn on ``device`` from
+    ``seed`` (quantized, packed) and a random N(0, 0.02) embedding table
+    written to Flash in chunks — or with converted ``params`` /
+    ``embedding`` (``repro_torch.convert``).  ``flash_dir`` defaults to
+    ``build/flash`` in the checkout."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if params is None:
+        params = T.init_params(cfg, gen, dev)
+    if embedding is None:
+        flash = HS.FlashStore(str(flash_dir or DEFAULT_FLASH_DIR))
+        d = cfg.d_model
+        embedding = HS.EmbeddingStore.create(
+            flash, cfg.padded_vocab_size, d,
+            lambda a, b: torch.randn((b - a, d), generator=gen, device=dev) * 0.02)
+    return Engine(cfg, params, embedding, max_seq=max_seq, device=dev)

@@ -1,0 +1,124 @@
+"""On the card only: each CUDA kernel of the port against its plain PyTorch
+version, at small shapes (G in {1, 3}, ragged lengths, several pages and
+trash-page table entries).  Imports torch alone, so it runs where JAX is
+absent: ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py``.
+Without a card each test skips.
+
+Tolerances are the JAX package's own kernel-vs-reference ones: matmul
+1e-4 (the epilogue's scale products are ordered differently), attention
+and RMSNorm 2e-2 (the kernels keep keys and probabilities in float32)."""
+import math
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import kernels as K  # noqa: E402
+from repro_torch.core import kv_cache as KV  # noqa: E402
+from repro_torch.core import quantization as Q  # noqa: E402
+from repro_torch.kernels import flash_prefill as FP  # noqa: E402
+from repro_torch.kernels import quant_attention as QA  # noqa: E402
+from repro_torch.kernels import rmsnorm as RN  # noqa: E402
+from repro_torch.kernels import w4a8_matmul as WM  # noqa: E402
+from repro_torch.runtime import plan as RP  # noqa: E402
+
+PS, PPR, HKV, D = 16, 4, 2, 64
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+def _close(a, b, tol):
+    np.testing.assert_allclose(a.float().cpu().numpy(), b.float().cpu().numpy(),
+                               rtol=tol, atol=tol)
+
+
+def _pool(seed, n_pages, dev):
+    rng = np.random.default_rng(seed)
+    k = torch.from_numpy(rng.normal(size=(n_pages, PS, HKV, D)).astype(np.float32))
+    v = torch.from_numpy(rng.normal(size=(n_pages, PS, HKV, D)).astype(np.float32))
+    kq, ks, kz = KV.quantize_keys(k.bfloat16())
+    return tuple(t.contiguous().to(dev) for t in
+                 (kq, ks, kz, KV.cast_values(v, Q.FP8_DTYPE)))
+
+
+def _table(lengths, trash, seed, dev):
+    free = list(np.random.default_rng(seed).permutation(trash))
+    table = np.full((len(lengths), PPR), trash, np.int32)
+    for b, L in enumerate(lengths):
+        for c in range(-(-L // PS)):
+            table[b, c] = free.pop()
+    return torch.from_numpy(table).to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("M", [1, 5, 40])
+def test_w4a8_kernel_matches_plain(dev, bits, M):
+    g = torch.Generator().manual_seed(M)
+    w = torch.randn((200, 300), generator=g) * 0.02
+    pl = RP.pack_linear(Q.quantize(w, bits))
+    x = torch.randn((M, 200), generator=g).bfloat16().to(dev)
+    xq, sx = Q.quantize_activations(x)
+    args = (xq, sx, pl.data.to(dev), pl.scale[0].to(dev), pl.zero[0].to(dev))
+    before = WM.w4a8_matmul.launches
+    got = WM.w4a8_matmul(*args, bits=bits)
+    assert WM.w4a8_matmul.launches == before + 1
+    _close(got, WM.w4a8_matmul_plain(*args, bits=bits), 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rmsnorm_kernel_matches_plain(dev, dtype):
+    x = torch.randn((5, 256), device=dev).to(dtype)
+    w = torch.rand((256,), device=dev) + 0.5
+    got = RN.rmsnorm(x, w)
+    assert got.dtype == dtype
+    _close(got, RN.rmsnorm_plain(x, w), 2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G", [1, 3])
+def test_decode_attention_kernel_matches_plain(dev, G):
+    lengths = [37, 5, 64]
+    trash = len(lengths) * PPR
+    pool = _pool(G, trash + 3, dev)
+    table = _table(lengths, trash, G, dev)
+    q = (torch.randn((3, HKV * G, D), device=dev) / math.sqrt(D)).bfloat16()
+    base = torch.zeros((3,), dtype=torch.int32, device=dev)
+    length = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    _close(QA.paged_quant_decode_attention(q, *pool, table, base, length),
+           QA.paged_quant_decode_attention_plain(q, *pool, table, base, length), 2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G", [1, 3])
+@pytest.mark.parametrize("C,pos0", [(16, 0), (16, 21), (8, 37)])
+def test_prefill_attention_kernel_matches_plain(dev, G, C, pos0):
+    trash = 4 * PPR
+    pool = _pool(10 + G, trash + 3, dev)
+    table = _table([pos0 + C], trash, C + G, dev)
+    q = (torch.randn((1, C, HKV * G, D), device=dev) / math.sqrt(D)).bfloat16()
+    p0 = torch.tensor([pos0], dtype=torch.int32, device=dev)
+    _close(FP.paged_flash_prefill_attention(q, *pool, table, p0),
+           FP.paged_flash_prefill_attention_plain(q, *pool, table, p0), 2e-2)
+
+
+@pytest.mark.gpu
+def test_unsupported_configurations_raise_on_the_card(dev):
+    """No silent fallback: what the kernels do not take raises."""
+    pool = _pool(0, 8, dev)
+    q = torch.zeros((1, HKV, D), device=dev)                    # float32 queries
+    z = torch.zeros((1,), dtype=torch.int32, device=dev)
+    table = torch.zeros((1, PPR), dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        QA.paged_quant_decode_attention(q, *pool, table, z, z + 1)
+    with pytest.raises(NotImplementedError):
+        QA.paged_quant_decode_attention(q.bfloat16(), *pool, table, z, z + 1, key_bits=4)
+    K.reset_launch_counts()
+    assert set(K.launch_counts().values()) == {0}
