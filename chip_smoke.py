@@ -7,27 +7,39 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 
 1. The card (``nvidia-smi`` name and power limit), torch and CUDA versions;
    build of the Hopper kernels from ``src/repro_torch/csrc``.
-2. Each kernel against its plain PyTorch version on the card, at the serving
-   path's qwen2-7b shapes and at one ``@reduced`` shape (G=1, D=64, ragged
-   lengths, several pages, trash-page table entries), with the tolerance of
-   the matching CPU test; kernel, plain and library-yardstick times.
-3. The main path: full-width qwen2-7b (random weights from a seed, 28 layers)
-   serves 8 greedy requests through ``EngineLoop.submit``/``step`` (prompts of
-   40-700 tokens, a third sharing a 256-token prefix, staggered arrivals, 32
-   new tokens each).  Launch counts are zeroed just before and read just
-   after: every kernel must have launched, and nothing fell back.
-4. The kernel path against the plain path at full width, for one prompt chunk
-   and one decode step: every layer's output and the logits on the same input
-   within a stated tolerance; the free-running drift over the 28 layers and
-   the greedy agreement over the trace are printed, not asserted (flat
-   random-weight logits can flip an argmax inside the tolerance).
+2. Each of the seven kernels against its plain PyTorch version on the card,
+   at the serving paths' shapes (qwen2-7b, G=7; moonshot-v1-16b-a3b, G=1)
+   and at small ``@reduced`` shapes, with the tolerance of the matching CPU
+   test; the dense prefill kernel also non-causal and windowed.  Kernel,
+   plain and library-yardstick times.
+3. The continuous path: full-width qwen2-7b (random weights from a seed, 28
+   layers) serves 8 greedy requests through ``EngineLoop.submit``/``step``
+   (prompts of 40-700 tokens, a third sharing a 256-token prefix, staggered
+   arrivals, 32 new tokens each); a profiled decode step; the kernel path
+   against the plain path for one prompt chunk and one decode step, layer by
+   layer, within a stated tolerance (free-running drift and greedy agreement
+   are printed, not asserted: flat random-weight logits can flip an argmax
+   inside the tolerance).
+4. The slot-synchronous path: the same qwen2-7b engine serves 4 greedy
+   requests with 320-token prompts through ``Engine.generate`` (32 new
+   tokens, dense caches of 2048 slots); a profiled decode step; kernel path
+   against plain path for the whole-prompt prefill and one decode step.
+5. The MoE path: full-width moonshot-v1-16b-a3b (48 layers, 64 experts
+   top-6, random weights) serves 6 greedy requests with prompts of 64-400
+   tokens (two sharing a 256-token prefix) on 4 slots through
+   ``EngineLoop``; the grouped kernel must run on both dispatch branches and
+   the paged attention kernels at G=1; a profiled decode step; kernel path
+   against plain path for one prompt chunk and one decode step.
 
+Launch counts are zeroed just before each serving path and read just after
+it: every kernel of the path must have launched, and nothing fell back.
 The last three lines of standard output are the card (``nvidia-smi`` name,
 power limit), one JSON object with every kernel's numbers, and
 ``{"ok": true, "device": {...}}``.  Details go to ``chiprun_out/``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -41,14 +53,18 @@ OUT = ROOT / "chiprun_out"
 # NVIDIA H100 SXM data sheet, dense, at the full 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
-F32_FLOPS_PER_S = 67e12          # CUDA cores (the attention kernels' math)
+BF16_FLOPS_PER_S = 989e12
+F32_FLOPS_PER_S = 67e12          # CUDA cores (the paged attention kernels' math)
 
 # tolerances of the matching CPU tests (tests/test_torch_kernels.py), which
 # are the JAX package's own kernel-vs-reference tolerances
 TOL = {"w4a8_matmul": (1e-4, 1e-4),
        "paged_quant_decode_attention": (2e-2, 2e-2),
        "paged_flash_prefill_attention": (2e-2, 2e-2),
-       "rmsnorm": (2e-2, 2e-2)}
+       "rmsnorm": (2e-2, 2e-2),
+       "grouped_matmul": (1e-4, 1e-4),
+       "quant_decode_attention": (2e-2, 2e-2),
+       "flash_prefill_attention": (2e-2, 2e-2)}
 # full width, kernel path vs plain path on the same input, relative L2 error.
 # A layer: the attention kernels keep keys and probabilities in float32
 # where the plain path rounds them to bf16 (~0.4%), and every linear then
@@ -59,19 +75,36 @@ TOL = {"w4a8_matmul": (1e-4, 1e-4),
 # and differs only in the order of the epilogue's two scale products.
 LAYER_REL_L2 = 5e-2
 HEAD_REL_L2 = 1e-4
+# MoE: share of (token, layer) router decisions allowed to differ between
+# the two paths on the same layer input.  The attention kernels' float32
+# probabilities move the router logits by ~0.4% of their spread; with 64
+# experts the 6th and 7th largest sit about a tenth of a spread apart, so
+# a few percent of tokens can change their expert set.
+MAX_ROUTE_FLIPS = 0.1
 
 REPLACES = {
     "w4a8_matmul": "src/repro/kernels/w4a8_matmul.py:65",
     "paged_quant_decode_attention": "src/repro/kernels/quant_attention.py:167",
     "paged_flash_prefill_attention": "src/repro/kernels/flash_prefill.py:191",
     "rmsnorm": "src/repro/kernels/rmsnorm.py:23",
+    "grouped_matmul": "src/repro/kernels/grouped_matmul.py:66",
+    "quant_decode_attention": "src/repro/kernels/quant_attention.py:82",
+    "flash_prefill_attention": "src/repro/kernels/flash_prefill.py:91",
 }
 SOURCES = {
     "w4a8_matmul": "src/repro_torch/csrc/w4a8_matmul.cu",
     "paged_quant_decode_attention": "src/repro_torch/csrc/paged_decode_attention.cu",
     "paged_flash_prefill_attention": "src/repro_torch/csrc/paged_prefill_attention.cu",
     "rmsnorm": "src/repro_torch/csrc/rmsnorm.cu",
+    "grouped_matmul": "src/repro_torch/csrc/grouped_matmul.cu",
+    "quant_decode_attention": "src/repro_torch/csrc/decode_attention.cu",
+    "flash_prefill_attention": "src/repro_torch/csrc/flash_prefill_attention.cu",
 }
+KERNELS = tuple(SOURCES)
+# device-kernel names of the port's kernels in a profiler trace
+PORT_KERNEL_SYMBOLS = ("w4a8_kernel", "paged_decode_kernel", "paged_prefill_kernel",
+                       "rmsnorm_kernel", "grouped_kernel", "dense_decode_kernel",
+                       "flash_prefill_kernel")
 
 
 def log(msg: str) -> None:
@@ -319,6 +352,159 @@ def phase_kernels(dev, results: dict) -> None:
     torch.cuda.synchronize()
 
 
+def phase_new_kernels(dev, results: dict) -> None:
+    """The grouped matmul, dense decode and dense prefill kernels at the
+    shapes their serving paths give them."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import kv_cache as KV
+    from repro_torch.core import quantization as Q
+    from repro_torch.kernels import flash_prefill as FP
+    from repro_torch.kernels import grouped_matmul as GM
+    from repro_torch.kernels import quant_attention as QA
+    from repro_torch.runtime import plan as RP
+
+    gen = torch.Generator(device=dev).manual_seed(4321)
+
+    # --- grouped_matmul ----------------------------------------------------
+    # moonshot-v1-16b-a3b (d_model 2048, per-expert d_ff 1408 -> 1536 padded,
+    # 64 experts top-6): the selected-expert decode of 4 rows (24 gathered
+    # slabs of one row) and a 128-token prompt chunk at full capacity (64
+    # experts x 128 rows, about 12 of them live per expert)
+    gm_rows = []
+    for E, M, K, N, what in ((24, 1, 2048, 1408, "decode gate/up"),
+                             (24, 1, 1408, 2048, "decode down"),
+                             (64, 128, 2048, 1408, "prefill gate/up"),
+                             (64, 128, 1408, 2048, "prefill down"),
+                             (3, 5, 256, 512, "@reduced")):
+        qt = Q.quantize(torch.randn((E, K, N), generator=gen, device=dev) * 0.02, 4)
+        pel = RP.pack_expert_linear(qt)
+        x = torch.randn((E, M, K), generator=gen, device=dev).to(torch.bfloat16)
+        live = min(M, 12)
+        x[:, live:] = 0                    # capacity rows past the routed tokens
+        xq, sx = Q.quantize_activations(x)
+        args = (xq, sx, pel.data, pel.scale[:, 0], pel.zero[:, 0])
+        err = check_close("grouped_matmul", GM.grouped_matmul(*args, bits=4),
+                          GM.grouped_matmul_plain(*args, bits=4), f"{what} E={E} M={M}")
+        copies = [(xq, sx, pel.data.clone(), pel.scale[:, 0], pel.zero[:, 0])
+                  for _ in range(min(8, max(1, math.ceil(100e6 / pel.data.numel()))))]
+        ms = time_ms(lambda *a: GM.grouped_matmul(*a, bits=4), copies)
+        Np, Kp = pel.np_pad, pel.kp
+        bytes_ = (xq.numel() + sx.numel() * 4 + pel.data.numel() + 2 * E * Np * 4
+                  + E * M * Np * 4)
+        ops_all = 2 * E * M * Kp * Np
+        ops_live = 2 * E * live * Kp * Np
+        row = {"what": what, "E": E, "M": M, "K": K, "N": N, "ms": ms, "max_abs_err": err,
+               "bound_ms": bound(bytes_, ops_live, INT8_OPS_PER_S)[0],
+               "bound_all_rows_ms": bound(bytes_, ops_all, INT8_OPS_PER_S)[0]}
+        log(f"[kernels] grouped_matmul {what} E={E} M={M} K={K} N={N}: {ms:.4f} ms, "
+            f"max abs err {err:.3e}")
+        if what in ("decode gate/up", "prefill gate/up"):
+            row["plain_ms"] = time_ms(lambda *a: GM.grouped_matmul_plain(*a, bits=4),
+                                      [args], iters=3, warmup=1)
+            wd = Q.dequantize(qt)                          # bf16 [E, K, N]
+            row["library_ms"] = library_time(torch.bmm, [(x, wd)])
+            log(f"[kernels]   plain {row['plain_ms']:.4f} ms, bf16 bmm "
+                f"{row['library_ms']} ms, bound {row['bound_ms']:.4f} ms")
+            del wd
+        gm_rows.append(row)
+        if what == "decode gate/up":
+            results["grouped_matmul"] = dict(
+                err=err, ms=ms, plain_ms=row["plain_ms"], library_ms=row["library_ms"],
+                bound=bound(bytes_, ops_live, INT8_OPS_PER_S),
+                shape=f"E={E} M={M} K={K} N={N} (padded {Np}) int4: moonshot "
+                      "selected-expert decode, 4 rows x top-6 (gate/up)")
+        del copies, pel, qt
+    results["grouped_matmul"]["all_shapes"] = gm_rows
+
+    # --- quant_decode_attention (dense cache) -------------------------------
+    # (B, H, Hkv, D, S, lengths): Engine.generate's decode at qwen2-7b (4 rows
+    # of a 320-token prompt + 32 steps in 2048-slot caches, G=7), moonshot's
+    # G=1 with ragged per-row lengths, and @reduced
+    for B, H, Hkv, D, S, lengths in ((4, 28, 4, 128, 2048, [352] * 4),
+                                     (4, 16, 16, 128, 2048, [700, 5, 1333, 2048]),
+                                     (3, 4, 2, 64, 64, [37, 5, 64])):
+        def cache():
+            k = torch.randn((B, S, Hkv, D), generator=gen, device=dev)
+            v = torch.randn((B, S, Hkv, D), generator=gen, device=dev)
+            kq, ks, kz = KV.quantize_keys(k.to(torch.bfloat16))
+            return kq, ks, kz, KV.cast_values(v, Q.FP8_DTYPE)
+        caches = [cache() for _ in range(8 if H == 28 else 1)]
+        q = (torch.randn((B, H, D), generator=gen, device=dev) / math.sqrt(D)).to(torch.bfloat16)
+        uniform = len(set(lengths)) == 1
+        length = torch.tensor(lengths[0] if uniform else lengths, dtype=torch.int32,
+                              device=dev)
+        args = (q, *caches[0], length)
+        got = QA.quant_decode_attention(*args)
+        want = QA.quant_decode_attention_plain(
+            q, *caches[0], torch.tensor(lengths, dtype=torch.int32, device=dev))
+        err = check_close("quant_decode_attention", got, want,
+                          f"B={B} G={H // Hkv} D={D} S={S} lengths={lengths}")
+        log(f"[kernels] quant_decode_attention G={H // Hkv} D={D} S={S} "
+            f"lengths={lengths}: max abs err {err:.3e}")
+        if H == 28:
+            ms = time_ms(QA.quant_decode_attention, [(q, *c, length) for c in caches])
+            plens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+            plain_ms = time_ms(QA.quant_decode_attention_plain, [(q, *caches[0], plens)],
+                               iters=5)
+            kq, ks, kz, v = caches[0]
+            G = H // Hkv
+            kd = KV.dequantize_keys(kq, ks, kz).transpose(1, 2).repeat_interleave(G, dim=1)
+            vd = v.to(torch.bfloat16).transpose(1, 2).repeat_interleave(G, dim=1)
+            mask = (torch.arange(S, device=dev)[None] < plens[:, None])[:, None, None, :]
+            lib_ms = library_time(lambda a, b, c, m: F.scaled_dot_product_attention(
+                a, b, c, attn_mask=m, scale=1.0), [(q[:, :, None], kd, vd, mask)])
+            live = sum(lengths)
+            bytes_ = q.numel() * 2 + live * Hkv * (2 * D + 8) + B * H * D * 4
+            results["quant_decode_attention"] = dict(
+                err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound=bound(bytes_, 4 * live * H * D, F32_FLOPS_PER_S),
+                shape=f"B={B} H={H} Hkv={Hkv} D={D} S={S} length={lengths[0]} "
+                      "(Engine.generate decode, qwen2-7b)")
+            log(f"[kernels]   {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms} ms")
+            del kd, vd
+        del caches
+
+    # --- flash_prefill_attention (unquantized K/V) --------------------------
+    # (B, T, S, H, Hkv, D, causal, window): Engine.generate's prefill at
+    # qwen2-7b (a 320-token prompt over its cache cut to one 1024-key flash
+    # block), the same non-causal and windowed, moonshot's G=1, and @reduced
+    for B, T, S, H, Hkv, D, causal, window in (
+            (1, 320, 1024, 28, 4, 128, True, 0), (1, 320, 1024, 28, 4, 128, False, 0),
+            (1, 320, 1024, 28, 4, 128, True, 128), (1, 256, 1024, 16, 16, 128, True, 0),
+            (2, 40, 64, 4, 2, 64, True, 8)):
+        q = (torch.randn((B, T, H, D), generator=gen, device=dev) / math.sqrt(D)).to(torch.bfloat16)
+        k = torch.randn((B, S, Hkv, D), generator=gen, device=dev).to(torch.bfloat16)
+        v = torch.randn((B, S, Hkv, D), generator=gen, device=dev).to(torch.bfloat16)
+        args = (q, k, v)
+        kw = dict(causal=causal, window=window)
+        err = check_close("flash_prefill_attention", FP.flash_prefill_attention(*args, **kw),
+                          FP.flash_prefill_attention_plain(*args, **kw),
+                          f"T={T} S={S} G={H // Hkv} causal={causal} window={window}")
+        log(f"[kernels] flash_prefill_attention T={T} S={S} G={H // Hkv} D={D} "
+            f"causal={causal} window={window}: max abs err {err:.3e}")
+        if (H, causal, window) == (28, True, 0):
+            ms = time_ms(lambda *a: FP.flash_prefill_attention(*a, **kw), [args])
+            plain_ms = time_ms(lambda *a: FP.flash_prefill_attention_plain(*a, **kw),
+                               [args], iters=5)
+            G = H // Hkv
+            qpos = torch.arange(T, device=dev)
+            mask = (torch.arange(S, device=dev)[None] <= qpos[:, None])[None, None]
+            lib_ms = library_time(lambda a, b, c, m: F.scaled_dot_product_attention(
+                a, b, c, attn_mask=m, scale=1.0),
+                [(q.transpose(1, 2), k.transpose(1, 2).repeat_interleave(G, dim=1),
+                  v.transpose(1, 2).repeat_interleave(G, dim=1), mask)])
+            pairs = sum(min(i + 1, S) for i in range(T))
+            bytes_ = q.numel() * 2 + k.numel() * 2 + v.numel() * 2 + B * T * H * D * 4
+            results["flash_prefill_attention"] = dict(
+                err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound=bound(bytes_, 4 * B * H * D * pairs, BF16_FLOPS_PER_S),
+                shape=f"B={B} T={T} S={S} H={H} Hkv={Hkv} D={D} causal "
+                      "(Engine.generate prefill, qwen2-7b)")
+            log(f"[kernels]   {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms} ms")
+    torch.cuda.synchronize()
+
+
 def bound(bytes_: float, ops: float, peak_ops: float):
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
     t_ops = ops / peak_ops * 1e3
@@ -394,7 +580,9 @@ def phase_main_path(dev):
     log(f"[main] launches during the trace: {counts}")
     assert all(r.done and len(r.generated) == 32 for r in reqs), "unfinished requests"
     assert loop.pool.prefix_hits > 0, "the shared prefix was never adopted"
-    assert all(n > 0 for n in counts.values()), f"a kernel never launched: {counts}"
+    for name in ("w4a8_matmul", "paged_quant_decode_attention",
+                 "paged_flash_prefill_attention", "rmsnorm"):
+        assert counts[name] > 0, f"{name} never launched on the EngineLoop path: {counts}"
     assert eng.dispatch.fallbacks == [], eng.dispatch.fallbacks
     new_tokens = sum(len(r.generated) for r in reqs)
     summary = {
@@ -414,34 +602,28 @@ def phase_main_path(dev):
     return eng, specs, arrivals, reqs, summary
 
 
-def profile_decode(eng, specs, steps: int = 4):
-    """Where a full-batch decode step's time goes: wall time per step with
-    four rows decoding, and the device's busy share and top kernels under
-    ``torch.profiler`` (reported, not asserted; "not measured" where the
-    profiler sees no device time)."""
+def profile_steps(label: str, step, steps: int = 4) -> dict:
+    """Where a decode step's time goes: wall time per ``step()``, and the
+    device's busy share and top kernels under ``torch.profiler`` (reported,
+    not asserted; "not measured" where the profiler sees no device time)."""
     import torch
-    from repro_torch.serving import engine as E
-    from repro_torch.serving import sampling as SM
-    loop = E.EngineLoop(eng, max_slots=4, prefill_chunk=128, prefill_token_budget=512)
-    sp = SM.SamplingParams(temperature=0.0, max_new_tokens=64)
-    for i, p in enumerate(specs[:4]):
-        loop.submit(E.Request(uid=100 + i, prompt_tokens=p[:128], max_new_tokens=64,
-                              sampling=sp))
-    while loop._prefilling or sum(r is not None for r in loop.scheduler.running) < 4:
-        loop.step()
-    loop.step()
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    gc.collect()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    enqueue = 0.0
     for _ in range(steps):
-        loop.step()
+        t1 = time.perf_counter()
+        step()
+        enqueue += time.perf_counter() - t1      # host time until the call returns
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / steps * 1e3
-    out = {"decode_step_ms": step_ms, "rows": 4}
-    from torch.profiler import ProfilerActivity, profile
+    out = {"decode_step_ms": step_ms, "host_enqueue_ms": enqueue / steps * 1e3}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            loop.step()
+            step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kern = []          # device kernels only (host ops would count them twice)
@@ -456,9 +638,7 @@ def profile_decode(eng, specs, steps: int = 4):
     kern.sort(reverse=True)
     busy = sum(k[0] for k in kern)
     if busy > 0:
-        ours = sum(us for us, _c, n in kern
-                   if any(k in n for k in ("w4a8_kernel", "paged_decode_kernel",
-                                           "paged_prefill_kernel", "rmsnorm_kernel")))
+        ours = sum(us for us, _c, n in kern if any(k in n for k in PORT_KERNEL_SYMBOLS))
         out["device_busy_share"] = busy / wall_us
         out["profiled_step_ms"] = wall_us / steps / 1e3
         out["device_ms_per_step"] = busy / steps / 1e3
@@ -466,8 +646,9 @@ def profile_decode(eng, specs, steps: int = 4):
         out["device_launches_per_step"] = sum(c for _u, c, _n in kern) / steps
         out["top_kernels"] = [{"name": n[:80], "ms_per_step": us / steps / 1e3,
                                "launches_per_step": c / steps} for us, c, n in kern[:10]]
-        log(f"[profile] decode step, 4 rows: {step_ms:.1f} ms wall; under the "
-            f"profiler {out['profiled_step_ms']:.1f} ms, device busy "
+        log(f"[profile] {label}: {step_ms:.1f} ms wall ({out['host_enqueue_ms']:.1f} ms "
+            f"until the host's calls return); under the profiler "
+            f"{out['profiled_step_ms']:.1f} ms, device busy "
             f"{100 * out['device_busy_share']:.1f}% ({out['device_ms_per_step']:.1f} ms "
             f"of kernels, {out['port_kernel_ms_per_step']:.1f} ms in the port's, "
             f"{out['device_launches_per_step']:.0f} launches)")
@@ -476,55 +657,94 @@ def profile_decode(eng, specs, steps: int = 4):
                 f"{k['launches_per_step']:6.0f} launches  {k['name']}")
     else:
         out["device_busy_share"] = "not measured"
-        log(f"[profile] decode step, 4 rows: {step_ms:.1f} ms wall; the profiler "
-            "saw no device time (device busy share not measured)")
+        log(f"[profile] {label}: {step_ms:.1f} ms wall; the profiler saw no device "
+            "time (device busy share not measured)")
+    return out
+
+
+def profile_loop_decode(eng, specs, steps: int = 4) -> dict:
+    """A full-batch ``EngineLoop`` step with four rows decoding."""
+    from repro_torch.serving import engine as E
+    from repro_torch.serving import sampling as SM
+    loop = E.EngineLoop(eng, max_slots=4, prefill_chunk=128, prefill_token_budget=512)
+    sp = SM.SamplingParams(temperature=0.0, max_new_tokens=64)
+    for i, p in enumerate(specs[:4]):
+        loop.submit(E.Request(uid=100 + i, prompt_tokens=p[:128], max_new_tokens=64,
+                              sampling=sp))
+    while loop._prefilling or sum(r is not None for r in loop.scheduler.running) < 4:
+        loop.step()
+    out = profile_steps(f"{eng.cfg.name} EngineLoop decode step, 4 rows", loop.step, steps)
+    out["rows"] = 4
     while loop.has_work():
         loop.step()
     return out
 
 
 # ---------------------------------------------------------------------------
-# phase 4: kernel path against plain path at full width
+# kernel path against plain path at full width, layer by layer
 # ---------------------------------------------------------------------------
 
-def chunk_then_decode(engine, prompt, nxt, feed=None):
-    """One 128-token prompt chunk and the decode step of token ``nxt`` after
-    it, layer by layer on a fresh pool.  Returns the per-layer hidden states
-    and the logits of both.  With ``feed`` (another run's result) every layer
-    takes that run's input instead of its own, and the logits are taken on
-    that run's last hidden state: each layer, and the head, is then compared
-    on the same input."""
-    import numpy as np
-    import torch
+def run_layers(engine, x, mode, positions, pos, table, caches, fed):
+    """Every layer of the (single-stack) model on ``x``; with ``fed``
+    (another run's per-layer outputs) layer i takes that run's output of
+    layer i-1 instead of its own input, and the logits are taken on that
+    run's last hidden state."""
     from repro_torch.core.precision import DEFAULT_POLICY
     from repro_torch.models import transformer as T
+    cfg = engine.cfg
+    stack = engine.params["stacks"][0][0]
+    outs = []
+    for li in range(cfg.num_layers):
+        inp = x if fed is None or li == 0 else fed[li - 1]
+        x, _ = T._apply_layer(inp, T.layer_slice(stack, li), cfg, cfg.period[0], mode,
+                              positions, caches.layer(li), pos, table, engine.dispatch,
+                              DEFAULT_POLICY)
+        outs.append(x)
+    last = outs[-1] if fed is None else fed[-1]
+    return outs, T._logits(last[:, -1:], engine.params, cfg, engine.dispatch)[:, 0]
+
+
+def chunk_then_decode(engine, prompt, nxt, feed=None):
+    """One 128-token prompt chunk into a fresh paged pool and the decode step
+    of token ``nxt`` after it.  Returns the per-layer hidden states and the
+    logits of both."""
+    import numpy as np
+    import torch
     from repro_torch.serving import engine as E
-    cfg, dev = engine.cfg, engine.device
+    dev = engine.device
     loop = E.EngineLoop(engine, max_slots=4, prefill_chunk=128)
     loop.pool.alloc_row(0, 129)
     cache = loop.cache
     cache["table"] = torch.as_tensor(loop.pool.table, device=dev)
-    stack, pool = engine.params["stacks"][0][0], cache["stacks"][0][0]
-
-    def layers(x, mode, positions, pos, table, fed):
-        outs = []
-        for li in range(cfg.num_layers):
-            inp = x if fed is None or li == 0 else fed[li - 1]
-            x = T._apply_layer(inp, T.layer_slice(stack, li), cfg, cfg.period[0], mode,
-                               positions, pool.layer(li), pos, table,
-                               engine.dispatch, DEFAULT_POLICY)
-            outs.append(x)
-        last = outs[-1] if fed is None else fed[-1]
-        return outs, T._logits(last[:, -1:], engine.params, cfg, engine.dispatch)[:, 0]
-
+    pool = cache["stacks"][0][0]
     ids = np.asarray(prompt[:128], np.int64)[None]
-    chunk = layers(engine.embed(ids), "prefill_paged",
-                   torch.arange(128, device=dev)[None], 0, cache["table"][0],
-                   None if feed is None else feed["chunk"][0])
+    chunk = run_layers(engine, engine.embed(ids), "prefill_paged",
+                       torch.arange(128, device=dev)[None], 0, cache["table"][0], pool,
+                       None if feed is None else feed["chunk"][0])
     pos = torch.tensor([128], dtype=torch.int32, device=dev)
-    dec = layers(engine.embed(np.asarray([[nxt]], np.int64)), "decode", pos[:, None],
-                 pos, cache["table"][:1], None if feed is None else feed["decode"][0])
+    dec = run_layers(engine, engine.embed(np.asarray([[nxt]], np.int64)), "decode",
+                     pos[:, None], pos, cache["table"][:1], pool,
+                     None if feed is None else feed["decode"][0])
     return {"chunk": chunk, "decode": dec}
+
+
+def prefill_then_decode(engine, prompt, nxt, feed=None):
+    """``Engine.generate``'s steps: the whole prompt into a fresh dense cache
+    of ``max_seq`` slots, then the decode step of token ``nxt``."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as T
+    dev = engine.device
+    T_ = len(prompt)
+    caches = T.init_cache(engine.cfg, 1, engine.max_seq, device=dev)["stacks"][0][0]
+    pre = run_layers(engine, engine.embed(np.asarray(prompt, np.int64)[None]), "prefill",
+                     torch.arange(T_, device=dev)[None], None, None, caches,
+                     None if feed is None else feed["prefill"][0])
+    pos = torch.tensor(T_, dtype=torch.int32, device=dev)
+    dec = run_layers(engine, engine.embed(np.asarray([[nxt]], np.int64)), "decode",
+                     pos.expand(1, 1), pos, None, caches,
+                     None if feed is None else feed["decode"][0])
+    return {"prefill": pre, "decode": dec}
 
 
 def rel_l2(a, b) -> float:
@@ -532,43 +752,87 @@ def rel_l2(a, b) -> float:
     return float((a - b).norm() / b.norm())
 
 
-def phase_kernel_vs_plain(eng, specs, arrivals, reqs):
+def routed(steps_fn, engine, prompt, nxt, feed=None):
+    """``steps_fn`` with the router's top-k ids of every MoE layer recorded,
+    in call order (one call per layer and step)."""
+    from repro_torch.models import moe as M
+    ids, route = [], M._route
+
+    def recording(*a, **kw):
+        out = route(*a, **kw)
+        ids.append(out[3].reshape(-1, out[3].shape[-1]).sort(dim=-1).values)
+        return out
+    M._route = recording
+    try:
+        return steps_fn(engine, prompt, nxt, feed), ids
+    finally:
+        M._route = route
+
+
+def compare_paths(label: str, eng, steps_fn, prompt, nxt) -> dict:
     """Kernel path against plain path at full width and depth.  Free running,
     the int8 re-quantization of every linear's input turns last-bit
     differences into whole quantization steps, so the runs drift apart with
     depth; that drift is printed.  The assertion holds every layer, and the
-    head, to the tolerance on the same input."""
+    head, to the tolerance on the same input.  On an MoE model a token whose
+    router picks another expert set in the two runs (a near tie decided by
+    float noise) is a discrete change, not a kernel error: such tokens are
+    counted, bounded by MAX_ROUTE_FLIPS, and left out of that layer's error."""
     import torch
     from repro_torch.serving import engine as E
     plain = E.Engine(eng.cfg, eng.params, eng.embedding, max_seq=eng.max_seq,
                      device=eng.device, backend="reference")
     V = eng.cfg.vocab_size
-    prompt = next(p for p in specs if len(p) > 128)
-    nxt = prompt[128]
-    ref = chunk_then_decode(plain, prompt, nxt)
-    free = chunk_then_decode(eng, prompt, nxt)
-    forced = chunk_then_decode(eng, prompt, nxt, feed=ref)
+    ref, ref_ids = routed(steps_fn, plain, prompt, nxt)
+    free = steps_fn(eng, prompt, nxt)
+    forced, forced_ids = routed(steps_fn, eng, prompt, nxt, feed=ref)
+    per_step = len(ref_ids) // max(1, len(ref))        # MoE layers per step
     out = {}
-    for what in ("chunk", "decode"):
+    for si, what in enumerate(ref):
         (ref_h, ref_l), (free_h, free_l), (forced_h, forced_l) = (
             ref[what], free[what], forced[what])
         for t in (ref_l, free_l, forced_l):
             assert torch.isfinite(t).all(), what
         drift = [rel_l2(a, b) for a, b in zip(free_h, ref_h)]
-        per_layer = [rel_l2(a, b) for a, b in zip(forced_h, ref_h)]
+        per_layer, flipped, tokens = [], 0, 0
+        for li, (a, b) in enumerate(zip(forced_h, ref_h)):
+            keep = torch.ones(a.shape[1], dtype=torch.bool, device=a.device)
+            if per_step:
+                ra, rb = forced_ids[si * per_step + li], ref_ids[si * per_step + li]
+                keep = (ra == rb).all(dim=-1)
+                flipped += int((~keep).sum())
+                tokens += keep.numel()
+            per_layer.append(rel_l2(a[:, keep], b[:, keep]) if keep.any() else 0.0)
         head = rel_l2(forced_l[:, :V], ref_l[:, :V])
         free_logits = rel_l2(free_l[:, :V], ref_l[:, :V])
         out[what] = {"per_layer_rel_l2": per_layer, "head_rel_l2": head,
                      "free_running_rel_l2_by_layer": drift,
                      "free_running_logits_rel_l2": free_logits,
                      "logit_std": float(ref_l[:, :V].std())}
-        log(f"[check] {what}: kernel vs plain on the same input: max over layers "
-            f"rel L2 {max(per_layer):.3e} (tolerance {LAYER_REL_L2}), head rel L2 "
-            f"{head:.3e} (tolerance {HEAD_REL_L2}); free running: layer 1 {drift[0]:.3e}, layer "
-            f"{len(drift) // 2} {drift[len(drift) // 2 - 1]:.3e}, layer {len(drift)} "
-            f"{drift[-1]:.3e}, logits {free_logits:.3e} (printed, not asserted)")
-        assert max(per_layer) <= LAYER_REL_L2, f"{what}: a layer disagrees {per_layer}"
-        assert head <= HEAD_REL_L2, f"{what}: logits disagree, rel L2 {head:.3e}"
+        flips = ""
+        if per_step:
+            out[what]["route_flips"] = {"tokens_x_layers": tokens, "flipped": flipped}
+            flips = f"; router top-k differs for {flipped} of {tokens} token-layers"
+        log(f"[check] {label} {what}: kernel vs plain on the same input: max over "
+            f"layers rel L2 {max(per_layer):.3e} (tolerance {LAYER_REL_L2}), head rel L2 "
+            f"{head:.3e} (tolerance {HEAD_REL_L2}){flips}; free running: layer 1 "
+            f"{drift[0]:.3e}, layer {len(drift) // 2} {drift[len(drift) // 2 - 1]:.3e}, "
+            f"layer {len(drift)} {drift[-1]:.3e}, logits {free_logits:.3e} (printed, "
+            "not asserted)")
+        assert max(per_layer) <= LAYER_REL_L2, f"{label} {what}: a layer disagrees {per_layer}"
+        assert head <= HEAD_REL_L2, f"{label} {what}: logits disagree, rel L2 {head:.3e}"
+        assert flipped <= MAX_ROUTE_FLIPS * max(tokens, 1), f"{label} {what}: {flips}"
+    return out
+
+
+def phase_kernel_vs_plain(eng, specs, arrivals, reqs):
+    """The continuous path's layer check, plus the greedy agreement of the
+    whole trace on the plain path (printed, not asserted)."""
+    from repro_torch.serving import engine as E
+    prompt = next(p for p in specs if len(p) > 128)
+    out = compare_paths("EngineLoop", eng, chunk_then_decode, prompt, prompt[128])
+    plain = E.Engine(eng.cfg, eng.params, eng.embedding, max_seq=eng.max_seq,
+                     device=eng.device, backend="reference")
     t0 = time.perf_counter()
     _, preqs, _ = serve_trace(plain, specs, arrivals)
     same_req = sum(a.generated == b.generated for a, b in zip(reqs, preqs))
@@ -582,6 +846,153 @@ def phase_kernel_vs_plain(eng, specs, arrivals, reqs):
         f"{same_req}/{len(reqs)} requests identical, {agree}/{total} tokens equal "
         f"position by position (printed, not asserted)")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4: Engine.generate at full width
+# ---------------------------------------------------------------------------
+
+def phase_generate(eng) -> dict:
+    """Four greedy requests with equal-length prompts through the
+    slot-synchronous ``Engine.generate`` (it decodes the batch at request
+    0's position, so unequal prompts would decode at the wrong offsets)."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import engine as E
+    from repro_torch.serving import sampling as SM
+    cfg = eng.cfg
+    rng = np.random.default_rng(1)
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, 320)] for _ in range(4)]
+    reqs = [E.Request(uid=i, prompt_tokens=p, max_new_tokens=32)
+            for i, p in enumerate(prompts)]
+    eng.stats = E.EngineStats()
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.generate(reqs, SM.SamplingParams(temperature=0.0, max_new_tokens=32))
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    s = eng.stats
+    log(f"[generate] launches: {counts}")
+    assert all(r.done and len(r.generated) == 32 for r in reqs), "unfinished requests"
+    for name in ("quant_decode_attention", "flash_prefill_attention", "w4a8_matmul",
+                 "rmsnorm"):
+        assert counts[name] > 0, f"{name} never launched on Engine.generate: {counts}"
+    assert eng.dispatch.fallbacks == [], eng.dispatch.fallbacks
+    summary = {"wall_s": wall, "requests": 4, "prompt_tokens": 320, "new_tokens": 128,
+               "prefill_s": s.prefill_s, "decode_s": s.decode_s,
+               "prefill_tok_per_s": s.prefill_tps, "decode_tok_per_s": s.decode_tps,
+               "decode_step_ms": s.decode_s / 31 * 1e3, "launches": counts}
+    log(f"[generate] 4 requests x 320-token prompts, 128 new tokens in {wall:.2f} s; "
+        f"prefill {s.prefill_tps:.1f} tok/s ({s.prefill_s:.2f} s), decode "
+        f"{s.decode_tps:.1f} tok/s ({summary['decode_step_ms']:.1f} ms a 4-row step)")
+    caches = [T.prefill(eng.params, cfg, eng.embed(np.asarray(p)[None]), eng.max_seq,
+                        eng.dispatch)[1] for p in prompts]
+    state = {"cache": E._concat_caches(caches)}
+    embeds = eng.embed(np.asarray([[p[-1]] for p in prompts]))
+
+    def step():
+        _, state["cache"] = T.decode_step(eng.params, cfg, embeds, state["cache"],
+                                          eng.dispatch)
+    summary["profile"] = profile_steps("qwen2-7b Engine.generate decode step, 4 rows",
+                                       step)
+    summary["kernel_vs_plain"] = compare_paths("Engine.generate", eng, prefill_then_decode,
+                                               prompts[0], prompts[1][0])
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# phase 5: MoE serving at full width
+# ---------------------------------------------------------------------------
+
+def moe_trace(vocab: int, seed: int = 2):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    shared = [int(t) for t in rng.integers(1, vocab, 256)]
+    lens = [300, 64, 400, 131, 97, 340]
+    specs = []
+    for i, n in enumerate(lens):
+        if i in (0, 5):                # the second arrives after the first is in
+            specs.append(shared + [int(t) for t in rng.integers(1, vocab, n - 256)])
+        else:
+            specs.append([int(t) for t in rng.integers(1, vocab, n)])
+    return specs, [0, 0, 1, 2, 4, 6]
+
+
+def phase_moe(dev) -> dict:
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.configs import registry
+    from repro_torch.kernels import grouped_matmul as GM
+    from repro_torch.models import moe as M
+    from repro_torch.serving import engine as E
+
+    cfg = registry.get("moonshot-v1-16b-a3b")
+    assert cfg.num_heads == cfg.num_kv_heads          # G = 1 in the paged kernels
+    t0 = time.perf_counter()
+    eng = E.build_engine(cfg, seed=0, max_seq=1024, device=dev,
+                         flash_dir=str(ROOT / "build" / "flash-moe"))
+    torch.cuda.synchronize()
+    log(f"[moe] moonshot-v1-16b-a3b: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads, {cfg.num_experts} experts top-"
+        f"{cfg.experts_per_tok} of d_ff {cfg.d_ff}, vocab {cfg.padded_vocab_size}; built "
+        f"in {time.perf_counter() - t0:.1f} s; device memory "
+        f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
+    specs, arrivals = moe_trace(cfg.vocab_size)
+    log(f"[moe] trace: prompts {[len(p) for p in specs]}, arrivals {arrivals}")
+    by_branch = {"full_dispatch": 0, "selected_expert": 0}
+    originals = (M._dispatch_moe, M._dispatch_moe_tiny)
+
+    def counted(fn, branch):
+        def inner(*a, **kw):
+            before = GM.grouped_matmul.launches
+            out = fn(*a, **kw)
+            by_branch[branch] += GM.grouped_matmul.launches - before
+            return out
+        return inner
+
+    M._dispatch_moe = counted(originals[0], "full_dispatch")
+    M._dispatch_moe_tiny = counted(originals[1], "selected_expert")
+    try:
+        K.reset_launch_counts()
+        loop, reqs, wall = serve_trace(eng, specs, arrivals, max_new=16)
+        counts = K.launch_counts()
+    finally:
+        M._dispatch_moe, M._dispatch_moe_tiny = originals
+    s = eng.stats
+    log(f"[moe] launches during the trace: {counts}; grouped_matmul by branch {by_branch}")
+    assert all(r.done and len(r.generated) == 16 for r in reqs), "unfinished requests"
+    assert loop.pool.prefix_hits > 0, "the shared prefix was never adopted"
+    assert loop.disabled_features.get("decode_bucketing"), loop.disabled_features
+    for name in ("grouped_matmul", "paged_quant_decode_attention",
+                 "paged_flash_prefill_attention", "w4a8_matmul", "rmsnorm"):
+        assert counts[name] > 0, f"{name} never launched on the MoE path: {counts}"
+    assert all(n > 0 for n in by_branch.values()), by_branch
+    assert eng.dispatch.fallbacks == [], eng.dispatch.fallbacks
+    new_tokens = sum(len(r.generated) for r in reqs)
+    summary = {
+        "wall_s": wall, "new_tokens": new_tokens, "prefill_tokens": s.prefill_tokens,
+        "prefill_chunks": s.prefill_chunks, "prefix_hits_pages": loop.pool.prefix_hits,
+        "shared_prompt_tokens": s.shared_prompt_tokens,
+        "ttft_p50_ms": s.ttft(50) * 1e3, "ttft_p95_ms": s.ttft(95) * 1e3,
+        "tpot_p50_ms": s.tpot(50) * 1e3, "tpot_p95_ms": s.tpot(95) * 1e3,
+        "decode_tok_per_s": s.decode_tps, "prefill_tok_per_s": s.prefill_tps,
+        "launches": counts, "grouped_matmul_by_branch": by_branch,
+        "disabled_features": loop.disabled_features,
+        "device_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+    }
+    log(f"[moe] {len(reqs)} requests, {new_tokens} new tokens in {wall:.2f} s; TTFT p50 "
+        f"{summary['ttft_p50_ms']:.1f} ms p95 {summary['ttft_p95_ms']:.1f} ms; TPOT p50 "
+        f"{summary['tpot_p50_ms']:.2f} ms; decode {s.decode_tps:.1f} tok/s; prefill "
+        f"{s.prefill_tps:.1f} tok/s in {s.prefill_chunks} chunks; prefix pages adopted "
+        f"{loop.pool.prefix_hits}")
+    summary["profile"] = profile_loop_decode(eng, specs)
+    prompt = specs[3]
+    summary["kernel_vs_plain"] = compare_paths("MoE EngineLoop", eng, chunk_then_decode,
+                                               prompt, prompt[128])
+    return summary
 
 
 def main() -> int:
@@ -611,24 +1022,36 @@ def main() -> int:
 
     results: dict = {}
     phase_kernels(dev, results)
+    phase_new_kernels(dev, results)
     eng, specs, arrivals, reqs, summary = phase_main_path(dev)
-    summary["profile"] = profile_decode(eng, specs)
+    summary["profile"] = profile_loop_decode(eng, specs)
     checks = phase_kernel_vs_plain(eng, specs, arrivals, reqs)
+    generate = phase_generate(eng)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()            # the MoE engine needs the room
+    torch.cuda.reset_peak_memory_stats(dev)
+    moe = phase_moe(dev)
 
+    # launches: the sum over the three serving paths, each counted from zero
+    paths = {"EngineLoop qwen2-7b": summary["launches"],
+             "Engine.generate qwen2-7b": generate["launches"],
+             "EngineLoop moonshot-v1-16b-a3b": moe["launches"]}
     kernels = []
-    for name in ("w4a8_matmul", "paged_quant_decode_attention",
-                 "paged_flash_prefill_attention", "rmsnorm"):
+    for name in KERNELS:
         r = results[name]
         kernels.append({"name": name, "route": "cuda", "source": SOURCES[name],
                         "replaces": REPLACES[name],
-                        "launches": summary["launches"][name],
+                        "launches": sum(c[name] for c in paths.values()),
                         "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
                         "library_ms": r["library_ms"], "shape": r["shape"]})
     detail = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-              "build_s": lib.build_s, "kernels": kernels,
+              "build_s": lib.build_s, "kernels": kernels, "launches_by_path": paths,
               "w4a8_all_shapes": results["w4a8_matmul"]["all_shapes"],
+              "grouped_all_shapes": results["grouped_matmul"]["all_shapes"],
               "main_path": summary, "kernel_vs_plain": checks,
+              "generate_path": generate, "moe_path": moe,
               "total_s": time.perf_counter() - t_start}
     (OUT / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
     log(f"[done] {detail['total_s']:.1f} s")

@@ -1,14 +1,16 @@
 """Architecture registry: ``<arch>`` / ``<arch>@<variant>`` lookup.
 
-The port serves the paper's three dense decoders; the other reference
-configs are not ported yet.  ``reduced`` and ``tiny`` are copies of the
-reference transforms (only the branches a dense decoder reaches)."""
+The port serves the paper's three dense decoders and one MoE decoder
+(moonshot-v1-16b-a3b); the other reference configs are not ported yet.
+``reduced``, ``tiny`` and ``tiny_moe`` are copies of the reference
+transforms (only the branches a full-attention decoder reaches)."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict
 
-from repro_torch.configs import llama3_8b, qwen2_1_5b, qwen2_7b
+from repro_torch.configs import (llama3_8b, moonshot_v1_16b_a3b, qwen2_1_5b,
+                                 qwen2_7b)
 from repro_torch.configs.base import ModelConfig
 
 PAPER_MODELS = {
@@ -17,7 +19,8 @@ PAPER_MODELS = {
     "llama3-8b": llama3_8b.CONFIG,
 }
 
-ARCHS: Dict[str, ModelConfig] = dict(PAPER_MODELS)
+ARCHS: Dict[str, ModelConfig] = {
+    "moonshot-v1-16b-a3b": moonshot_v1_16b_a3b.CONFIG, **PAPER_MODELS}
 
 VARIANTS = ("reduced", "tiny", "tiny-moe")
 
@@ -35,8 +38,7 @@ def get(arch: str) -> ModelConfig:
     if variant == "tiny":
         return tiny(cfg)
     if variant == "tiny-moe":
-        raise KeyError(f"{cfg.name!r} has no MoE layers; "
-                       "@tiny-moe needs an MoE architecture")
+        return tiny_moe(cfg)
     raise KeyError(f"unknown variant {variant!r} for {base!r}; "
                    f"known: {VARIANTS}")
 
@@ -85,3 +87,12 @@ def tiny(cfg: ModelConfig) -> ModelConfig:
         experts_per_tok=min(cfg.experts_per_tok, 2),
         rwkv_head_dim=64,
     )
+
+
+def tiny_moe(cfg: ModelConfig) -> ModelConfig:
+    """``tiny`` with 8 experts at top-2 routing (MoE architectures only)."""
+    if not cfg.num_experts:
+        raise KeyError(f"{cfg.name!r} has no MoE layers; "
+                       "@tiny-moe needs an MoE architecture")
+    return dataclasses.replace(tiny(cfg), name=cfg.name + "-tiny-moe",
+                               num_experts=8, experts_per_tok=2)

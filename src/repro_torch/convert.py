@@ -4,10 +4,11 @@ leaf and by name, without importing jax.
 The input is the reference's parameter tree (``repro.models.transformer.
 init_params(..., quantized=True, pack=True)``) whose array leaves are
 anything ``numpy.asarray`` accepts — JAX arrays included — and whose packed
-linears carry ``data``/``scale``/``zero``/``bits``/``k``/``n`` attributes.
+linears carry ``data``/``scale``/``zero``/``bits``/``k``/``n`` attributes
+(expert tables are recognised by their class name, ``PackedExpertLinear``).
 Every leaf is copied exactly: int8 carriers and int4 nibble bytes, float32
-scale/zero and norms, bf16 biases (by their bit patterns, so no numpy
-bf16 type is needed).  ``embedding_from_reference`` exports the
+scale/zero and norms, bf16 biases and MoE routers (by their bit patterns,
+so no numpy bf16 type is needed).  ``embedding_from_reference`` exports the
 reference engine's float32 embedding table to the port's bf16 Flash store
 (the reference casts the rows it gathers to bf16 the same way).
 """
@@ -62,16 +63,19 @@ def _is_quantized(x) -> bool:
 
 def params_from_reference(tree, device=torch.device("cpu")):
     """The reference's parameter tree -> the port's (same keys and nesting;
-    packed linears become ``runtime.plan.PackedLinear``)."""
+    packed linears become ``runtime.plan.PackedLinear`` or
+    ``PackedExpertLinear``)."""
     if isinstance(tree, dict):
         return {k: params_from_reference(v, device) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
         return tuple(params_from_reference(v, device) for v in tree)
     if _is_packed(tree):
-        return RP.PackedLinear(data=to_tensor(tree.data, device),
-                               scale=to_tensor(tree.scale, device),
-                               zero=to_tensor(tree.zero, device),
-                               bits=int(tree.bits), k=int(tree.k), n=int(tree.n))
+        cls = (RP.PackedExpertLinear if type(tree).__name__ == "PackedExpertLinear"
+               else RP.PackedLinear)
+        return cls(data=to_tensor(tree.data, device),
+                   scale=to_tensor(tree.scale, device),
+                   zero=to_tensor(tree.zero, device),
+                   bits=int(tree.bits), k=int(tree.k), n=int(tree.n))
     if _is_quantized(tree):
         return q.QuantizedTensor(data=to_tensor(tree.data, device),
                                  scale=to_tensor(tree.scale, device),

@@ -1,10 +1,15 @@
-"""Quantized KV values (paper §4.2, Fig. 3) — the parts of
-``repro.core.kv_cache`` the paged pool uses.
+"""Quantized KV cache (paper §4.2, Fig. 3) — port of ``repro.core.kv_cache``
+(full-attention caches; the sliding-window ring is not ported).
 
 Keys are asymmetric int8 per (token, head) over head_dim (the fixed
 reduction dim, so appends never disturb old scales); values are a
-saturating fp8 e4m3 cast."""
+saturating fp8 e4m3 cast.  ``LayerKVCache`` is the dense per-sequence
+cache of the slot-synchronous ``Engine.generate`` path, laid out
+[B, max_seq, H_kv, D] as the reference's; the paged pool
+(``core.kv_pool``) shares the quantization below."""
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -44,3 +49,113 @@ def cast_values(v_new: torch.Tensor, dtype) -> torch.Tensor:
     if dtype == q.FP8_DTYPE:
         return q.to_fp8(v_new)
     return v_new.to(dtype)
+
+
+@dataclasses.dataclass
+class LayerKVCache:
+    """One layer's quantized KV cache, or a stack of them (leading [L]
+    axis on every field; ``layer(i)`` is a view of layer i).
+
+    k_q int8 [B, S, H_kv, D] (key_bits=4: [.., D//2] nibble pairs);
+    k_scale/k_zero float32 [B, S, H_kv]; v fp8 e4m3 [B, S, H_kv, D];
+    length int32 [] or [B]: tokens written so far."""
+    k_q: torch.Tensor
+    k_scale: torch.Tensor
+    k_zero: torch.Tensor
+    v: torch.Tensor
+    length: torch.Tensor
+    window: int = 0
+    key_bits: int = 8
+
+    @property
+    def max_seq(self) -> int:
+        return self.k_q.shape[-3]
+
+    def layer(self, i: int) -> "LayerKVCache":
+        return LayerKVCache(self.k_q[i], self.k_scale[i], self.k_zero[i],
+                            self.v[i], self.length[i], window=self.window,
+                            key_bits=self.key_bits)
+
+
+def init_layer_cache(batch: int, max_seq: int, kv_heads: int, head_dim: int,
+                     *, window: int = 0, key_bits: int = 8,
+                     value_fp8: bool = True, per_row: bool = False,
+                     layers: int = 0,
+                     device: torch.device = torch.device("cpu")) -> LayerKVCache:
+    """Zero-initialized cache (scales start at 1, as in the reference);
+    ``per_row``: one length per row; ``layers``: a leading [layers] axis."""
+    if window:
+        raise NotImplementedError("windowed ring caches are not ported "
+                                  "(ROADMAP queue 1 item 13)")
+    kd = head_dim // 2 if key_bits == 4 else head_dim
+    lead = (layers,) if layers else ()
+    vdt = q.FP8_DTYPE if value_fp8 else torch.bfloat16
+    return LayerKVCache(
+        k_q=torch.zeros((*lead, batch, max_seq, kv_heads, kd), dtype=torch.int8,
+                        device=device),
+        k_scale=torch.ones((*lead, batch, max_seq, kv_heads), dtype=torch.float32,
+                           device=device),
+        k_zero=torch.zeros((*lead, batch, max_seq, kv_heads), dtype=torch.float32,
+                           device=device),
+        v=torch.zeros((*lead, batch, max_seq, kv_heads, head_dim), dtype=vdt,
+                      device=device),
+        length=torch.zeros((*lead, *((batch,) if per_row else ())),
+                           dtype=torch.int32, device=device),
+        window=0, key_bits=key_bits)
+
+
+def roundtrip_kv(k: torch.Tensor, v: torch.Tensor, *, key_bits: int = 8,
+                 v_dtype, dtype=torch.bfloat16):
+    """Quantize-then-dequantize a K/V chunk: exactly the values the cache
+    stores and decode reads back."""
+    kq, ks, kz = quantize_keys(k, bits=key_bits)
+    return (dequantize_keys(kq, ks, kz, dtype, bits=key_bits),
+            cast_values(v, v_dtype).to(dtype))
+
+
+def append(cache: LayerKVCache, k_new: torch.Tensor, v_new: torch.Tensor,
+           pos) -> LayerKVCache:
+    """Write ``t`` new tokens' K/V (k_new/v_new [B, t, H_kv, D]) at
+    positions [pos, pos + t), quantizing on the way in.  ``pos`` is a
+    scalar (all rows aligned) or a [B] vector of per-row positions.
+    Unlike the reference, the cache arrays are written in place; the
+    returned cache shares them and carries ``length = pos + t``."""
+    b, t = k_new.shape[:2]
+    kq, ks, kz = quantize_keys(k_new, bits=cache.key_bits)
+    v_cast = cast_values(v_new, cache.v.dtype)
+    dev = k_new.device
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=dev)
+    steps = torch.arange(t, device=dev)
+    if pos.dim() == 1:
+        rows = torch.arange(b, device=dev)[:, None]
+        slots = (pos[:, None] + steps[None]).long()              # [B, t]
+        index = (rows, slots)
+    else:
+        # the reference's dynamic_update_slice clamps the start so that the
+        # whole update fits; the start stays on the device (no sync)
+        slots = pos.clamp(0, cache.max_seq - t).long() + steps
+        index = (slice(None), slots)
+    cache.k_q[index] = kq
+    cache.k_scale[index] = ks
+    cache.k_zero[index] = kz
+    cache.v[index] = v_cast
+    return dataclasses.replace(cache, length=pos + t)
+
+
+def valid_mask(cache: LayerKVCache, pos) -> torch.Tensor:
+    """Slots holding live tokens: pos scalar -> [S]; pos [B] -> [B, S]."""
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=cache.k_q.device)
+    idx = torch.arange(cache.max_seq, device=pos.device)
+    if pos.dim() == 1:
+        pos = pos[:, None]
+    return idx < pos
+
+
+def slot_positions(cache: LayerKVCache, pos) -> torch.Tensor:
+    """The absolute position stored in each slot, -1 where none: pos scalar
+    -> [S]; pos [B] -> [B, S]."""
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=cache.k_q.device)
+    idx = torch.arange(cache.max_seq, device=pos.device)
+    if pos.dim() == 1:
+        pos = pos[:, None]
+    return torch.where(idx < pos, idx, torch.full_like(idx, -1))

@@ -1,7 +1,7 @@
-"""The serving main path's hand-written Hopper kernels.
+"""The serving paths' hand-written Hopper kernels.
 
-Each module holds one kernel's wrapper and its plain PyTorch version.  The
-wrapper takes the plain version only for tensors on the CPU; for CUDA
+Each module holds its kernels' wrappers and their plain PyTorch versions.
+A wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel (built from ``repro_torch/csrc`` by
 ``loader``) or raises.  Every wrapper counts its launches in
 ``<wrapper>.launches``.
@@ -12,14 +12,18 @@ from typing import Dict
 
 
 def wrappers() -> Dict[str, object]:
-    """name -> kernel wrapper, for every kernel of the serving path."""
-    from repro_torch.kernels import flash_prefill, quant_attention, rmsnorm, w4a8_matmul
+    """name -> kernel wrapper, for every kernel of the serving paths."""
+    from repro_torch.kernels import (flash_prefill, grouped_matmul, quant_attention,
+                                     rmsnorm, w4a8_matmul)
     return {"w4a8_matmul": w4a8_matmul.w4a8_matmul,
             "paged_quant_decode_attention":
                 quant_attention.paged_quant_decode_attention,
             "paged_flash_prefill_attention":
                 flash_prefill.paged_flash_prefill_attention,
-            "rmsnorm": rmsnorm.rmsnorm}
+            "rmsnorm": rmsnorm.rmsnorm,
+            "grouped_matmul": grouped_matmul.grouped_matmul,
+            "quant_decode_attention": quant_attention.quant_decode_attention,
+            "flash_prefill_attention": flash_prefill.flash_prefill_attention}
 
 
 def launch_counts() -> Dict[str, int]:

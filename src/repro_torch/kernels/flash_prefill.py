@@ -1,8 +1,10 @@
-"""Paged prompt-chunk attention: wrapper + plain version, and the blockwise
-``flash_attention`` reference the plain version runs.
+"""Prefill attention: wrappers + plain versions, and the blockwise
+``flash_attention`` reference the plain versions run.
 
-Port of ``repro/kernels/flash_prefill.py::paged_flash_prefill_attention``;
-the CUDA kernel is ``csrc/paged_prefill_attention.cu``.
+Ports of ``repro/kernels/flash_prefill.py``: ``flash_prefill_attention``
+(unquantized K/V; CUDA kernel ``csrc/flash_prefill_attention.cu``) and
+``paged_flash_prefill_attention`` (a prompt chunk over the quantized pool;
+``csrc/paged_prefill_attention.cu``).
 """
 from __future__ import annotations
 
@@ -85,6 +87,70 @@ def flash_attention(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor, *,
         outs.append(out.permute(0, 3, 1, 2, 4))          # [B,bq,Hkv,G,D]
     out = torch.stack(outs, dim=1).reshape(B, Tp, H, D)
     return out[:, :T].to(cd)
+
+
+def flash_prefill_attention_plain(q_: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, *, causal: bool = True,
+                                  window: int = 0,
+                                  policy: PrecisionPolicy = DEFAULT_POLICY
+                                  ) -> torch.Tensor:
+    """The reference dispatcher's ``prefill_attention`` entry op for op: the
+    blockwise ``flash_attention`` with query i at position i.  Returns f32
+    [B, T, H, D] (values in the compute dtype)."""
+    return flash_attention(q_, k, v, causal=causal, window=window,
+                           policy=policy).float()
+
+
+MAX_GRID_Y = 65535    # the kernel's query-row tiles of 16 run on grid y
+
+
+def flash_prefill_attention(q_: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            *, causal: bool = True, window: int = 0
+                            ) -> torch.Tensor:
+    """Pre-scaled queries [B, T, H, D] (bf16 on the card) attend over keys
+    and values [B, S, Hkv, D]: query i at position i, causal and/or within
+    ``window`` (0 = unbounded).  Returns f32 [B, T, H, D]."""
+    B, T, H, D = q_.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    if H % Hkv:
+        raise ValueError(f"H={H} not a multiple of Hkv={Hkv}")
+    if k.shape != (B, S, Hkv, D) or v.shape != k.shape:
+        raise ValueError(f"k {tuple(k.shape)}, v {tuple(v.shape)} for q "
+                         f"{tuple(q_.shape)}")
+    if window < 0:
+        raise ValueError(f"window={window}")
+    devs = {t.device for t in (q_, k, v)}
+    if len(devs) != 1:
+        raise ValueError(f"operands on several devices: {devs}")
+    dev = q_.device
+    if dev.type == "cpu":
+        return flash_prefill_attention_plain(q_, k, v, causal=causal, window=window)
+    if dev.type != "cuda":
+        raise NotImplementedError(f"no prefill-attention kernel for {dev}")
+    if D > 128:
+        raise NotImplementedError(f"D={D}: the kernel takes D <= 128")
+    if {q_.dtype, k.dtype, v.dtype} != {torch.bfloat16}:
+        raise TypeError(f"dtypes {q_.dtype}, {k.dtype}, {v.dtype}: the kernel "
+                        "reads bf16 queries, keys and values")
+    if -(-T * (H // Hkv) // 16) > MAX_GRID_Y:
+        raise NotImplementedError(f"T={T}: past the kernel's grid limit")
+    if not all(t.is_contiguous() for t in (q_, k, v)):
+        raise ValueError("prefill-attention operands must be contiguous")
+    out = torch.empty((B, T, H, D), dtype=torch.float32, device=dev)
+    if B * T == 0:
+        return out
+    if S == 0:
+        raise ValueError("no keys to attend over")
+    lib = loader.build()
+    code = lib.flash_prefill_attention_launch(
+        q_.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T, S, Hkv,
+        H // Hkv, D, int(bool(causal)), int(window), loader.stream_ptr(dev))
+    loader.check(code, "flash_prefill_attention")
+    flash_prefill_attention.launches += 1
+    return out
+
+
+flash_prefill_attention.launches = 0
 
 
 def paged_flash_prefill_attention_plain(

@@ -1,0 +1,90 @@
+"""Grouped (per-expert) W4A8 / W8A8 matmul: wrapper + plain version.
+
+Port of ``repro/kernels/grouped_matmul.py::grouped_matmul``; the CUDA kernel
+is ``csrc/grouped_matmul.cu``.  ``quantize_activations`` stays outside, as in
+the reference dispatcher.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import quantization as q
+from repro_torch.kernels import loader
+
+MAX_GRID = 65535      # the kernel puts experts on grid z and row tiles on y
+
+
+def grouped_matmul_plain(xq: torch.Tensor, sx: torch.Tensor, w: torch.Tensor,
+                         w_scale: torch.Tensor, w_zero: torch.Tensor, *,
+                         bits: int) -> torch.Tensor:
+    """The reference's per-expert ``quant_matmul``, op for op, for every
+    expert at once: y[e] = w_scale[e] * (xq[e] @ w[e] - w_zero[e] *
+    rowsum(xq[e])) * sx[e], with an exact int32 dot and a fused correction.
+    xq int8 [E, M, K]; sx f32 [E, M, 1]; w int8 [E, K, N/2] (int4 nibbles)
+    or [E, K, N]; scale/zero f32 [E, N] -> f32 [E, M, N]."""
+    wq = q.unpack_int4(w) if bits == 4 else w
+    if xq.shape[-1] < wq.shape[-2]:
+        xq = F.pad(xq, (0, wq.shape[-2] - xq.shape[-1]))
+    acc = q.int_dot(xq, wq)
+    rowsum = xq.to(torch.int32).sum(dim=-1, keepdim=True)
+    y = w_scale[:, None, :] * q.zero_correction(acc, w_zero[:, None, :], rowsum)
+    return y * sx
+
+
+def grouped_matmul(xq: torch.Tensor, sx: torch.Tensor, w: torch.Tensor,
+                   w_scale: torch.Tensor, w_zero: torch.Tensor, *,
+                   bits: int) -> torch.Tensor:
+    """y [E, M, N] f32 from per-expert int8 activations xq [E, M, K] (K <=
+    the weight's padded K; the wrapper zero-pads the rest) with per-row
+    scales sx [E, M, 1] and int4/int8 expert slabs w [E, Kp, N/2 | N] with
+    per-channel scale/zero [E, N]."""
+    if bits not in (4, 8):
+        raise ValueError(f"bits={bits}")
+    if xq.dim() != 3 or w.dim() != 3:
+        raise ValueError(f"xq {tuple(xq.shape)} / w {tuple(w.shape)}: 3-D only")
+    E, M, K = xq.shape
+    Kp = w.shape[1]
+    N = w.shape[2] * (2 if bits == 4 else 1)
+    if w.shape[0] != E:
+        raise ValueError(f"expert axis: xq {E}, w {w.shape[0]}")
+    if (xq.dtype, sx.dtype, w.dtype) != (torch.int8, torch.float32, torch.int8):
+        raise TypeError(f"dtypes {xq.dtype}, {sx.dtype}, {w.dtype}")
+    if w_scale.dtype != torch.float32 or w_zero.dtype != torch.float32:
+        raise TypeError("weight scale/zero must be float32")
+    if sx.shape != (E, M, 1) or w_scale.shape != (E, N) or w_zero.shape != (E, N):
+        raise ValueError(f"sx {tuple(sx.shape)}, scale {tuple(w_scale.shape)}, "
+                         f"zero {tuple(w_zero.shape)} for E={E}, M={M}, N={N}")
+    if K > Kp:
+        raise ValueError(f"activation K={K} exceeds the weight's K={Kp}")
+    devs = {t.device for t in (xq, sx, w, w_scale, w_zero)}
+    if len(devs) != 1:
+        raise ValueError(f"operands on several devices: {devs}")
+    dev = xq.device
+    if dev.type == "cpu":
+        return grouped_matmul_plain(xq, sx, w, w_scale, w_zero, bits=bits)
+    if dev.type != "cuda":
+        raise NotImplementedError(f"no grouped_matmul kernel for {dev}")
+    if Kp % 64 or N % 128:
+        raise NotImplementedError(f"K={Kp} must be a multiple of 64 and N={N} "
+                                  "of 128 (the PackedExpertLinear layout)")
+    if E > MAX_GRID or -(-M // 16) > MAX_GRID:
+        raise NotImplementedError(f"E={E}, M={M}: past the kernel's grid limits")
+    if K < Kp:
+        xq = F.pad(xq, (0, Kp - K))
+    tensors = (xq, sx, w, w_scale, w_zero)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("grouped_matmul operands must be contiguous")
+    y = torch.empty((E, M, N), dtype=torch.float32, device=dev)
+    if E * M == 0:
+        return y
+    lib = loader.build()
+    code = lib.grouped_matmul_launch(
+        xq.data_ptr(), sx.data_ptr(), w.data_ptr(), w_scale.data_ptr(),
+        w_zero.data_ptr(), y.data_ptr(), E, M, N, Kp, bits, loader.stream_ptr(dev))
+    loader.check(code, "grouped_matmul")
+    grouped_matmul.launches += 1
+    return y
+
+
+grouped_matmul.launches = 0

@@ -39,6 +39,12 @@ SIGNATURES = {
     "paged_prefill_attention_launch": [P] * 8 + [I] * 7 + [P],
     # x, w, y, rows, D, eps, is_bf16, stream
     "rmsnorm_launch": [P, P, P, I, I, ctypes.c_float, I, P],
+    # xq, sx, w, scale, zero, y, E, M, N, K, bits, stream
+    "grouped_matmul_launch": [P] * 6 + [I] * 5 + [P],
+    # q, kq, kscale, kzero, v, length, out, B, S, Hkv, G, D, stream
+    "decode_attention_launch": [P] * 7 + [I] * 5 + [P],
+    # q, k, v, out, B, T, S, Hkv, G, D, causal, window, stream
+    "flash_prefill_attention_launch": [P] * 4 + [I] * 8 + [P],
 }
 
 

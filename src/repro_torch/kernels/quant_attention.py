@@ -1,7 +1,10 @@
-"""Paged decode attention over the quantized KV pool: wrapper + plain version.
+"""Decode attention over the quantized KV cache: wrappers + plain versions.
 
-Port of ``repro/kernels/quant_attention.py::paged_quant_decode_attention``;
-the CUDA kernel is ``csrc/paged_decode_attention.cu``.
+Ports of ``repro/kernels/quant_attention.py``: ``quant_decode_attention``
+(dense cache; CUDA kernel ``csrc/decode_attention.cu``) and
+``paged_quant_decode_attention`` (the paged pool; ``csrc/
+paged_decode_attention.cu``).  Both kernels share their body
+(``csrc/decode_attention.cuh``).
 """
 from __future__ import annotations
 
@@ -20,6 +23,97 @@ def gather_rows(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     in logical page order."""
     y = x[table.long()]
     return y.reshape(table.shape[0], y.shape[1] * y.shape[2], *y.shape[3:])
+
+
+def _check_decode_kernel_operands(q_, k_q, k_scale, k_zero, v, key_bits: int) -> None:
+    """What the CUDA decode kernels take; anything else raises on the card."""
+    H, D = q_.shape[-2:]
+    G = H // k_q.shape[-2]
+    if key_bits != 8 or k_q.shape[-1] != D:
+        raise NotImplementedError("int4 keys: no CUDA decode kernel yet")
+    if v.dtype != q.FP8_DTYPE:
+        raise NotImplementedError(f"values {v.dtype}: the kernel reads fp8 e4m3")
+    if G > MAX_GROUP or D % 16 or D > 128:
+        raise NotImplementedError(f"G={G}, D={D}: kernel takes G <= {MAX_GROUP}, "
+                                  "D a multiple of 16 up to 128")
+    if (k_q.dtype, k_scale.dtype, k_zero.dtype) != (torch.int8, torch.float32,
+                                                    torch.float32):
+        raise TypeError("cache dtypes must be int8 keys, float32 scale/zero")
+    if q_.dtype != torch.bfloat16:
+        raise TypeError(f"q dtype {q_.dtype}: the kernel reads bf16 queries")
+
+
+def quant_decode_attention_plain(
+        q_: torch.Tensor, k_q: torch.Tensor, k_scale: torch.Tensor,
+        k_zero: torch.Tensor, v: torch.Tensor, length, *,
+        key_bits: int = 8, compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """The reference dense decode (``models.attention.decode_attention_ref``)
+    op for op: keys dequantized to the compute dtype, bf16 scores with f32
+    accumulation, f32 softmax over the slots below ``length`` (a scalar or
+    [B]), probabilities cast to the compute dtype before P.V.  Returns f32
+    [B, H, D] (the reference casts it to the compute dtype)."""
+    B, H, D = q_.shape
+    S, Hkv = k_q.shape[1], k_q.shape[2]
+    G = H // Hkv
+    k = kvc.dequantize_keys(k_q, k_scale, k_zero, compute_dtype, bits=key_bits)
+    vv = v.to(compute_dtype)
+    qg = q_.reshape(B, Hkv, G, D).to(compute_dtype)
+    s = torch.einsum("bkgd,bskd->bkgs", qg.float(), k.float())
+    length = torch.as_tensor(length, device=q_.device).long().reshape(-1)
+    mask = torch.arange(S, device=q_.device)[None] < length[:, None]
+    s = torch.where(mask[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p.to(compute_dtype).float(), vv.float())
+    return out.reshape(B, H, D)
+
+
+def quant_decode_attention(
+        q_: torch.Tensor, k_q: torch.Tensor, k_scale: torch.Tensor,
+        k_zero: torch.Tensor, v: torch.Tensor, length, *,
+        key_bits: int = 8) -> torch.Tensor:
+    """One pre-scaled query per row [B, H, D] (bf16 on the card) against a
+    dense cache (k_q [B, S, Hkv, D(k)], k_scale/k_zero [B, S, Hkv], v
+    [B, S, Hkv, D]); ``length`` the live prefix, a scalar for every row or
+    [B] per row.  Returns f32 [B, H, D]."""
+    B, H, D = q_.shape
+    S, Hkv = k_q.shape[1], k_q.shape[2]
+    if H % Hkv:
+        raise ValueError(f"H={H} not a multiple of Hkv={Hkv}")
+    if k_q.shape[0] != B or k_scale.shape != (B, S, Hkv) or v.shape != (B, S, Hkv, D):
+        raise ValueError(f"cache k_q {tuple(k_q.shape)}, k_scale "
+                         f"{tuple(k_scale.shape)}, v {tuple(v.shape)} for q "
+                         f"{tuple(q_.shape)}")
+    length = torch.as_tensor(length, device=q_.device).to(torch.int32).reshape(-1)
+    if length.numel() not in (1, B):
+        raise ValueError(f"length of {length.numel()} entries for B={B}")
+    length = length.expand(B).contiguous()
+    devs = {t.device for t in (q_, k_q, k_scale, k_zero, v)}
+    if len(devs) != 1:
+        raise ValueError(f"operands on several devices: {devs}")
+    dev = q_.device
+    if dev.type == "cpu":
+        return quant_decode_attention_plain(q_, k_q, k_scale, k_zero, v, length,
+                                            key_bits=key_bits)
+    if dev.type != "cuda":
+        raise NotImplementedError(f"no decode-attention kernel for {dev}")
+    _check_decode_kernel_operands(q_, k_q, k_scale, k_zero, v, key_bits)
+    operands = (q_, k_q, k_scale, k_zero, v)
+    if not all(t.is_contiguous() for t in operands):
+        raise ValueError("decode-attention operands must be contiguous")
+    out = torch.empty((B, H, D), dtype=torch.float32, device=dev)
+    if B * S == 0:
+        return out.zero_()
+    lib = loader.build()
+    code = lib.decode_attention_launch(
+        q_.data_ptr(), k_q.data_ptr(), k_scale.data_ptr(), k_zero.data_ptr(),
+        v.data_ptr(), length.data_ptr(), out.data_ptr(), B, S, Hkv, H // Hkv, D,
+        loader.stream_ptr(dev))
+    loader.check(code, "quant_decode_attention")
+    quant_decode_attention.launches += 1
+    return out
+
+
+quant_decode_attention.launches = 0
 
 
 def paged_quant_decode_attention_plain(
@@ -81,21 +175,9 @@ def paged_quant_decode_attention(
             key_bits=key_bits)
     if dev.type != "cuda":
         raise NotImplementedError(f"no decode-attention kernel for {dev}")
-    G = H // Hkv
-    if key_bits != 8 or k_q.shape[-1] != D:
-        raise NotImplementedError("int4 keys: no CUDA decode kernel yet")
-    if v.dtype != q.FP8_DTYPE:
-        raise NotImplementedError(f"values {v.dtype}: the kernel reads fp8 e4m3")
-    if G > MAX_GROUP or D % 16 or D > 128:
-        raise NotImplementedError(f"G={G}, D={D}: kernel takes G <= {MAX_GROUP}, "
-                                  "D a multiple of 16 up to 128")
-    if (k_q.dtype, k_scale.dtype, k_zero.dtype) != (torch.int8, torch.float32,
-                                                    torch.float32):
-        raise TypeError("pool dtypes must be int8 keys, float32 scale/zero")
+    _check_decode_kernel_operands(q_, k_q, k_scale, k_zero, v, key_bits)
     if {table.dtype, base.dtype, length.dtype} != {torch.int32}:
         raise TypeError("table/base/length must be int32")
-    if q_.dtype != torch.bfloat16:
-        raise TypeError(f"q dtype {q_.dtype}: the kernel reads bf16 queries")
     operands = (q_, k_q, k_scale, k_zero, v, table, base, length)
     if not all(t.is_contiguous() for t in operands):
         raise ValueError("decode-attention operands must be contiguous")
@@ -106,7 +188,7 @@ def paged_quant_decode_attention(
     code = lib.paged_decode_attention_launch(
         q_.data_ptr(), k_q.data_ptr(), k_scale.data_ptr(), k_zero.data_ptr(),
         v.data_ptr(), table.data_ptr(), base.data_ptr(), length.data_ptr(),
-        out.data_ptr(), B, Hkv, G, D, ps, table.shape[1], int(window),
+        out.data_ptr(), B, Hkv, H // Hkv, D, ps, table.shape[1], int(window),
         loader.stream_ptr(dev))
     loader.check(code, "paged_quant_decode_attention")
     paged_quant_decode_attention.launches += 1

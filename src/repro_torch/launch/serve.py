@@ -1,14 +1,19 @@
 """Serving driver: a trace of requests through the continuous-batching
-``EngineLoop`` on the card — the counterpart of ``python -m
-repro.launch.serve`` (continuous path only, no HTTP gateway).
+``EngineLoop`` on the card, or with ``--no-continuous`` through the
+slot-synchronous ``Engine.generate`` — the counterpart of ``python -m
+repro.launch.serve`` (no HTTP gateway).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \\
       --requests 8 --max-new 32 --slots 4 --max-seq 2048
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b \\
+      --max-seq 1024 --max-prompt 400
 
-``--arch`` takes ``<arch>`` or ``<arch>@reduced`` / ``@tiny``; weights are
-random, drawn from ``--seed``.  It runs on ``cuda``; ``--device cpu`` runs
-the plain PyTorch path instead.  Prints every request's tokens and the
-serving stats.
+``--arch`` takes ``<arch>`` or ``<arch>@reduced`` / ``@tiny`` / ``@tiny-moe``
+(MoE architectures); weights are random, drawn from ``--seed``.  It runs on
+``cuda``; ``--device cpu`` runs the plain PyTorch path instead.  Prints
+every request's tokens and the serving stats.  ``Engine.generate`` decodes
+the whole batch at request 0's position, so ``--no-continuous`` draws every
+prompt at one length (``--max-prompt``).
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ import time
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.configs import registry
 from repro_torch.serving import engine as E
@@ -37,6 +43,10 @@ def main(argv: Optional[List[str]] = None) -> List[E.Request]:
     ap.add_argument("--prefill-chunk", type=int, default=64)
     ap.add_argument("--prefill-token-budget", type=int, default=None)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--continuous", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="continuous batching (EngineLoop) vs the slot-synchronous "
+                         "two-phase Engine.generate")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain path)")
     ap.add_argument("--flash-dir", default=None,
@@ -50,31 +60,45 @@ def main(argv: Optional[List[str]] = None) -> List[E.Request]:
     print(f"[serve] arch={cfg.name} quant={cfg.quant.tag()} on {eng.device} "
           f"(embedding on Flash, int8-K/fp8-V paged KV); built in "
           f"{time.perf_counter() - t0:.1f}s")
-    loop = E.EngineLoop(eng, max_slots=args.slots, prefill_chunk=args.prefill_chunk,
-                        prefill_token_budget=args.prefill_token_budget,
-                        seed=args.seed)
     rng = np.random.default_rng(args.seed)
     sp = SM.SamplingParams(temperature=args.temperature, top_k=args.top_k,
                            max_new_tokens=args.max_new)
+
+    def prompt_len() -> int:
+        if not args.continuous:
+            return args.max_prompt
+        return int(rng.integers(args.min_prompt, args.max_prompt + 1))
+
     reqs = [E.Request(uid=i, max_new_tokens=args.max_new, sampling=sp,
                       prompt_tokens=[int(t) for t in rng.integers(
-                          1, cfg.vocab_size,
-                          int(rng.integers(args.min_prompt, args.max_prompt + 1)))])
+                          1, cfg.vocab_size, prompt_len())])
             for i in range(args.requests)]
     t0 = time.perf_counter()
-    out = loop.run(reqs)
+    if args.continuous:
+        loop = E.EngineLoop(eng, max_slots=args.slots,
+                            prefill_chunk=args.prefill_chunk,
+                            prefill_token_budget=args.prefill_token_budget,
+                            seed=args.seed)
+        out = loop.run(reqs)
+        how = f"on {args.slots} slots"
+    else:
+        out = eng.generate(reqs, sp, torch.Generator(device=eng.device)
+                           .manual_seed(args.seed))
+        how = "slot-synchronous"
     wall = time.perf_counter() - t0
     s = eng.stats
     done = sum(len(r.generated) for r in out)
     for r in out:
         print(f"[serve] req {r.uid}: prompt {len(r.prompt_tokens)} toks -> {r.generated}")
     print(f"[serve] {len(out)} requests, {done} new tokens in {wall:.2f}s "
-          f"({done / wall:.1f} tok/s) on {args.slots} slots")
-    print(f"[serve] TTFT p50={s.ttft(50) * 1e3:.1f}ms p95={s.ttft(95) * 1e3:.1f}ms; "
-          f"TPOT p50={s.tpot(50) * 1e3:.2f}ms; latency p50={s.latency(50):.2f}s")
+          f"({done / wall:.1f} tok/s) {how}")
+    if args.continuous:
+        print(f"[serve] TTFT p50={s.ttft(50) * 1e3:.1f}ms p95={s.ttft(95) * 1e3:.1f}ms; "
+              f"TPOT p50={s.tpot(50) * 1e3:.2f}ms; latency p50={s.latency(50):.2f}s; "
+              f"prefix pages adopted {loop.pool.prefix_hits}")
     print(f"[serve] prefill {s.prefill_tokens} toks @ {s.prefill_tps:.1f} t/s; "
-          f"decode {s.decode_tokens} toks @ {s.decode_tps:.1f} t/s; prefix pages "
-          f"adopted {loop.pool.prefix_hits}; flash reads {s.flash_bytes / 1024:.1f} KiB")
+          f"decode {s.decode_tokens} toks @ {s.decode_tps:.1f} t/s; "
+          f"flash reads {s.flash_bytes / 1024:.1f} KiB")
     return out
 
 

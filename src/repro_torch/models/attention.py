@@ -1,10 +1,14 @@
-"""Attention over the paged quantized KV pool — port of the serving parts of
-``repro.models.attention`` (GQA projections with the qwen2 bias, the
-query pre-scale of the paper's mixed-precision policy, chunked prefill and
-one-token decode against the pool).
+"""Attention for serving — port of the serving parts of
+``repro.models.attention``: GQA projections with the qwen2 bias, the query
+pre-scale of the paper's mixed-precision policy, and the two cache layouts'
+entry points — whole-prompt prefill into a dense ``LayerKVCache`` and
+one-token decode against it (``Engine.generate``), chunked prefill and
+one-token decode against the paged pool (``EngineLoop``).
 
 The blockwise reference ``flash_attention`` lives beside the prefill
-kernel's plain version (``kernels.flash_prefill``) and is re-exported here.
+kernels' plain versions (``kernels.flash_prefill``) and is re-exported
+here; the reference's dense ``decode_attention_ref`` is
+``kernels.quant_attention.quant_decode_attention_plain``.
 """
 from __future__ import annotations
 
@@ -13,9 +17,10 @@ from typing import Tuple
 import torch
 
 from repro_torch.configs.base import LayerPattern, ModelConfig
+from repro_torch.core import kv_cache as kvc
 from repro_torch.core import kv_pool as KP
 from repro_torch.core.precision import DEFAULT_POLICY, PrecisionPolicy
-from repro_torch.kernels.flash_prefill import flash_attention  # noqa: F401
+from repro_torch.kernels.flash_prefill import FLASH_BK, flash_attention  # noqa: F401
 from repro_torch.models import layers as L
 from repro_torch.runtime import dispatch as D
 
@@ -56,6 +61,54 @@ def _prescale(qh: torch.Tensor, hd: int, policy: PrecisionPolicy) -> torch.Tenso
     if policy.prescale_query:
         return (qh.float() * (1.0 / float(hd) ** 0.5)).to(policy.compute_dtype)
     return qh
+
+
+def attention_prefill(x: torch.Tensor, p: dict, cfg: ModelConfig,
+                      pat: LayerPattern, positions: torch.Tensor,
+                      cache: kvc.LayerKVCache, dispatch: D.Dispatcher,
+                      policy: PrecisionPolicy = DEFAULT_POLICY
+                      ) -> Tuple[torch.Tensor, kvc.LayerKVCache]:
+    """Whole-prompt prefill of x [B, T, d] into the empty layer ``cache``
+    (written in place): quantize and store K/V at [0, T), then attend over
+    the quantization round trip of exactly the stored bytes, as every later
+    decode reads them.  The cache view is cut to whole 1024-key flash
+    blocks past the prompt: a wholly causal-masked block is an exact no-op
+    of the online softmax, so the cut changes no bit."""
+    if pat.window:
+        raise NotImplementedError("windowed layers prefill through their ring "
+                                  "(ROADMAP queue 1 item 13)")
+    B, T = x.shape[:2]
+    qh, kh, vh = _project_qkv(x, p, cfg, dispatch)
+    qh = L.positional(qh, cfg, positions)
+    kh = L.positional(kh, cfg, positions)
+    cache = kvc.append(cache, kh, vh, 0)
+    qh = _prescale(qh, cfg.resolved_head_dim, policy)
+    s_eff = min(cache.max_seq, -(-T // FLASH_BK) * FLASH_BK)
+    k_rt = kvc.dequantize_keys(cache.k_q[:, :s_eff], cache.k_scale[:, :s_eff],
+                               cache.k_zero[:, :s_eff], policy.compute_dtype,
+                               bits=cache.key_bits)
+    v_rt = cache.v[:, :s_eff].to(policy.compute_dtype)
+    out = dispatch.prefill_attention(qh, k_rt, v_rt, causal=True, window=pat.window,
+                                     policy=policy)
+    return L.apply_linear(out.reshape(B, T, -1), p["wo"], cfg.quant, dispatch), cache
+
+
+def attention_decode(x: torch.Tensor, p: dict, cfg: ModelConfig,
+                     pat: LayerPattern, cache: kvc.LayerKVCache, pos,
+                     positions: torch.Tensor, dispatch: D.Dispatcher,
+                     policy: PrecisionPolicy = DEFAULT_POLICY
+                     ) -> Tuple[torch.Tensor, kvc.LayerKVCache]:
+    """One decode step against a dense cache: append the new token's
+    quantized K/V at ``pos`` (a scalar, or [B] per row; in place), then
+    attend over the first ``pos + 1`` slots."""
+    B, T = x.shape[:2]
+    qh, kh, vh = _project_qkv(x, p, cfg, dispatch)
+    qh = L.positional(qh, cfg, positions)
+    kh = L.positional(kh, cfg, positions)
+    cache = kvc.append(cache, kh, vh, pos)
+    qh = _prescale(qh, cfg.resolved_head_dim, policy)
+    out = dispatch.decode_attention(qh, cache, pos + T, policy)
+    return L.apply_linear(out.reshape(B, T, -1), p["wo"], cfg.quant, dispatch), cache
 
 
 def attention_prefill_paged(x: torch.Tensor, p: dict, cfg: ModelConfig,

@@ -1,5 +1,6 @@
 """Shared layers and the parameter builder — port of ``repro.models.layers``
-(the dense-decoder parts: linear, RMSNorm, RoPE, SwiGLU FFN).
+(the decoder parts: linear, RMSNorm, RoPE, SwiGLU FFN; the MoE FFN is
+``models.moe``).
 
 Hot ops (every linear matmul and every RMSNorm) route through the
 ``runtime.dispatch.Dispatcher``: Hopper kernels for CUDA tensors, their
@@ -40,31 +41,43 @@ class ParamBuilder:
     def bias(self, dim: int, lead: tuple = ()) -> torch.Tensor:
         return torch.zeros((*lead, dim), dtype=torch.bfloat16, device=self.device)
 
+    def param(self, shape: tuple, *, scale: float = 0.02,
+              dtype=torch.bfloat16) -> torch.Tensor:
+        """A plain (never-quantized) parameter, N(0, scale) drawn in float32
+        and cast to ``dtype`` (the reference's builder default, bf16)."""
+        return (torch.randn(shape, generator=self.gen, device=self.device,
+                            dtype=torch.float32) * scale).to(dtype)
+
     def linear(self, in_dim: int, out_dim: int, *, bits: Optional[int] = None,
-               lead: tuple = (), scale: float = 0.02) -> dict:
-        """{"w": PackedLinear} with data [*lead, Kp, Np/2 | Np]; each
-        leading index is drawn and quantized separately, so the peak
-        float32 transient is one [in_dim, out_dim] matrix."""
+               lead: tuple = (), scale: float = 0.02,
+               experts: bool = False) -> dict:
+        """{"w": PackedLinear} with data [*lead, Kp, Np/2 | Np] — a
+        ``PackedExpertLinear`` for expert tables (``experts``, lead
+        ``(count, E)``).  Each index of the first leading axis (one layer) is
+        drawn, quantized and packed separately and copied into carriers
+        allocated once, so the float32 transient is one layer's
+        [*lead[1:], in_dim, out_dim] and nothing is stacked."""
         bits = self.qcfg.weight_bits if bits is None else bits
         if bits >= 16:
             raise NotImplementedError("unquantized (bits=16) linears have no "
                                       "kernel on the serving path")
+        cls = RP.PackedExpertLinear if experts else RP.PackedLinear
         gs = self.qcfg.group_size
-        n_lead = int(np.prod(lead)) if lead else 1
-        packed = []
-        for _ in range(n_lead):
-            wf = torch.randn((in_dim, out_dim), generator=self.gen,
+        carriers = None
+        for i in range(lead[0] if lead else 1):
+            wf = torch.randn((*lead[1:], in_dim, out_dim), generator=self.gen,
                              device=self.device, dtype=torch.float32) * scale
-            packed.append(RP.pack_linear(q.quantize(wf, bits, group_size=gs)))
+            p = RP.pack_linear(q.quantize(wf, bits, group_size=gs))
             del wf
-        first = packed[0]
-        if not lead:
-            return {"w": first}
-        data = torch.stack([p.data for p in packed]).reshape(*lead, *first.data.shape)
-        scale_t = torch.stack([p.scale for p in packed]).reshape(*lead, *first.scale.shape)
-        zero_t = torch.stack([p.zero for p in packed]).reshape(*lead, *first.zero.shape)
-        return {"w": RP.PackedLinear(data=data, scale=scale_t, zero=zero_t,
-                                     bits=bits, k=first.k, n=first.n)}
+            if not lead:
+                return {"w": cls(p.data, p.scale, p.zero, bits, p.k, p.n)}
+            if carriers is None:
+                carriers = [torch.empty((lead[0], *t.shape), dtype=t.dtype,
+                                        device=self.device)
+                            for t in (p.data, p.scale, p.zero)]
+            for dst, src in zip(carriers, (p.data, p.scale, p.zero)):
+                dst[i] = src
+        return {"w": cls(*carriers, bits, p.k, p.n)}
 
 
 def apply_linear(x: torch.Tensor, p: dict, qcfg: q.QuantConfig,

@@ -1,25 +1,30 @@
-"""Model assembly for serving — port of the paged serving path of
-``repro.models.transformer``: parameters, the paged decode state, one
-prompt chunk into the pool (``prefill_chunk_paged``) and one bucketed
-decode step (``decode_step_bucketed``).
+"""Model assembly for serving — port of the serving paths of
+``repro.models.transformer``: parameters (dense or MoE FFN), the two decode
+states — dense per-sequence caches (``init_cache``, ``prefill``,
+``decode_step``: the slot-synchronous ``Engine.generate``) and the paged
+pool (``init_paged_cache``, ``prefill_chunk_paged``, ``decode_step`` /
+``decode_step_bucketed``: the ``EngineLoop``).
 
 Parameters keep the reference's tree: ``{"stacks": (stack, ...),
 "final_norm", "lm_head"}`` where each stack is a tuple with one dict per
 period pattern whose leaves are stacked on a leading [count] axis.  Layers
-run as a Python loop over that axis (the reference scans it).  The decode
-state's page pools are updated in place.
+run as a Python loop over that axis (the reference scans it).  Caches and
+page pools are updated in place.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import LayerPattern, ModelConfig
+from repro_torch.core import kv_cache as kvc
 from repro_torch.core import kv_pool as KP
 from repro_torch.core.precision import DEFAULT_POLICY, PrecisionPolicy
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.runtime import dispatch as D
 from repro_torch.runtime import plan as RP
 
@@ -27,21 +32,26 @@ from repro_torch.runtime import plan as RP
 def _check_supported(cfg: ModelConfig) -> None:
     for patterns, _count in cfg.layer_plan():
         for pat in patterns:
-            if pat.kind != "attn" or pat.window or pat.moe:
+            if pat.kind != "attn" or pat.window:
                 raise NotImplementedError(
                     f"{cfg.name}: layer {pat} is not ported (the port serves "
-                    "dense full-attention decoders; ROADMAP queue 1 items 12-14)")
+                    "full-attention decoders; ROADMAP queue 1 items 13-14)")
     if cfg.is_encdec:
         raise NotImplementedError(f"{cfg.name}: encoder-decoder models are not "
                                   "ported (ROADMAP queue 1 item 15)")
 
 
-def _pattern_params(b: L.ParamBuilder, cfg: ModelConfig, count: int) -> dict:
+def _pattern_params(b: L.ParamBuilder, cfg: ModelConfig, pat: LayerPattern,
+                    count: int) -> dict:
     lead = (count,)
-    return {"ln1": b.norm(cfg.d_model, lead),
-            "attn": A.attn_params(b, cfg, lead),
-            "ln2": b.norm(cfg.d_model, lead),
-            "ffn": L.ffn_params(b, cfg, lead)}
+    p = {"ln1": b.norm(cfg.d_model, lead),
+         "attn": A.attn_params(b, cfg, lead),
+         "ln2": b.norm(cfg.d_model, lead)}
+    if pat.moe:
+        p["moe"] = M.moe_params(b, cfg, lead)
+    else:
+        p["ffn"] = L.ffn_params(b, cfg, lead)
+    return p
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -52,7 +62,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     it lives on Flash (``serving.engine.build_engine``)."""
     _check_supported(cfg)
     b = L.ParamBuilder(generator, device, cfg.quant)
-    stacks = tuple(tuple(_pattern_params(b, cfg, count) for _ in patterns)
+    stacks = tuple(tuple(_pattern_params(b, cfg, pat, count) for pat in patterns)
                    for patterns, count in cfg.layer_plan())
     return {"stacks": stacks,
             "final_norm": b.norm(cfg.d_model),
@@ -72,6 +82,24 @@ def layer_slice(tree, i: int):
 # ===========================================================================
 # Decode state
 # ===========================================================================
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
+               device: torch.device = torch.device("cpu")) -> dict:
+    """Dense decode state: one stacked ``LayerKVCache`` per attention
+    pattern and ``pos``, one scalar position for every row (the
+    slot-synchronous path)."""
+    _check_supported(cfg)
+    stacks = tuple(
+        tuple(kvc.init_layer_cache(batch, max_seq, cfg.num_kv_heads,
+                                   cfg.resolved_head_dim,
+                                   key_bits=cfg.quant.kv_key_bits,
+                                   value_fp8=cfg.quant.kv_value_fp8,
+                                   layers=count, device=device)
+              for _ in patterns)
+        for patterns, count in cfg.layer_plan())
+    return {"stacks": stacks,
+            "pos": torch.zeros((), dtype=torch.int32, device=device)}
+
 
 def init_paged_cache(cfg: ModelConfig, batch: int, geom: KP.PoolGeometry,
                      device: torch.device) -> dict:
@@ -104,39 +132,64 @@ def free_slots(cache: dict, rows) -> dict:
 # ===========================================================================
 
 def _apply_layer(x: torch.Tensor, pp: dict, cfg: ModelConfig, pat: LayerPattern,
-                 mode: str, positions: torch.Tensor, pool: KP.PagedLayerKV,
-                 pos, table: torch.Tensor, dispatch: D.Dispatcher,
-                 policy: PrecisionPolicy) -> torch.Tensor:
+                 mode: str, positions: torch.Tensor, cache, pos, table,
+                 dispatch: D.Dispatcher, policy: PrecisionPolicy):
+    """One layer.  ``cache`` is this layer's ``PagedLayerKV`` (modes
+    "prefill_paged" and "decode") or ``LayerKVCache`` ("prefill" and
+    "decode").  Returns (x, the layer's cache after the step)."""
     h = L.rms_norm(x, pp["ln1"], cfg.rms_eps, dispatch)
     if mode == "prefill_paged":
-        att = A.attention_prefill_paged(h, pp["attn"], cfg, pat, pool, table,
+        att = A.attention_prefill_paged(h, pp["attn"], cfg, pat, cache, table,
                                         positions, pos, dispatch, policy)
-    else:
-        att = A.attention_decode_paged(h, pp["attn"], cfg, pat, pool, table, pos,
+    elif mode == "prefill":
+        att, cache = A.attention_prefill(h, pp["attn"], cfg, pat, positions, cache,
+                                         dispatch, policy)
+    elif isinstance(cache, KP.PagedLayerKV):
+        att = A.attention_decode_paged(h, pp["attn"], cfg, pat, cache, table, pos,
                                        positions, dispatch, policy)
+    else:
+        att, cache = A.attention_decode(h, pp["attn"], cfg, pat, cache, pos,
+                                        positions, dispatch, policy)
     x = x + att
     h2 = L.rms_norm(x, pp["ln2"], cfg.rms_eps, dispatch)
-    return x + L.apply_ffn(h2, pp["ffn"], cfg, dispatch)
+    if pat.moe:
+        # serving sizes expert capacity to the worst case: no token drops
+        y, _aux = M.apply_moe(h2, pp["moe"], cfg, dispatch=dispatch,
+                              full_capacity=True)
+    else:
+        y = L.apply_ffn(h2, pp["ffn"], cfg, dispatch)
+    return x + y, cache
 
 
 def _run_stacks(x: torch.Tensor, params: dict, cfg: ModelConfig, mode: str,
-                positions: torch.Tensor, cache: dict, pos, table: torch.Tensor,
+                positions: torch.Tensor, cache: dict, pos, table,
                 dispatch: D.Dispatcher, policy: PrecisionPolicy = DEFAULT_POLICY,
                 collect: Optional[list] = None) -> torch.Tensor:
     """Every layer in order.  ``mode`` "prefill_paged": ``pos`` is the
     chunk's first position and ``table`` the row's [pages_per_row] table;
-    "decode": ``pos`` [B] per-row positions and ``table`` [B,
-    pages_per_row].  ``collect``: if a list, each layer's output hidden
+    "prefill": the dense caches are empty and fill from position 0;
+    "decode": ``pos`` the per-row positions [B] (or, on dense caches, one
+    scalar) and ``table`` [B, pages_per_row] (None for dense caches).
+    Caches are written in place; dense caches get their per-layer lengths
+    stacked back.  ``collect``: if a list, each layer's output hidden
     state is appended (parity tests)."""
+    stacks = []
     for si, (patterns, count) in enumerate(cfg.layer_plan()):
         sp = params["stacks"][si]
+        lengths = [[] for _ in patterns]
         for li in range(count):
             for pi, pat in enumerate(patterns):
-                x = _apply_layer(x, layer_slice(sp[pi], li), cfg, pat, mode,
-                                 positions, cache["stacks"][si][pi].layer(li),
-                                 pos, table, dispatch, policy)
+                x, new = _apply_layer(x, layer_slice(sp[pi], li), cfg, pat, mode,
+                                      positions, cache["stacks"][si][pi].layer(li),
+                                      pos, table, dispatch, policy)
+                if isinstance(new, kvc.LayerKVCache):
+                    lengths[pi].append(new.length)
                 if collect is not None:
                     collect.append(x)
+        stacks.append(tuple(
+            dataclasses.replace(c, length=torch.stack(lens)) if lens else c
+            for c, lens in zip(cache["stacks"][si], lengths)))
+    cache["stacks"] = tuple(stacks)
     return x
 
 
@@ -191,4 +244,48 @@ def decode_step_bucketed(params: dict, cfg: ModelConfig, embeds: torch.Tensor,
                     cache["table"][idx], dispatch, policy, collect)
     stepped = pos + T if active is None else torch.where(active, pos + T, pos)
     cache["pos"][idx] = stepped
+    return _logits(x, params, cfg, dispatch)[:, -1], cache
+
+
+def prefill(params: dict, cfg: ModelConfig, embeds: torch.Tensor, max_seq: int,
+            dispatch: D.Dispatcher, positions: Optional[torch.Tensor] = None,
+            policy: PrecisionPolicy = DEFAULT_POLICY,
+            collect: Optional[list] = None) -> Tuple[torch.Tensor, dict]:
+    """Whole-prompt prefill of embeds [B, T, d] into fresh dense caches of
+    ``max_seq`` slots.  Returns (logits [B, V] of the last token, cache
+    with ``pos`` = T)."""
+    x = embeds.to(torch.bfloat16)
+    B, T = x.shape[:2]
+    if positions is None:
+        positions = torch.arange(T, device=x.device)[None].expand(B, T)
+    cache = init_cache(cfg, B, max_seq, device=x.device)
+    x = _run_stacks(x, params, cfg, "prefill", positions, cache, None, None,
+                    dispatch, policy, collect)
+    cache["pos"] = torch.tensor(T, dtype=torch.int32, device=x.device)
+    return _logits(x[:, -1:], params, cfg, dispatch)[:, 0], cache
+
+
+def decode_step(params: dict, cfg: ModelConfig, embeds: torch.Tensor, cache: dict,
+                dispatch: D.Dispatcher, positions: Optional[torch.Tensor] = None,
+                active: Optional[torch.Tensor] = None,
+                policy: PrecisionPolicy = DEFAULT_POLICY,
+                collect: Optional[list] = None) -> Tuple[torch.Tensor, dict]:
+    """One decode step of every row: embeds [B, 1, d] against dense caches
+    (``pos`` a scalar or [B]) or the paged pool (``pos`` [B], ``table``).
+    ``active`` [B] keeps inactive rows' positions; their KV bytes need no
+    rollback (the reference's ``freeze_inactive_rows`` passes full-attention
+    pools and dense caches through): a paged row outside the step has an
+    all-trash table row, and a dense row rewrites the same slot next step.
+    Returns (logits [B, V], cache with ``pos`` advanced)."""
+    x = embeds.to(torch.bfloat16)
+    B, T = x.shape[:2]
+    pos = cache["pos"]
+    if positions is None:
+        if pos.dim() == 1:
+            positions = pos[:, None] + torch.arange(T, device=x.device, dtype=pos.dtype)[None]
+        else:
+            positions = pos.expand(B, T)
+    x = _run_stacks(x, params, cfg, "decode", positions, cache, pos,
+                    cache.get("table"), dispatch, policy, collect)
+    cache["pos"] = pos + T if active is None else torch.where(active, pos + T, pos)
     return _logits(x, params, cfg, dispatch)[:, -1], cache

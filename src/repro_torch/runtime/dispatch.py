@@ -1,6 +1,7 @@
-"""Kernel dispatch for the serving main path — port of
-``repro.runtime.dispatch`` (ops ``linear``, ``rmsnorm``,
-``paged_decode_attention``, ``paged_prefill_attention``).
+"""Kernel dispatch for the serving paths — port of ``repro.runtime.dispatch``
+(ops ``linear``, ``grouped_matmul``, ``rmsnorm``, ``decode_attention``,
+``paged_decode_attention``, ``prefill_attention``,
+``paged_prefill_attention``).
 
 Each op calls its kernel's wrapper (``repro_torch.kernels``), which picks
 by the tensors' device: the plain PyTorch version for CPU tensors, the
@@ -22,6 +23,7 @@ import torch
 from repro_torch.core import quantization as q
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.kernels import flash_prefill as FP
+from repro_torch.kernels import grouped_matmul as GM
 from repro_torch.kernels import quant_attention as QA
 from repro_torch.kernels import rmsnorm as RN
 from repro_torch.kernels import w4a8_matmul as WM
@@ -66,10 +68,54 @@ class Dispatcher:
         y = fn(xq, sx, w.data, w.scale[0], w.zero[0], bits=w.bits)
         return y[:, :w.n].reshape(*lead, w.n).to(out_dtype)
 
+    def grouped_matmul(self, x: torch.Tensor, w, qcfg: q.QuantConfig,
+                       out_dtype=torch.bfloat16) -> torch.Tensor:
+        """Per-expert matmul x [G, E, C, K] @ w[e] [K, N] -> [G, E, C, N]
+        for a layer-sliced ``PackedExpertLinear`` [E, Kp, Np(/2)]: the G*C
+        rows of each expert are quantized per row and run as one slab."""
+        if w.data.dim() != 3:
+            raise ValueError("stacked expert tables: slice one layer first")
+        if x.dim() != 4:
+            raise ValueError(f"grouped matmul wants [G, E, C, K], got {tuple(x.shape)}")
+        G, E, C, K = x.shape
+        if E != w.data.shape[0]:
+            raise ValueError(f"expert axis {E} != weight {w.data.shape[0]}")
+        if K != w.k:
+            raise ValueError(f"reduction dim {K} != weight {w.k}")
+        if not (qcfg.act_bits == 8 and w.scale.shape[-2] == 1 and w.bits in (4, 8)):
+            raise NotImplementedError(
+                f"W{w.bits}A{qcfg.act_bits} experts with {w.scale.shape[-2]} scale "
+                "groups: only per-channel W4A8/W8A8 has a grouped kernel")
+        if G * C == 0:                       # empty capacity: no rows at all
+            return torch.zeros((G, E, C, w.n), dtype=out_dtype, device=x.device)
+        xq, sx = q.quantize_activations(x.movedim(1, 0).reshape(E, G * C, K))
+        fn = GM.grouped_matmul_plain if self._plain else GM.grouped_matmul
+        y = fn(xq, sx, w.data, w.scale[:, 0], w.zero[:, 0], bits=w.bits)
+        return y[..., :w.n].reshape(E, G, C, w.n).movedim(0, 1).to(out_dtype)
+
     def rmsnorm(self, x: torch.Tensor, weight: torch.Tensor,
                 eps: float = 1e-5) -> torch.Tensor:
         fn = RN.rmsnorm_plain if self._plain else RN.rmsnorm
         return fn(x, weight, eps)
+
+    def decode_attention(self, qh: torch.Tensor, cache, pos,
+                         policy: PrecisionPolicy) -> torch.Tensor:
+        """Decode over a dense ``LayerKVCache``: qh [B, 1, H, D] pre-scaled,
+        ``pos`` the live length, a scalar or [B]."""
+        B, T = qh.shape[:2]
+        if T != 1:
+            raise ValueError("decode attends one query token per row")
+        if cache.window:
+            raise NotImplementedError("windowed dense caches are not ported "
+                                      "(ROADMAP queue 1 item 13)")
+        args = (qh[:, 0], cache.k_q, cache.k_scale, cache.k_zero, cache.v)
+        if self._plain:
+            out = QA.quant_decode_attention_plain(
+                *args, pos, key_bits=cache.key_bits,
+                compute_dtype=policy.compute_dtype)
+        else:
+            out = QA.quant_decode_attention(*args, pos, key_bits=cache.key_bits)
+        return out[:, None].to(policy.compute_dtype)
 
     def paged_decode_attention(self, qh: torch.Tensor, pool, table: torch.Tensor,
                                pos: torch.Tensor,
@@ -90,6 +136,19 @@ class Dispatcher:
             out = QA.paged_quant_decode_attention(
                 *args, window=pool.window, key_bits=pool.key_bits)
         return out[:, None].to(policy.compute_dtype)
+
+    def prefill_attention(self, qh: torch.Tensor, kh: torch.Tensor,
+                          vh: torch.Tensor, *, causal: bool, window: int,
+                          policy: PrecisionPolicy) -> torch.Tensor:
+        """Attention of pre-scaled queries qh [B, T, H, D] (query i at
+        position i) over unquantized kh/vh [B, S, Hkv, D]."""
+        if self._plain:
+            out = FP.flash_prefill_attention_plain(qh, kh, vh, causal=causal,
+                                                   window=window, policy=policy)
+        else:
+            out = FP.flash_prefill_attention(qh, kh, vh, causal=causal,
+                                             window=window)
+        return out.to(policy.compute_dtype)
 
     def paged_prefill_attention(self, qh: torch.Tensor, pool, table: torch.Tensor,
                                 pos0: int, policy: PrecisionPolicy) -> torch.Tensor:

@@ -6,6 +6,8 @@
   multiple of 256 (int4 nibble pairs never straddle the pad).  Padding is
   exact: pad columns hold q=0 with scale=1/zero=0 and dequantize to 0, pad
   rows hold q=0 and only ever meet the zero-padded activation columns.
+  ``PackedExpertLinear`` is the same carrier with a leading expert axis
+  (the grouped kernel's operand).
 * KV pool geometry (page size, pages per row, the DRAM page inventory),
   the decode batch-bucket ladder and the prefill chunk cap — the same
   geometry as the reference, so allocation and scheduling follow it step
@@ -55,8 +57,8 @@ class PackedLinear:
 
     def layer(self, i: int) -> "PackedLinear":
         """Slice one layer of a stacked [L, ...] weight (a contiguous view)."""
-        return PackedLinear(self.data[i], self.scale[i], self.zero[i],
-                            self.bits, self.k, self.n)
+        return type(self)(self.data[i], self.scale[i], self.zero[i],
+                          self.bits, self.k, self.n)
 
 
 def pack_linear(qt: q.QuantizedTensor) -> PackedLinear:
@@ -79,6 +81,55 @@ def unpack_linear(pl: PackedLinear) -> q.QuantizedTensor:
     return q.QuantizedTensor(data=data, scale=pl.scale[..., :pl.n],
                              zero=pl.zero[..., :pl.n], bits=pl.bits,
                              shape=(*data.shape[:-2], pl.k, pl.n))
+
+
+@dataclasses.dataclass
+class PackedExpertLinear(PackedLinear):
+    """A stacked per-expert quantized linear in the kernel-native layout:
+    data int8 [..., E, Kp, Np//2] (bits=4) or [..., E, Kp, Np]; scale/zero
+    float32 [..., E, g, Np].  The grouped kernel takes the expert axis as a
+    grid dimension; the selected-expert decode path gathers along it."""
+
+    @property
+    def experts(self) -> int:
+        return int(self.data.shape[-3])
+
+
+def pack_expert_linear(qt: q.QuantizedTensor) -> PackedExpertLinear:
+    """Repack a stacked expert table ([..., E, K, N]) into the padded layout
+    (the K/N pads are shared across experts)."""
+    if qt.data.dim() < 3:
+        raise ValueError(f"expert table needs an expert axis, got {tuple(qt.data.shape)}")
+    p = pack_linear(qt)
+    return PackedExpertLinear(data=p.data, scale=p.scale, zero=p.zero,
+                              bits=p.bits, k=p.k, n=p.n)
+
+
+def unpack_expert_linear(pel: PackedExpertLinear) -> q.QuantizedTensor:
+    """Slice the padding back off every expert slab."""
+    return unpack_linear(pel)
+
+
+def take_experts(pel: PackedExpertLinear, ids: torch.Tensor) -> PackedExpertLinear:
+    """Gather expert slabs along the expert axis (axis -3): the
+    selected-expert decode path's per-token weight gather (a copy)."""
+    ids = ids.long()
+    return PackedExpertLinear(
+        data=torch.index_select(pel.data, -3, ids),
+        scale=torch.index_select(pel.scale, -3, ids),
+        zero=torch.index_select(pel.zero, -3, ids),
+        bits=pel.bits, k=pel.k, n=pel.n)
+
+
+# parameter-tree keys whose leaves carry a per-expert axis (MoE tables);
+# every other leaf of an MoE layer (router, norms, attention) is shared
+EXPERT_PARAM_KEYS = ("w_gate", "w_up", "w_down")
+
+
+def is_expert_path(path) -> bool:
+    """True when a key path (dict keys, or path entries with a ``key``
+    attribute) names an expert table."""
+    return any(getattr(p, "key", p) in EXPERT_PARAM_KEYS for p in path)
 
 
 def decode_buckets(max_slots: int, uniform: bool = True) -> Tuple[int, ...]:

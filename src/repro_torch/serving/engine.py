@@ -1,5 +1,6 @@
 """Serving engine — port of ``repro.serving.engine``: the continuous-batching
-``EngineLoop`` over the paged quantized KV pool, on the card.
+``EngineLoop`` over the paged quantized KV pool, and the slot-synchronous
+``Engine.generate`` over dense per-sequence caches, on the card.
 
   * The embedding table lives on Flash (C2): every step gathers only its
     tokens' rows from a disk memmap (``core.hybrid_storage``).
@@ -12,12 +13,14 @@
     covering batch bucket.  Prompt prefixes are adopted copy-free from the
     pool's token-hash index.
 
-Not ported (ROADMAP queue 1 items 10, 11, 16 and 17): Flash spill of KV
-pages (proactive spill, preemption to Flash), weight and expert streaming,
-LoRA and the legacy ``generate``.  Where the reference loop would take one
-of those branches, the port raises ``NotImplementedError``; with the
-default DRAM budget the pool holds every slot's full row, so a trace that
-fits never reaches one.
+MoE models decode every slot each step, unbucketed, as the reference loop
+does (``disabled_features["decode_bucketing"]`` says why).
+
+Not ported (ROADMAP queue 1 items 10, 11 and 16): Flash spill of KV pages
+(proactive spill, preemption to Flash), weight and expert streaming, and
+LoRA.  Where the reference loop would take one of those branches, the port
+raises ``NotImplementedError``; with the default DRAM budget the pool holds
+every slot's full row, so a trace that fits never reaches one.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (the tests do); without a card they raise instead of falling back.
@@ -124,6 +127,8 @@ class EngineStats:
     # chunks run by the unified step
     shared_prompt_tokens: int = 0
     prefill_chunks: int = 0
+    # features the loop resolved off at construction: name -> reason
+    disabled_features: Dict[str, str] = dataclasses.field(default_factory=dict)
     requests: List[RequestStats] = dataclasses.field(default_factory=list)
 
     @property
@@ -165,6 +170,73 @@ class Engine:
         rows = self.embedding.lookup(token_ids, self.device)
         self.stats.flash_bytes = self.embedding.flash.bytes_read
         return rows
+
+    def generate(self, requests: Sequence[Request], sampling: SM.SamplingParams,
+                 generator: Optional[torch.Generator] = None) -> List[Request]:
+        """The slot-synchronous two-phase path: prefill each request into its
+        own dense cache, concatenate the caches on the batch axis, then
+        decode the batch until every request is done.  As in the reference,
+        the batch decodes at request 0's position (one scalar ``pos``), so
+        requests must have prompts of equal length to decode correctly."""
+        if any(r.adapter is not None for r in requests):
+            raise NotImplementedError("LoRA adapters are not ported "
+                                      "(ROADMAP queue 1 item 16)")
+        cfg = self.cfg
+        gen = generator or torch.Generator(device=self.device).manual_seed(0)
+        caches, last_logits = [], []
+        t0 = time.perf_counter()
+        for req in requests:
+            toks = np.asarray(req.prompt_tokens)[None, :]
+            logits, cache = T.prefill(self.params, cfg, self.embed(toks),
+                                      self.max_seq, self.dispatch)
+            caches.append(cache)
+            last_logits.append(logits)
+            self.stats.prefill_tokens += toks.size
+        _sync(self.device)
+        self.stats.prefill_s += time.perf_counter() - t0
+
+        cache = _concat_caches(caches)
+        logits = torch.cat(last_logits, dim=0)
+        t0 = time.perf_counter()
+        for _ in range(sampling.max_new_tokens):
+            tok_np = SM.sample(logits, sampling, cfg.vocab_size, gen).cpu().numpy()
+            for ri, req in enumerate(requests):
+                if not req.done:
+                    req.generated.append(int(tok_np[ri]))
+                    if sampling.eos_token >= 0 and tok_np[ri] == sampling.eos_token:
+                        req.done = True
+                    elif len(req.generated) >= req.max_new_tokens:
+                        req.done = True
+            if all(r.done for r in requests):
+                break
+            # C2: the next token's embedding row comes from Flash
+            logits, cache = T.decode_step(self.params, cfg, self.embed(tok_np[:, None]),
+                                          cache, self.dispatch)
+            self.stats.decode_tokens += len(requests)
+        _sync(self.device)
+        self.stats.decode_s += time.perf_counter() - t0
+        return list(requests)
+
+
+def _concat_caches(caches: List[dict]) -> dict:
+    """Per-request dense caches -> one batch: fields with a batch axis
+    ([L, B, ...]) are concatenated on it; per-layer lengths and ``pos``
+    are taken from request 0, as the reference does."""
+    if len(caches) == 1:
+        return caches[0]
+
+    def cat(parts):
+        if parts[0].dim() <= 1:
+            return parts[0]
+        return torch.cat(parts, dim=1)
+
+    stacks = tuple(
+        tuple(dataclasses.replace(
+            entries[0], **{f: cat([getattr(e, f) for e in entries])
+                           for f in ("k_q", "k_scale", "k_zero", "v", "length")})
+              for entries in zip(*per_stack))
+        for per_stack in zip(*[c["stacks"] for c in caches]))
+    return {"stacks": stacks, "pos": caches[0]["pos"]}
 
 
 class EngineLoop:
@@ -218,7 +290,18 @@ class EngineLoop:
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._streams: Dict[int, dict] = {}
         self.rejected = 0
-        self.buckets = engine.plan.decode_buckets(max_slots)
+        # batch-size bucketing gathers the active slots into the smallest
+        # covering bucket; MoE stacks decode every slot (expert capacity
+        # couples the batch's tokens in the reference, which gates them off)
+        no_moe = not any(pat.moe for pats, _ in cfg.layer_plan() for pat in pats)
+        self._bucketed = no_moe and max_slots > 1
+        self.buckets = engine.plan.decode_buckets(max_slots, uniform=self._bucketed)
+        self.disabled_features: Dict[str, str] = {}
+        if not self._bucketed:
+            self.disabled_features["decode_bucketing"] = (
+                "MoE: expert capacity couples tokens across the batch"
+                if not no_moe else "max_slots == 1: nothing to bucket")
+        engine.stats.disabled_features = dict(self.disabled_features)
 
     # --- where the reference would leave the ported slice ------------------
     def _cold_candidates(self) -> List:
@@ -479,13 +562,22 @@ class EngineLoop:
         for slot in act_slots:
             ids[slot, 0] = sched.running[slot].generated[-1]
         self._upload_table(visible=set(act_slots))
-        slot_idx, act_b = bucket_cover(self.buckets, act_slots, self.max_slots)
-        idx_t = torch.as_tensor(slot_idx, dtype=torch.long, device=self.device)
-        act_t = torch.as_tensor(act_b, device=self.device)
-        logits_b, self.cache = T.decode_step_bucketed(
-            eng.params, self.cfg, eng.embed(ids[slot_idx]), self.cache, idx_t,
-            eng.dispatch, active=act_t)
-        self.logits[idx_t[act_t]] = logits_b[act_t]
+        if self._bucketed:
+            slot_idx, act_b = bucket_cover(self.buckets, act_slots, self.max_slots)
+            idx_t = torch.as_tensor(slot_idx, dtype=torch.long, device=self.device)
+            act_t = torch.as_tensor(act_b, device=self.device)
+            logits_b, self.cache = T.decode_step_bucketed(
+                eng.params, self.cfg, eng.embed(ids[slot_idx]), self.cache, idx_t,
+                eng.dispatch, active=act_t)
+            self.logits[idx_t[act_t]] = logits_b[act_t]
+        else:
+            active = np.zeros((self.max_slots,), bool)
+            active[act_slots] = True
+            # every slot rides along; empty and mid-prefill rows write only
+            # to the trash page and keep their positions
+            self.logits, self.cache = T.decode_step(
+                eng.params, self.cfg, eng.embed(ids), self.cache, eng.dispatch,
+                active=torch.as_tensor(active, device=self.device))
         for slot in act_slots:
             self.pool.row_pos[slot] += 1
         eng.stats.decode_tokens += len(act_slots)

@@ -1,6 +1,8 @@
 """On the card only: each CUDA kernel of the port against its plain PyTorch
 version, at small shapes (G in {1, 3}, ragged lengths, several pages and
-trash-page table entries).  Imports torch alone, so it runs where JAX is
+trash-page table entries) and, for the dense-cache, dense-prefill and
+grouped kernels, at the serving paths' shapes (G = 1 as moonshot, G = 7 as
+qwen2-7b).  Imports torch alone, so it runs where JAX is
 absent: ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py``.
 Without a card each test skips.
 
@@ -18,6 +20,7 @@ from repro_torch import kernels as K  # noqa: E402
 from repro_torch.core import kv_cache as KV  # noqa: E402
 from repro_torch.core import quantization as Q  # noqa: E402
 from repro_torch.kernels import flash_prefill as FP  # noqa: E402
+from repro_torch.kernels import grouped_matmul as GM  # noqa: E402
 from repro_torch.kernels import quant_attention as QA  # noqa: E402
 from repro_torch.kernels import rmsnorm as RN  # noqa: E402
 from repro_torch.kernels import w4a8_matmul as WM  # noqa: E402
@@ -110,6 +113,66 @@ def test_prefill_attention_kernel_matches_plain(dev, G, C, pos0):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("E,M,K,N", [(24, 1, 2048, 1408), (8, 128, 1408, 2048),
+                                     (4, 40, 200, 300)])
+def test_grouped_matmul_kernel_matches_plain(dev, bits, E, M, K, N):
+    """moonshot's selected-expert decode (24 slabs of one row) and a
+    full-capacity prefill slab, and a ragged shape padded by the plan."""
+    g = torch.Generator().manual_seed(E + M)
+    w = torch.randn((E, K, N), generator=g) * 0.02
+    pel = RP.pack_expert_linear(Q.quantize(w, bits))
+    x = torch.randn((E, M, K), generator=g).bfloat16().to(dev)
+    xq, sx = Q.quantize_activations(x)
+    args = (xq, sx, pel.data.to(dev), pel.scale[:, 0].to(dev), pel.zero[:, 0].to(dev))
+    before = GM.grouped_matmul.launches
+    got = GM.grouped_matmul(*args, bits=bits)
+    assert GM.grouped_matmul.launches == before + 1
+    _close(got, GM.grouped_matmul_plain(*args, bits=bits), 1e-4)
+
+
+def _dense_cache(B, S, hkv, d, dev, seed):
+    g = torch.Generator().manual_seed(seed)
+    k = torch.randn((B, S, hkv, d), generator=g)
+    v = torch.randn((B, S, hkv, d), generator=g)
+    kq, ks, kz = KV.quantize_keys(k.bfloat16())
+    return tuple(t.contiguous().to(dev) for t in
+                 (kq, ks, kz, KV.cast_values(v, Q.FP8_DTYPE)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,hkv,S,lengths", [(1, 16, 2048, [700, 5, 1333, 2048]),
+                                            (7, 4, 2048, [412]),
+                                            (3, 2, 200, [37, 200, 1])])
+def test_dense_decode_attention_kernel_matches_plain(dev, G, hkv, S, lengths):
+    d = 128 if S == 2048 else 64
+    B = len(lengths)
+    cache = _dense_cache(B, S, hkv, d, dev, G)
+    q = (torch.randn((B, hkv * G, d), device=dev) / math.sqrt(d)).bfloat16()
+    for length in (torch.tensor(lengths, dtype=torch.int32, device=dev),
+                   torch.tensor(lengths[0], dtype=torch.int32, device=dev)):
+        want = QA.quant_decode_attention_plain(
+            q, *cache, length.reshape(-1).expand(B))
+        _close(QA.quant_decode_attention(q, *cache, length), want, 2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,hkv,T,S,causal,window",
+                         [(7, 4, 300, 1024, True, 0), (1, 16, 128, 128, True, 0),
+                          (1, 16, 128, 200, False, 0), (7, 4, 96, 96, True, 40),
+                          (3, 2, 50, 50, False, 16)])
+def test_dense_prefill_attention_kernel_matches_plain(dev, G, hkv, T, S, causal, window):
+    d = 128 if hkv > 2 else 64
+    g = torch.Generator().manual_seed(T + S)
+    q = (torch.randn((2, T, hkv * G, d), generator=g) / math.sqrt(d)).bfloat16().to(dev)
+    k = torch.randn((2, S, hkv, d), generator=g).bfloat16().to(dev)
+    v = torch.randn((2, S, hkv, d), generator=g).bfloat16().to(dev)
+    got = FP.flash_prefill_attention(q, k, v, causal=causal, window=window)
+    _close(got, FP.flash_prefill_attention_plain(q, k, v, causal=causal,
+                                                 window=window), 2e-2)
+
+
+@pytest.mark.gpu
 def test_unsupported_configurations_raise_on_the_card(dev):
     """No silent fallback: what the kernels do not take raises."""
     pool = _pool(0, 8, dev)
@@ -120,5 +183,10 @@ def test_unsupported_configurations_raise_on_the_card(dev):
         QA.paged_quant_decode_attention(q, *pool, table, z, z + 1)
     with pytest.raises(NotImplementedError):
         QA.paged_quant_decode_attention(q.bfloat16(), *pool, table, z, z + 1, key_bits=4)
+    dense = _dense_cache(1, 16, HKV, D, dev, 0)
+    with pytest.raises(TypeError):
+        QA.quant_decode_attention(q, *dense, 3)
+    with pytest.raises(TypeError):
+        FP.flash_prefill_attention(q[:, None], dense[3].float(), dense[3].float())
     K.reset_launch_counts()
     assert set(K.launch_counts().values()) == {0}

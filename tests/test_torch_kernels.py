@@ -1,4 +1,4 @@
-"""The four kernels of the serving path: each plain PyTorch version against
+"""The seven kernels of the serving paths: each plain PyTorch version against
 the reference's dispatch entry (``repro.runtime.dispatch``, backend
 "reference") and against the Pallas kernel run with ``interpret=True``;
 and the wrappers' checks.  The CUDA kernels themselves are held against
@@ -30,11 +30,14 @@ from repro_torch import convert as CV  # noqa: E402
 from repro_torch import kernels as K  # noqa: E402
 from repro_torch.core import quantization as PQ  # noqa: E402
 from repro_torch.core.precision import DEFAULT_POLICY as PPOL  # noqa: E402
+from repro_torch.core import kv_cache as PKV  # noqa: E402
 from repro_torch.kernels import flash_prefill as FP  # noqa: E402
+from repro_torch.kernels import grouped_matmul as GM  # noqa: E402
 from repro_torch.kernels import quant_attention as QA  # noqa: E402
 from repro_torch.kernels import rmsnorm as RN  # noqa: E402
 from repro_torch.kernels import w4a8_matmul as WM  # noqa: E402
 from repro_torch.runtime import dispatch as PD  # noqa: E402
+from repro_torch.runtime import plan as PP  # noqa: E402
 
 REF = JD.Dispatcher(backend="reference")
 
@@ -227,4 +230,149 @@ def test_dispatcher_contract():
     d = PD.Dispatcher()
     assert d.fallbacks == []
     assert set(K.launch_counts()) == {"w4a8_matmul", "paged_quant_decode_attention",
-                                      "paged_flash_prefill_attention", "rmsnorm"}
+                                      "paged_flash_prefill_attention", "rmsnorm",
+                                      "grouped_matmul", "quant_decode_attention",
+                                      "flash_prefill_attention"}
+
+
+# ---------------------------------------------------------------------------
+# grouped_matmul
+# ---------------------------------------------------------------------------
+
+def _experts(E, K, N, bits, seed):
+    w = (np.random.default_rng(seed).normal(size=(E, K, N)) * 0.02).astype(np.float32)
+    jw = JP.pack_expert_linear(JQ.quantize(jnp.asarray(w), bits))
+    return jw, CV.params_from_reference(jw)
+
+
+# (G, E, C, K, N): ragged shapes padded by the plan (K to 128s, N to 256s),
+# one C=1 slab per expert (the selected-expert decode path), and empty
+# capacity
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("G,E,C,K,N", [(1, 3, 5, 100, 72), (3, 2, 1, 300, 130),
+                                       (1, 6, 1, 256, 512), (2, 3, 0, 96, 72)])
+def test_grouped_matmul_plain_vs_reference_and_pallas(bits, G, E, C, K, N):
+    jw, pw = _experts(E, K, N, bits, seed=E * C + bits)
+    assert isinstance(pw, PP.PackedExpertLinear)
+    x = np.random.default_rng(C).normal(size=(G, E, C, K)).astype(np.float32)
+    xj, xp = jnp.asarray(x, jnp.bfloat16), torch.from_numpy(x).bfloat16()
+    qcfg_j, qcfg_p = JQ.QuantConfig(), PQ.QuantConfig()
+    got = PD.Dispatcher().grouped_matmul(xp, pw, qcfg_p, out_dtype=torch.float32)
+    assert got.shape == (G, E, C, N) and got.dtype == torch.float32
+    ref = jax.jit(lambda a: REF.grouped_matmul(a, jw, qcfg_j, out_dtype=jnp.float32))(xj)
+    assert _f32(ref).tobytes() == _f32(got).tobytes()          # bit for bit
+    interp = JD.Dispatcher(backend="interpret")
+    pallas = interp.grouped_matmul(xj, jw, qcfg_j, out_dtype=jnp.float32)
+    assert interp.fallbacks == []
+    _close(got, pallas, rtol=1e-4, atol=1e-4)
+    # the dispatcher ran the plain version: the wrapper on CPU tensors is it
+    xq, sx = PQ.quantize_activations(xp.movedim(1, 0).reshape(E, G * C, K))
+    args = (xq, sx, pw.data, pw.scale[:, 0], pw.zero[:, 0])
+    before = GM.grouped_matmul.launches
+    y = GM.grouped_matmul(*args, bits=bits)
+    assert torch.equal(y, GM.grouped_matmul_plain(*args, bits=bits))
+    assert GM.grouped_matmul.launches == before
+    assert torch.equal(y[..., :N].reshape(E, G, C, N).movedim(0, 1), got)
+
+
+def test_grouped_matmul_wrapper_checks():
+    _, pw = _experts(2, 128, 256, 4, seed=0)
+    xq = torch.zeros((2, 3, 128), dtype=torch.int8)
+    sx = torch.ones((2, 3, 1))
+    args = (pw.data, pw.scale[:, 0], pw.zero[:, 0])
+    with pytest.raises(ValueError):
+        GM.grouped_matmul(xq[:1], sx[:1], *args, bits=4)            # expert axis
+    with pytest.raises(ValueError):
+        GM.grouped_matmul(xq, torch.ones((2, 3)), *args, bits=4)
+    with pytest.raises(TypeError):
+        GM.grouped_matmul(xq.float(), sx, *args, bits=4)
+    with pytest.raises(ValueError):
+        PD.Dispatcher().grouped_matmul(torch.zeros((1, 2, 3, 100)), pw, PQ.QuantConfig())
+    with pytest.raises(NotImplementedError):
+        PD.Dispatcher().grouped_matmul(torch.zeros((1, 2, 3, 128)), pw,
+                                       PQ.QuantConfig(act_bits=16))
+
+
+# ---------------------------------------------------------------------------
+# quant_decode_attention (dense cache)
+# ---------------------------------------------------------------------------
+
+def _dense_cache(B, S, seed):
+    """A dense cache written by the reference's own quantization, and the
+    port's copy."""
+    rng = np.random.default_rng(seed)
+    k = rng.normal(size=(B, S, HKV, D)).astype(np.float32)
+    v = rng.normal(size=(B, S, HKV, D)).astype(np.float32)
+    kq, ks, kz = JKV.quantize_keys(jnp.asarray(k, jnp.bfloat16))
+    vv = JKV.cast_values(jnp.asarray(v, jnp.bfloat16), JQ.FP8_DTYPE)
+    jc = JKV.LayerKVCache(k_q=kq, k_scale=ks, k_zero=kz, v=vv,
+                          length=jnp.zeros((), jnp.int32))
+    pc = PKV.LayerKVCache(*(CV.to_tensor(a) for a in (kq, ks, kz, vv)),
+                          length=torch.zeros((), dtype=torch.int32))
+    return jc, pc
+
+
+@pytest.mark.parametrize("G", [1, 3])
+@pytest.mark.parametrize("pos", [[37, 5, 64], 23])
+def test_dense_decode_attention_plain_vs_reference_and_pallas(G, pos):
+    B, S, H = 3, 64, HKV * G
+    jc, pc = _dense_cache(B, S, seed=G)
+    q = (np.random.default_rng(G + 1).normal(size=(B, 1, H, D)) / 8).astype(np.float32)
+    qj, qp = jnp.asarray(q, jnp.bfloat16), torch.from_numpy(q).bfloat16()
+    ref = jax.jit(lambda a, p: REF.decode_attention(a, jc, p, JPOL))(
+        qj, jnp.asarray(pos, jnp.int32))
+    out = PD.Dispatcher().decode_attention(qp, pc, torch.tensor(pos, dtype=torch.int32),
+                                           PPOL)
+    assert out.shape == (B, 1, H, D) and out.dtype == torch.bfloat16
+    _close(out, ref, rtol=1e-2, atol=1e-2)
+    got = QA.quant_decode_attention(qp[:, 0], pc.k_q, pc.k_scale, pc.k_zero, pc.v,
+                                    torch.tensor(pos, dtype=torch.int32))
+    assert got.dtype == torch.float32 and torch.equal(got.bfloat16(), out[:, 0])
+    pallas = JQA.quant_decode_attention(
+        jnp.asarray(qj[:, 0], jnp.float32), jc.k_q, jc.k_scale, jc.k_zero, jc.v,
+        jnp.asarray(pos, jnp.int32), block_s=JD._decode_block(S), interpret=True)
+    _close(got, pallas, rtol=2e-2, atol=2e-2)
+
+
+# ---------------------------------------------------------------------------
+# flash_prefill_attention (unquantized K/V)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("G", [1, 3])
+@pytest.mark.parametrize("T,S,causal,window", [(40, 40, True, 0), (24, 64, True, 0),
+                                               (24, 40, False, 0), (40, 40, True, 8)])
+def test_flash_prefill_plain_vs_reference_and_pallas(G, T, S, causal, window):
+    H = HKV * G
+    rng = np.random.default_rng(T + S + G)
+    q = (rng.normal(size=(2, T, H, D)) / 8).astype(np.float32)
+    k = rng.normal(size=(2, S, HKV, D)).astype(np.float32)
+    v = rng.normal(size=(2, S, HKV, D)).astype(np.float32)
+    qj, kj, vj = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    qp, kp, vp = (torch.from_numpy(a).bfloat16() for a in (q, k, v))
+    ref = jax.jit(lambda a, b, c: REF.prefill_attention(
+        a, b, c, causal=causal, window=window, policy=JPOL))(qj, kj, vj)
+    out = PD.Dispatcher().prefill_attention(qp, kp, vp, causal=causal, window=window,
+                                            policy=PPOL)
+    assert out.shape == (2, T, H, D) and out.dtype == torch.bfloat16
+    _close(out, ref, rtol=1e-2, atol=1e-2)
+    got = FP.flash_prefill_attention(qp, kp, vp, causal=causal, window=window)
+    assert got.dtype == torch.float32 and torch.equal(got.bfloat16(), out)
+    pallas = JFP.flash_prefill_attention(qj, kj, vj, causal=causal, window=window,
+                                         bq=16, bk=16, interpret=True)
+    _close(got, pallas, rtol=2e-2, atol=2e-2)
+
+
+def test_dense_attention_wrapper_checks():
+    _, pc = _dense_cache(2, 16, seed=0)
+    q = torch.zeros((2, 3, D), dtype=torch.bfloat16)           # H=3 vs Hkv=2
+    with pytest.raises(ValueError):
+        QA.quant_decode_attention(q, pc.k_q, pc.k_scale, pc.k_zero, pc.v, 4)
+    with pytest.raises(ValueError):
+        QA.quant_decode_attention(q[:, :2], pc.k_q, pc.k_scale, pc.k_zero, pc.v,
+                                  torch.tensor([1, 2, 3]))
+    kv = torch.zeros((1, 8, HKV, D), dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        FP.flash_prefill_attention(torch.zeros((1, 8, 3, D), dtype=torch.bfloat16), kv, kv)
+    with pytest.raises(ValueError):
+        FP.flash_prefill_attention(torch.zeros((1, 8, 2, D), dtype=torch.bfloat16),
+                                   kv, kv[:, :4])

@@ -31,16 +31,22 @@ def _same(a, b):
     a = np.asarray(a)
     b = CV.to_numpy(b)
     assert a.shape == b.shape, (a.shape, b.shape)
-    assert a.view(np.uint8).tobytes() == b.view(np.uint8).tobytes()
+    assert a.dtype.itemsize == b.dtype.itemsize and a.tobytes() == b.tobytes()
 
 
 # ---------------------------------------------------------------------------
 # configs
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["qwen2-7b", "qwen2-1.5b", "llama3-8b"])
-@pytest.mark.parametrize("variant", ["", "@reduced", "@tiny"])
+@pytest.mark.parametrize("arch", ["qwen2-7b", "qwen2-1.5b", "llama3-8b",
+                                  "moonshot-v1-16b-a3b"])
+@pytest.mark.parametrize("variant", ["", "@reduced", "@tiny", "@tiny-moe"])
 def test_config_equal_field_by_field(arch, variant):
+    if variant == "@tiny-moe" and not JR.get(arch).num_experts:
+        for get in (JR.get, PR.get):        # dense models have no MoE variant
+            with pytest.raises(KeyError):
+                get(arch + variant)
+        return
     a = dataclasses.asdict(JR.get(arch + variant))
     b = dataclasses.asdict(PR.get(arch + variant))
     assert a == b
@@ -184,6 +190,85 @@ def test_pack_linear_layout(shape, bits):
     assert tuple(ua.shape) == tuple(ub.shape)
 
 
+@pytest.mark.parametrize("bits", [4, 8])
+def test_pack_expert_linear_and_take_experts_bitwise(bits):
+    """moonshot's per-expert N = 1408 pads to 1536 (its down projection's
+    K = 1408 to 1536 as well); pack, unpack and the selected-expert gather
+    are bit for bit the reference's."""
+    rng = np.random.default_rng(bits)
+    w = (rng.normal(size=(5, 72, 1408 // 8)) * 0.02).astype(np.float32)
+    a = JP.pack_expert_linear(JQ.quantize(jnp.asarray(w), bits))
+    b = PP.pack_expert_linear(PQ.quantize(torch.from_numpy(w), bits))
+    assert isinstance(b, PP.PackedExpertLinear) and b.experts == a.experts == 5
+    for f in ("data", "scale", "zero"):
+        _same(getattr(a, f), getattr(b, f))
+    ua, ub = JP.unpack_expert_linear(a), PP.unpack_expert_linear(b)
+    _same(ua.data, ub.data)
+    _same(ua.scale, ub.scale)
+    ids = np.asarray([4, 0, 4, 2], np.int32)
+    ta, tb = JP.take_experts(a, jnp.asarray(ids)), PP.take_experts(b, torch.from_numpy(ids))
+    for f in ("data", "scale", "zero"):
+        _same(getattr(ta, f), getattr(tb, f))
+    assert PP.pack_linear(PQ.quantize(torch.zeros((1408, 64)), 4)).kp == 1408
+    assert PP.pack_linear(PQ.quantize(torch.zeros((64, 1408)), 4)).np_pad == 1536
+    path = ["stacks", 0, "moe", "w_gate", "w"]
+    assert PP.is_expert_path(path) and not PP.is_expert_path(["stacks", 0, "moe", "router"])
+    leaves = jax.tree_util.tree_flatten_with_path({"moe": {"w_up": 1, "router": 2}})[0]
+    assert [JP.is_expert_path(k) for k, _ in leaves] == [PP.is_expert_path(k)
+                                                         for k, _ in leaves]
+
+
+# ---------------------------------------------------------------------------
+# the dense KV cache
+# ---------------------------------------------------------------------------
+
+def _append_both(pos, t, seed, per_row=False):
+    rng = np.random.default_rng(seed)
+    k = rng.normal(size=(3, t, 4, 64)).astype(np.float32)
+    v = rng.normal(size=(3, t, 4, 64)).astype(np.float32)
+    jc = JKV.init_layer_cache(3, 32, 4, 64, per_row=per_row)
+    pc = PKV.init_layer_cache(3, 32, 4, 64, per_row=per_row)
+    pj = jnp.asarray(pos, jnp.int32)
+    jc = jax.jit(JKV.append)(jc, jnp.asarray(k, jnp.bfloat16),
+                             jnp.asarray(v, jnp.bfloat16), pj)
+    pc = PKV.append(pc, torch.from_numpy(k).bfloat16(), torch.from_numpy(v).bfloat16(),
+                    torch.tensor(pos, dtype=torch.int32))
+    return jc, pc, pj
+
+
+@pytest.mark.parametrize("pos,t", [(0, 7), (30, 5), ([0, 9, 31], 1), ([2, 3, 20], 4)])
+def test_dense_cache_bytes_after_append(pos, t):
+    """Scalar positions (slot-synchronous; a start past max_seq - t clamps,
+    as dynamic_update_slice does) and per-row positions."""
+    per_row = isinstance(pos, list)
+    jc, pc, pj = _append_both(pos, t, seed=t, per_row=per_row)
+    for f in ("k_q", "k_scale", "k_zero", "v", "length"):
+        _same(getattr(jc, f), getattr(pc, f))
+    assert pc.max_seq == jc.max_seq == 32
+    _same(JKV.valid_mask(jc, pj), PKV.valid_mask(pc, torch.tensor(pos)))
+    assert np.array_equal(np.asarray(JKV.slot_positions(jc, pj)),
+                          PKV.slot_positions(pc, torch.tensor(pos)).numpy())
+    # a stacked cache appends through its per-layer views
+    st = PKV.init_layer_cache(3, 32, 4, 64, per_row=per_row, layers=2)
+    k = torch.from_numpy(np.random.default_rng(t).normal(size=(3, t, 4, 64))
+                         .astype(np.float32)).bfloat16()
+    PKV.append(st.layer(1), k, k, torch.tensor(pos, dtype=torch.int32))
+    assert st.k_q[0].abs().sum() == 0 and torch.equal(st.k_q[1], pc.k_q)
+
+
+def test_roundtrip_kv_bitwise():
+    rng = np.random.default_rng(0)
+    k = rng.normal(size=(2, 9, 4, 64)).astype(np.float32)
+    v = (rng.normal(size=(2, 9, 4, 64)) * 100).astype(np.float32)
+    a = jax.jit(lambda x, y: JKV.roundtrip_kv(x, y, v_dtype=JQ.FP8_DTYPE))(
+        jnp.asarray(k, jnp.bfloat16), jnp.asarray(v, jnp.bfloat16))
+    b = PKV.roundtrip_kv(torch.from_numpy(k).bfloat16(), torch.from_numpy(v).bfloat16(),
+                         v_dtype=PQ.FP8_DTYPE)
+    for x, y in zip(a, b):
+        assert y.dtype == torch.bfloat16
+        _same(x, y)
+
+
 @pytest.mark.parametrize("max_seq", [16, 64, 100, 256, 2048, 4096])
 def test_geometry_matches(max_seq):
     assert JP.kv_page_size(max_seq) == PP.kv_page_size(max_seq)
@@ -260,3 +345,23 @@ def test_convert_embedding_rows_match(ref_engine, tmp_path):
     ids = np.array([[0, 5, 511], [17, 17, 300]])
     _same(ref_engine.embed(ids), store.lookup(ids))
     assert store.dram_bytes_saved == table.shape[0] * table.shape[1] * 2
+
+
+def test_convert_moe_params_exact():
+    """Expert tables stay ``PackedExpertLinear`` and the bf16 router is
+    carried bit for bit (moonshot-v1-16b-a3b@reduced, full parameter tree)."""
+    from repro.models import transformer as JT
+    cfg = JR.get("moonshot-v1-16b-a3b@reduced")
+    ref = JT.init_params(cfg, key=jax.random.PRNGKey(0), quantized=True, pack=True)
+    port = CV.params_from_reference(ref)
+    moe = port["stacks"][0][0]["moe"]
+    assert set(moe) == {"router", "w_gate", "w_up", "w_down"}
+    for k in ("w_gate", "w_up", "w_down"):
+        assert isinstance(moe[k]["w"], PP.PackedExpertLinear)
+        assert moe[k]["w"].layer(1).experts == cfg.num_experts
+    assert moe["router"].dtype == torch.bfloat16
+    n = 0
+    for path, r, p in _pairs(ref, port):
+        assert CV.to_numpy(p).tobytes() == np.asarray(r).tobytes(), path
+        n += 1
+    assert n >= 25
