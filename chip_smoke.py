@@ -54,7 +54,7 @@ OUT = ROOT / "chiprun_out"
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 BF16_FLOPS_PER_S = 989e12
-F32_FLOPS_PER_S = 67e12          # CUDA cores (the paged attention kernels' math)
+F32_FLOPS_PER_S = 67e12          # CUDA cores (RMSNorm's elementwise math)
 
 # tolerances of the matching CPU tests (tests/test_torch_kernels.py), which
 # are the JAX package's own kernel-vs-reference tolerances
@@ -286,7 +286,7 @@ def phase_kernels(dev, results: dict) -> None:
             ops = 4 * live * H * D
             results["paged_quant_decode_attention"] = dict(
                 err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound=bound(bytes_, ops, F32_FLOPS_PER_S),
+                bound=bound(bytes_, ops, BF16_FLOPS_PER_S),
                 shape=f"B={B} H={H} Hkv={Hkv} D={D} page={ps} lengths={lengths}")
             log(f"[kernels]   {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms")
 
@@ -328,7 +328,7 @@ def phase_kernels(dev, results: dict) -> None:
             ops = 4 * H * D * sum(pos0 + i + 1 for i in range(C))
             results["paged_flash_prefill_attention"] = dict(
                 err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound=bound(bytes_, ops, F32_FLOPS_PER_S),
+                bound=bound(bytes_, ops, BF16_FLOPS_PER_S),
                 shape=f"B=1 C={C} pos0={pos0} H={H} Hkv={Hkv} D={D} page={ps}")
             log(f"[kernels]   {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms")
 
@@ -458,7 +458,7 @@ def phase_new_kernels(dev, results: dict) -> None:
             bytes_ = q.numel() * 2 + live * Hkv * (2 * D + 8) + B * H * D * 4
             results["quant_decode_attention"] = dict(
                 err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound=bound(bytes_, 4 * live * H * D, F32_FLOPS_PER_S),
+                bound=bound(bytes_, 4 * live * H * D, BF16_FLOPS_PER_S),
                 shape=f"B={B} H={H} Hkv={Hkv} D={D} S={S} length={lengths[0]} "
                       "(Engine.generate decode, qwen2-7b)")
             log(f"[kernels]   {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms} ms")
@@ -495,7 +495,9 @@ def phase_new_kernels(dev, results: dict) -> None:
                 [(q.transpose(1, 2), k.transpose(1, 2).repeat_interleave(G, dim=1),
                   v.transpose(1, 2).repeat_interleave(G, dim=1), mask)])
             pairs = sum(min(i + 1, S) for i in range(T))
-            bytes_ = q.numel() * 2 + k.numel() * 2 + v.numel() * 2 + B * T * H * D * 4
+            live_keys = min(S, T) if causal else S     # keys some query attends to
+            bytes_ = (q.numel() * 2 + 2 * B * live_keys * Hkv * D * 2
+                      + B * T * H * D * 4)
             results["flash_prefill_attention"] = dict(
                 err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound=bound(bytes_, 4 * B * H * D * pairs, BF16_FLOPS_PER_S),
@@ -602,13 +604,39 @@ def phase_main_path(dev):
     return eng, specs, arrivals, reqs, summary
 
 
+def count_syncs(step) -> dict:
+    """The host-device synchronizations of one ``step()``: torch's sync debug
+    mode warns at each one (a blocking copy, ``.item()``, ``.cpu()``), and
+    the warning names the Python line that asked for it."""
+    import collections
+    import warnings
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    where = collections.Counter()
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            f = Path(w.filename)
+            where[f"{f.relative_to(ROOT) if f.is_relative_to(ROOT) else f.name}:{w.lineno}"] += 1
+    return {"syncs_per_step": sum(where.values()), "sync_sites": dict(where.most_common())}
+
+
 def profile_steps(label: str, step, steps: int = 4) -> dict:
-    """Where a decode step's time goes: wall time per ``step()``, and the
-    device's busy share and top kernels under ``torch.profiler`` (reported,
-    not asserted; "not measured" where the profiler sees no device time)."""
+    """Where a decode step's time goes: wall time per ``step()``, the
+    host-device synchronizations of one step, and the device's busy share
+    and top kernels under ``torch.profiler`` (reported, not asserted; "not
+    measured" where the profiler sees no device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     step()
+    syncs = count_syncs(step)
     gc.collect()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -619,7 +647,9 @@ def profile_steps(label: str, step, steps: int = 4) -> dict:
         enqueue += time.perf_counter() - t1      # host time until the call returns
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / steps * 1e3
-    out = {"decode_step_ms": step_ms, "host_enqueue_ms": enqueue / steps * 1e3}
+    out = {"decode_step_ms": step_ms, "host_enqueue_ms": enqueue / steps * 1e3, **syncs}
+    log(f"[profile] {label}: {syncs['syncs_per_step']} host-device synchronizations "
+        f"per step at {syncs['sync_sites']}")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):

@@ -10,115 +10,46 @@
 // reused by every query row of the block), bytes for short ones.  This
 // kernel computes on CUDA cores in float32 (no tensor cores yet).
 //
-// Design: one block per (row, KV head, 16 query-head rows), where a
-// query-head row is one (query, head-in-group) pair, so any G (qwen2-7b's 7,
-// moonshot's 1) fills the block's rows.  The block walks key tiles of 32:
-// only those that can hold a live key for one of its queries -- tiles past
+// Design: prefill::attend (csrc/prefill_attention.cuh) over the row's keys
+// in tiles of 32 read straight from the bf16 arrays: only tiles that can
+// hold a live key for one of the block's queries are walked -- tiles past
 // its last query are skipped when causal, tiles wholly outside the window of
-// its first query when windowed.  Per tile it converts keys and values to
-// float32 in shared memory, scores its 16 rows against the tile, updates the
-// online softmax one warp per row, and accumulates P.V with thread d owning
-// column d of all 16 rows.  Padded query rows (past T) are computed and never
-// written, as the Pallas kernel slices them off.
-#include "common.cuh"
+// its first query when windowed.
+#include "prefill_attention.cuh"
 
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int R = 16;          // query-head rows per block
-constexpr int TS = 32;         // keys per tile (one per lane in the softmax)
-constexpr int MAXD = 128;
+using prefill::TS;
 
-__global__ void __launch_bounds__(THREADS)
+struct DenseTiles {
+  const __nv_bfloat16* __restrict__ k;
+  const __nv_bfloat16* __restrict__ v;
+  size_t row0;        // flat token index of the row's position 0
+  int S, D, causal, window;
+  __device__ int qpos(int i) const { return i; }
+  __device__ int begin(int qlo) const {
+    return window ? max(0, qlo - window + 1) / TS : 0;
+  }
+  __device__ int end(int qhi) const { return ((causal ? min(S, qhi + 1) : S) + TS - 1) / TS; }
+  __device__ int start(int it) const { return it * TS; }
+  __device__ int size(int it) const { return min(TS, S - it * TS); }
+  __device__ size_t first(int it) const { return row0 + static_cast<size_t>(it) * TS; }
+  __device__ float key(size_t tok, int d) const { return __bfloat162float(k[tok * D + d]); }
+  __device__ float value(size_t tok, int d) const { return __bfloat162float(v[tok * D + d]); }
+  __device__ bool live(int qp, int kp) const {
+    return (!causal || kp <= qp) && (!window || qp - kp < window);
+  }
+};
+
+__global__ void __launch_bounds__(prefill::THREADS)
 flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, float* __restrict__ out,
                      int T, int S, int Hkv, int G, int D, int causal, int window) {
-  __shared__ float qs[R][MAXD];
-  __shared__ float kt[TS][MAXD + 1];
-  __shared__ float vt[TS][MAXD];
-  __shared__ float sc[R][TS];
-  __shared__ float mrow[R], lrow[R], crow[R];
-
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
   const int b = blockIdx.x / Hkv;
   const int h = blockIdx.x % Hkv;
-  const int r0 = blockIdx.y * R;
-  const int H = Hkv * G;
-
-  for (int idx = tid; idx < R * D; idx += THREADS) {
-    const int r = idx / D, d = idx % D;
-    const int row = r0 + r, i = row / G, g = row % G;
-    qs[r][d] = i < T ? __bfloat162float(q[(((size_t)b * T + i) * H + h * G + g) * D + d]) : 0.f;
-  }
-  if (tid < R) { mrow[tid] = REPRO_NEG_INF; lrow[tid] = 0.f; }
-  const int qmin = r0 / G;                             // the block's first query
-  const int qmax = (min(r0 + R, T * G) - 1) / G;       // and its last
-  const int kend = causal ? min(S, qmax + 1) : S;
-  const int kbeg = window ? max(0, qmin - window + 1) / TS * TS : 0;
-
-  float acc[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) acc[r] = 0.f;
-
-  for (int kstart = kbeg; kstart < kend; kstart += TS) {
-    const int nt = min(TS, S - kstart);
-    __syncthreads();
-    for (int idx = tid; idx < nt * D; idx += THREADS) {
-      const int t = idx / D, d = idx % D;
-      const size_t tok = ((size_t)b * S + kstart + t) * Hkv + h;
-      kt[t][d] = __bfloat162float(k[tok * D + d]);
-      vt[t][d] = __bfloat162float(v[tok * D + d]);
-    }
-    __syncthreads();
-    for (int idx = tid; idx < R * nt; idx += THREADS) {
-      const int r = idx / nt, t = idx % nt;
-      const int qpos = (r0 + r) / G;
-      const int kpos = kstart + t;
-      float s = REPRO_NEG_INF;
-      if ((!causal || kpos <= qpos) && (!window || qpos - kpos < window)) {
-        s = 0.f;
-        for (int d = 0; d < D; ++d) s += qs[r][d] * kt[t][d];
-      }
-      sc[r][t] = s;
-    }
-    __syncthreads();
-    for (int r = warp; r < R; r += THREADS / 32) {
-      const float x = lane < nt ? sc[r][lane] : REPRO_NEG_INF;
-      const float m_old = mrow[r];
-      const float m_new = fmaxf(m_old, warp_max(x));
-      const float e = lane < nt ? expf(x - m_new) : 0.f;
-      if (lane < nt) sc[r][lane] = e;
-      const float sum = warp_sum(e);
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        crow[r] = corr;
-        lrow[r] = lrow[r] * corr + sum;
-        mrow[r] = m_new;
-      }
-    }
-    __syncthreads();
-    if (tid < D) {
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        float a = acc[r] * crow[r];
-        for (int t = 0; t < nt; ++t) a += sc[r][t] * vt[t][tid];
-        acc[r] = a;
-      }
-    }
-  }
-  __syncthreads();
-  if (tid < D) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int row = r0 + r, i = row / G, g = row % G;
-      if (i < T)
-        out[(((size_t)b * T + i) * H + h * G + g) * D + tid] =
-            acc[r] / fmaxf(lrow[r], 1e-30f);
-    }
-  }
+  const DenseTiles tiles{k, v, static_cast<size_t>(b) * S, S, D, causal, window};
+  prefill::attend(tiles, q, out, b, h, T, Hkv, G, D);
 }
 
 }  // namespace
@@ -128,8 +59,8 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
 extern "C" int flash_prefill_attention_launch(
     const void* q, const void* k, const void* v, void* out, int B, int T, int S,
     int Hkv, int G, int D, int causal, int window, void* stream) {
-  const dim3 grid(B * Hkv, (T * G + R - 1) / R);
-  flash_prefill_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  flash_prefill_kernel<<<prefill::grid(B, Hkv, T, G), prefill::THREADS, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<float*>(out), T, S, Hkv, G,
       D, causal, window);
