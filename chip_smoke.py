@@ -10,8 +10,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 2. Each of the seven kernels against its plain PyTorch version on the card,
    at the serving paths' shapes (qwen2-7b, G=7; moonshot-v1-16b-a3b, G=1)
    and at small ``@reduced`` shapes, with the tolerance of the matching CPU
-   test; the dense prefill kernel also non-causal and windowed.  Kernel,
-   plain and library-yardstick times.
+   test; the dense prefill kernel also non-causal and windowed; the grouped
+   kernel with expert ids (decode) and live-row counts (full-capacity
+   prefill, routed and uneven).  Kernel, plain and library-yardstick times.
 3. The continuous path: full-width qwen2-7b (random weights from a seed, 28
    layers) serves 8 greedy requests through ``EngineLoop.submit``/``step``
    (prompts of 40-700 tokens, a third sharing a 256-token prefix, staggered
@@ -27,9 +28,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 5. The MoE path: full-width moonshot-v1-16b-a3b (48 layers, 64 experts
    top-6, random weights) serves 6 greedy requests with prompts of 64-400
    tokens (two sharing a 256-token prefix) on 4 slots through
-   ``EngineLoop``; the grouped kernel must run on both dispatch branches and
-   the paged attention kernels at G=1; a profiled decode step; kernel path
-   against plain path for one prompt chunk and one decode step.
+   ``EngineLoop``; the grouped kernel must run on both dispatch branches --
+   prompt chunks with live-row counts, decode steps with expert ids and no
+   ``take_experts`` copy -- and the paged attention kernels at G=1; a
+   profiled decode step; kernel path against plain path for one prompt
+   chunk and one decode step.
 
 Launch counts are zeroed just before each serving path and read just after
 it: every kernel of the path must have launched, and nothing fell back.
@@ -66,8 +69,9 @@ TOL = {"w4a8_matmul": (1e-4, 1e-4),
        "quant_decode_attention": (2e-2, 2e-2),
        "flash_prefill_attention": (2e-2, 2e-2)}
 # full width, kernel path vs plain path on the same input, relative L2 error.
-# A layer: the attention kernels keep keys and probabilities in float32
-# where the plain path rounds them to bf16 (~0.4%), and every linear then
+# A layer: the attention kernels round keys and probabilities to bf16 where
+# the plain path does, but sum in another order (tensor-core products, the
+# decode kernels' float32 keys and probabilities), and every linear then
 # re-quantizes its input to int8, where one code step is 1/127 of the row's
 # max (~3% of its rms): a share of elements lands on the neighbouring code,
 # so a layer's output differs by a few percent of its norm.  The head (final
@@ -76,10 +80,10 @@ TOL = {"w4a8_matmul": (1e-4, 1e-4),
 LAYER_REL_L2 = 5e-2
 HEAD_REL_L2 = 1e-4
 # MoE: share of (token, layer) router decisions allowed to differ between
-# the two paths on the same layer input.  The attention kernels' float32
-# probabilities move the router logits by ~0.4% of their spread; with 64
-# experts the 6th and 7th largest sit about a tenth of a spread apart, so
-# a few percent of tokens can change their expert set.
+# the two paths on the same layer input.  Last-bit differences of the
+# attention sums move the router logits by a fraction of a percent of their
+# spread; with 64 experts the 6th and 7th largest sit about a tenth of a
+# spread apart, so a few percent of tokens can change their expert set.
 MAX_ROUTE_FLIPS = 0.1
 
 REPLACES = {
@@ -134,14 +138,51 @@ def time_ms(fn, arg_sets, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def library_time(fn, arg_sets):
-    """The yardstick's time, or None where this PyTorch build lacks the call
-    or refuses these operands (the yardstick is never part of the port)."""
+def graph_ms(fn, arg_sets, iters: int = 20, replays: int = 5):
+    """Device time per launch: ``iters`` calls captured in one CUDA graph and
+    replayed, so the host's time per call (Python checks, allocation, the
+    launch itself: tens of microseconds a wrapper call) drops out.  Same
+    rotation over ``arg_sets`` as ``time_ms``; None where a call cannot be
+    captured."""
+    import torch
     try:
-        return time_ms(fn, arg_sets)
+        for i in range(3):
+            fn(*arg_sets[i % len(arg_sets)])
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for i in range(iters):
+                fn(*arg_sets[i % len(arg_sets)])
+        graph.replay()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(replays):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / (replays * iters)
+        del graph
+        return ms
+    except (RuntimeError, TypeError, AttributeError) as e:
+        log(f"[kernels]   not capturable in a CUDA graph: {type(e).__name__}: {e}")
+        torch.cuda.synchronize()
+        return None
+
+
+def f4(x) -> str:
+    return "not measured" if x is None else f"{x:.4f}"
+
+
+def library_time(fn, arg_sets):
+    """The yardstick's time per call and its device time per launch, or None
+    where this PyTorch build lacks the call or refuses these operands (the
+    yardstick is never part of the port)."""
+    try:
+        return time_ms(fn, arg_sets), graph_ms(fn, arg_sets)
     except (RuntimeError, TypeError, AttributeError) as e:
         log(f"[kernels]   library yardstick unavailable: {type(e).__name__}: {e}")
-        return None
+        return None, None
 
 
 def check_close(name: str, got, want, what: str) -> float:
@@ -226,21 +267,23 @@ def phase_kernels(dev, results: dict) -> None:
             copies = [(xq, sx, pl.data.clone(), pl.scale[0], pl.zero[0])
                       for _ in range(min(n_copies, 8))]
             ms = time_ms(lambda *a: WM.w4a8_matmul(*a, bits=bits), copies)
+            gms = graph_ms(lambda *a: WM.w4a8_matmul(*a, bits=bits), copies)
             wm_rows.append({"M": M, "K": K, "N": N, "bits": bits, "ms": ms,
-                            "max_abs_err": err})
+                            "graph_ms": gms, "max_abs_err": err})
             log(f"[kernels] w4a8_matmul M={M:4d} K={K:5d} N={N:6d} int{bits}: "
-                f"{ms:.4f} ms, max abs err {err:.3e}")
+                f"{ms:.4f} ms a call, {f4(gms)} ms on the device, max abs err {err:.3e}")
             if (M, K, N) == (4, 3584, 18944):
                 plain_ms = time_ms(lambda *a: WM.w4a8_matmul_plain(*a, bits=bits), [args],
                                    iters=5, warmup=1)
                 w8 = Q.unpack_int4(pl.data).contiguous()
                 xq32 = F.pad(xq, (0, 0, 0, 28))       # _int_mm needs M > 16
-                lib_ms = library_time(torch._int_mm, [(xq32, w8), (xq32, w8.clone())])
+                lib_ms, lib_gms = library_time(torch._int_mm, [(xq32, w8), (xq32, w8.clone())])
                 bytes_ = (xq.numel() + sx.numel() * 4 + pl.data.numel()
                           + 2 * N * 4 + M * N * 4)
                 ops = 2 * M * K * N
                 results["w4a8_matmul"] = dict(
-                    err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                    err=err, ms=ms, graph_ms=gms, plain_ms=plain_ms, library_ms=lib_ms,
+                    library_graph_ms=lib_gms,
                     bound=bound(bytes_, ops, INT8_OPS_PER_S),
                     shape=f"M={M} K={K} N={N} int4 (gate/up projection, decode bucket 4)")
             del copies
@@ -269,8 +312,9 @@ def phase_kernels(dev, results: dict) -> None:
         log(f"[kernels] paged_quant_decode_attention G={H // Hkv} D={D} "
             f"lengths={lengths}: max abs err {err:.3e}")
         if D == 128:
-            ms = time_ms(QA.paged_quant_decode_attention,
-                         [(q, *p, table, base, length) for p in pools])
+            sets = [(q, *p, table, base, length) for p in pools]
+            ms = time_ms(QA.paged_quant_decode_attention, sets)
+            gms = graph_ms(QA.paged_quant_decode_attention, sets)
             plain_ms = time_ms(QA.paged_quant_decode_attention_plain, [args], iters=5)
             k, v = gather_dense(pools[0], table, torch.bfloat16)
             S = k.shape[1]
@@ -279,16 +323,18 @@ def phase_kernels(dev, results: dict) -> None:
             qs = q[:, :, None]
             ks = k.transpose(1, 2).repeat_interleave(G, dim=1)
             vs = v.transpose(1, 2).repeat_interleave(G, dim=1)
-            lib_ms = library_time(lambda a, b, c, m: F.scaled_dot_product_attention(
+            lib_ms, lib_gms = library_time(lambda a, b, c, m: F.scaled_dot_product_attention(
                 a, b, c, attn_mask=m, scale=1.0), [(qs, ks, vs, mask)])
             live = sum(lengths)
             bytes_ = (q.numel() * 2 + live * Hkv * (2 * D + 8) + B * H * D * 4)
             ops = 4 * live * H * D
             results["paged_quant_decode_attention"] = dict(
-                err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                err=err, ms=ms, graph_ms=gms, plain_ms=plain_ms, library_ms=lib_ms,
+                library_graph_ms=lib_gms,
                 bound=bound(bytes_, ops, BF16_FLOPS_PER_S),
                 shape=f"B={B} H={H} Hkv={Hkv} D={D} page={ps} lengths={lengths}")
-            log(f"[kernels]   {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms")
+            log(f"[kernels]   {ms:.4f} ms a call, {f4(gms)} ms on the device; plain "
+                f"{plain_ms:.4f} ms; SDPA {f4(lib_ms)} ms a call, {f4(lib_gms)} ms on the device")
 
     # --- paged_flash_prefill_attention -------------------------------------
     # (C, pos0, H, Hkv, D, page, pages per row): a 128-token qwen2-7b chunk
@@ -311,15 +357,16 @@ def phase_kernels(dev, results: dict) -> None:
         log(f"[kernels] paged_flash_prefill_attention C={C} pos0={pos0} "
             f"G={H // Hkv} D={D}: max abs err {err:.3e}")
         if D == 128:
-            ms = time_ms(FP.paged_flash_prefill_attention,
-                         [(q, *p, table, p0) for p in pools])
+            sets = [(q, *p, table, p0) for p in pools]
+            ms = time_ms(FP.paged_flash_prefill_attention, sets)
+            gms = graph_ms(FP.paged_flash_prefill_attention, sets)
             plain_ms = time_ms(FP.paged_flash_prefill_attention_plain, [args], iters=5)
             k, v = gather_dense(pools[0], table, torch.bfloat16)
             S = k.shape[1]
             qpos = pos0 + torch.arange(C, device=dev)
             mask = (torch.arange(S, device=dev)[None] <= qpos[:, None])[None, None]
             G = H // Hkv
-            lib_ms = library_time(lambda a, b, c, m: F.scaled_dot_product_attention(
+            lib_ms, lib_gms = library_time(lambda a, b, c, m: F.scaled_dot_product_attention(
                 a, b, c, attn_mask=m, scale=1.0),
                 [(q.transpose(1, 2), k.transpose(1, 2).repeat_interleave(G, dim=1),
                   v.transpose(1, 2).repeat_interleave(G, dim=1), mask)])
@@ -327,10 +374,12 @@ def phase_kernels(dev, results: dict) -> None:
             bytes_ = (q.numel() * 2 + keys * Hkv * (2 * D + 8) + C * H * D * 4)
             ops = 4 * H * D * sum(pos0 + i + 1 for i in range(C))
             results["paged_flash_prefill_attention"] = dict(
-                err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                err=err, ms=ms, graph_ms=gms, plain_ms=plain_ms, library_ms=lib_ms,
+                library_graph_ms=lib_gms,
                 bound=bound(bytes_, ops, BF16_FLOPS_PER_S),
                 shape=f"B=1 C={C} pos0={pos0} H={H} Hkv={Hkv} D={D} page={ps}")
-            log(f"[kernels]   {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms")
+            log(f"[kernels]   {ms:.4f} ms a call, {f4(gms)} ms on the device; plain "
+                f"{plain_ms:.4f} ms; SDPA {f4(lib_ms)} ms a call, {f4(lib_gms)} ms on the device")
 
     # --- rmsnorm -------------------------------------------------------------
     for rows, D in ((4, 3584), (128, 3584), (5, 256)):
@@ -340,13 +389,16 @@ def phase_kernels(dev, results: dict) -> None:
         want = RN.rmsnorm_plain(x, w, 1e-6)
         err = check_close("rmsnorm", got, want, f"rows={rows} D={D}")
         ms = time_ms(RN.rmsnorm, [(x, w, 1e-6)])
-        log(f"[kernels] rmsnorm rows={rows} D={D}: {ms:.4f} ms, max abs err {err:.3e}")
+        gms = graph_ms(RN.rmsnorm, [(x, w, 1e-6)])
+        log(f"[kernels] rmsnorm rows={rows} D={D}: {ms:.4f} ms a call, {f4(gms)} ms on "
+            f"the device, max abs err {err:.3e}")
         if rows == 4:
             plain_ms = time_ms(RN.rmsnorm_plain, [(x, w, 1e-6)])
             wb = w.to(torch.bfloat16)
-            lib_ms = library_time(lambda a, b: F.rms_norm(a, (D,), b, 1e-6), [(x, wb)])
+            lib_ms, lib_gms = library_time(lambda a, b: F.rms_norm(a, (D,), b, 1e-6), [(x, wb)])
             results["rmsnorm"] = dict(
-                err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                err=err, ms=ms, graph_ms=gms, plain_ms=plain_ms, library_ms=lib_ms,
+                library_graph_ms=lib_gms,
                 bound=bound(rows * D * 2 * 2 + D * 4, 4 * rows * D, F32_FLOPS_PER_S),
                 shape=f"rows={rows} D={D} bf16 (decode bucket 4)")
     torch.cuda.synchronize()
@@ -368,54 +420,107 @@ def phase_new_kernels(dev, results: dict) -> None:
 
     # --- grouped_matmul ----------------------------------------------------
     # moonshot-v1-16b-a3b (d_model 2048, per-expert d_ff 1408 -> 1536 padded,
-    # 64 experts top-6): the selected-expert decode of 4 rows (24 gathered
-    # slabs of one row) and a 128-token prompt chunk at full capacity (64
-    # experts x 128 rows, about 12 of them live per expert)
-    gm_rows = []
-    for E, M, K, N, what in ((24, 1, 2048, 1408, "decode gate/up"),
-                             (24, 1, 1408, 2048, "decode down"),
-                             (64, 128, 2048, 1408, "prefill gate/up"),
-                             (64, 128, 1408, 2048, "prefill down"),
-                             (3, 5, 256, 512, "@reduced")):
-        qt = Q.quantize(torch.randn((E, K, N), generator=gen, device=dev) * 0.02, 4)
-        pel = RP.pack_expert_linear(qt)
-        x = torch.randn((E, M, K), generator=gen, device=dev).to(torch.bfloat16)
-        live = min(M, 12)
-        x[:, live:] = 0                    # capacity rows past the routed tokens
-        xq, sx = Q.quantize_activations(x)
-        args = (xq, sx, pel.data, pel.scale[:, 0], pel.zero[:, 0])
-        err = check_close("grouped_matmul", GM.grouped_matmul(*args, bits=4),
-                          GM.grouped_matmul_plain(*args, bits=4), f"{what} E={E} M={M}")
-        copies = [(xq, sx, pel.data.clone(), pel.scale[:, 0], pel.zero[:, 0])
-                  for _ in range(min(8, max(1, math.ceil(100e6 / pel.data.numel()))))]
-        ms = time_ms(lambda *a: GM.grouped_matmul(*a, bits=4), copies)
+    # 64 experts top-6).  Decode: 4 rows x top-6 = 24 slabs of one row that
+    # name their experts by id in the layer's whole table, with the repeats
+    # a top-6 of 4 rows gives.  Prefill: a 128-token chunk at full capacity
+    # (64 experts x 128 rows) whose live rows per expert are those a top-6
+    # routing of 128 tokens gives (about 12), passed as ``rows``; checked
+    # also at uneven counts (0 and 128 among them, most off the 16-row
+    # tiles).  Two copies of each table alternate, so no launch finds the
+    # previous one's weights in the 50 MB L2.  Bounds count what these
+    # inputs need: the distinct slabs named (decode), the live rows and the
+    # weights of experts with any (prefill), and every output element.
+    E_ALL, TOPK = 64, 6
+    gm_rows, gm_errs = [], []
+
+    def expert_tables(K, N):
+        return [RP.pack_expert_linear(Q.quantize(
+            torch.randn((E_ALL, K, N), generator=gen, device=dev) * 0.02, 4)) for _ in range(2)]
+
+    def live_input(counts, M, K):
+        x = torch.randn((len(counts), M, K), generator=gen, device=dev)
+        keep = torch.arange(M, device=dev)[None] < counts[:, None]
+        return (x * keep[..., None]).to(torch.bfloat16)
+
+    def operands(xq, sx, pel):
+        return (xq, sx, pel.data, pel.scale[:, 0], pel.zero[:, 0])
+
+    for what, K, N in (("decode gate/up", 2048, 1408), ("decode down", 1408, 2048),
+                       ("prefill gate/up", 2048, 1408), ("prefill down", 1408, 2048)):
+        tables = expert_tables(K, N)
+        pel = tables[0]
         Np, Kp = pel.np_pad, pel.kp
-        bytes_ = (xq.numel() + sx.numel() * 4 + pel.data.numel() + 2 * E * Np * 4
-                  + E * M * Np * 4)
-        ops_all = 2 * E * M * Kp * Np
-        ops_live = 2 * E * live * Kp * Np
-        row = {"what": what, "E": E, "M": M, "K": K, "N": N, "ms": ms, "max_abs_err": err,
-               "bound_ms": bound(bytes_, ops_live, INT8_OPS_PER_S)[0],
-               "bound_all_rows_ms": bound(bytes_, ops_all, INT8_OPS_PER_S)[0]}
-        log(f"[kernels] grouped_matmul {what} E={E} M={M} K={K} N={N}: {ms:.4f} ms, "
-            f"max abs err {err:.3e}")
-        if what in ("decode gate/up", "prefill gate/up"):
-            row["plain_ms"] = time_ms(lambda *a: GM.grouped_matmul_plain(*a, bits=4),
+        slab_bytes = pel.data[0].numel() + 2 * Np * 4
+        if what.startswith("decode"):
+            ids = torch.cat([torch.randperm(E_ALL, generator=gen, device=dev)[:TOPK]
+                             for _ in range(4)]).to(torch.int32)
+            E, M, kw = ids.numel(), 1, {"ids": ids}
+            x = torch.randn((E, M, K), generator=gen, device=dev).to(torch.bfloat16)
+            live_rows, slabs = E, int(torch.unique(ids).numel())
+        else:
+            top = torch.randn((128, E_ALL), generator=gen, device=dev).topk(TOPK, dim=-1).indices
+            counts = torch.bincount(top.reshape(-1), minlength=E_ALL)
+            E, M = E_ALL, 128
+            kw = {"rows": counts.to(torch.int32)[:, None].contiguous()}
+            x = live_input(counts, M, K)
+            live_rows, slabs = int(counts.sum()), int((counts > 0).sum())
+            uneven = torch.tensor([0, 128, 17, 1, 33, 12, 100, 64] * 8, device=dev)
+            xu, su = Q.quantize_activations(live_input(uneven, M, K))
+            rows_u = uneven.to(torch.int32)[:, None].contiguous()
+            got = GM.grouped_matmul(*operands(xu, su, pel), bits=4, rows=rows_u)
+            gm_errs.append(check_close("grouped_matmul", got,
+                                       GM.grouped_matmul_plain(*operands(xu, su, pel), bits=4),
+                                       f"{what} uneven live rows"))
+            dead = got[torch.arange(M, device=dev)[None] >= uneven[:, None]]
+            assert torch.equal(dead, torch.zeros_like(dead)), "dead rows not +0.0"
+            del xu, su, got, dead
+        xq, sx = Q.quantize_activations(x)
+        args = operands(xq, sx, pel)
+        err = check_close("grouped_matmul", GM.grouped_matmul(*args, bits=4, **kw),
+                          GM.grouped_matmul_plain(*args, bits=4, **kw),
+                          f"{what} E={E} M={M} {sorted(kw)}")
+        gm_errs.append(err)
+        sets = [operands(xq, sx, t) for t in tables]
+        ms = time_ms(lambda *a: GM.grouped_matmul(*a, bits=4, **kw), sets)
+        gms = graph_ms(lambda *a: GM.grouped_matmul(*a, bits=4, **kw), sets)
+        bytes_ = (live_rows * (Kp + 4) + slabs * slab_bytes + E * M * Np * 4
+                  + 4 * sum(t.numel() for t in kw.values()))
+        ops = 2 * live_rows * Kp * Np
+        b = bound(bytes_, ops, INT8_OPS_PER_S)
+        row = {"what": what, "E": E, "M": M, "K": K, "N": N, "live_rows": live_rows,
+               "slabs_read": slabs, "ms": ms, "graph_ms": gms, "max_abs_err": err,
+               "bound_ms": b[0], "bound_by": b[1]}
+        log(f"[kernels] grouped_matmul {what} E={E} M={M} K={K} N={N} ({live_rows} live "
+            f"rows, {slabs} slabs, {sorted(kw)[0]}): {ms:.4f} ms a call, {f4(gms)} ms on "
+            f"the device, bound {b[0]:.4f} ms ({b[1]}), max abs err {err:.3e}")
+        if "gate/up" in what:
+            row["plain_ms"] = time_ms(lambda *a: GM.grouped_matmul_plain(*a, bits=4, **kw),
                                       [args], iters=3, warmup=1)
-            wd = Q.dequantize(qt)                          # bf16 [E, K, N]
-            row["library_ms"] = library_time(torch.bmm, [(x, wd)])
-            log(f"[kernels]   plain {row['plain_ms']:.4f} ms, bf16 bmm "
-                f"{row['library_ms']} ms, bound {row['bound_ms']:.4f} ms")
-            del wd
+            used = RP.take_experts(pel, kw["ids"]) if "ids" in kw else pel
+            wd = Q.dequantize(RP.unpack_expert_linear(used))      # bf16 [E, K, N]
+            row["library_ms"], row["library_graph_ms"] = library_time(torch.bmm, [(x, wd)])
+            log(f"[kernels]   plain {row['plain_ms']:.4f} ms, bf16 bmm {f4(row['library_ms'])} "
+                f"ms a call, {f4(row['library_graph_ms'])} ms on the device")
+            del wd, used
         gm_rows.append(row)
-        if what == "decode gate/up":
-            results["grouped_matmul"] = dict(
-                err=err, ms=ms, plain_ms=row["plain_ms"], library_ms=row["library_ms"],
-                bound=bound(bytes_, ops_live, INT8_OPS_PER_S),
-                shape=f"E={E} M={M} K={K} N={N} (padded {Np}) int4: moonshot "
-                      "selected-expert decode, 4 rows x top-6 (gate/up)")
-        del copies, pel, qt
-    results["grouped_matmul"]["all_shapes"] = gm_rows
+        del tables, pel, x, xq, sx, args
+    for E, M, K, N in ((3, 5, 256, 512),):                 # @reduced
+        pel = RP.pack_expert_linear(Q.quantize(
+            torch.randn((E, K, N), generator=gen, device=dev) * 0.02, 4))
+        xq, sx = Q.quantize_activations(
+            torch.randn((E, M, K), generator=gen, device=dev).to(torch.bfloat16))
+        gm_errs.append(check_close("grouped_matmul", GM.grouped_matmul(*operands(xq, sx, pel), bits=4),
+                                   GM.grouped_matmul_plain(*operands(xq, sx, pel), bits=4),
+                                   f"@reduced E={E} M={M}"))
+    dec = gm_rows[0]
+    results["grouped_matmul"] = dict(
+        err=max(gm_errs), ms=dec["ms"], graph_ms=dec["graph_ms"], plain_ms=dec["plain_ms"],
+        library_ms=dec["library_ms"], library_graph_ms=dec["library_graph_ms"],
+        bound=(dec["bound_ms"], dec["bound_by"]),
+        shape=f"E={dec['E']} M=1 K=2048 N=1408 (padded 1536) int4: moonshot "
+              "selected-expert decode, 4 rows x top-6 by id (gate/up)",
+        all_shapes=gm_rows)
+    torch.cuda.synchronize()
 
     # --- quant_decode_attention (dense cache) -------------------------------
     # (B, H, Hkv, D, S, lengths): Engine.generate's decode at qwen2-7b (4 rows
@@ -443,7 +548,9 @@ def phase_new_kernels(dev, results: dict) -> None:
         log(f"[kernels] quant_decode_attention G={H // Hkv} D={D} S={S} "
             f"lengths={lengths}: max abs err {err:.3e}")
         if H == 28:
-            ms = time_ms(QA.quant_decode_attention, [(q, *c, length) for c in caches])
+            sets = [(q, *c, length) for c in caches]
+            ms = time_ms(QA.quant_decode_attention, sets)
+            gms = graph_ms(QA.quant_decode_attention, sets)
             plens = torch.tensor(lengths, dtype=torch.int32, device=dev)
             plain_ms = time_ms(QA.quant_decode_attention_plain, [(q, *caches[0], plens)],
                                iters=5)
@@ -452,16 +559,18 @@ def phase_new_kernels(dev, results: dict) -> None:
             kd = KV.dequantize_keys(kq, ks, kz).transpose(1, 2).repeat_interleave(G, dim=1)
             vd = v.to(torch.bfloat16).transpose(1, 2).repeat_interleave(G, dim=1)
             mask = (torch.arange(S, device=dev)[None] < plens[:, None])[:, None, None, :]
-            lib_ms = library_time(lambda a, b, c, m: F.scaled_dot_product_attention(
+            lib_ms, lib_gms = library_time(lambda a, b, c, m: F.scaled_dot_product_attention(
                 a, b, c, attn_mask=m, scale=1.0), [(q[:, :, None], kd, vd, mask)])
             live = sum(lengths)
             bytes_ = q.numel() * 2 + live * Hkv * (2 * D + 8) + B * H * D * 4
             results["quant_decode_attention"] = dict(
-                err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                err=err, ms=ms, graph_ms=gms, plain_ms=plain_ms, library_ms=lib_ms,
+                library_graph_ms=lib_gms,
                 bound=bound(bytes_, 4 * live * H * D, BF16_FLOPS_PER_S),
                 shape=f"B={B} H={H} Hkv={Hkv} D={D} S={S} length={lengths[0]} "
                       "(Engine.generate decode, qwen2-7b)")
-            log(f"[kernels]   {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms} ms")
+            log(f"[kernels]   {ms:.4f} ms a call, {f4(gms)} ms on the device; plain "
+                f"{plain_ms:.4f} ms; SDPA {f4(lib_ms)} ms a call, {f4(lib_gms)} ms on the device")
             del kd, vd
         del caches
 
@@ -485,12 +594,13 @@ def phase_new_kernels(dev, results: dict) -> None:
             f"causal={causal} window={window}: max abs err {err:.3e}")
         if (H, causal, window) == (28, True, 0):
             ms = time_ms(lambda *a: FP.flash_prefill_attention(*a, **kw), [args])
+            gms = graph_ms(lambda *a: FP.flash_prefill_attention(*a, **kw), [args])
             plain_ms = time_ms(lambda *a: FP.flash_prefill_attention_plain(*a, **kw),
                                [args], iters=5)
             G = H // Hkv
             qpos = torch.arange(T, device=dev)
             mask = (torch.arange(S, device=dev)[None] <= qpos[:, None])[None, None]
-            lib_ms = library_time(lambda a, b, c, m: F.scaled_dot_product_attention(
+            lib_ms, lib_gms = library_time(lambda a, b, c, m: F.scaled_dot_product_attention(
                 a, b, c, attn_mask=m, scale=1.0),
                 [(q.transpose(1, 2), k.transpose(1, 2).repeat_interleave(G, dim=1),
                   v.transpose(1, 2).repeat_interleave(G, dim=1), mask)])
@@ -499,11 +609,13 @@ def phase_new_kernels(dev, results: dict) -> None:
             bytes_ = (q.numel() * 2 + 2 * B * live_keys * Hkv * D * 2
                       + B * T * H * D * 4)
             results["flash_prefill_attention"] = dict(
-                err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                err=err, ms=ms, graph_ms=gms, plain_ms=plain_ms, library_ms=lib_ms,
+                library_graph_ms=lib_gms,
                 bound=bound(bytes_, 4 * B * H * D * pairs, BF16_FLOPS_PER_S),
                 shape=f"B={B} T={T} S={S} H={H} Hkv={Hkv} D={D} causal "
                       "(Engine.generate prefill, qwen2-7b)")
-            log(f"[kernels]   {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms} ms")
+            log(f"[kernels]   {ms:.4f} ms a call, {f4(gms)} ms on the device; plain "
+                f"{plain_ms:.4f} ms; SDPA {f4(lib_ms)} ms a call, {f4(lib_gms)} ms on the device")
     torch.cuda.synchronize()
 
 
@@ -957,6 +1069,8 @@ def phase_moe(dev) -> dict:
     from repro_torch.configs import registry
     from repro_torch.kernels import grouped_matmul as GM
     from repro_torch.models import moe as M
+    from repro_torch.runtime import dispatch as D
+    from repro_torch.runtime import plan as RP
     from repro_torch.serving import engine as E
 
     cfg = registry.get("moonshot-v1-16b-a3b")
@@ -973,26 +1087,49 @@ def phase_moe(dev) -> dict:
     specs, arrivals = moe_trace(cfg.vocab_size)
     log(f"[moe] trace: prompts {[len(p) for p in specs]}, arrivals {arrivals}")
     by_branch = {"full_dispatch": 0, "selected_expert": 0}
-    originals = (M._dispatch_moe, M._dispatch_moe_tiny)
+    # grouped launches by branch and by the table they were given, and the
+    # calls of take_experts (the slab copy the kernel's id table replaces)
+    tables = {b: {"rows": 0, "ids": 0, "neither": 0} for b in by_branch}
+    branch, take_calls = [None], [0]
+    originals = (M._dispatch_moe, M._dispatch_moe_tiny, D.Dispatcher.grouped_matmul,
+                 RP.take_experts)
 
-    def counted(fn, branch):
+    def counted(fn, name):
         def inner(*a, **kw):
             before = GM.grouped_matmul.launches
-            out = fn(*a, **kw)
-            by_branch[branch] += GM.grouped_matmul.launches - before
-            return out
+            branch[0] = name
+            try:
+                return fn(*a, **kw)
+            finally:
+                by_branch[name] += GM.grouped_matmul.launches - before
+                branch[0] = None
         return inner
+
+    def grouped_spy(self, *a, rows=None, ids=None, **kw):
+        before = GM.grouped_matmul.launches
+        out = originals[2](self, *a, rows=rows, ids=ids, **kw)
+        key = "rows" if rows is not None else "ids" if ids is not None else "neither"
+        tables[branch[0]][key] += GM.grouped_matmul.launches - before
+        return out
+
+    def take_spy(*a, **kw):
+        take_calls[0] += 1
+        return originals[3](*a, **kw)
 
     M._dispatch_moe = counted(originals[0], "full_dispatch")
     M._dispatch_moe_tiny = counted(originals[1], "selected_expert")
+    D.Dispatcher.grouped_matmul = grouped_spy
+    RP.take_experts = take_spy
     try:
         K.reset_launch_counts()
         loop, reqs, wall = serve_trace(eng, specs, arrivals, max_new=16)
         counts = K.launch_counts()
     finally:
-        M._dispatch_moe, M._dispatch_moe_tiny = originals
+        (M._dispatch_moe, M._dispatch_moe_tiny, D.Dispatcher.grouped_matmul,
+         RP.take_experts) = originals
     s = eng.stats
-    log(f"[moe] launches during the trace: {counts}; grouped_matmul by branch {by_branch}")
+    log(f"[moe] launches during the trace: {counts}; grouped_matmul by branch {by_branch}, "
+        f"by table {tables}; take_experts calls {take_calls[0]}")
     assert all(r.done and len(r.generated) == 16 for r in reqs), "unfinished requests"
     assert loop.pool.prefix_hits > 0, "the shared prefix was never adopted"
     assert loop.disabled_features.get("decode_bucketing"), loop.disabled_features
@@ -1000,6 +1137,10 @@ def phase_moe(dev) -> dict:
                  "paged_flash_prefill_attention", "w4a8_matmul", "rmsnorm"):
         assert counts[name] > 0, f"{name} never launched on the MoE path: {counts}"
     assert all(n > 0 for n in by_branch.values()), by_branch
+    # chunks skip dead capacity rows, decode reads slabs by id: no slab copy
+    assert tables["full_dispatch"]["rows"] == by_branch["full_dispatch"], tables
+    assert tables["selected_expert"]["ids"] == by_branch["selected_expert"], tables
+    assert take_calls[0] == 0, f"take_experts ran {take_calls[0]} times on the card"
     assert eng.dispatch.fallbacks == [], eng.dispatch.fallbacks
     new_tokens = sum(len(r.generated) for r in reqs)
     summary = {
@@ -1010,6 +1151,7 @@ def phase_moe(dev) -> dict:
         "tpot_p50_ms": s.tpot(50) * 1e3, "tpot_p95_ms": s.tpot(95) * 1e3,
         "decode_tok_per_s": s.decode_tps, "prefill_tok_per_s": s.prefill_tps,
         "launches": counts, "grouped_matmul_by_branch": by_branch,
+        "grouped_matmul_by_table": tables, "take_experts_calls": take_calls[0],
         "disabled_features": loop.disabled_features,
         "device_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
     }
@@ -1075,7 +1217,8 @@ def main() -> int:
                         "launches": sum(c[name] for c in paths.values()),
                         "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-                        "library_ms": r["library_ms"], "shape": r["shape"]})
+                        "library_ms": r["library_ms"], "graph_ms": r["graph_ms"],
+                        "library_graph_ms": r["library_graph_ms"], "shape": r["shape"]})
     detail = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
               "build_s": lib.build_s, "kernels": kernels, "launches_by_path": paths,
               "w4a8_all_shapes": results["w4a8_matmul"]["all_shapes"],

@@ -7,28 +7,45 @@
 // over the row's pages through the page table, with int8 key dequantization
 // fused in, fp8 e4m3 values read as they are, and online softmax in float32.
 //
-// What bounds it on the H100: operations at long contexts (each key tile is
-// reused by every query row of the block), bytes for short ones; at the
-// serving chunk sizes here both are small next to the chunk's matmuls.
+// What bounds it on the H100: bytes at the serving chunk sizes (a 128-token
+// chunk at position 256 reads 3.2 MB of pool and queries for 0.6 GFLOP),
+// operations only at long contexts, where each key tile is reused by every
+// query row of a block.
 //
-// Design: prefill::attend (csrc/prefill_attention.cuh) over the row's pages
-// in tiles of up to 32 keys (a tile never crosses a page), with the causal
-// mask pos0 + i >= key position.  Keys are dequantized through the same
-// dequant_key as the decode kernels.  Pages (and tiles) that start past the
-// block's last query are skipped; the page id is read once per tile.
+// Design: prefill::attend (csrc/prefill_attention.cuh) on the bf16 tensor
+// cores, with this policy staging tiles of up to 64 keys (a tile never
+// crosses a page): the page id is read once per tile, the tile's int8 keys,
+// fp8 values and per-(token, head) key scale and zero come in through
+// cp.async into a double-buffered raw area, and once landed they become the
+// bf16 tile -- keys dequantized as (kq - zero) * scale in float32 through
+// the decode kernels' dequant_key and rounded to bf16, values converted
+// from e4m3, which bf16 holds exactly.  Pages (and tiles) that start past
+// the block's last query are skipped.  Rounding against the Pallas kernel:
+// keys are rounded to bf16 after dequantization and P to bf16 for P.V, as
+// the plain version does (the Pallas kernel keeps both in float32).
 #include "prefill_attention.cuh"
 
 namespace {
 
 using prefill::TS;
 
+template <int D>
 struct PagedTiles {
+  static constexpr bool CONVERTS = true;
+  static constexpr int P = prefill::Geo<D>::PITCH;
+  static constexpr int TILE = prefill::Geo<D>::TILE;
+  static constexpr int RAW = 2 * TS * D;              // one slot: int8 keys, then fp8 values
+  // one bf16 K and V tile, two raw slots, two slots of (scale, zero) per key
+  static constexpr int SMEM = 2 * TILE * 2 + 2 * RAW + 2 * TS * 2 * 4;
   const int8_t* __restrict__ kq;
   const float* __restrict__ kscale;
   const float* __restrict__ kzero;
   const uint8_t* __restrict__ v;
   const int* __restrict__ row_table;   // the row's page ids [n_pages]
-  int p0, ps, n_pages, D;
+  int p0, ps, n_pages, Hkv, h;
+  __nv_bfloat16* tile;                 // [K tile, V tile]
+  uint8_t* raw;                        // [slot][keys TS x D, values TS x D]
+  float* sz;                           // [slot][key][scale, zero]
   __device__ int tiles_per_page() const { return (ps + TS - 1) / TS; }
   __device__ int qpos(int i) const { return p0 + i; }
   __device__ int begin(int) const { return 0; }
@@ -41,44 +58,111 @@ struct PagedTiles {
     return it / tpp * ps + it % tpp * TS;
   }
   __device__ int size(int it) const { return min(TS, ps - it % tiles_per_page() * TS); }
-  __device__ size_t first(int it) const {
-    const int tpp = tiles_per_page();
-    return static_cast<size_t>(row_table[it / tpp]) * ps + it % tpp * TS;
-  }
-  __device__ float key(size_t tok, int d) const {
-    return dequant_key(kq[tok * D + d], kscale[tok], kzero[tok]);
-  }
-  __device__ float value(size_t tok, int d) const { return fp8_to_float(v[tok * D + d]); }
   __device__ bool live(int qp, int kp) const { return kp <= qp; }
+  __device__ void stage(int it, int slot, int tid, int n) const {
+    const int tpp = tiles_per_page();
+    const size_t first = static_cast<size_t>(row_table[it / tpp]) * ps + it % tpp * TS;
+    const int nt = size(it);
+    uint8_t* rk = raw + slot * RAW;
+    uint8_t* rv = rk + TS * D;
+    for (int c = tid; c < TS * (D / 16); c += n) {
+      const int r = c / (D / 16), ch = c % (D / 16);
+      const bool ok = r < nt;
+      const size_t off = ((first + r) * Hkv + h) * D + ch * 16;
+      mma::cp_async16(rk + r * D + ch * 16, ok ? kq + off : kq, ok);
+      mma::cp_async16(rv + r * D + ch * 16, ok ? v + off : v, ok);
+    }
+    for (int r = tid; r < TS; r += n) {
+      const bool ok = r < nt;
+      const size_t tok = (first + r) * Hkv + h;
+      float* dst = sz + (slot * TS + r) * 2;
+      mma::cp_async4(dst, ok ? kscale + tok : kscale, ok);
+      mma::cp_async4(dst + 1, ok ? kzero + tok : kzero, ok);
+    }
+  }
+  __device__ void convert(int it, int slot, int tid, int n) const {
+    const int nt = size(it);
+    const int8_t* rk = reinterpret_cast<const int8_t*>(raw + slot * RAW);
+    const uint8_t* rv = raw + slot * RAW + TS * D;
+    for (int c = tid; c < TS * (D / 8); c += n) {
+      const int r = c / (D / 8), ch = c % (D / 8);
+      uint4 kout = make_uint4(0, 0, 0, 0), vout = make_uint4(0, 0, 0, 0);
+      if (r < nt) {
+        const float scale = sz[(slot * TS + r) * 2];
+        const float zero = sz[(slot * TS + r) * 2 + 1];
+        const int8_t* kb = rk + r * D + ch * 8;
+        const uint8_t* vb = rv + r * D + ch * 8;
+        uint32_t* ko = reinterpret_cast<uint32_t*>(&kout);
+        uint32_t* vo = reinterpret_cast<uint32_t*>(&vout);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          ko[i] = mma::pack_bf16(dequant_key(kb[2 * i], scale, zero),
+                                 dequant_key(kb[2 * i + 1], scale, zero));
+          vo[i] = mma::pack_bf16(fp8_to_float(vb[2 * i]), fp8_to_float(vb[2 * i + 1]));
+        }
+      }
+      *reinterpret_cast<uint4*>(tile + r * P + ch * 8) = kout;
+      *reinterpret_cast<uint4*>(tile + TILE + r * P + ch * 8) = vout;
+    }
+  }
+  __device__ const __nv_bfloat16* ktile(int) const { return tile; }
+  __device__ const __nv_bfloat16* vtile(int) const { return tile + TILE; }
 };
 
+template <int D>
+constexpr int smem_bytes() { return prefill::q_bytes<D>() + PagedTiles<D>::SMEM; }
+
+template <int D>
 __global__ void __launch_bounds__(prefill::THREADS)
 paged_prefill_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ kq,
                      const float* __restrict__ kscale, const float* __restrict__ kzero,
                      const uint8_t* __restrict__ v, const int* __restrict__ table,
                      const int* __restrict__ pos0, float* __restrict__ out,
-                     int C, int Hkv, int G, int D, int ps, int n_pages) {
+                     int C, int Hkv, int G, int ps, int n_pages) {
+  extern __shared__ __align__(128) unsigned char smem[];
   const int b = blockIdx.x / Hkv;
   const int h = blockIdx.x % Hkv;
-  const PagedTiles tiles{kq, kscale, kzero, v, table + static_cast<size_t>(b) * n_pages,
-                         pos0[b], ps, n_pages, D};
-  prefill::attend(tiles, q, out, b, h, C, Hkv, G, D);
+  auto* qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  unsigned char* rest = smem + prefill::q_bytes<D>();
+  auto* tile = reinterpret_cast<__nv_bfloat16*>(rest);
+  uint8_t* raw = rest + 2 * PagedTiles<D>::TILE * 2;
+  auto* sz = reinterpret_cast<float*>(raw + 2 * PagedTiles<D>::RAW);
+  const PagedTiles<D> tiles{kq, kscale, kzero, v, table + static_cast<size_t>(b) * n_pages,
+                            pos0[b], ps, n_pages, Hkv, h, tile, raw, sz};
+  prefill::attend<D>(tiles, q, out, b, h, C, Hkv, G, qs);
+}
+
+template <int D>
+void launch(const void* q, const void* kq, const void* kscale, const void* kzero,
+            const void* v, const void* table, const void* pos0, void* out, int B, int C,
+            int Hkv, int G, int ps, int n_pages, cudaStream_t stream) {
+  static bool opted_in = false;
+  if (!opted_in) {
+    prefill::allow_smem(paged_prefill_kernel<D>, smem_bytes<D>());
+    opted_in = true;
+  }
+  paged_prefill_kernel<D><<<prefill::grid(B, Hkv, C, G), prefill::THREADS, smem_bytes<D>(),
+                            stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(kq),
+      static_cast<const float*>(kscale), static_cast<const float*>(kzero),
+      static_cast<const uint8_t*>(v), static_cast<const int*>(table),
+      static_cast<const int*>(pos0), static_cast<float*>(out), C, Hkv, G, ps, n_pages);
 }
 
 }  // namespace
 
 // q bf16 [B, C, H, D] pre-scaled; pool arrays as for the decode kernel; table
-// int32 [B, n_pages]; pos0 int32 [B]; out f32 [B, C, H, D].  D <= 128.
+// int32 [B, n_pages]; pos0 int32 [B]; out f32 [B, C, H, D].  D is 64 or 128.
 extern "C" int paged_prefill_attention_launch(
     const void* q, const void* kq, const void* kscale, const void* kzero,
     const void* v, const void* table, const void* pos0, void* out, int B, int C,
     int Hkv, int G, int D, int ps, int n_pages, void* stream) {
-  paged_prefill_kernel<<<prefill::grid(B, Hkv, C, G), prefill::THREADS, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(kq),
-      static_cast<const float*>(kscale), static_cast<const float*>(kzero),
-      static_cast<const uint8_t*>(v), static_cast<const int*>(table),
-      static_cast<const int*>(pos0), static_cast<float*>(out), C, Hkv, G, D, ps,
-      n_pages);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 128)
+    launch<128>(q, kq, kscale, kzero, v, table, pos0, out, B, C, Hkv, G, ps, n_pages, s);
+  else if (D == 64)
+    launch<64>(q, kq, kscale, kzero, v, table, pos0, out, B, C, Hkv, G, ps, n_pages, s);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

@@ -101,7 +101,8 @@ def flash_prefill_attention_plain(q_: torch.Tensor, k: torch.Tensor,
                            policy=policy).float()
 
 
-MAX_GRID_Y = 65535    # the kernel's query-row tiles of 16 run on grid y
+MAX_GRID_Y = 65535    # the kernel's blocks of 64 query-head rows run on grid y
+HEAD_DIMS = (64, 128)  # the kernel's instantiations
 
 
 def flash_prefill_attention(q_: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -127,12 +128,12 @@ def flash_prefill_attention(q_: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_prefill_attention_plain(q_, k, v, causal=causal, window=window)
     if dev.type != "cuda":
         raise NotImplementedError(f"no prefill-attention kernel for {dev}")
-    if D > 128:
-        raise NotImplementedError(f"D={D}: the kernel takes D <= 128")
+    if D not in HEAD_DIMS:
+        raise NotImplementedError(f"D={D}: the kernel takes D in {HEAD_DIMS}")
     if {q_.dtype, k.dtype, v.dtype} != {torch.bfloat16}:
         raise TypeError(f"dtypes {q_.dtype}, {k.dtype}, {v.dtype}: the kernel "
                         "reads bf16 queries, keys and values")
-    if -(-T * (H // Hkv) // 16) > MAX_GRID_Y:
+    if -(-T * (H // Hkv) // 64) > MAX_GRID_Y:
         raise NotImplementedError(f"T={T}: past the kernel's grid limit")
     if not all(t.is_contiguous() for t in (q_, k, v)):
         raise ValueError("prefill-attention operands must be contiguous")
@@ -202,8 +203,8 @@ def paged_flash_prefill_attention(
         raise NotImplementedError("int4 keys: no CUDA prefill kernel yet")
     if v.dtype != q.FP8_DTYPE:
         raise NotImplementedError(f"values {v.dtype}: the kernel reads fp8 e4m3")
-    if D > 128:
-        raise NotImplementedError(f"D={D}: the kernel takes D <= 128")
+    if D not in HEAD_DIMS:
+        raise NotImplementedError(f"D={D}: the kernel takes D in {HEAD_DIMS}")
     if (k_q.dtype, k_scale.dtype, k_zero.dtype) != (torch.int8, torch.float32,
                                                     torch.float32):
         raise TypeError("pool dtypes must be int8 keys, float32 scale/zero")

@@ -39,8 +39,8 @@ SIGNATURES = {
     "paged_prefill_attention_launch": [P] * 8 + [I] * 7 + [P],
     # x, w, y, rows, D, eps, is_bf16, stream
     "rmsnorm_launch": [P, P, P, I, I, ctypes.c_float, I, P],
-    # xq, sx, w, scale, zero, y, E, M, N, K, bits, stream
-    "grouped_matmul_launch": [P] * 6 + [I] * 5 + [P],
+    # xq, sx, w, scale, zero, y, ids, rows, E, M, N, K, G, bits, stream
+    "grouped_matmul_launch": [P] * 8 + [I] * 6 + [P],
     # q, kq, kscale, kzero, v, length, out, B, S, Hkv, G, D, stream
     "decode_attention_launch": [P] * 7 + [I] * 5 + [P],
     # q, k, v, out, B, T, S, Hkv, G, D, causal, window, stream
@@ -106,12 +106,14 @@ def build(force: bool = False) -> KernelLibrary:
             procs.append((cu, subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(cu), "-o", str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-        logs = []
+        logs, failed = [], []
         for cu, proc in procs:
             text, _ = proc.communicate()
             logs.append(f"--- {cu.name}\n{text}")
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {cu.name}:\n{text}")
+                failed.append(f"nvcc failed on {cu.name}:\n{text}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
         tmp = out_dir / "libreprokernels.so.tmp"
         link = subprocess.run(
             [nvcc, "-shared", *[str(out_dir / (cu.stem + ".o")) for cu in cus],

@@ -7,11 +7,12 @@ Dispatch: router top-k -> flatten (token, expert) pairs -> stable sort by
 expert -> rank within expert -> gather into [G, E, C, d] (pairs past the
 capacity C go to an extra pad row and drop) -> grouped matmul -> gather the
 K expert outputs back per token and weight them.  Serving sizes C to the
-worst case (``full_capacity``), so no token drops.  With at most E routed
-pairs (B*T*K <= E) the selected-expert path gathers the K chosen experts'
-weight slabs per token instead and runs them as an n*K-expert grouped
-matmul of one row each.  Every expert matmul goes through the dispatcher's
-``grouped_matmul`` op.
+worst case (``full_capacity``), so no token drops; the grouped matmul is
+told each segment's live row count, so its kernel skips the zero rows.
+With at most E routed pairs (B*T*K <= E) the selected-expert path runs the
+K chosen experts of each token instead, as an n*K-slab grouped matmul of
+one row each that names its experts by id.  Every expert matmul goes
+through the dispatcher's ``grouped_matmul`` op.
 
 Routing order follows the reference: ``jnp.argsort`` is stable, so the
 port sorts with ``stable=True``; ``lax.top_k`` breaks ties toward the lower
@@ -28,7 +29,6 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quantization as q
 from repro_torch.models import layers as L
 from repro_torch.runtime import dispatch as D
-from repro_torch.runtime import plan as RP
 
 MOE_CHUNK_TOKENS = 16384   # tokens per dispatch for giant prefill batches
 
@@ -61,10 +61,10 @@ def _route(x: torch.Tensor, router: torch.Tensor, K: int):
 
 
 def _expert_matmul(xe: torch.Tensor, wp: dict, qcfg: q.QuantConfig,
-                   dispatch: D.Dispatcher) -> torch.Tensor:
+                   dispatch: D.Dispatcher, **tables) -> torch.Tensor:
     """xe [G, E, C, in] @ w [E, in, out] -> [G, E, C, out] (bf16) through
-    the ``grouped_matmul`` op."""
-    return dispatch.grouped_matmul(xe, wp["w"], qcfg)
+    the ``grouped_matmul`` op (``tables``: its ``rows`` / ``ids``)."""
+    return dispatch.grouped_matmul(xe, wp["w"], qcfg, **tables)
 
 
 def _dispatch_moe(xg: torch.Tensor, p: dict, cfg: ModelConfig,
@@ -98,9 +98,13 @@ def _dispatch_moe(xg: torch.Tensor, p: dict, cfg: ModelConfig,
     idx = idx.scatter(1, slot, st)[:, :E * C]
     xg_pad = torch.cat([xg, torch.zeros((G, 1, d), dtype=xg.dtype, device=dev)], 1)
     xe = xg_pad.gather(1, idx[..., None].expand(G, E * C, d)).reshape(G, E, C, d)
-    g = _expert_matmul(xe, p["w_gate"], cfg.quant, dispatch)
-    u = _expert_matmul(xe, p["w_up"], cfg.quant, dispatch)
-    ye = _expert_matmul(L.swiglu(u, g), p["w_down"], cfg.quant, dispatch)
+    # the live rows at the head of each (expert, group) segment, on the
+    # device (no host wait); the rest are zeros, and stay zeros through
+    # swiglu, so the down projection skips the same rows
+    rows = counts.clamp(max=C).to(torch.int32).t().contiguous()   # [E, G]
+    g = _expert_matmul(xe, p["w_gate"], cfg.quant, dispatch, rows=rows)
+    u = _expert_matmul(xe, p["w_up"], cfg.quant, dispatch, rows=rows)
+    ye = _expert_matmul(L.swiglu(u, g), p["w_down"], cfg.quant, dispatch, rows=rows)
     # gather-based combine: inverse-permute to token-major, sum the K experts
     slot_tok = slot.gather(-1, torch.argsort(order, dim=-1))       # [G, TK]
     contrib = torch.cat([ye.to(torch.bfloat16).reshape(G, E * C, d),
@@ -114,28 +118,24 @@ def _dispatch_moe(xg: torch.Tensor, p: dict, cfg: ModelConfig,
     return y.to(xg.dtype), torch.stack([lb, z]), topk_i
 
 
-def _select_expert_weights(wp: dict, ids: torch.Tensor) -> dict:
-    """Gather per-token expert slabs: [E, in, out] -> [n, in, out]."""
-    return {"w": RP.take_experts(wp["w"], ids)}
-
-
 def _dispatch_moe_tiny(xg: torch.Tensor, p: dict, cfg: ModelConfig,
                        dispatch: D.Dispatcher
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Selected-expert path for tiny token counts (tokens * K <= E): only
-    the K chosen experts' slabs of each token are read, as an n*K-expert
-    grouped matmul of one row each."""
+    the K chosen experts' slabs of each token are read, as an n*K-slab
+    grouped matmul of one row each that names its experts by id (the
+    plain version gathers the slabs, the kernel reads them in place)."""
     G, Tg, d = xg.shape
     E, K = cfg.num_experts, cfg.experts_per_tok
     n = G * Tg
     x_flat = xg.reshape(n, d)
     logits, probs, topk_p, topk_i = _route(x_flat, p["router"], K)
-    ids = topk_i.reshape(n * K)
+    ids = topk_i.reshape(n * K).to(torch.int32)
     xr = x_flat.repeat_interleave(K, dim=0).reshape(1, n * K, 1, d)
-    g = _expert_matmul(xr, _select_expert_weights(p["w_gate"], ids), cfg.quant, dispatch)
-    u = _expert_matmul(xr, _select_expert_weights(p["w_up"], ids), cfg.quant, dispatch)
-    ye = _expert_matmul(L.swiglu(u, g), _select_expert_weights(p["w_down"], ids),
-                        cfg.quant, dispatch)                       # [1, nK, 1, d]
+    g = _expert_matmul(xr, p["w_gate"], cfg.quant, dispatch, ids=ids)
+    u = _expert_matmul(xr, p["w_up"], cfg.quant, dispatch, ids=ids)
+    ye = _expert_matmul(L.swiglu(u, g), p["w_down"], cfg.quant, dispatch,
+                        ids=ids)                                   # [1, nK, 1, d]
     per_tok = ye.reshape(n, K, d).float()
     y = torch.einsum("tkd,tk->td", per_tok, topk_p.float())
     frac = torch.zeros((E,), dtype=torch.float32, device=xg.device).index_add_(

@@ -16,7 +16,7 @@ use is holding the kernel path against the plain path on the card.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -69,17 +69,28 @@ class Dispatcher:
         return y[:, :w.n].reshape(*lead, w.n).to(out_dtype)
 
     def grouped_matmul(self, x: torch.Tensor, w, qcfg: q.QuantConfig,
-                       out_dtype=torch.bfloat16) -> torch.Tensor:
+                       out_dtype=torch.bfloat16, *, rows: Optional[torch.Tensor] = None,
+                       ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Per-expert matmul x [G, E, C, K] @ w[e] [K, N] -> [G, E, C, N]
         for a layer-sliced ``PackedExpertLinear`` [E, Kp, Np(/2)]: the G*C
-        rows of each expert are quantized per row and run as one slab."""
+        rows of each expert are quantized per row and run as one slab.
+        ``ids`` int32 [E'] (x then [G, E', C, K]): slab e of x meets expert
+        ids[e] of the whole table, read in place on the card.  ``rows``
+        int32 [E, G]: the live rows at the head of each (expert, group)
+        capacity segment, the rest being zero rows the kernel skips.  Only
+        shapes and dtypes are checked (an id out of range raises on the CPU;
+        on the card a check would make the host wait)."""
         if w.data.dim() != 3:
             raise ValueError("stacked expert tables: slice one layer first")
         if x.dim() != 4:
             raise ValueError(f"grouped matmul wants [G, E, C, K], got {tuple(x.shape)}")
         G, E, C, K = x.shape
-        if E != w.data.shape[0]:
+        if ids is None and E != w.data.shape[0]:
             raise ValueError(f"expert axis {E} != weight {w.data.shape[0]}")
+        if ids is not None and (ids.dtype != torch.int32 or ids.shape != (E,)):
+            raise ValueError(f"ids {ids.dtype} {tuple(ids.shape)}: int32 [{E}] wanted")
+        if rows is not None and (rows.dtype != torch.int32 or rows.shape != (E, G)):
+            raise ValueError(f"rows {rows.dtype} {tuple(rows.shape)}: int32 [{E}, {G}] wanted")
         if K != w.k:
             raise ValueError(f"reduction dim {K} != weight {w.k}")
         if not (qcfg.act_bits == 8 and w.scale.shape[-2] == 1 and w.bits in (4, 8)):
@@ -90,7 +101,7 @@ class Dispatcher:
             return torch.zeros((G, E, C, w.n), dtype=out_dtype, device=x.device)
         xq, sx = q.quantize_activations(x.movedim(1, 0).reshape(E, G * C, K))
         fn = GM.grouped_matmul_plain if self._plain else GM.grouped_matmul
-        y = fn(xq, sx, w.data, w.scale[:, 0], w.zero[:, 0], bits=w.bits)
+        y = fn(xq, sx, w.data, w.scale[:, 0], w.zero[:, 0], bits=w.bits, rows=rows, ids=ids)
         return y[..., :w.n].reshape(E, G, C, w.n).movedim(0, 1).to(out_dtype)
 
     def rmsnorm(self, x: torch.Tensor, weight: torch.Tensor,

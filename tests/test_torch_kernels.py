@@ -293,6 +293,86 @@ def test_grouped_matmul_wrapper_checks():
                                        PQ.QuantConfig(act_bits=16))
 
 
+@pytest.mark.parametrize("bits", [4, 8])
+def test_grouped_matmul_ids_match_take_experts_and_pallas(bits):
+    """Slabs named by id in the whole table (the selected-expert decode
+    path, with repeats): the port equals its own plain matmul over
+    ``take_experts`` and the reference over its ``take_experts`` bit for
+    bit, and the Pallas kernel over the reference's gather within 1e-4."""
+    jw, pw = _experts(6, 200, 130, bits, seed=11)
+    ids = np.asarray([3, 0, 5, 3, 1, 3, 2, 0], np.int32)
+    x = np.random.default_rng(5).normal(size=(1, len(ids), 1, 200)).astype(np.float32)
+    xj, xp = jnp.asarray(x, jnp.bfloat16), torch.from_numpy(x).bfloat16()
+    qcfg_j, qcfg_p = JQ.QuantConfig(), PQ.QuantConfig()
+    got = PD.Dispatcher().grouped_matmul(xp, pw, qcfg_p, out_dtype=torch.float32,
+                                         ids=torch.from_numpy(ids))
+    assert got.shape == (1, len(ids), 1, 130)
+    gathered = PD.Dispatcher().grouped_matmul(xp, PP.take_experts(pw, torch.from_numpy(ids)),
+                                              qcfg_p, out_dtype=torch.float32)
+    assert torch.equal(got, gathered)
+    jsel = JP.take_experts(jw, jnp.asarray(ids))
+    ref = jax.jit(lambda a: REF.grouped_matmul(a, jsel, qcfg_j, out_dtype=jnp.float32))(xj)
+    assert _f32(ref).tobytes() == _f32(got).tobytes()
+    interp = JD.Dispatcher(backend="interpret")
+    _close(got, interp.grouped_matmul(xj, jsel, qcfg_j, out_dtype=jnp.float32),
+           rtol=1e-4, atol=1e-4)
+    assert interp.fallbacks == []
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_grouped_matmul_rows_plain_matches_pallas(bits):
+    """Live-row counts per (expert, group) capacity segment, the rows past
+    them zero: the plain version takes ``rows`` and computes every row, so
+    it equals itself without them, the reference bit for bit and the Pallas
+    kernel within 1e-4; the dead rows come out +0.0."""
+    G, E, C, K, N = 2, 3, 20, 100, 72
+    jw, pw = _experts(E, K, N, bits, seed=17)
+    rows = np.asarray([[0, 20], [7, 3], [20, 0]], np.int32)          # [E, G]
+    x = np.random.default_rng(9).normal(size=(G, E, C, K)).astype(np.float32)
+    live = np.arange(C)[None, None] < rows.T[..., None]              # [G, E, C]
+    x = x * live[..., None]
+    xj, xp = jnp.asarray(x, jnp.bfloat16), torch.from_numpy(x).bfloat16()
+    qcfg_j, qcfg_p = JQ.QuantConfig(), PQ.QuantConfig()
+    d = PD.Dispatcher()
+    got = d.grouped_matmul(xp, pw, qcfg_p, out_dtype=torch.float32,
+                           rows=torch.from_numpy(rows))
+    assert torch.equal(got, d.grouped_matmul(xp, pw, qcfg_p, out_dtype=torch.float32))
+    dead = got[torch.from_numpy(~live)]
+    assert torch.equal(dead, torch.zeros_like(dead)) and not torch.signbit(dead).any()
+    ref = jax.jit(lambda a: REF.grouped_matmul(a, jw, qcfg_j, out_dtype=jnp.float32))(xj)
+    assert _f32(ref).tobytes() == _f32(got).tobytes()
+    pallas = JD.Dispatcher(backend="interpret").grouped_matmul(xj, jw, qcfg_j,
+                                                               out_dtype=jnp.float32)
+    _close(got, pallas, rtol=1e-4, atol=1e-4)
+
+
+def test_grouped_matmul_tables_checked():
+    """``rows`` and ``ids`` must be int32 of their shapes; an id past the
+    table raises on the CPU (the gather checks it)."""
+    _, pw = _experts(4, 128, 256, 4, seed=0)
+    d, qcfg = PD.Dispatcher(), PQ.QuantConfig()
+    x = torch.zeros((1, 3, 2, 128))
+    ids = torch.tensor([0, 3, 3], dtype=torch.int32)
+    assert d.grouped_matmul(x, pw, qcfg, ids=ids).shape == (1, 3, 2, 256)
+    for bad in (ids.long(), ids[:2], ids[None]):
+        with pytest.raises(ValueError):
+            d.grouped_matmul(x, pw, qcfg, ids=bad)
+    with pytest.raises(IndexError):
+        d.grouped_matmul(x, pw, qcfg, ids=torch.tensor([0, 4, 1], dtype=torch.int32))
+    x = torch.zeros((2, 4, 3, 128))
+    rows = torch.tensor([[3, 0], [1, 2], [0, 0], [3, 3]], dtype=torch.int32)
+    assert d.grouped_matmul(x, pw, qcfg, rows=rows).shape == (2, 4, 3, 256)
+    for bad in (rows.long(), rows.t().contiguous(), rows[:, :1]):
+        with pytest.raises(ValueError):
+            d.grouped_matmul(x, pw, qcfg, rows=bad)
+    xq, sx = torch.zeros((4, 6, 128), dtype=torch.int8), torch.ones((4, 6, 1))
+    args = (pw.data, pw.scale[:, 0], pw.zero[:, 0])
+    with pytest.raises(ValueError):                                  # G must divide M
+        GM.grouped_matmul(xq, sx, *args, bits=4, rows=torch.zeros((4, 4), dtype=torch.int32))
+    with pytest.raises(ValueError):                                  # one id per slab
+        GM.grouped_matmul(xq, sx, *args, bits=4, ids=torch.zeros((3,), dtype=torch.int32))
+
+
 # ---------------------------------------------------------------------------
 # quant_decode_attention (dense cache)
 # ---------------------------------------------------------------------------
