@@ -8,7 +8,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 1. The card (``nvidia-smi`` name and power limit), torch and CUDA versions;
    build of the Hopper kernels from ``src/repro_torch/csrc``.
 2. Each of the seven kernels against its plain PyTorch version on the card,
-   at the serving paths' shapes (qwen2-7b, G=7; moonshot-v1-16b-a3b, G=1)
+   at the serving paths' shapes (qwen2-7b, G=7; moonshot-v1-16b-a3b, G=1;
+   the decode kernels with the split count their wrappers choose)
    and at small ``@reduced`` shapes, with the tolerance of the matching CPU
    test; the dense prefill kernel also non-causal and windowed; the grouped
    kernel with expert ids (decode) and live-row counts (full-capacity
@@ -70,8 +71,8 @@ TOL = {"w4a8_matmul": (1e-4, 1e-4),
        "flash_prefill_attention": (2e-2, 2e-2)}
 # full width, kernel path vs plain path on the same input, relative L2 error.
 # A layer: the attention kernels round keys and probabilities to bf16 where
-# the plain path does, but sum in another order (tensor-core products, the
-# decode kernels' float32 keys and probabilities), and every linear then
+# the plain path does, but sum in another order (tensor-core products; the
+# decode kernels round P before normalising, per split), and every linear then
 # re-quantizes its input to int8, where one code step is 1/127 of the row's
 # max (~3% of its rms): a share of elements lands on the neighbouring code,
 # so a layer's output differs by a few percent of its norm.  The head (final
@@ -292,9 +293,13 @@ def phase_kernels(dev, results: dict) -> None:
 
     # --- paged_quant_decode_attention --------------------------------------
     # (B, H, Hkv, D, page, pages per row, lengths): qwen2-7b at max_seq 2048
-    # (G=7) with the trace's ragged lengths, and @reduced (G=1, D=64)
+    # (G=7) with the trace's ragged lengths (row 2), moonshot-v1-16b-a3b at
+    # max_seq 1024 (G=1, row 2b), and @reduced (G=1, D=64).  The timed shapes
+    # print the split count the wrapper chooses from their shapes.
     cases = [(4, 28, 4, 128, 128, 16, [732, 296, 512, 41]),
+             (4, 16, 16, 128, 128, 8, [416, 80, 272, 64]),
              (3, 4, 4, 64, 16, 4, [37, 5, 64])]
+    pd_rows, pd_errs = [], []
     for B, H, Hkv, D, ps, ppr, lengths in cases:
         n_pages = B * ppr + 1 + max(2, ppr - 2)
         trash = B * ppr
@@ -309,8 +314,11 @@ def phase_kernels(dev, results: dict) -> None:
         want = QA.paged_quant_decode_attention_plain(*args)
         err = check_close("paged_quant_decode_attention", got, want,
                           f"B={B} G={H // Hkv} D={D} lengths={lengths}")
+        pd_errs.append(err)
+        splits = QA.decode_splits(B, Hkv, ppr)
         log(f"[kernels] paged_quant_decode_attention G={H // Hkv} D={D} "
-            f"lengths={lengths}: max abs err {err:.3e}")
+            f"lengths={lengths}: {splits} splits of {-(-ppr // splits)} pages "
+            f"({B * Hkv * splits} blocks), max abs err {err:.3e}")
         if D == 128:
             sets = [(q, *p, table, base, length) for p in pools]
             ms = time_ms(QA.paged_quant_decode_attention, sets)
@@ -328,13 +336,17 @@ def phase_kernels(dev, results: dict) -> None:
             live = sum(lengths)
             bytes_ = (q.numel() * 2 + live * Hkv * (2 * D + 8) + B * H * D * 4)
             ops = 4 * live * H * D
-            results["paged_quant_decode_attention"] = dict(
-                err=err, ms=ms, graph_ms=gms, plain_ms=plain_ms, library_ms=lib_ms,
-                library_graph_ms=lib_gms,
-                bound=bound(bytes_, ops, BF16_FLOPS_PER_S),
-                shape=f"B={B} H={H} Hkv={Hkv} D={D} page={ps} lengths={lengths}")
-            log(f"[kernels]   {ms:.4f} ms a call, {f4(gms)} ms on the device; plain "
-                f"{plain_ms:.4f} ms; SDPA {f4(lib_ms)} ms a call, {f4(lib_gms)} ms on the device")
+            b = bound(bytes_, ops, BF16_FLOPS_PER_S)
+            row = dict(err=err, ms=ms, graph_ms=gms, plain_ms=plain_ms, library_ms=lib_ms,
+                       library_graph_ms=lib_gms, bound=b, splits=splits,
+                       shape=f"B={B} H={H} Hkv={Hkv} D={D} page={ps} pages={ppr} "
+                             f"lengths={lengths}")
+            pd_rows.append(row)
+            log(f"[kernels]   {ms:.4f} ms a call, {f4(gms)} ms on the device, bound "
+                f"{b[0]:.5f} ms ({b[1]}); plain {plain_ms:.4f} ms; SDPA {f4(lib_ms)} ms "
+                f"a call, {f4(lib_gms)} ms on the device")
+    results["paged_quant_decode_attention"] = dict(pd_rows[0], err=max(pd_errs),
+                                                   all_shapes=pd_rows)
 
     # --- paged_flash_prefill_attention -------------------------------------
     # (C, pos0, H, Hkv, D, page, pages per row): a 128-token qwen2-7b chunk
@@ -545,8 +557,10 @@ def phase_new_kernels(dev, results: dict) -> None:
             q, *caches[0], torch.tensor(lengths, dtype=torch.int32, device=dev))
         err = check_close("quant_decode_attention", got, want,
                           f"B={B} G={H // Hkv} D={D} S={S} lengths={lengths}")
+        splits = QA.decode_splits(B, Hkv, -(-S // QA.DENSE_BLOCK))
         log(f"[kernels] quant_decode_attention G={H // Hkv} D={D} S={S} "
-            f"lengths={lengths}: max abs err {err:.3e}")
+            f"lengths={lengths}: {splits} splits ({B * Hkv * splits} blocks), max abs "
+            f"err {err:.3e}")
         if H == 28:
             sets = [(q, *c, length) for c in caches]
             ms = time_ms(QA.quant_decode_attention, sets)
@@ -566,11 +580,13 @@ def phase_new_kernels(dev, results: dict) -> None:
             results["quant_decode_attention"] = dict(
                 err=err, ms=ms, graph_ms=gms, plain_ms=plain_ms, library_ms=lib_ms,
                 library_graph_ms=lib_gms,
-                bound=bound(bytes_, 4 * live * H * D, BF16_FLOPS_PER_S),
+                bound=bound(bytes_, 4 * live * H * D, BF16_FLOPS_PER_S), splits=splits,
                 shape=f"B={B} H={H} Hkv={Hkv} D={D} S={S} length={lengths[0]} "
                       "(Engine.generate decode, qwen2-7b)")
-            log(f"[kernels]   {ms:.4f} ms a call, {f4(gms)} ms on the device; plain "
-                f"{plain_ms:.4f} ms; SDPA {f4(lib_ms)} ms a call, {f4(lib_gms)} ms on the device")
+            b = results["quant_decode_attention"]["bound"]
+            log(f"[kernels]   {ms:.4f} ms a call, {f4(gms)} ms on the device, bound "
+                f"{b[0]:.5f} ms ({b[1]}); plain {plain_ms:.4f} ms; SDPA {f4(lib_ms)} ms a "
+                f"call, {f4(lib_gms)} ms on the device")
             del kd, vd
         del caches
 
@@ -788,6 +804,10 @@ def profile_steps(label: str, step, steps: int = 4) -> dict:
         out["device_launches_per_step"] = sum(c for _u, c, _n in kern) / steps
         out["top_kernels"] = [{"name": n[:80], "ms_per_step": us / steps / 1e3,
                                "launches_per_step": c / steps} for us, c, n in kern[:10]]
+        out["port_kernels"] = {
+            sym: {"ms_per_step": sum(us for us, _c, n in kern if sym in n) / steps / 1e3,
+                  "launches_per_step": sum(c for _u, c, n in kern if sym in n) / steps}
+            for sym in PORT_KERNEL_SYMBOLS if any(sym in n for _u, _c, n in kern)}
         log(f"[profile] {label}: {step_ms:.1f} ms wall ({out['host_enqueue_ms']:.1f} ms "
             f"until the host's calls return); under the profiler "
             f"{out['profiled_step_ms']:.1f} ms, device busy "
@@ -797,6 +817,9 @@ def profile_steps(label: str, step, steps: int = 4) -> dict:
         for k in out["top_kernels"][:6]:
             log(f"[profile]   {k['ms_per_step']:8.3f} ms/step  "
                 f"{k['launches_per_step']:6.0f} launches  {k['name']}")
+        log(f"[profile] {label}: the port's kernels per step: " + ", ".join(
+            f"{sym} {k['ms_per_step']:.3f} ms ({k['launches_per_step']:.0f})"
+            for sym, k in out["port_kernels"].items()))
     else:
         out["device_busy_share"] = "not measured"
         log(f"[profile] {label}: {step_ms:.1f} ms wall; the profiler saw no device "
@@ -1223,6 +1246,7 @@ def main() -> int:
               "build_s": lib.build_s, "kernels": kernels, "launches_by_path": paths,
               "w4a8_all_shapes": results["w4a8_matmul"]["all_shapes"],
               "grouped_all_shapes": results["grouped_matmul"]["all_shapes"],
+              "paged_decode_all_shapes": results["paged_quant_decode_attention"]["all_shapes"],
               "main_path": summary, "kernel_vs_plain": checks,
               "generate_path": generate, "moe_path": moe,
               "total_s": time.perf_counter() - t_start}

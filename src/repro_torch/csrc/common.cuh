@@ -13,11 +13,23 @@
 // exp(NEG_INF - m) wipes it exactly as in the Pallas kernels).
 #define REPRO_NEG_INF (-1e30f)
 
-// Fused in-kernel key dequantization, shared by the paged decode and the
-// paged prefill kernels so both read the quantized bytes identically:
-// k = (kq - zero) * scale in float32, per (token, head) scale/zero.
+// Fused in-kernel key dequantization, shared by the decode and the paged
+// prefill kernels so all read the quantized bytes identically:
+// k = (kq - zero) * scale in float32, per (token, head) scale/zero.  The
+// float overload takes the int8 code already converted (exactly) to float.
+__device__ __forceinline__ float dequant_key(float kq, float scale, float zero) {
+  return (kq - zero) * scale;
+}
+
 __device__ __forceinline__ float dequant_key(int8_t kq, float scale, float zero) {
-  return (static_cast<float>(kq) - zero) * scale;
+  return dequant_key(static_cast<float>(kq), scale, zero);
+}
+
+// Byte i of w, an int8 code, as float -- exactly, without the I2F
+// conversion unit: w ^ 0x80808080 holds the codes biased to [0, 255], which
+// become the low mantissa bits of 2^23 and are subtracted back out.
+__device__ __forceinline__ float int8_byte_to_float(uint32_t w_biased, int i) {
+  return __int_as_float(__byte_perm(w_biased, 0x4B000000u, 0x7440 | i)) - 8388736.f;
 }
 
 // fp8 e4m3 value byte -> float32 (values are stored scale-free).

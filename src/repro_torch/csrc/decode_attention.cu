@@ -7,56 +7,81 @@
 // online in float32.  Keys at positions [0, length[b]) are live.
 //
 // What bounds it on the H100: bytes, as for the paged kernel (each live KV
-// byte is read once and meets G queries).
+// byte is read once and meets G queries); at decode's 1-2 MB a launch is
+// mostly load latency.
 //
-// Design: one block per (row, KV head), running decode::attend
-// (csrc/decode_attention.cuh) over the row's cache cut into blocks of up to
-// 128 keys; blocks past the row's length are skipped, so only the live
-// prefix is read.  The dense cache is the slot-synchronous Engine.generate
-// path's (and the cross-attention cache's) layout.
+// Design: decode::attend (csrc/decode_attention.cuh) over the row's cache
+// read as pages of 128 slots, split over them: ``splits`` blocks a (row, KV
+// head), each a contiguous run of 128-slot blocks; blocks past the row's
+// length are never read and a split holding none of the live prefix exits
+// at once.  The dense cache is the slot-synchronous Engine.generate path's
+// (and the cross-attention cache's) layout.
 #include "decode_attention.cuh"
 
 namespace {
 
-constexpr int BS = 128;
+constexpr int BS = 128;              // slots a key block (a "page" of the cache)
 
-struct DenseBlocks {
+struct DensePages {
   size_t row0;        // flat token index of the row's position 0
-  int S, bs;
-  __device__ int count() const { return (S + bs - 1) / bs; }
-  __device__ int start(int p) const { return p * bs; }
-  __device__ int size(int p) const { return min(bs, S - p * bs); }
-  __device__ size_t first(int p) const { return row0 + static_cast<size_t>(p) * bs; }
+  int S;
+  int n_pages, ps, base, lo, hi;
+  __device__ size_t first(int p) const { return row0 + static_cast<size_t>(p) * ps; }
+  __device__ int size(int p) const { return min(ps, S - p * ps); }
 };
 
+template <int D>
 __global__ void __launch_bounds__(decode::THREADS)
 dense_decode_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ kq,
                     const float* __restrict__ kscale, const float* __restrict__ kzero,
                     const uint8_t* __restrict__ v, const int* __restrict__ length,
-                    float* __restrict__ out, int S, int Hkv, int G, int D, int bs) {
-  const int b = blockIdx.x / Hkv;
-  const int h = blockIdx.x % Hkv;
+                    float* __restrict__ out, int* __restrict__ scratch, int S, int Hkv,
+                    int G, int splits) {
+  const int pair = blockIdx.y;
+  const int b = pair / Hkv, h = pair % Hkv;
   const size_t row = static_cast<size_t>(b) * Hkv * G * D;
-  const DenseBlocks blk{static_cast<size_t>(b) * S, S, bs};
-  decode::attend(blk, q + row, kq, kscale, kzero, v, out + row, h, Hkv, G, D, bs,
-                 min(length[b], S), 0);
+  const DensePages pg{static_cast<size_t>(b) * S, S, (S + BS - 1) / BS, BS, 0, 0,
+                      min(length[b], S)};
+  decode::attend<D>(pg, q + row, kq, kscale, kzero, v, out + row,
+                    decode::partials(scratch, pair, splits, G, D),
+                    scratch + pair, h, Hkv, G, blockIdx.x, splits);
+}
+
+template <int D>
+void launch(const void* q, const void* kq, const void* kscale, const void* kzero,
+            const void* v, const void* length, void* out, void* scratch, int B, int S,
+            int Hkv, int G, int splits, cudaStream_t stream) {
+  dense_decode_kernel<D><<<decode::grid(B, Hkv, splits), decode::THREADS, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(kq),
+      static_cast<const float*>(kscale), static_cast<const float*>(kzero),
+      static_cast<const uint8_t*>(v), static_cast<const int*>(length),
+      static_cast<float*>(out), static_cast<int*>(scratch), S, Hkv, G, splits);
 }
 
 }  // namespace
 
 // q bf16 [B, H, D] pre-scaled; kq int8 [B, S, Hkv, D]; kscale/kzero f32
 // [B, S, Hkv]; v fp8 e4m3 bytes [B, S, Hkv, D]; length int32 [B]; out f32
-// [B, H, D].  G = H / Hkv <= 8, D % 16 == 0, D <= 128.
+// [B, H, D]; scratch as for the paged kernel, over ceil(S / 128) key blocks.
+// G = H / Hkv <= 8, D % 16 == 0, D <= 128.
 extern "C" int decode_attention_launch(
     const void* q, const void* kq, const void* kscale, const void* kzero,
-    const void* v, const void* length, void* out, int B, int S, int Hkv, int G,
-    int D, void* stream) {
-  const int bs = S < BS ? S : BS;
-  dense_decode_kernel<<<B * Hkv, decode::THREADS, decode::smem_bytes(G, D, bs),
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(kq),
-      static_cast<const float*>(kscale), static_cast<const float*>(kzero),
-      static_cast<const uint8_t*>(v), static_cast<const int*>(length),
-      static_cast<float*>(out), S, Hkv, G, D, bs);
+    const void* v, const void* length, void* out, void* scratch, int B, int S, int Hkv,
+    int G, int D, int splits, void* stream) {
+  if (splits < 1 || splits > decode::MAX_SPLITS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define REPRO_DENSE_DECODE(DIM)                                                        \
+  case DIM:                                                                            \
+    launch<DIM>(q, kq, kscale, kzero, v, length, out, scratch, B, S, Hkv, G, splits, s); \
+    break;
+  switch (D) {
+    REPRO_DENSE_DECODE(16) REPRO_DENSE_DECODE(32) REPRO_DENSE_DECODE(48)
+    REPRO_DENSE_DECODE(64) REPRO_DENSE_DECODE(80) REPRO_DENSE_DECODE(96)
+    REPRO_DENSE_DECODE(112) REPRO_DENSE_DECODE(128)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef REPRO_DENSE_DECODE
   return static_cast<int>(cudaGetLastError());
 }

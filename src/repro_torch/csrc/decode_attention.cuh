@@ -1,139 +1,401 @@
-// One-token (decode) attention over a quantized KV sequence, shared by the
-// paged kernel (csrc/paged_decode_attention.cu) and the dense kernel
-// (csrc/decode_attention.cu): the two differ only in where a block of keys
-// lives, which the ``Blocks`` policy answers.
+// One-token (decode) attention over a quantized KV sequence on the bf16
+// tensor cores, split over keys (flash-decoding); shared by the paged kernel
+// (csrc/paged_decode_attention.cu) and the dense kernel
+// (csrc/decode_attention.cu), which differ only in where a page of keys
+// lives (the ``Pages`` policy).  The dense cache is read as pages of 128
+// slots.
 //
-// One thread block serves one (row, KV head) and holds all G = H / Hkv
-// queries of the group (G need not be a power of two; qwen2-7b has 7,
-// moonshot 1).  It walks the row's key blocks and skips those with no live
-// position.  Per block, each thread dequantizes one key row (16-byte loads,
-// via dequant_key, so every decode kernel reads the quantized bytes
-// identically) in registers and scores it against all G queries held in
-// shared memory; one warp per query head runs the online-softmax update in
-// float32; then thread d accumulates column d of P.V for all G heads from
-// the fp8 e4m3 values.  Keys at logical position pos are live iff
-// lo_live <= pos < len.
+// What bounds it on the H100: bytes.  Each live key costs D int8 key bytes,
+// D fp8 value bytes and 8 bytes of scale and zero, and meets only G = H / Hkv
+// queries (about 2G operations a byte).  At decode the live bytes are few
+// (~1,600 live keys of a 4-row qwen2-7b step: 1.7 MB a layer), so what a
+// launch costs is mostly the latency of its loads, and the design's job is
+// to have many of them in flight on many SMs at once.
+//
+// Design.  The grid is (split, row x KV head): each (row, KV head) has
+// ``splits`` blocks, each taking a contiguous run of pages (chosen on the
+// host from shapes alone, kernels/quant_attention.py::decode_splits); a
+// block whose pages hold no live key exits at once, so page ids past the
+// row's length (and the trash page) are never read.  A block of 4 warps
+// walks its live tiles of up to 64 keys (a tile never crosses a page).
+// Each tile's int8 keys, fp8 values and per-key scale and zero come in
+// through cp.async (16 bytes a thread, neighbouring threads on neighbouring
+// bytes of a key row), double-buffered, so the next tile lands while this
+// one is scored.  Warp w takes keys 16w..16w+15 of every tile, with its own
+// online softmax: S = Q.K^T on mma.sync m16n8k16, the group's G <= 8 query
+// heads padding one 16-row tile, keys dequantized in registers through
+// dequant_key and rounded to bf16; then O += P.V on the same MMA, P rounded
+// to bf16 and the e4m3 values converted to bf16 (exact) in registers.  The
+// key order inside a warp's 16 is permuted so that the S accumulators are
+// P's A fragment and each value fragment comes from whole 4-byte words.  At
+// the end of the split the warps merge in shared memory.  With one live
+// split the block writes the output; otherwise it writes its partial
+// (running max m, denominator l, unnormalised acc[G, D], float32) to the
+// scratch buffer, and the last block of the (row, KV head) to finish --
+// found by an atomicAdd on the pair's counter after a __threadfence --
+// combines the partials exactly (rescaled by exp(m_s - m), summed, divided
+// by max(l, 1e-30)) and resets the counter to 0 for the next launch or
+// CUDA-graph replay.  One launch, no allocation in the kernel.
+//
+// Rounding against the plain version (kernels/quant_attention.py): keys are
+// rounded to bf16 after dequantization and P to bf16 before P.V, as there;
+// scores, softmax statistics and sums are float32.  P is rounded relative
+// to its warp's running max within its split, not the global max, and the
+// denominator sums the unrounded P (the plain version rounds normalised P).
+// Keys at logical position pos are live iff lo <= pos < hi; a (row, KV head)
+// with no live key gets zeros.
 #pragma once
 
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace decode {
 
-constexpr int THREADS = 128;
-constexpr int MAXG = 8;
+constexpr int TS = 64;                 // keys per staged tile
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+constexpr int VP = 160;                // bytes per value row in shared memory:
+                                       // 40 words, conflict-free fragment loads
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int MAX_SPLITS = 256;        // splits a (row, KV head) at most
 
-// Shared floats one block needs for key blocks of up to bs keys.
-inline size_t smem_bytes(int G, int D, int bs) {
-  return sizeof(float) * (static_cast<size_t>(G) * D + static_cast<size_t>(G) * bs + 3 * G);
+template <int D>
+struct Geo {
+  static_assert(D % 16 == 0 && D <= 128, "head dims: multiples of 16 up to 128");
+  static constexpr int KP = D + 16;                    // bytes per key row in shared memory
+  static constexpr int DP = (D + 31) / 32 * 32;        // value columns the P.V MMAs cover
+  static constexpr int NB = DP / 8;                    // n8 column blocks of O
+  static constexpr int KD = D / 16;                    // k16 steps of Q.K^T
+  static constexpr int STAGE = TS * KP + TS * VP + TS * 8;   // keys, values, (scale, zero)
+  static constexpr int SMEM = 2 * STAGE;
+  static_assert(SMEM >= (3 * WARPS * 8 + WARPS * 8 * D + 16) * 4, "merge area");
+  static_assert(SMEM >= (2 * MAX_SPLITS * 8 + 8) * 4, "combine area");
+};
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
 
-// Blocks: count() key blocks; for block p, start(p) is the logical position
-// of its first key, size(p) its number of keys (<= bs), first(p) the flat
-// token index (row of the [..., Hkv, D] arrays) of its first key.
-// q: the row's bf16 queries [H, D]; out: the row's f32 output [H, D].
-template <class Blocks>
-__device__ __forceinline__ void attend(const Blocks& blk,
-                                       const __nv_bfloat16* __restrict__ q,
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Byte e of x (lo) and of y (hi), two fp8 e4m3 values -> one register of two
+// bf16 (lo in the low half), exactly and without the conversion unit: the
+// sign goes to bit 15, exponent and mantissa to bits 10..4 (an exponent
+// 120 too small, e4m3's subnormals landing on bf16's), and one bf16 multiply
+// by 2^120 restores the scale.
+__device__ __forceinline__ uint32_t e4m3_pair_to_bf16x2(uint32_t x, uint32_t y, int e) {
+  const uint32_t z = __byte_perm(x, y, (e * 0x11) | ((4 + e) * 0x1100));   // bytes [e, e, 4+e, 4+e]
+  const uint32_t bits = ((z >> 4) & 0x07F007F0u) | (z & 0x80008000u);
+  uint32_t out;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(out) : "r"(bits), "r"(0x7B807B80u));
+  return out;
+}
+
+// D / 16 words of one key row from shared memory (16-byte loads where the
+// row slice allows).
+template <int D>
+__device__ __forceinline__ void load_key_words(uint32_t (&w)[D / 16], const uint8_t* src) {
+  if constexpr (D % 64 == 0) {
+#pragma unroll
+    for (int i = 0; i < D / 64; ++i) {
+      const uint4 x = *reinterpret_cast<const uint4*>(src + 16 * i);
+      w[4 * i] = x.x; w[4 * i + 1] = x.y; w[4 * i + 2] = x.z; w[4 * i + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < D / 16; ++i) w[i] = *reinterpret_cast<const uint32_t*>(src + 4 * i);
+  }
+}
+
+// Pages: page p of the row (0 <= p < n_pages) holds size(p) keys at logical
+// positions (base + p) * ps + [0, size(p)); first(p) is the flat token index
+// (row of the [..., Hkv, D] arrays) of its first key.  [lo, hi) are the live
+// positions.  q: the row's bf16 queries [H, D]; out: the row's f32 output
+// [H, D]; part: this (row, KV head)'s partials [splits][G * (D + 2)] and
+// counter its combine counter (unused when one split is live).
+template <int D, class Pages>
+__device__ __forceinline__ void attend(const Pages& pg, const __nv_bfloat16* __restrict__ q,
                                        const int8_t* __restrict__ kq,
                                        const float* __restrict__ kscale,
                                        const float* __restrict__ kzero,
                                        const uint8_t* __restrict__ v,
-                                       float* __restrict__ out, int h, int Hkv,
-                                       int G, int D, int bs, int len, int lo_live) {
-  extern __shared__ float smem[];
-  float* qs = smem;                 // [G, D]
-  float* sc = qs + G * D;           // [G, bs] scores, then probabilities
-  float* mrow = sc + G * bs;        // [G] running max
-  float* lrow = mrow + G;           // [G] running denominator
-  float* crow = lrow + G;           // [G] this block's correction
-
+                                       float* __restrict__ out, float* __restrict__ part,
+                                       int* __restrict__ counter, int h, int Hkv, int G,
+                                       int split, int splits) {
+  using Gm = Geo<D>;
+  constexpr int KP = Gm::KP;
+  __shared__ __align__(16) uint8_t smem[Gm::SMEM];
+  __shared__ int is_last;
   const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
+  const int lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t = lane % 4;
 
-  for (int i = tid; i < G * D; i += THREADS)
-    qs[i] = __bfloat162float(q[static_cast<size_t>(h) * G * D + i]);
-  if (tid < G) { mrow[tid] = REPRO_NEG_INF; lrow[tid] = 0.f; }
+  if (pg.lo >= pg.hi) {                       // no live key: zeros, once
+    if (split == 0)
+      for (int i = tid; i < G * D; i += THREADS) out[h * G * D + i] = 0.f;
+    return;
+  }
+  // live pages, splits and tiles (tile it: page it / tpp, keys (it % tpp) * TS ..)
+  const int tpp = (pg.ps + TS - 1) / TS;
+  const int per = (pg.n_pages + splits - 1) / splits;          // pages a split
+  const int origin = pg.base * pg.ps;
+  const int L_lo = pg.lo - origin, L_hi = pg.hi - 1 - origin;  // logical, from column 0
+  const int s_lo = L_lo / pg.ps / per, s_hi = L_hi / pg.ps / per;
+  if (split < s_lo || split > s_hi) return;
+  const int n_live = s_hi - s_lo + 1;
+  const int it0 = max(L_lo / pg.ps * tpp + L_lo % pg.ps / TS, split * per * tpp);
+  const int it1 = min(L_hi / pg.ps * tpp + L_hi % pg.ps / TS + 1,
+                      min((split + 1) * per, pg.n_pages) * tpp);
 
-  float acc[MAXG];
+  auto stage = [&](int it, int slot) {
+    uint8_t* ks = smem + slot * Gm::STAGE;
+    uint8_t* vs = ks + TS * KP;
+    float* sz = reinterpret_cast<float*>(vs + TS * VP);
+    const int p = it / tpp, off = it % tpp * TS;
+    const int nt = min(TS, pg.size(p) - off);
+    const size_t first = pg.first(p) + off;
+    for (int c = tid; c < TS * (D / 16); c += THREADS) {
+      const int r = c / (D / 16), ch = c % (D / 16);
+      const bool ok = r < nt;                 // past the tile: zero filled
+      const size_t at = ((first + r) * Hkv + h) * D + ch * 16;
+      mma::cp_async16(ks + r * KP + ch * 16, ok ? kq + at : kq, ok);
+      mma::cp_async16(vs + r * VP + ch * 16, ok ? v + at : v, ok);
+    }
+    for (int r = tid; r < TS; r += THREADS) {
+      const bool ok = r < nt;
+      const size_t tok = (first + r) * Hkv + h;
+      mma::cp_async4(sz + 2 * r, ok ? kscale + tok : kscale, ok);
+      mma::cp_async4(sz + 2 * r + 1, ok ? kzero + tok : kzero, ok);
+    }
+  };
+  stage(it0, 0);
+  mma::cp_async_commit();
+  if (it0 + 1 < it1) stage(it0 + 1, 1);
+  mma::cp_async_commit();
+
+  // Q's A fragments: step c covers dims D/4 * t + 4c .. + 3 for this lane's
+  // k slots (2t, 2t + 1, 2t + 8, 2t + 9); rows 8..15 (and g >= G) are zero
+  uint32_t qa[Gm::KD][2];
 #pragma unroll
-  for (int g = 0; g < MAXG; ++g) acc[g] = 0.f;
+  for (int c = 0; c < Gm::KD; ++c) {
+    qa[c][0] = qa[c][1] = 0u;
+    if (g < G) {
+      const __nv_bfloat16* qr = q + (static_cast<size_t>(h) * G + g) * D + D / 4 * t + 4 * c;
+      qa[c][0] = *reinterpret_cast<const uint32_t*>(qr);
+      qa[c][1] = *reinterpret_cast<const uint32_t*>(qr + 2);
+    }
+  }
 
-  for (int p = 0; p < blk.count(); ++p) {
-    const int lo = blk.start(p);
-    const int nt = blk.size(p);
-    if (lo + nt <= lo_live || lo >= len) continue;   // no live key here
-    const size_t first = blk.first(p);
+  float o[Gm::NB][4];
+#pragma unroll
+  for (int j = 0; j < Gm::NB; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m = REPRO_NEG_INF, l = 0.f;           // row g's running max and denominator
+
+  for (int it = it0, n = 0; it < it1; ++it, ++n) {
+    const int slot = n & 1;
+    mma::cp_async_wait<1>();                  // tile it has landed
     __syncthreads();
-    for (int t = tid; t < nt; t += THREADS) {
-      const int pos = lo + t;
-      float dot[MAXG];
+    const int p = it / tpp, off = it % tpp * TS;
+    const int nt = min(TS, pg.size(p) - off);
+    const int pos0 = (pg.base + p) * pg.ps + off;
+    if (16 * warp < nt) {
+      const uint8_t* ks = smem + slot * Gm::STAGE;
+      const uint8_t* vs = ks + TS * KP;
+      const float* sz = reinterpret_cast<const float*>(vs + TS * VP);
+      // S = Q.K^T over the warp's 16 keys.  Key order: S block jb, column n
+      // is key 8jb + 4(n & 1) + n / 2, so this lane's accumulators hold keys
+      // t, 4 + t, 8 + t, 12 + t -- P's k slots 2t, 2t + 1, 2t + 8, 2t + 9.
+      float s[2][4];
+      uint32_t kw[2][Gm::KD];
+      float scale[2], zero[2];
 #pragma unroll
-      for (int g = 0; g < MAXG; ++g) dot[g] = 0.f;
-      if (pos >= lo_live && pos < len) {
-        const size_t tok = (first + t) * Hkv + h;
-        const float s = kscale[tok], z = kzero[tok];
-        const int8_t* krow = kq + tok * D;
-        for (int d0 = 0; d0 < D; d0 += 16) {
-          const int4 raw = *reinterpret_cast<const int4*>(krow + d0);
-          const int8_t* kb = reinterpret_cast<const int8_t*>(&raw);
+      for (int jb = 0; jb < 2; ++jb) {
+        const int r = 16 * warp + 8 * jb + 4 * (g & 1) + (g >> 1);
+        load_key_words<D>(kw[jb], ks + r * KP + D / 4 * t);
+        scale[jb] = sz[2 * r];
+        zero[jb] = sz[2 * r + 1];
+        s[jb][0] = s[jb][1] = s[jb][2] = s[jb][3] = 0.f;
+      }
 #pragma unroll
-          for (int j = 0; j < 16; ++j) {
-            const float kd = dequant_key(kb[j], s, z);
+      for (int c = 0; c < Gm::KD; ++c) {
+        const uint32_t a[4] = {qa[c][0], 0u, qa[c][1], 0u};
 #pragma unroll
-            for (int g = 0; g < MAXG; ++g)
-              if (g < G) dot[g] += qs[g * D + d0 + j] * kd;
-          }
+        for (int jb = 0; jb < 2; ++jb) {
+          const uint32_t w = kw[jb][c] ^ 0x80808080u;
+          float k[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            k[i] = dequant_key(int8_byte_to_float(w, i), scale[jb], zero[jb]);
+          mma::mma_bf16(s[jb], a, mma::pack_bf16(k[0], k[1]), mma::pack_bf16(k[2], k[3]));
         }
-      } else {
-#pragma unroll
-        for (int g = 0; g < MAXG; ++g) dot[g] = REPRO_NEG_INF;
       }
-#pragma unroll
-      for (int g = 0; g < MAXG; ++g)
-        if (g < G) sc[g * bs + t] = dot[g];
-    }
-    __syncthreads();
-    for (int g = warp; g < G; g += THREADS / 32) {
+      // online softmax of row g over the warp's keys, float32
+      const float x[4] = {s[0][0], s[0][1], s[1][0], s[1][1]};
+      bool live[4];
       float mx = REPRO_NEG_INF;
-      for (int t = lane; t < nt; t += 32) mx = fmaxf(mx, sc[g * bs + t]);
-      mx = warp_max(mx);
-      const float m_old = mrow[g];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int t = lane; t < nt; t += 32) {
-        const float e = expf(sc[g * bs + t] - m_new);
-        sc[g * bs + t] = e;
-        sum += e;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = 16 * warp + 4 * i + t;
+        const int pos = pos0 + key;
+        live[i] = key < nt && pos >= pg.lo && pos < pg.hi;
+        if (live[i]) mx = fmaxf(mx, x[i]);
       }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        crow[g] = corr;
-        lrow[g] = lrow[g] * corr + sum;
-        mrow[g] = m_new;
+      const float mn = fmaxf(m, quad_max(mx));
+      const float corr = exp2f((m - mn) * LOG2E);
+      float pr[4], sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        pr[i] = live[i] ? exp2f((x[i] - mn) * LOG2E) : 0.f;
+        sum += pr[i];
+      }
+      l = l * corr + quad_sum(sum);
+      m = mn;
+#pragma unroll
+      for (int j = 0; j < Gm::NB; ++j) {
+        o[j][0] *= corr;
+        o[j][1] *= corr;
+      }
+      // O += P.V.  Value word g + 8u of keys t, 4 + t, 8 + t, 12 + t gives,
+      // byte e, column g of n8 block 4u + e (dim 32u + 4g + e).
+      const uint32_t pa[4] = {mma::pack_bf16(pr[0], pr[1]), 0u,
+                              mma::pack_bf16(pr[2], pr[3]), 0u};
+#pragma unroll
+      for (int u = 0; u < Gm::DP / 32; ++u) {
+        uint32_t xv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          xv[i] = *reinterpret_cast<const uint32_t*>(vs + (16 * warp + 4 * i + t) * VP
+                                                     + 4 * (g + 8 * u));
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          mma::mma_bf16(o[4 * u + e], pa, e4m3_pair_to_bf16x2(xv[0], xv[1], e),
+                        e4m3_pair_to_bf16x2(xv[2], xv[3], e));
       }
     }
-    __syncthreads();
-    if (tid < D) {
-#pragma unroll
-      for (int g = 0; g < MAXG; ++g)
-        if (g < G) acc[g] *= crow[g];
-      for (int t = 0; t < nt; ++t) {
-        const float vt = fp8_to_float(v[((first + t) * Hkv + h) * D + tid]);
-#pragma unroll
-        for (int g = 0; g < MAXG; ++g)
-          if (g < G) acc[g] += sc[g * bs + t] * vt;
-      }
+    __syncthreads();                          // every warp is done with this slot
+    if (it + 2 < it1) stage(it + 2, slot);
+    mma::cp_async_commit();
+  }
+
+  // merge the warps (the stage buffers become the merge area; only empty
+  // copy groups can still be pending)
+  mma::cp_async_wait<0>();
+  float* mw = reinterpret_cast<float*>(smem);  // [WARPS][8]
+  float* lw = mw + WARPS * 8;                  // [WARPS][8]
+  float* aw = lw + WARPS * 8;                  // [WARPS][8][D]
+  if (g < G) {
+    if (t == 0) {
+      mw[warp * 8 + g] = m;
+      lw[warp * 8 + g] = l;
     }
+    // accumulator o[4u + e][c] is row g, dim 32u + 8t + 4c + e
+#pragma unroll
+    for (int u = 0; u < Gm::DP / 32; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int d = 32 * u + 8 * t + 4 * c + e;
+          if (d < D) aw[(warp * 8 + g) * D + d] = o[4 * u + e][c];
+        }
   }
   __syncthreads();
-  if (tid < D) {
+  float* fw = aw + WARPS * 8 * D;              // [WARPS][8] exp(m_w - M)
+  float* ml = fw + WARPS * 8;                  // [8] M, then [8] l, of the split
+  if (tid < G) {
+    float M = REPRO_NEG_INF;
 #pragma unroll
-    for (int g = 0; g < MAXG; ++g)
-      if (g < G)
-        out[(static_cast<size_t>(h) * G + g) * D + tid] = acc[g] / fmaxf(lrow[g], 1e-30f);
+    for (int w = 0; w < WARPS; ++w) M = fmaxf(M, mw[w * 8 + tid]);
+    float Lsum = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const float f = exp2f((mw[w * 8 + tid] - M) * LOG2E);
+      fw[w * 8 + tid] = f;
+      Lsum += f * lw[w * 8 + tid];
+    }
+    ml[tid] = M;
+    ml[8 + tid] = Lsum;
   }
+  __syncthreads();
+  const int stride = G * (D + 2);              // floats of one split's partial
+  float* mine = part + static_cast<size_t>(split) * stride;
+  for (int i = tid; i < G * D; i += THREADS) {
+    const int gg = i / D, d = i % D;
+    float A = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) A += fw[w * 8 + gg] * aw[(w * 8 + gg) * D + d];
+    if (n_live == 1)
+      out[h * G * D + i] = A / fmaxf(ml[8 + gg], 1e-30f);
+    else
+      mine[2 * G + i] = A;
+  }
+  if (n_live == 1) return;
+  if (tid < G) {
+    mine[tid] = ml[tid];
+    mine[G + tid] = ml[8 + tid];
+  }
+
+  // the last live split of this (row, KV head) to finish combines them all
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) is_last = atomicAdd(counter, 1) == n_live - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  float* fs = reinterpret_cast<float*>(smem);  // [n_live][8] m_s, then exp(m_s - M)
+  float* ls = fs + MAX_SPLITS * 8;             // [n_live][8] l_s
+  float* lt = ls + MAX_SPLITS * 8;             // [8] the total l
+  for (int j = tid; j < n_live * G; j += THREADS) {
+    const int s = j / G, gg = j % G;
+    const float* ps = part + (s_lo + s) * stride;
+    fs[s * 8 + gg] = __ldcg(ps + gg);
+    ls[s * 8 + gg] = __ldcg(ps + G + gg);
+  }
+  __syncthreads();
+  if (tid < G) {
+    float M = REPRO_NEG_INF;
+    for (int s = 0; s < n_live; ++s) M = fmaxf(M, fs[s * 8 + tid]);
+    float Lsum = 0.f;
+    for (int s = 0; s < n_live; ++s) {
+      const float f = exp2f((fs[s * 8 + tid] - M) * LOG2E);
+      fs[s * 8 + tid] = f;
+      Lsum += f * ls[s * 8 + tid];
+    }
+    lt[tid] = Lsum;
+  }
+  __syncthreads();
+  constexpr int PER_THREAD = (8 * D + THREADS - 1) / THREADS;   // of G * D, at most
+  float a[PER_THREAD];
+#pragma unroll
+  for (int k = 0; k < PER_THREAD; ++k) a[k] = 0.f;
+  for (int s = 0; s < n_live; ++s) {           // each split's loads all in flight
+    const float* ps = part + (s_lo + s) * stride + 2 * G;
+#pragma unroll
+    for (int k = 0; k < PER_THREAD; ++k) {
+      const int i = tid + k * THREADS;
+      if (i < G * D) a[k] += fs[s * 8 + i / D] * __ldcg(ps + i);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < PER_THREAD; ++k) {
+    const int i = tid + k * THREADS;
+    if (i < G * D) out[h * G * D + i] = a[k] / fmaxf(lt[i / D], 1e-30f);
+  }
+  if (tid == 0) *counter = 0;                  // clean for the next launch or replay
 }
+
+// Scratch layout: B * Hkv combine counters (int32, padded to a multiple of
+// 4), then B * Hkv * splits partials of G * (D + 2) floats.
+__device__ __forceinline__ float* partials(int* scratch, int pair, int splits, int G, int D) {
+  const int n_pairs = (gridDim.y + 3) & ~3;
+  return reinterpret_cast<float*>(scratch + n_pairs)
+         + static_cast<size_t>(pair) * splits * G * (D + 2);
+}
+
+// Grid of a launch: splits on x, one (row, KV head) pair per y.
+inline dim3 grid(int B, int Hkv, int splits) { return dim3(splits, B * Hkv); }
 
 }  // namespace decode

@@ -10,61 +10,90 @@
 // pos = (base + table column) * page + offset.
 //
 // What bounds it on the H100: bytes.  Each live KV byte is read once and
-// meets G = H / Hkv queries, about 2G float ops per byte -- far below the
-// ridge.
+// meets G = H / Hkv queries, about 2G operations a byte -- far below the
+// ridge; at decode's 1-2 MB a launch is mostly load latency.
 //
-// Design: one block per (row, KV head), running decode::attend
-// (csrc/decode_attention.cuh) with one key block per page.  The block reads
-// each physical page id from the table in global memory (there is no scalar
-// prefetch on this card) only for pages with a live position, so only
-// ceil(length / page) pages are touched and the trash page never is.
+// Design: decode::attend (csrc/decode_attention.cuh) split over the row's
+// pages: ``splits`` blocks a (row, KV head), each a contiguous run of table
+// columns, so a 4-row qwen2-7b step's 16 (row, KV head) pairs fill the card
+// with one page a block instead of walking up to 16 pages in one block.  A
+// block reads the physical page id from the table in global memory (there
+// is no scalar prefetch on this card) only for the pages it stages, and a
+// split with no live position exits at once, so only ceil(length / page)
+// pages are touched and the trash page never is.
 #include "decode_attention.cuh"
 
 namespace {
 
-struct PagedBlocks {
+struct PagedPages {
   const int* table;   // this row's table columns
-  int n_pages, ps, base;
-  __device__ int count() const { return n_pages; }
-  __device__ int start(int p) const { return (base + p) * ps; }
-  __device__ int size(int) const { return ps; }
+  int n_pages, ps, base, lo, hi;
   __device__ size_t first(int p) const { return static_cast<size_t>(table[p]) * ps; }
+  __device__ int size(int) const { return ps; }
 };
 
+template <int D>
 __global__ void __launch_bounds__(decode::THREADS)
 paged_decode_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ kq,
                     const float* __restrict__ kscale, const float* __restrict__ kzero,
                     const uint8_t* __restrict__ v, const int* __restrict__ table,
                     const int* __restrict__ base, const int* __restrict__ length,
-                    float* __restrict__ out, int Hkv, int G, int D, int ps,
-                    int n_pages, int window) {
-  const int b = blockIdx.x / Hkv;
-  const int h = blockIdx.x % Hkv;
+                    float* __restrict__ out, int* __restrict__ scratch, int Hkv, int G,
+                    int ps, int n_pages, int window, int splits) {
+  const int pair = blockIdx.y;
+  const int b = pair / Hkv, h = pair % Hkv;
   const size_t row = static_cast<size_t>(b) * Hkv * G * D;
   const int len = length[b];
-  const int lo_live = window ? max(0, len - window) : 0;
-  const PagedBlocks blk{table + static_cast<size_t>(b) * n_pages, n_pages, ps, base[b]};
-  decode::attend(blk, q + row, kq, kscale, kzero, v, out + row, h, Hkv, G, D, ps,
-                 len, lo_live);
+  const int bs = base[b];
+  const int lo = max(window ? max(0, len - window) : 0, bs * ps);
+  const int hi = min(len, (bs + n_pages) * ps);
+  const PagedPages pg{table + static_cast<size_t>(b) * n_pages, n_pages, ps, bs, lo, hi};
+  decode::attend<D>(pg, q + row, kq, kscale, kzero, v, out + row,
+                    decode::partials(scratch, pair, splits, G, D),
+                    scratch + pair, h, Hkv, G, blockIdx.x, splits);
+}
+
+template <int D>
+void launch(const void* q, const void* kq, const void* kscale, const void* kzero,
+            const void* v, const void* table, const void* base, const void* length,
+            void* out, void* scratch, int B, int Hkv, int G, int ps, int n_pages,
+            int window, int splits, cudaStream_t stream) {
+  paged_decode_kernel<D><<<decode::grid(B, Hkv, splits), decode::THREADS, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(kq),
+      static_cast<const float*>(kscale), static_cast<const float*>(kzero),
+      static_cast<const uint8_t*>(v), static_cast<const int*>(table),
+      static_cast<const int*>(base), static_cast<const int*>(length),
+      static_cast<float*>(out), static_cast<int*>(scratch), Hkv, G, ps, n_pages, window,
+      splits);
 }
 
 }  // namespace
 
 // q bf16 [B, H, D] pre-scaled; kq int8 [P, ps, Hkv, D]; kscale/kzero f32
 // [P, ps, Hkv]; v fp8 e4m3 bytes [P, ps, Hkv, D]; table int32 [B, n_pages];
-// base/length int32 [B]; out f32 [B, H, D].  G = H / Hkv <= 8, D % 16 == 0,
-// D <= 128.
+// base/length int32 [B]; out f32 [B, H, D]; scratch int32, zeroed once and
+// left zeroed by every launch (decode_attention.cuh; may be null when splits
+// is 1).  G = H / Hkv <= 8, D % 16 == 0, D <= 128.
 extern "C" int paged_decode_attention_launch(
     const void* q, const void* kq, const void* kscale, const void* kzero,
     const void* v, const void* table, const void* base, const void* length,
-    void* out, int B, int Hkv, int G, int D, int ps, int n_pages, int window,
-    void* stream) {
-  paged_decode_kernel<<<B * Hkv, decode::THREADS, decode::smem_bytes(G, D, ps),
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(kq),
-      static_cast<const float*>(kscale), static_cast<const float*>(kzero),
-      static_cast<const uint8_t*>(v), static_cast<const int*>(table),
-      static_cast<const int*>(base), static_cast<const int*>(length),
-      static_cast<float*>(out), Hkv, G, D, ps, n_pages, window);
+    void* out, void* scratch, int B, int Hkv, int G, int D, int ps, int n_pages,
+    int window, int splits, void* stream) {
+  if (splits < 1 || splits > decode::MAX_SPLITS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define REPRO_PAGED_DECODE(DIM)                                                        \
+  case DIM:                                                                            \
+    launch<DIM>(q, kq, kscale, kzero, v, table, base, length, out, scratch, B, Hkv, G, \
+                ps, n_pages, window, splits, s);                                       \
+    break;
+  switch (D) {
+    REPRO_PAGED_DECODE(16) REPRO_PAGED_DECODE(32) REPRO_PAGED_DECODE(48)
+    REPRO_PAGED_DECODE(64) REPRO_PAGED_DECODE(80) REPRO_PAGED_DECODE(96)
+    REPRO_PAGED_DECODE(112) REPRO_PAGED_DECODE(128)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef REPRO_PAGED_DECODE
   return static_cast<int>(cudaGetLastError());
 }

@@ -31,9 +31,9 @@ I = ctypes.c_int
 SIGNATURES = {
     # xq, sx, w, scale, zero, y, M, N, K, bits, stream
     "w4a8_matmul_launch": [P, P, P, P, P, P, I, I, I, I, P],
-    # q, kq, kscale, kzero, v, table, base, length, out,
-    # B, Hkv, G, D, ps, n_pages, window, stream
-    "paged_decode_attention_launch": [P] * 9 + [I] * 7 + [P],
+    # q, kq, kscale, kzero, v, table, base, length, out, scratch,
+    # B, Hkv, G, D, ps, n_pages, window, splits, stream
+    "paged_decode_attention_launch": [P] * 10 + [I] * 8 + [P],
     # q, kq, kscale, kzero, v, table, pos0, out, B, C, Hkv, G, D, ps,
     # n_pages, stream
     "paged_prefill_attention_launch": [P] * 8 + [I] * 7 + [P],
@@ -41,8 +41,9 @@ SIGNATURES = {
     "rmsnorm_launch": [P, P, P, I, I, ctypes.c_float, I, P],
     # xq, sx, w, scale, zero, y, ids, rows, E, M, N, K, G, bits, stream
     "grouped_matmul_launch": [P] * 8 + [I] * 6 + [P],
-    # q, kq, kscale, kzero, v, length, out, B, S, Hkv, G, D, stream
-    "decode_attention_launch": [P] * 7 + [I] * 5 + [P],
+    # q, kq, kscale, kzero, v, length, out, scratch, B, S, Hkv, G, D, splits,
+    # stream
+    "decode_attention_launch": [P] * 8 + [I] * 6 + [P],
     # q, k, v, out, B, T, S, Hkv, G, D, causal, window, stream
     "flash_prefill_attention_launch": [P] * 4 + [I] * 8 + [P],
 }

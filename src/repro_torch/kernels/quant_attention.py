@@ -4,9 +4,13 @@ Ports of ``repro/kernels/quant_attention.py``: ``quant_decode_attention``
 (dense cache; CUDA kernel ``csrc/decode_attention.cu``) and
 ``paged_quant_decode_attention`` (the paged pool; ``csrc/
 paged_decode_attention.cu``).  Both kernels share their body
-(``csrc/decode_attention.cuh``).
+(``csrc/decode_attention.cuh``), split over the keys: ``decode_splits``
+chooses the split count from shapes, and each wrapper hands the kernel a
+cached scratch buffer for the partials and combine counters.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -15,7 +19,47 @@ from repro_torch.core import quantization as q
 from repro_torch.kernels import loader
 
 NEG_INF = -1e30
-MAX_GROUP = 8        # query heads per KV head the kernel holds in registers
+MAX_GROUP = 8        # query heads per KV head: one padded 16-row MMA tile
+DENSE_BLOCK = 128    # slots of a dense cache the decode kernel reads as a page
+TARGET_BLOCKS = 2 * 132   # about two blocks per SM of an H100
+MAX_SPLITS = 256     # the kernels' bound (csrc/decode_attention.cuh)
+
+
+def decode_splits(B: int, Hkv: int, n_blocks: int) -> int:
+    """How many blocks share one (row, KV head) in the decode kernels: each
+    takes a contiguous run of key blocks (pages, or ``DENSE_BLOCK`` slots of
+    a dense cache), so that B * Hkv * splits reaches at least
+    ``TARGET_BLOCKS`` where there are enough key blocks.  Shapes only:
+    reading ``length`` would make the host wait for the device."""
+    if n_blocks <= 1:
+        return 1
+    want = min(n_blocks, max(1, -(-TARGET_BLOCKS // max(1, B * Hkv))))
+    per = max(1, n_blocks // want, -(-n_blocks // MAX_SPLITS))   # key blocks a split
+    return -(-n_blocks // per)               # no split left empty by rounding
+
+
+_SCRATCH: dict = {}
+
+
+def _scratch(dev: torch.device, pairs: int, splits: int, G: int,
+             D: int) -> Optional[torch.Tensor]:
+    """The kernel's scratch: ``pairs`` combine counters (int32, padded to a
+    multiple of 4) then the splits' partials (float32 max, denominator and
+    acc [G, D] each).  Zeroed once; every launch leaves its counters at 0,
+    so one buffer per device, stream and size is reused.  Inside a CUDA-graph
+    capture a buffer not made yet is made for that graph alone (its zeroing
+    is captured with it)."""
+    if splits == 1:
+        return None                          # one split writes the output itself
+    n = (pairs + 3) // 4 * 4 + pairs * splits * G * (D + 2)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    key = (dev, stream, n)
+    buf = _SCRATCH.get(key)
+    if buf is None:
+        buf = torch.zeros((n,), dtype=torch.int32, device=dev)
+        if not torch.cuda.is_current_stream_capturing():
+            _SCRATCH[key] = buf
+    return buf
 
 
 def gather_rows(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -104,9 +148,13 @@ def quant_decode_attention(
     if B * S == 0:
         return out.zero_()
     lib = loader.build()
+    G = H // Hkv
+    splits = decode_splits(B, Hkv, -(-S // DENSE_BLOCK))
+    scratch = _scratch(dev, B * Hkv, splits, G, D)
     code = lib.decode_attention_launch(
         q_.data_ptr(), k_q.data_ptr(), k_scale.data_ptr(), k_zero.data_ptr(),
-        v.data_ptr(), length.data_ptr(), out.data_ptr(), B, S, Hkv, H // Hkv, D,
+        v.data_ptr(), length.data_ptr(), out.data_ptr(),
+        0 if scratch is None else scratch.data_ptr(), B, S, Hkv, G, D, splits,
         loader.stream_ptr(dev))
     loader.check(code, "quant_decode_attention")
     quant_decode_attention.launches += 1
@@ -185,11 +233,14 @@ def paged_quant_decode_attention(
     if B == 0:
         return out
     lib = loader.build()
+    G, n_pages = H // Hkv, table.shape[1]
+    splits = decode_splits(B, Hkv, n_pages)
+    scratch = _scratch(dev, B * Hkv, splits, G, D)
     code = lib.paged_decode_attention_launch(
         q_.data_ptr(), k_q.data_ptr(), k_scale.data_ptr(), k_zero.data_ptr(),
         v.data_ptr(), table.data_ptr(), base.data_ptr(), length.data_ptr(),
-        out.data_ptr(), B, Hkv, H // Hkv, D, ps, table.shape[1], int(window),
-        loader.stream_ptr(dev))
+        out.data_ptr(), 0 if scratch is None else scratch.data_ptr(),
+        B, Hkv, G, D, ps, n_pages, int(window), splits, loader.stream_ptr(dev))
     loader.check(code, "paged_quant_decode_attention")
     paged_quant_decode_attention.launches += 1
     return out

@@ -9,12 +9,17 @@ blocks.  Imports torch alone, so it runs where JAX is
 absent: ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py``.
 Without a card each test skips.
 
+The decode kernels are split over keys: their cases cover 128-key pages at
+G = 7 and G = 1 with lengths at a page edge, a full 16-page table, a row
+whose only live keys lie in the last split, and a CUDA-graph replay that
+shows the combine counters reset.
+
 Tolerances are the JAX package's own kernel-vs-reference ones: matmul
 1e-4 (the epilogue's scale products are ordered differently), attention
-and RMSNorm 2e-2 (the decode kernels keep keys and probabilities in
-float32; the prefill kernels round them to bf16 where the plain versions
-do but sum in another order, against an output the plain versions round to
-bf16)."""
+and RMSNorm 2e-2 (the attention kernels round keys and probabilities to
+bf16 where the plain versions do but sum in another order, and the decode
+kernels round probabilities before normalising, against an output the
+plain versions round to bf16)."""
 import math
 
 import numpy as np
@@ -272,6 +277,134 @@ def test_paged_prefill_kernel_on_128_key_pages(dev, G, hkv, D, C, pos0):
     p0 = torch.tensor([pos0], dtype=torch.int32, device=dev)
     _close(FP.paged_flash_prefill_attention(q, *pool, table, p0),
            FP.paged_flash_prefill_attention_plain(q, *pool, table, p0), 2e-2)
+
+
+def _paged_128(B, hkv, D, n_pages, seed, dev):
+    """A pool of 128-key pages (+ one trash page, the last) and a table of
+    distinct pages for B rows of ``n_pages`` columns."""
+    rng = np.random.default_rng(seed)
+    P = B * n_pages + 1
+    k = torch.from_numpy(rng.normal(size=(P, 128, hkv, D)).astype(np.float32))
+    v = torch.from_numpy(rng.normal(size=(P, 128, hkv, D)).astype(np.float32))
+    kq, ks, kz = KV.quantize_keys(k.bfloat16())
+    pool = tuple(t.contiguous().to(dev) for t in (kq, ks, kz, KV.cast_values(v, Q.FP8_DTYPE)))
+    table = rng.permutation(P - 1)[:B * n_pages].reshape(B, n_pages).astype(np.int32)
+    return pool, table
+
+
+# lengths of 4 rows: a page edge (page - 1, page, page + 1), one live key,
+# a full table, and rows whose later splits hold no live key
+_PAGED_LENGTHS = [[127, 128, 129, 1], [732, 296, 512, 41], [2048, 1, 255, 257]]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,hkv", [(7, 4), (1, 16)])
+@pytest.mark.parametrize("lengths", _PAGED_LENGTHS)
+def test_paged_decode_kernel_on_128_key_pages(dev, G, hkv, lengths):
+    D, n_pages = 128, 16
+    B = len(lengths)
+    pool, table = _paged_128(B, hkv, D, n_pages, G + lengths[0], dev)
+    length = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    # columns past a row's length name the trash page, as the pool manager's do
+    for b, L in enumerate(lengths):
+        table[b, -(-L // 128):] = pool[0].shape[0] - 1
+    table = torch.from_numpy(table).to(dev)
+    base = torch.zeros((B,), dtype=torch.int32, device=dev)
+    q = (torch.randn((B, hkv * G, D), device=dev) / math.sqrt(D)).bfloat16()
+    before = QA.paged_quant_decode_attention.launches
+    got = QA.paged_quant_decode_attention(q, *pool, table, base, length)
+    assert QA.paged_quant_decode_attention.launches == before + 1
+    _close(got, QA.paged_quant_decode_attention_plain(q, *pool, table, base, length), 2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,hkv", [(7, 4), (1, 16)])
+@pytest.mark.parametrize("window", [100, 128, 129])
+def test_paged_decode_kernel_live_keys_in_last_split_only(dev, G, hkv, window):
+    """A full 16-page table with a window: every live key lies in the last
+    split (or straddles the last two), the earlier splits exit."""
+    D, n_pages = 128, 16
+    B = 2
+    pool, table = _paged_128(B, hkv, D, n_pages, window + G, dev)
+    table = torch.from_numpy(table).to(dev)
+    length = torch.tensor([2048, 2047], dtype=torch.int32, device=dev)
+    base = torch.zeros((B,), dtype=torch.int32, device=dev)
+    q = (torch.randn((B, hkv * G, D), device=dev) / math.sqrt(D)).bfloat16()
+    got = QA.paged_quant_decode_attention(q, *pool, table, base, length, window=window)
+    _close(got, QA.paged_quant_decode_attention_plain(q, *pool, table, base, length,
+                                                      window=window), 2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,hkv", [(7, 4), (1, 16)])
+@pytest.mark.parametrize("lengths", [[127, 128, 129, 1], [2048, 352, 1000, 2047], [352]])
+def test_dense_decode_kernel_split_over_keys(dev, G, hkv, lengths):
+    """S = 2048 (16 key blocks of 128 slots): ragged per-row lengths at a
+    block edge, and one scalar length for every row."""
+    S, D, B = 2048, 128, 4
+    cache = _dense_cache(B, S, hkv, D, dev, G + len(lengths))
+    q = (torch.randn((B, hkv * G, D), device=dev) / math.sqrt(D)).bfloat16()
+    length = torch.tensor(lengths if len(lengths) > 1 else lengths[0], dtype=torch.int32,
+                          device=dev)
+    before = QA.quant_decode_attention.launches
+    got = QA.quant_decode_attention(q, *cache, length)
+    assert QA.quant_decode_attention.launches == before + 1
+    _close(got, QA.quant_decode_attention_plain(q, *cache, length.reshape(-1).expand(B)),
+           2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,hkv", [(7, 4), (1, 16)])
+def test_decode_kernels_read_subnormal_values(dev, G, hkv):
+    """Values of a few thousandths are e4m3 subnormals (below 2^-6); the
+    kernels convert them to bf16 exactly, so the output, itself of that
+    size, holds the plain version at a relative tolerance."""
+    D, n_pages, B = 128, 4, 2
+    pool, table = _paged_128(B, hkv, D, n_pages, 11, dev)
+    g = torch.Generator().manual_seed(12)
+    small = KV.cast_values(torch.randn(pool[3].shape, generator=g) * 4e-3, Q.FP8_DTYPE)
+    pool = (*pool[:3], small.to(dev))
+    table = torch.from_numpy(table).to(dev)
+    length = torch.tensor([300, 77], dtype=torch.int32, device=dev)
+    base = torch.zeros((B,), dtype=torch.int32, device=dev)
+    q = (torch.randn((B, hkv * G, D), device=dev) / math.sqrt(D)).bfloat16()
+    got = QA.paged_quant_decode_attention(q, *pool, table, base, length)
+    want = QA.paged_quant_decode_attention_plain(q, *pool, table, base, length)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=2e-2, atol=2e-5)
+
+
+@pytest.mark.gpu
+def test_decode_kernels_replay_in_a_cuda_graph(dev):
+    """20 calls of each decode kernel captured in one CUDA graph and
+    replayed twice give the eager calls' outputs bit for bit: every launch
+    leaves its combine counters at 0."""
+    G, hkv, D, n_pages, B = 7, 4, 128, 16, 4
+    pool, table = _paged_128(B, hkv, D, n_pages, 5, dev)
+    table = torch.from_numpy(table).to(dev)
+    base = torch.zeros((B,), dtype=torch.int32, device=dev)
+    dense = _dense_cache(B, 2048, hkv, D, dev, 6)
+    qs = [(torch.randn((B, hkv * G, D), device=dev) / math.sqrt(D)).bfloat16()
+          for _ in range(20)]
+    lengths = [torch.tensor([732 - i, 296 + i, 512, 41 + 3 * i], dtype=torch.int32,
+                            device=dev) for i in range(20)]
+
+    def calls():
+        return [(QA.paged_quant_decode_attention(q, *pool, table, base, L),
+                 QA.quant_decode_attention(q, *dense, L)) for q, L in zip(qs, lengths)]
+
+    eager = calls()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = calls()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for (pe, de), (pc, dc) in zip(eager, captured):
+            assert torch.equal(pe, pc) and torch.equal(de, dc)
+    again = calls()                    # eager once more, after the replays
+    for (pe, de), (pa, da) in zip(eager, again):
+        assert torch.equal(pe, pa) and torch.equal(de, da)
 
 
 @pytest.mark.gpu
