@@ -9,7 +9,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    build of the Hopper kernels from ``src/repro_torch/csrc``.
 2. Each of the seven kernels against its plain PyTorch version on the card,
    at the serving paths' shapes (qwen2-7b, G=7; moonshot-v1-16b-a3b, G=1;
-   the decode kernels with the split count their wrappers choose)
+   the decode kernels and the dense matmul with the split count their
+   wrappers choose, the matmul at every dense linear of both models at
+   M = 1, 4, 128 and 320)
    and at small ``@reduced`` shapes, with the tolerance of the matching CPU
    test; the dense prefill kernel also non-causal and windowed; the grouped
    kernel with expert ids (decode) and live-row counts (full-capacity
@@ -139,6 +141,19 @@ def time_ms(fn, arg_sets, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def alternating_ms(cases, iters: int = 200, batches: int = 7):
+    """The median time a call of each ``(fn, arg_sets)`` case over
+    ``batches`` batches of ``iters`` calls, the cases' batches taken in
+    turns: where a call is mostly host time, the host's speed drifts
+    within a run, and alternating lays the drift on every case alike."""
+    import statistics
+    means = [[] for _ in cases]
+    for _ in range(batches):
+        for m, (fn, arg_sets) in zip(means, cases):
+            m.append(time_ms(fn, arg_sets, iters))
+    return [statistics.median(m) for m in means]
+
+
 def graph_ms(fn, arg_sets, iters: int = 20, replays: int = 5):
     """Device time per launch: ``iters`` calls captured in one CUDA graph and
     replayed, so the host's time per call (Python checks, allocation, the
@@ -250,45 +265,61 @@ def phase_kernels(dev, results: dict) -> None:
     gen = torch.Generator(device=dev).manual_seed(1234)
 
     # --- w4a8_matmul -------------------------------------------------------
-    # every linear of qwen2-7b (K, N, bits): q/o, k/v, gate/up, down, lm_head
-    shapes = [(3584, 3584, 4), (3584, 512, 4), (3584, 18944, 4), (18944, 3584, 4),
-              (3584, 151808, 8), (256, 512, 4)]          # last: @reduced
+    # every dense linear of qwen2-7b and of moonshot-v1-16b-a3b (K, N, bits;
+    # moonshot's q/k/v/o are all 2048 x 2048) at decode (M = 1, 4), a prompt
+    # chunk (128) and an Engine.generate prompt (320), and @reduced.  Each
+    # shape: the split count and tile the wrapper chooses, the bound, and
+    # torch._int_mm as yardstick (the weight unpacked to int8 beforehand, M
+    # padded to 32 where it is 16 or less: _int_mm takes no fewer rows).
+    shapes = [("qwen2-7b q/o", 3584, 3584, 4), ("qwen2-7b k/v", 3584, 512, 4),
+              ("qwen2-7b gate/up", 3584, 18944, 4), ("qwen2-7b down", 18944, 3584, 4),
+              ("qwen2-7b lm_head", 3584, 151808, 8), ("moonshot q/k/v/o", 2048, 2048, 4),
+              ("moonshot lm_head", 2048, 163840, 8), ("@reduced", 256, 512, 4)]
     wm_rows = []
-    for K, N, bits in shapes:
+    for what, K, N, bits in shapes:
         pl = RP.pack_linear(Q.quantize(
             torch.randn((K, N), generator=gen, device=dev) * 0.02, bits))
-        for M in ((4, 128) if K > 256 else (3,)):
+        n_copies = max(1, math.ceil(100e6 / pl.data.numel()))
+        copies = [pl.data] + [pl.data.clone() for _ in range(min(n_copies, 8) - 1)]
+        w8 = Q.unpack_int4(pl.data).contiguous() if bits == 4 else pl.data
+        w8s = [w8, w8.clone()]
+        for M in ((1, 4, 128, 320) if K > 256 else (3,)):
             x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
             xq, sx = Q.quantize_activations(x)
             args = (xq, sx, pl.data, pl.scale[0], pl.zero[0])
             got = WM.w4a8_matmul(*args, bits=bits)
             want = WM.w4a8_matmul_plain(*args, bits=bits)
             err = check_close("w4a8_matmul", got, want, f"M={M} K={K} N={N} bits={bits}")
-            n_copies = max(1, math.ceil(100e6 / pl.data.numel()))
-            copies = [(xq, sx, pl.data.clone(), pl.scale[0], pl.zero[0])
-                      for _ in range(min(n_copies, 8))]
-            ms = time_ms(lambda *a: WM.w4a8_matmul(*a, bits=bits), copies)
-            gms = graph_ms(lambda *a: WM.w4a8_matmul(*a, bits=bits), copies)
-            wm_rows.append({"M": M, "K": K, "N": N, "bits": bits, "ms": ms,
-                            "graph_ms": gms, "max_abs_err": err})
-            log(f"[kernels] w4a8_matmul M={M:4d} K={K:5d} N={N:6d} int{bits}: "
-                f"{ms:.4f} ms a call, {f4(gms)} ms on the device, max abs err {err:.3e}")
+            del got, want
+            sets = [(xq, sx, c, pl.scale[0], pl.zero[0]) for c in copies]
+            ms = time_ms(lambda *a: WM.w4a8_matmul(*a, bits=bits), sets)
+            gms = graph_ms(lambda *a: WM.w4a8_matmul(*a, bits=bits), sets)
+            xi = F.pad(xq, (0, 0, 0, 32 - M)) if M <= 16 else xq
+            lib_ms, lib_gms = library_time(torch._int_mm, [(xi, w) for w in w8s])
+            bytes_ = (xq.numel() + sx.numel() * 4 + pl.data.numel()
+                      + 2 * N * 4 + M * N * 4)
+            b = bound(bytes_, 2 * M * K * N, INT8_OPS_PER_S)
+            splits, rows = WM.matmul_splits(M, N, K), WM.tile_rows(M)
+            row = {"what": what, "M": M, "K": K, "N": N, "bits": bits, "splits": splits,
+                   "tile_rows": rows, "ms": ms, "graph_ms": gms, "max_abs_err": err,
+                   "bound_ms": b[0], "bound_by": b[1], "library_ms": lib_ms,
+                   "library_graph_ms": lib_gms}
+            wm_rows.append(row)
+            log(f"[kernels] w4a8_matmul {what} M={M:4d} K={K:5d} N={N:6d} int{bits} "
+                f"({rows}-row tile, {splits} splits, "
+                f"{-(-M // rows) * (N // 128) * splits} blocks): {ms:.4f} ms a call, "
+                f"{f4(gms)} ms on the device, bound {b[0]:.4f} ms ({b[1]}); _int_mm "
+                f"{f4(lib_ms)} ms a call, {f4(lib_gms)} ms on the device; max abs err "
+                f"{err:.3e}")
             if (M, K, N) == (4, 3584, 18944):
                 plain_ms = time_ms(lambda *a: WM.w4a8_matmul_plain(*a, bits=bits), [args],
                                    iters=5, warmup=1)
-                w8 = Q.unpack_int4(pl.data).contiguous()
-                xq32 = F.pad(xq, (0, 0, 0, 28))       # _int_mm needs M > 16
-                lib_ms, lib_gms = library_time(torch._int_mm, [(xq32, w8), (xq32, w8.clone())])
-                bytes_ = (xq.numel() + sx.numel() * 4 + pl.data.numel()
-                          + 2 * N * 4 + M * N * 4)
-                ops = 2 * M * K * N
                 results["w4a8_matmul"] = dict(
                     err=err, ms=ms, graph_ms=gms, plain_ms=plain_ms, library_ms=lib_ms,
-                    library_graph_ms=lib_gms,
-                    bound=bound(bytes_, ops, INT8_OPS_PER_S),
+                    library_graph_ms=lib_gms, bound=b,
                     shape=f"M={M} K={K} N={N} int4 (gate/up projection, decode bucket 4)")
-            del copies
-        del pl
+        del pl, copies, w8, w8s
+    results["w4a8_matmul"]["err"] = max(r["max_abs_err"] for r in wm_rows)
     results["w4a8_matmul"]["all_shapes"] = wm_rows
 
     # --- paged_quant_decode_attention --------------------------------------
@@ -394,25 +425,35 @@ def phase_kernels(dev, results: dict) -> None:
                 f"{plain_ms:.4f} ms; SDPA {f4(lib_ms)} ms a call, {f4(lib_gms)} ms on the device")
 
     # --- rmsnorm -------------------------------------------------------------
-    for rows, D in ((4, 3584), (128, 3584), (5, 256)):
+    # qwen2-7b's rows at decode (1, 4), a prompt chunk (128) and a prompt
+    # (320), each against F.rms_norm (bf16 weight), and @reduced
+    rn_rows = []
+    for rows, D in ((1, 3584), (4, 3584), (128, 3584), (320, 3584), (5, 256)):
         x = torch.randn((rows, D), generator=gen, device=dev).to(torch.bfloat16)
         w = 1.0 + 0.1 * torch.randn((D,), generator=gen, device=dev)
         got = RN.rmsnorm(x, w, 1e-6)
         want = RN.rmsnorm_plain(x, w, 1e-6)
         err = check_close("rmsnorm", got, want, f"rows={rows} D={D}")
-        ms = time_ms(RN.rmsnorm, [(x, w, 1e-6)])
-        gms = graph_ms(RN.rmsnorm, [(x, w, 1e-6)])
+        wb = w.to(torch.bfloat16)
+        lib = (lambda a, b: F.rms_norm(a, (D,), b, 1e-6), [(x, wb)])
+        # a call is mostly host time here: kernel and yardstick in turns
+        ms, lib_ms = alternating_ms([(RN.rmsnorm, [(x, w, 1e-6)]), lib])
+        gms, lib_gms = graph_ms(RN.rmsnorm, [(x, w, 1e-6)]), graph_ms(*lib)
+        b = bound(rows * D * 2 * 2 + D * 4, 4 * rows * D, F32_FLOPS_PER_S)
+        rn_rows.append({"rows": rows, "D": D, "ms": ms, "graph_ms": gms, "max_abs_err": err,
+                        "bound_ms": b[0], "bound_by": b[1], "library_ms": lib_ms,
+                        "library_graph_ms": lib_gms})
         log(f"[kernels] rmsnorm rows={rows} D={D}: {ms:.4f} ms a call, {f4(gms)} ms on "
-            f"the device, max abs err {err:.3e}")
+            f"the device; F.rms_norm {f4(lib_ms)} ms a call, {f4(lib_gms)} ms on the "
+            f"device; max abs err {err:.3e}")
         if rows == 4:
             plain_ms = time_ms(RN.rmsnorm_plain, [(x, w, 1e-6)])
-            wb = w.to(torch.bfloat16)
-            lib_ms, lib_gms = library_time(lambda a, b: F.rms_norm(a, (D,), b, 1e-6), [(x, wb)])
             results["rmsnorm"] = dict(
                 err=err, ms=ms, graph_ms=gms, plain_ms=plain_ms, library_ms=lib_ms,
-                library_graph_ms=lib_gms,
-                bound=bound(rows * D * 2 * 2 + D * 4, 4 * rows * D, F32_FLOPS_PER_S),
+                library_graph_ms=lib_gms, bound=b,
                 shape=f"rows={rows} D={D} bf16 (decode bucket 4)")
+    results["rmsnorm"]["err"] = max(r["max_abs_err"] for r in rn_rows)
+    results["rmsnorm"]["all_shapes"] = rn_rows
     torch.cuda.synchronize()
 
 
@@ -1245,6 +1286,7 @@ def main() -> int:
     detail = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
               "build_s": lib.build_s, "kernels": kernels, "launches_by_path": paths,
               "w4a8_all_shapes": results["w4a8_matmul"]["all_shapes"],
+              "rmsnorm_all_shapes": results["rmsnorm"]["all_shapes"],
               "grouped_all_shapes": results["grouped_matmul"]["all_shapes"],
               "paged_decode_all_shapes": results["paged_quant_decode_attention"]["all_shapes"],
               "main_path": summary, "kernel_vs_plain": checks,

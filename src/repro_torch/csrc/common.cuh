@@ -1,12 +1,29 @@
 // Shared device helpers for the port's Hopper kernels (built for sm_90a by
-// repro_torch/kernels/loader.py; every entry point has a plain C interface
-// and returns cudaGetLastError()).
+// repro_torch/kernels/loader.py; every entry point has a plain C interface,
+// takes its arguments packed (PackedArgs) and returns cudaGetLastError()).
 #pragma once
 
 #include <cstdint>
+#include <cstring>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
+
+// The arguments of an entry point, packed by the host into 8-byte words
+// (kernels/loader.py: one ctypes argument instead of a conversion per
+// argument): word i holds a pointer, an int64 or a double.
+struct PackedArgs {
+  const unsigned char* p;
+  template <typename T>
+  T word(int i) const {
+    T v;
+    memcpy(&v, p + 8 * i, sizeof(T));
+    return v;
+  }
+  void* ptr(int i) const { return reinterpret_cast<void*>(word<uint64_t>(i)); }
+  int integer(int i) const { return static_cast<int>(word<int64_t>(i)); }
+  float real(int i) const { return static_cast<float>(word<double>(i)); }
+};
 
 // The masked-score sentinel of the reference kernels (not -inf: a fully
 // masked tile then stays finite, and the next live tile's correction factor

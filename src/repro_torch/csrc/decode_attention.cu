@@ -64,7 +64,7 @@ void launch(const void* q, const void* kq, const void* kscale, const void* kzero
 // [B, S, Hkv]; v fp8 e4m3 bytes [B, S, Hkv, D]; length int32 [B]; out f32
 // [B, H, D]; scratch as for the paged kernel, over ceil(S / 128) key blocks.
 // G = H / Hkv <= 8, D % 16 == 0, D <= 128.
-extern "C" int decode_attention_launch(
+static int decode_attention(
     const void* q, const void* kq, const void* kscale, const void* kzero,
     const void* v, const void* length, void* out, void* scratch, int B, int S, int Hkv,
     int G, int D, int splits, void* stream) {
@@ -84,4 +84,12 @@ extern "C" int decode_attention_launch(
   }
 #undef REPRO_DENSE_DECODE
   return static_cast<int>(cudaGetLastError());
+}
+
+// The entry point: the arguments above, packed (common.cuh, PackedArgs).
+extern "C" int decode_attention_launch(const unsigned char* packed) {
+  const PackedArgs a{packed};
+  return decode_attention(a.ptr(0), a.ptr(1), a.ptr(2), a.ptr(3), a.ptr(4), a.ptr(5), a.ptr(6),
+                          a.ptr(7), a.integer(8), a.integer(9), a.integer(10), a.integer(11),
+                          a.integer(12), a.integer(13), a.ptr(14));
 }

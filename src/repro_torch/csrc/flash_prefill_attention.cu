@@ -101,7 +101,7 @@ void launch(const void* q, const void* k, const void* v, void* out, int B, int T
 
 // q bf16 [B, T, H, D] pre-scaled; k/v bf16 [B, S, Hkv, D]; out f32
 // [B, T, H, D].  D is 64 or 128; ceil(T * G / 64) at most 65535.
-extern "C" int flash_prefill_attention_launch(
+static int flash_prefill_attention(
     const void* q, const void* k, const void* v, void* out, int B, int T, int S,
     int Hkv, int G, int D, int causal, int window, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -112,4 +112,12 @@ extern "C" int flash_prefill_attention_launch(
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The entry point: the arguments above, packed (common.cuh, PackedArgs).
+extern "C" int flash_prefill_attention_launch(const unsigned char* packed) {
+  const PackedArgs a{packed};
+  return flash_prefill_attention(a.ptr(0), a.ptr(1), a.ptr(2), a.ptr(3), a.integer(4),
+                                 a.integer(5), a.integer(6), a.integer(7), a.integer(8),
+                                 a.integer(9), a.integer(10), a.integer(11), a.ptr(12));
 }

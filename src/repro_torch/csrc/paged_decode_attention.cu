@@ -74,7 +74,7 @@ void launch(const void* q, const void* kq, const void* kscale, const void* kzero
 // base/length int32 [B]; out f32 [B, H, D]; scratch int32, zeroed once and
 // left zeroed by every launch (decode_attention.cuh; may be null when splits
 // is 1).  G = H / Hkv <= 8, D % 16 == 0, D <= 128.
-extern "C" int paged_decode_attention_launch(
+static int paged_decode_attention(
     const void* q, const void* kq, const void* kscale, const void* kzero,
     const void* v, const void* table, const void* base, const void* length,
     void* out, void* scratch, int B, int Hkv, int G, int D, int ps, int n_pages,
@@ -96,4 +96,13 @@ extern "C" int paged_decode_attention_launch(
   }
 #undef REPRO_PAGED_DECODE
   return static_cast<int>(cudaGetLastError());
+}
+
+// The entry point: the arguments above, packed (common.cuh, PackedArgs).
+extern "C" int paged_decode_attention_launch(const unsigned char* packed) {
+  const PackedArgs a{packed};
+  return paged_decode_attention(a.ptr(0), a.ptr(1), a.ptr(2), a.ptr(3), a.ptr(4), a.ptr(5),
+                                a.ptr(6), a.ptr(7), a.ptr(8), a.ptr(9), a.integer(10),
+                                a.integer(11), a.integer(12), a.integer(13), a.integer(14),
+                                a.integer(15), a.integer(16), a.integer(17), a.ptr(18));
 }

@@ -153,7 +153,7 @@ void launch(const void* q, const void* kq, const void* kscale, const void* kzero
 
 // q bf16 [B, C, H, D] pre-scaled; pool arrays as for the decode kernel; table
 // int32 [B, n_pages]; pos0 int32 [B]; out f32 [B, C, H, D].  D is 64 or 128.
-extern "C" int paged_prefill_attention_launch(
+static int paged_prefill_attention(
     const void* q, const void* kq, const void* kscale, const void* kzero,
     const void* v, const void* table, const void* pos0, void* out, int B, int C,
     int Hkv, int G, int D, int ps, int n_pages, void* stream) {
@@ -165,4 +165,13 @@ extern "C" int paged_prefill_attention_launch(
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The entry point: the arguments above, packed (common.cuh, PackedArgs).
+extern "C" int paged_prefill_attention_launch(const unsigned char* packed) {
+  const PackedArgs a{packed};
+  return paged_prefill_attention(a.ptr(0), a.ptr(1), a.ptr(2), a.ptr(3), a.ptr(4), a.ptr(5),
+                                 a.ptr(6), a.ptr(7), a.integer(8), a.integer(9), a.integer(10),
+                                 a.integer(11), a.integer(12), a.integer(13), a.integer(14),
+                                 a.ptr(15));
 }

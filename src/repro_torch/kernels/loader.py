@@ -6,7 +6,9 @@ so a build takes seconds.  The library is built at first use into
 ``build/kernels/<hash>/`` at the repository root, keyed by a hash of the
 sources and flags, one ``nvcc -c`` per source started together, then
 linked.  Every C entry point returns ``cudaGetLastError()``; ``check``
-turns a non-zero code into an exception.
+turns a non-zero code into an exception.  ``stream_ptr`` and ``scratch``
+serve every wrapper: the current stream as a raw pointer, and the cached
+scratch buffers of the kernels that combine partial results across blocks.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import ctypes
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 import time
 from pathlib import Path
@@ -26,44 +29,54 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-P = ctypes.c_void_p
-I = ctypes.c_int
+# Every entry point takes one pointer to its arguments, packed by ``struct``
+# as 8-byte little-endian words (Q a pointer, q an int, d a float; csrc/
+# common.cuh PackedArgs): ctypes converts each argument of a call
+# separately, and on an H100's host that cost ~2.1-2.5 us for 8 arguments
+# against ~0.8-1.2 us for one packed (tools/host_time.py).
 SIGNATURES = {
-    # xq, sx, w, scale, zero, y, M, N, K, bits, stream
-    "w4a8_matmul_launch": [P, P, P, P, P, P, I, I, I, I, P],
+    # xq, sx, w, scale, zero, y, scratch, M, N, K, bits, tile_rows, splits,
+    # stream
+    "w4a8_matmul_launch": "7Q6qQ",
     # q, kq, kscale, kzero, v, table, base, length, out, scratch,
     # B, Hkv, G, D, ps, n_pages, window, splits, stream
-    "paged_decode_attention_launch": [P] * 10 + [I] * 8 + [P],
+    "paged_decode_attention_launch": "10Q8qQ",
     # q, kq, kscale, kzero, v, table, pos0, out, B, C, Hkv, G, D, ps,
     # n_pages, stream
-    "paged_prefill_attention_launch": [P] * 8 + [I] * 7 + [P],
+    "paged_prefill_attention_launch": "8Q7qQ",
     # x, w, y, rows, D, eps, is_bf16, stream
-    "rmsnorm_launch": [P, P, P, I, I, ctypes.c_float, I, P],
+    "rmsnorm_launch": "3Q2qdqQ",
     # xq, sx, w, scale, zero, y, ids, rows, E, M, N, K, G, bits, stream
-    "grouped_matmul_launch": [P] * 8 + [I] * 6 + [P],
+    "grouped_matmul_launch": "8Q6qQ",
     # q, kq, kscale, kzero, v, length, out, scratch, B, S, Hkv, G, D, splits,
     # stream
-    "decode_attention_launch": [P] * 8 + [I] * 6 + [P],
+    "decode_attention_launch": "8Q6qQ",
     # q, k, v, out, B, T, S, Hkv, G, D, causal, window, stream
-    "flash_prefill_attention_launch": [P] * 4 + [I] * 8 + [P],
+    "flash_prefill_attention_launch": "4Q8qQ",
 }
 
 
 class KernelLibrary:
-    """The built shared library plus its build report."""
+    """The built shared library plus its build report; each C entry point of
+    ``SIGNATURES`` is an attribute that takes the arguments one by one and
+    packs them."""
 
     def __init__(self, path: Path, build_s: float, ptxas_log: str):
         self.path = path
         self.build_s = build_s
         self.ptxas_log = ptxas_log
         self.lib = ctypes.CDLL(str(path))
-        for name, argtypes in SIGNATURES.items():
+        for name, fmt in SIGNATURES.items():
             fn = getattr(self.lib, name)
-            fn.argtypes = argtypes
+            fn.argtypes = [ctypes.c_char_p]
             fn.restype = ctypes.c_int
+            setattr(self, name, _packing(fn, struct.Struct("<" + fmt).pack))
 
-    def __getattr__(self, name):
-        return getattr(self.lib, name)
+
+def _packing(fn, pack):
+    def call(*args):
+        return fn(pack(*args))
+    return call
 
 
 _LIB: Optional[KernelLibrary] = None
@@ -133,5 +146,29 @@ def check(code: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {code} at launch")
 
 
-def stream_ptr(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+def stream_ptr(device: torch.device) -> int:
+    """The current stream of ``device`` (a CUDA-graph capture's side stream
+    too) as a raw pointer, without building a ``torch.cuda.Stream`` object,
+    which costs the host several microseconds a call."""
+    return torch._C._cuda_getCurrentRawStream(
+        device.index if device.index is not None else torch.cuda.current_device())
+
+
+_SCRATCH: dict = {}
+
+
+def scratch(device: torch.device, counters: int, words: int) -> torch.Tensor:
+    """A kernel's scratch: ``counters`` int32 combine counters (padded to a
+    multiple of 4) then ``words`` 32-bit words of partial results.  Zeroed
+    once; every launch leaves its counters at 0 and the partials need no
+    clearing, so one buffer per device, stream and layout is reused.  Inside
+    a CUDA-graph capture a buffer not made yet is made for that graph alone
+    (its zeroing is captured with it)."""
+    n = (counters + 3) // 4 * 4 + words
+    key = (device, stream_ptr(device), counters, n)
+    buf = _SCRATCH.get(key)
+    if buf is None:
+        buf = torch.zeros((n,), dtype=torch.int32, device=device)
+        if not torch.cuda.is_current_stream_capturing():
+            _SCRATCH[key] = buf
+    return buf

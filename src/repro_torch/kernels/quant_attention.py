@@ -38,28 +38,14 @@ def decode_splits(B: int, Hkv: int, n_blocks: int) -> int:
     return -(-n_blocks // per)               # no split left empty by rounding
 
 
-_SCRATCH: dict = {}
-
-
 def _scratch(dev: torch.device, pairs: int, splits: int, G: int,
              D: int) -> Optional[torch.Tensor]:
-    """The kernel's scratch: ``pairs`` combine counters (int32, padded to a
-    multiple of 4) then the splits' partials (float32 max, denominator and
-    acc [G, D] each).  Zeroed once; every launch leaves its counters at 0,
-    so one buffer per device, stream and size is reused.  Inside a CUDA-graph
-    capture a buffer not made yet is made for that graph alone (its zeroing
-    is captured with it)."""
+    """The decode kernels' scratch (``loader.scratch``): ``pairs`` combine
+    counters, then the splits' partials (float32 max, denominator and acc
+    [G, D] each).  None for one split, which writes the output itself."""
     if splits == 1:
-        return None                          # one split writes the output itself
-    n = (pairs + 3) // 4 * 4 + pairs * splits * G * (D + 2)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    key = (dev, stream, n)
-    buf = _SCRATCH.get(key)
-    if buf is None:
-        buf = torch.zeros((n,), dtype=torch.int32, device=dev)
-        if not torch.cuda.is_current_stream_capturing():
-            _SCRATCH[key] = buf
-    return buf
+        return None
+    return loader.scratch(dev, pairs, pairs * splits * G * (D + 2))
 
 
 def gather_rows(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

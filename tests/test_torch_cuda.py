@@ -14,6 +14,13 @@ G = 7 and G = 1 with lengths at a page edge, a full 16-page table, a row
 whose only live keys lie in the last split, and a CUDA-graph replay that
 shows the combine counters reset.
 
+The dense matmul kernel is split over K at decode widths and has two tile
+sizes (16 rows up to M = 16, 64 above): its cases give bit-identical
+outputs for every split count (uneven ranges of K = 18944 among them), M
+at the tiles' edges, and a CUDA-graph replay; RMSNorm runs at the serving
+paths' row counts and on its scalar path (rows not whole 16-byte chunks,
+or too wide for registers).
+
 Tolerances are the JAX package's own kernel-vs-reference ones: matmul
 1e-4 (the epilogue's scale products are ordered differently), attention
 and RMSNorm 2e-2 (the attention kernels round keys and probabilities to
@@ -84,6 +91,95 @@ def test_w4a8_kernel_matches_plain(dev, bits, M):
     got = WM.w4a8_matmul(*args, bits=bits)
     assert WM.w4a8_matmul.launches == before + 1
     _close(got, WM.w4a8_matmul_plain(*args, bits=bits), 1e-4)
+
+
+def _linear_on(dev, K, N, bits, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pl = RP.pack_linear(Q.quantize(torch.randn((K, N), generator=g, device=dev) * 0.02, bits))
+    return pl.data, pl.scale[0], pl.zero[0], g
+
+
+def _activations(M, K, g, dev):
+    return Q.quantize_activations(torch.randn((M, K), generator=g, device=dev).bfloat16())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("M,K,N,counts", [
+    (4, 3584, 512, [2, 3, 13]),          # qwen2-7b k/v at decode: 8 chosen
+    (4, 18944, 3584, [2, 7, 13, 74]),    # down: 8 chosen; 296 steps split unevenly
+    (1, 2048, 2048, [2, 5]),             # moonshot q at decode: 8 chosen
+    (128, 3584, 3584, [2, 3]),           # a prompt chunk on the 64-row tile
+])
+def test_w4a8_kernel_split_k_is_exact(dev, bits, M, K, N, counts):
+    """Every split count gives the same bits (int32 partials summed exactly)."""
+    w, scale, zero, g = _linear_on(dev, K, N, bits, M + K)
+    xq, sx = _activations(M, K, g, dev)
+    args = (xq, sx, w, scale, zero)
+    chosen = WM.matmul_splits(M, N, K)
+    one = WM.w4a8_matmul(*args, bits=bits, splits=1)
+    for s_ in [chosen] + counts:
+        assert torch.equal(WM.w4a8_matmul(*args, bits=bits, splits=s_), one), s_
+    assert torch.equal(WM.w4a8_matmul(*args, bits=bits), one)
+    _close(one, WM.w4a8_matmul_plain(*args, bits=bits), 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("M", [1, 15, 16, 17, 64, 65, 128, 320])
+def test_w4a8_kernel_at_tile_edges(dev, bits, M):
+    K, N = 1024, 384
+    w, scale, zero, g = _linear_on(dev, K, N, bits, M)
+    xq, sx = _activations(M, K, g, dev)
+    args = (xq, sx, w, scale, zero)
+    got = WM.w4a8_matmul(*args, bits=bits)
+    _close(got, WM.w4a8_matmul_plain(*args, bits=bits), 1e-4)
+    assert torch.equal(got, WM.w4a8_matmul(*args, bits=bits, splits=1))
+
+
+@pytest.mark.gpu
+def test_w4a8_kernel_replays_in_a_cuda_graph(dev):
+    """20 calls captured in one CUDA graph and replayed twice give the eager
+    calls' outputs bit for bit: split launches leave their counters at 0."""
+    shapes = [(4, 3584, 512, 4), (1, 18944, 3584, 4), (128, 3584, 3584, 4),
+              (4, 2048, 1024, 8), (40, 1024, 384, 8)]
+    layers = [_linear_on(dev, K, N, bits, i) for i, (_, K, N, bits) in enumerate(shapes)]
+    calls = []
+    for i in range(20):
+        M, K, N, bits = shapes[i % len(shapes)]
+        w, scale, zero, g = layers[i % len(shapes)]
+        calls.append((*_activations(M, K, g, dev), w, scale, zero, bits))
+
+    def run():
+        return [WM.w4a8_matmul(*c[:5], bits=c[5]) for c in calls]
+
+    eager = run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(eager, captured))
+    assert all(torch.equal(a, b) for a, b in zip(eager, run()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,D", [(1, 3584), (4, 3584), (128, 3584), (320, 3584),
+                                    (600, 2048), (3, 1001), (2, 16384)])
+def test_rmsnorm_kernel_at_serving_rows(dev, dtype, rows, D):
+    """Rows held in registers by blocks of 4 warps (D = 3584 bf16), 8 (3584
+    float32, 16384 bf16) and 2 (2048 bf16), and the scalar path (D = 1001;
+    16384 float32 is too wide for registers)."""
+    g = torch.Generator(device=dev).manual_seed(rows + D)
+    x = torch.randn((rows, D), generator=g, device=dev).to(dtype)
+    w = 1.0 + 0.1 * torch.randn((D,), generator=g, device=dev)
+    before = RN.rmsnorm.launches
+    got = RN.rmsnorm(x, w, 1e-6)
+    assert RN.rmsnorm.launches == before + 1 and got.dtype == dtype
+    _close(got, RN.rmsnorm_plain(x, w, 1e-6), 2e-2)
 
 
 @pytest.mark.gpu
@@ -423,5 +519,10 @@ def test_unsupported_configurations_raise_on_the_card(dev):
         QA.quant_decode_attention(q, *dense, 3)
     with pytest.raises(TypeError):
         FP.flash_prefill_attention(q[:, None], dense[3].float(), dense[3].float())
+    w, scale, zero, g = _linear_on(dev, 256, 128, 4, 0)
+    xq, sx = _activations(2, 256, g, dev)
+    for bad in (0, 5):                                          # 4 K steps
+        with pytest.raises(ValueError):
+            WM.w4a8_matmul(xq, sx, w, scale, zero, bits=4, splits=bad)
     K.reset_launch_counts()
     assert set(K.launch_counts().values()) == {0}

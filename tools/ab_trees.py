@@ -5,6 +5,7 @@ machines far more than device speed).
 
     python3 tools/ab_trees.py phases DIR [DIR ...]   # each tree's [kernels] and [moe] phases
     python3 tools/ab_trees.py moe DIR [DIR ...]      # each tree's MoE trace and decode step
+    python3 tools/ab_trees.py qwen DIR [DIR ...]     # each tree's qwen2-7b serving paths
 
 DIR is the root of a checkout (e.g. the parent unpacked with ``git
 archive`` into ``build/parent``).  Each tree runs in a process of its own,
@@ -12,7 +13,11 @@ importing its own ``chip_smoke.py`` and building its own kernels under
 DIR/build, in the order given: name trees repeatedly to alternate them
 (parent, change, change, parent).  ``moe`` serves the moonshot-v1-16b-a3b
 trace of ``chip_smoke.py`` through ``EngineLoop`` (after a short warm-up
-trace) and profiles 8 four-row decode steps; each run prints one line
+trace) and profiles 8 four-row decode steps; ``qwen`` serves full-width
+qwen2-7b (random weights, seed 0) through ``EngineLoop`` on the trace of
+``chip_smoke.py`` (after a short warm-up trace) and through
+``Engine.generate`` (4 prompts of 320 tokens, 32 new tokens each), and
+profiles 8 four-row ``EngineLoop`` decode steps.  Each run prints one line
 ``AB {json}``.  Needs one CUDA card.
 """
 from __future__ import annotations
@@ -59,14 +64,50 @@ def run_moe(root: Path) -> dict:
             "launches": prof.get("device_launches_per_step")}
 
 
+def run_qwen(root: Path) -> dict:
+    import numpy as np
+    import torch
+    import chip_smoke as CS
+    from repro_torch.configs import registry
+    from repro_torch.kernels import loader
+    from repro_torch.serving import engine as E
+    from repro_torch.serving import sampling as SM
+    loader.build(force=True)
+    dev = torch.device("cuda", 0)
+    cfg = registry.get("qwen2-7b")
+    eng = E.build_engine(cfg, seed=0, max_seq=2048, device=dev)
+    specs, arrivals = CS.make_trace(cfg.vocab_size)
+    CS.serve_trace(eng, specs[:2], arrivals[:2], max_new=4)        # warm-up
+    eng.stats = E.EngineStats()
+    _loop, _reqs, wall = CS.serve_trace(eng, specs, arrivals)
+    s = eng.stats
+    out = {"loop_wall_s": wall, "loop_ttft_p50_ms": s.ttft(50) * 1e3,
+           "loop_tpot_p50_ms": s.tpot(50) * 1e3, "loop_prefill_tok_s": s.prefill_tps,
+           "loop_decode_tok_s": s.decode_tps}
+    rng = np.random.default_rng(1)
+    reqs = [E.Request(uid=i, prompt_tokens=[int(t) for t in rng.integers(1, cfg.vocab_size, 320)],
+                      max_new_tokens=32) for i in range(4)]
+    eng.stats = E.EngineStats()
+    torch.cuda.synchronize()
+    eng.generate(reqs, SM.SamplingParams(temperature=0.0, max_new_tokens=32))
+    g = eng.stats
+    out.update({"generate_prefill_tok_s": g.prefill_tps, "generate_decode_tok_s": g.decode_tps,
+                "generate_prefill_s": g.prefill_s})
+    prof = CS.profile_loop_decode(eng, specs, steps=8)
+    out.update({"step_ms": prof["decode_step_ms"], "host_ms": prof["host_enqueue_ms"],
+                "device_ms": prof.get("device_ms_per_step"),
+                "port_kernels": prof.get("port_kernels")})
+    return out
+
+
 def main(argv) -> int:
     if len(argv) >= 3 and argv[0] == "--one":
         mode, root = argv[1], Path(argv[2]).resolve()
         sys.path[:0] = [str(root / "src"), str(root)]
-        out = (run_phases if mode == "phases" else run_moe)(root)
+        out = {"phases": run_phases, "moe": run_moe, "qwen": run_qwen}[mode](root)
         print("AB " + json.dumps({"tree": argv[2], **out}, default=str), flush=True)
         return 0
-    if len(argv) < 2 or argv[0] not in ("phases", "moe"):
+    if len(argv) < 2 or argv[0] not in ("phases", "moe", "qwen"):
         print(__doc__, file=sys.stderr)
         return 2
     rc = 0
@@ -75,7 +116,7 @@ def main(argv) -> int:
                               capture_output=True, text=True)
         for line in proc.stdout.splitlines():
             if line.startswith("AB ") or line.startswith("[kernels]   ") or \
-                    line.startswith("[moe] 6") or line.startswith("[profile] moon"):
+                    line.startswith("[moe] 6") or line.startswith("[profile] "):
                 print(line, flush=True)
         if proc.returncode:
             print(f"{tree}: exit {proc.returncode}\n{proc.stderr[-2000:]}", file=sys.stderr)
