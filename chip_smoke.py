@@ -19,7 +19,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 3. The continuous path: full-width qwen2-7b (random weights from a seed, 28
    layers) serves 8 greedy requests through ``EngineLoop.submit``/``step``
    (prompts of 40-700 tokens, a third sharing a 256-token prefix, staggered
-   arrivals, 32 new tokens each); a profiled decode step; the kernel path
+   arrivals, 32 new tokens each), eagerly; then ``[graphs]``: a loop's
+   ``warmup()`` captures one CUDA graph per decode bucket and chunk size
+   (seconds and the graph pool's device memory logged), and the same trace
+   through the graphs must commit the eager run's greedy tokens token for
+   token, capture nothing after warmup and launch the path's four kernels;
+   a profiled decode step, eager and on its graph; the kernel path
    against the plain path for one prompt chunk and one decode step, layer by
    layer, within a stated tolerance (free-running drift and greedy agreement
    are printed, not asserted: flat random-weight logits can flip an argmax
@@ -33,12 +38,15 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    tokens (two sharing a 256-token prefix) on 4 slots through
    ``EngineLoop``; the grouped kernel must run on both dispatch branches --
    prompt chunks with live-row counts, decode steps with expert ids and no
-   ``take_experts`` copy -- and the paged attention kernels at G=1; a
-   profiled decode step; kernel path against plain path for one prompt
-   chunk and one decode step.
+   ``take_experts`` copy -- and the paged attention kernels at G=1; the same
+   trace through the graphs (one 4-row decode step, its chunk sizes; each
+   graph holds grouped launches of its branch), as for qwen2-7b; a profiled
+   decode step, eager and on its graph; kernel path against plain path for
+   one prompt chunk and one decode step.
 
 Launch counts are zeroed just before each serving path and read just after
-it: every kernel of the path must have launched, and nothing fell back.
+it (a graph replay adds the launches its capture recorded): every kernel of
+the path must have launched, and nothing fell back.
 The last three lines of standard output are the card (``nvidia-smi`` name,
 power limit), one JSON object with every kernel's numbers, and
 ``{"ok": true, "device": {...}}``.  Details go to ``chiprun_out/``.
@@ -108,6 +116,10 @@ SOURCES = {
     "flash_prefill_attention": "src/repro_torch/csrc/flash_prefill_attention.cu",
 }
 KERNELS = tuple(SOURCES)
+# the kernels each EngineLoop path must launch (eager and inside its graphs)
+LOOP_KERNELS = ("w4a8_matmul", "paged_quant_decode_attention",
+                "paged_flash_prefill_attention", "rmsnorm")
+MOE_KERNELS = ("grouped_matmul",) + LOOP_KERNELS
 # device-kernel names of the port's kernels in a profiler trace
 PORT_KERNEL_SYMBOLS = ("w4a8_kernel", "paged_decode_kernel", "paged_prefill_kernel",
                        "rmsnorm_kernel", "grouped_kernel", "dense_decode_kernel",
@@ -703,14 +715,22 @@ def make_trace(vocab: int, seed: int = 0):
     return specs, arrivals
 
 
-def serve_trace(engine, specs, arrivals, max_new: int = 32):
-    """Drive ``EngineLoop`` through submit/step; returns (loop, requests,
-    wall seconds)."""
+def make_loop(engine, cuda_graphs: bool = False, prefill_token_budget: int = 256):
+    """The serving paths' ``EngineLoop``: 4 slots, 128-token chunks; eager on
+    the card unless ``cuda_graphs``."""
+    from repro_torch.serving import engine as E
+    return E.EngineLoop(engine, max_slots=4, prefill_chunk=128,
+                        prefill_token_budget=prefill_token_budget,
+                        cuda_graphs=cuda_graphs)
+
+
+def serve_trace(engine, specs, arrivals, max_new: int = 32, loop=None):
+    """Drive ``EngineLoop`` (``loop``, by default a new eager one) through
+    submit/step; returns (loop, requests, wall seconds)."""
     import torch
     from repro_torch.serving import engine as E
     from repro_torch.serving import sampling as SM
-    loop = E.EngineLoop(engine, max_slots=4, prefill_chunk=128,
-                        prefill_token_budget=256)
+    loop = make_loop(engine) if loop is None else loop
     sp = SM.SamplingParams(temperature=0.0, max_new_tokens=max_new)
     reqs = [E.Request(uid=i, prompt_tokens=p, max_new_tokens=max_new, sampling=sp)
             for i, p in enumerate(specs)]
@@ -743,7 +763,8 @@ def phase_main_path(dev):
         f"{time.perf_counter() - t0:.1f} s; device memory "
         f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
     specs, arrivals = make_trace(cfg.vocab_size)
-    log(f"[main] trace: prompts {[len(p) for p in specs]}, arrivals {arrivals}")
+    log(f"[main] trace: prompts {[len(p) for p in specs]}, arrivals {arrivals}; "
+        "eager (cuda_graphs=False)")
     K.reset_launch_counts()
     loop, reqs, wall = serve_trace(eng, specs, arrivals)
     counts = K.launch_counts()
@@ -751,8 +772,7 @@ def phase_main_path(dev):
     log(f"[main] launches during the trace: {counts}")
     assert all(r.done and len(r.generated) == 32 for r in reqs), "unfinished requests"
     assert loop.pool.prefix_hits > 0, "the shared prefix was never adopted"
-    for name in ("w4a8_matmul", "paged_quant_decode_attention",
-                 "paged_flash_prefill_attention", "rmsnorm"):
+    for name in LOOP_KERNELS:
         assert counts[name] > 0, f"{name} never launched on the EngineLoop path: {counts}"
     assert eng.dispatch.fallbacks == [], eng.dispatch.fallbacks
     new_tokens = sum(len(r.generated) for r in reqs)
@@ -773,6 +793,87 @@ def phase_main_path(dev):
     return eng, specs, arrivals, reqs, summary
 
 
+def phase_graphs(label: str, eng, specs, arrivals, eager_reqs, max_new: int,
+                 kernels, spies=None) -> dict:
+    """The trace of an eager ``EngineLoop`` run again through a warmed loop's
+    CUDA graphs (one per decode bucket, or the one 4-row step, and one per
+    chunk size): warmup time and the device memory the graph pool reserves,
+    then every request finishes with the eager run's greedy tokens, token
+    for token, no graph is captured after warmup, each kernel of ``kernels``
+    launched (a replay adds what its capture recorded) and nothing fell
+    back.  ``spies`` (a context manager) wraps the warmup, whose eager runs
+    and captures are the only Python calls the graphs' steps make."""
+    import contextlib
+    import statistics
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.serving import engine as E
+    dev = eng.device
+    eng.stats = E.EngineStats()
+    loop = make_loop(eng, cuda_graphs=True)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()          # as a capture does: what stays is the graphs'
+    reserved0 = torch.cuda.memory_reserved(dev)
+    with spies if spies is not None else contextlib.nullcontext():
+        rep = loop.warmup()
+    reserved1 = torch.cuda.memory_reserved(dev)
+    log(f"[graphs] {label}: warmup captured {rep['graphs']} CUDA graphs (decode buckets "
+        f"{rep['decode_buckets']}, chunk sizes {rep['chunk_sizes']}) in "
+        f"{rep['warmup_s']:.2f} s; device memory reserved {reserved0 / 2**30:.2f} -> "
+        f"{reserved1 / 2**30:.2f} GiB (+{(reserved1 - reserved0) / 2**20:.1f} MiB)")
+    assert rep["graphs"] == len(rep["decode_buckets"]) + len(rep["chunk_sizes"]), rep
+    assert loop.warmup()["graphs"] == rep["graphs"], "a second warmup captured again"
+    # the host's time in one replay call (the launch of every node), unprofiled:
+    # after warmup each graph's inputs are the warm run's (all-trash table,
+    # every row inactive), so these replays change no state
+    replay_ms = {}
+    for (kind, n), graph in loop._graphs.items():
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            graph.replay()
+            times.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        replay_ms[f"{kind}{n}"] = statistics.median(times) * 1e3
+    log(f"[graphs] {label}: host time of one replay call, median of 5: " + ", ".join(
+        f"{k} {v:.2f} ms" for k, v in replay_ms.items()))
+    K.reset_launch_counts()
+    _, reqs, wall = serve_trace(eng, specs, arrivals, max_new=max_new, loop=loop)
+    counts = K.launch_counts()
+    s = eng.stats
+    log(f"[graphs] {label}: launches during the trace: {counts}")
+    assert all(r.done and len(r.generated) == max_new for r in reqs), "unfinished requests"
+    differ = [r.uid for r, e in zip(reqs, eager_reqs) if r.generated != e.generated]
+    assert not differ, f"{label}: greedy tokens differ from the eager run for {differ}"
+    assert s.recompiles_after_warmup == 0, f"{s.recompiles_after_warmup} captures after warmup"
+    for name in kernels:
+        assert counts[name] > 0, f"{name} never launched inside the graphs: {counts}"
+    assert eng.dispatch.fallbacks == [], eng.dispatch.fallbacks
+    new_tokens = sum(len(r.generated) for r in reqs)
+    summary = {
+        "warmup": rep, "graph_pool_reserved_mib": (reserved1 - reserved0) / 2**20,
+        "replay_host_ms": replay_ms,
+        "memory_reserved_gib": [reserved0 / 2**30, reserved1 / 2**30],
+        "wall_s": wall, "new_tokens": new_tokens, "prefill_tokens": s.prefill_tokens,
+        "ttft_p50_ms": s.ttft(50) * 1e3, "ttft_p95_ms": s.ttft(95) * 1e3,
+        "tpot_p50_ms": s.tpot(50) * 1e3, "tpot_p95_ms": s.tpot(95) * 1e3,
+        "decode_tok_per_s": s.decode_tps, "prefill_tok_per_s": s.prefill_tps,
+        "compile_events": s.compile_events,
+        "recompiles_after_warmup": s.recompiles_after_warmup,
+        "graph_launches": {f"{k}{n}": v for (k, n), v in loop._graph_launches.items()},
+        "launches": counts, "tokens_equal_eager": True,
+    }
+    log(f"[graphs] {label}: {len(reqs)} requests, {new_tokens} new tokens in {wall:.2f} s, "
+        f"greedy tokens equal to the eager run's; TTFT p50 {summary['ttft_p50_ms']:.1f} ms "
+        f"p95 {summary['ttft_p95_ms']:.1f} ms; TPOT p50 {summary['tpot_p50_ms']:.2f} ms; "
+        f"decode {s.decode_tps:.1f} tok/s; prefill {s.prefill_tps:.1f} tok/s; "
+        f"{s.recompiles_after_warmup} captures after warmup")
+    loop.close()
+    return summary
+
+
 def count_syncs(step) -> dict:
     """The host-device synchronizations of one ``step()``: torch's sync debug
     mode warns at each one (a blocking copy, ``.item()``, ``.cpu()``), and
@@ -790,8 +891,9 @@ def count_syncs(step) -> dict:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     where = collections.Counter()
-    for w in caught:
-        if "synchroniz" in str(w.message):
+    for w in caught:      # (not the mode's own "prototype feature" notice)
+        msg = str(w.message)
+        if "synchroniz" in msg and "prototype" not in msg:
             f = Path(w.filename)
             where[f"{f.relative_to(ROOT) if f.is_relative_to(ROOT) else f.name}:{w.lineno}"] += 1
     return {"syncs_per_step": sum(where.values()), "sync_sites": dict(where.most_common())}
@@ -826,8 +928,11 @@ def profile_steps(label: str, step, steps: int = 4) -> dict:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kern = []          # device kernels only (host ops would count them twice)
+    api = []           # the host's time in CUDA runtime calls (launches, copies, waits)
     for e in prof.key_averages():
         if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            if e.key.startswith("cuda") and e.cpu_time_total > 0:
+                api.append((e.cpu_time_total, e.count, e.key))
             continue
         dev_us = getattr(e, "self_device_time_total", None)
         if dev_us is None:
@@ -861,6 +966,12 @@ def profile_steps(label: str, step, steps: int = 4) -> dict:
         log(f"[profile] {label}: the port's kernels per step: " + ", ".join(
             f"{sym} {k['ms_per_step']:.3f} ms ({k['launches_per_step']:.0f})"
             for sym, k in out["port_kernels"].items()))
+        api.sort(reverse=True)
+        out["runtime_calls"] = {n: {"host_ms_per_step": us / steps / 1e3,
+                                    "calls_per_step": c / steps} for us, c, n in api[:6]}
+        log(f"[profile] {label}: host time in CUDA runtime calls per step: " + ", ".join(
+            f"{n} {k['host_ms_per_step']:.2f} ms ({k['calls_per_step']:.0f})"
+            for n, k in out["runtime_calls"].items()))
     else:
         out["device_busy_share"] = "not measured"
         log(f"[profile] {label}: {step_ms:.1f} ms wall; the profiler saw no device "
@@ -868,21 +979,27 @@ def profile_steps(label: str, step, steps: int = 4) -> dict:
     return out
 
 
-def profile_loop_decode(eng, specs, steps: int = 4) -> dict:
-    """A full-batch ``EngineLoop`` step with four rows decoding."""
+def profile_loop_decode(eng, specs, steps: int = 4, cuda_graphs: bool = False) -> dict:
+    """A full-batch ``EngineLoop`` step with four rows decoding, eager or
+    (``cuda_graphs``, after ``warmup()``) replaying its CUDA graph."""
     from repro_torch.serving import engine as E
     from repro_torch.serving import sampling as SM
-    loop = E.EngineLoop(eng, max_slots=4, prefill_chunk=128, prefill_token_budget=512)
+    loop = make_loop(eng, cuda_graphs=cuda_graphs, prefill_token_budget=512)
+    if cuda_graphs:
+        loop.warmup()
     sp = SM.SamplingParams(temperature=0.0, max_new_tokens=64)
     for i, p in enumerate(specs[:4]):
         loop.submit(E.Request(uid=100 + i, prompt_tokens=p[:128], max_new_tokens=64,
                               sampling=sp))
     while loop._prefilling or sum(r is not None for r in loop.scheduler.running) < 4:
         loop.step()
-    out = profile_steps(f"{eng.cfg.name} EngineLoop decode step, 4 rows", loop.step, steps)
+    how = "CUDA graphs" if cuda_graphs else "eager"
+    out = profile_steps(f"{eng.cfg.name} EngineLoop decode step, 4 rows, {how}",
+                        loop.step, steps)
     out["rows"] = 4
     while loop.has_work():
         loop.step()
+    loop.close()
     return out
 
 
@@ -1127,14 +1244,80 @@ def moe_trace(vocab: int, seed: int = 2):
     return specs, [0, 0, 1, 2, 4, 6]
 
 
+class MoeSpies:
+    """While entered: the grouped kernel's launches by MoE branch and by the
+    table each call was given, and the calls of ``take_experts`` (the slab
+    copy the kernel's id table replaces).  ``check`` asserts that both
+    branches launched it, chunks with live-row counts and decode steps by
+    expert id, and that no slab was copied."""
+
+    def __init__(self):
+        self.by_branch = {"full_dispatch": 0, "selected_expert": 0}
+        self.tables = {b: {"rows": 0, "ids": 0, "neither": 0} for b in self.by_branch}
+        self.take_calls = 0
+        self._branch = None
+
+    def __enter__(self):
+        from repro_torch.kernels import grouped_matmul as GM
+        from repro_torch.models import moe as M
+        from repro_torch.runtime import dispatch as D
+        from repro_torch.runtime import plan as RP
+        self._originals = originals = (M._dispatch_moe, M._dispatch_moe_tiny,
+                                       D.Dispatcher.grouped_matmul, RP.take_experts)
+
+        def counted(fn, name):
+            def inner(*a, **kw):
+                before = GM.grouped_matmul.launches
+                self._branch = name
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    self.by_branch[name] += GM.grouped_matmul.launches - before
+                    self._branch = None
+            return inner
+
+        def grouped_spy(disp, *a, rows=None, ids=None, **kw):
+            before = GM.grouped_matmul.launches
+            out = originals[2](disp, *a, rows=rows, ids=ids, **kw)
+            key = "rows" if rows is not None else "ids" if ids is not None else "neither"
+            self.tables[self._branch][key] += GM.grouped_matmul.launches - before
+            return out
+
+        def take_spy(*a, **kw):
+            self.take_calls += 1
+            return originals[3](*a, **kw)
+
+        M._dispatch_moe = counted(originals[0], "full_dispatch")
+        M._dispatch_moe_tiny = counted(originals[1], "selected_expert")
+        D.Dispatcher.grouped_matmul = grouped_spy
+        RP.take_experts = take_spy
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from repro_torch.models import moe as M
+        from repro_torch.runtime import dispatch as D
+        from repro_torch.runtime import plan as RP
+        (M._dispatch_moe, M._dispatch_moe_tiny, D.Dispatcher.grouped_matmul,
+         RP.take_experts) = self._originals
+
+    def __str__(self) -> str:
+        return (f"grouped_matmul by branch {self.by_branch}, by table {self.tables}; "
+                f"take_experts calls {self.take_calls}")
+
+    def check(self) -> None:
+        assert all(n > 0 for n in self.by_branch.values()), self.by_branch
+        # chunks skip dead capacity rows, decode reads slabs by id: no slab copy
+        assert self.tables["full_dispatch"]["rows"] == self.by_branch["full_dispatch"], \
+            self.tables
+        assert self.tables["selected_expert"]["ids"] == self.by_branch["selected_expert"], \
+            self.tables
+        assert self.take_calls == 0, f"take_experts ran {self.take_calls} times on the card"
+
+
 def phase_moe(dev) -> dict:
     import torch
     from repro_torch import kernels as K
     from repro_torch.configs import registry
-    from repro_torch.kernels import grouped_matmul as GM
-    from repro_torch.models import moe as M
-    from repro_torch.runtime import dispatch as D
-    from repro_torch.runtime import plan as RP
     from repro_torch.serving import engine as E
 
     cfg = registry.get("moonshot-v1-16b-a3b")
@@ -1149,62 +1332,20 @@ def phase_moe(dev) -> dict:
         f"in {time.perf_counter() - t0:.1f} s; device memory "
         f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
     specs, arrivals = moe_trace(cfg.vocab_size)
-    log(f"[moe] trace: prompts {[len(p) for p in specs]}, arrivals {arrivals}")
-    by_branch = {"full_dispatch": 0, "selected_expert": 0}
-    # grouped launches by branch and by the table they were given, and the
-    # calls of take_experts (the slab copy the kernel's id table replaces)
-    tables = {b: {"rows": 0, "ids": 0, "neither": 0} for b in by_branch}
-    branch, take_calls = [None], [0]
-    originals = (M._dispatch_moe, M._dispatch_moe_tiny, D.Dispatcher.grouped_matmul,
-                 RP.take_experts)
-
-    def counted(fn, name):
-        def inner(*a, **kw):
-            before = GM.grouped_matmul.launches
-            branch[0] = name
-            try:
-                return fn(*a, **kw)
-            finally:
-                by_branch[name] += GM.grouped_matmul.launches - before
-                branch[0] = None
-        return inner
-
-    def grouped_spy(self, *a, rows=None, ids=None, **kw):
-        before = GM.grouped_matmul.launches
-        out = originals[2](self, *a, rows=rows, ids=ids, **kw)
-        key = "rows" if rows is not None else "ids" if ids is not None else "neither"
-        tables[branch[0]][key] += GM.grouped_matmul.launches - before
-        return out
-
-    def take_spy(*a, **kw):
-        take_calls[0] += 1
-        return originals[3](*a, **kw)
-
-    M._dispatch_moe = counted(originals[0], "full_dispatch")
-    M._dispatch_moe_tiny = counted(originals[1], "selected_expert")
-    D.Dispatcher.grouped_matmul = grouped_spy
-    RP.take_experts = take_spy
-    try:
+    log(f"[moe] trace: prompts {[len(p) for p in specs]}, arrivals {arrivals}; eager")
+    spy = MoeSpies()
+    with spy:
         K.reset_launch_counts()
         loop, reqs, wall = serve_trace(eng, specs, arrivals, max_new=16)
         counts = K.launch_counts()
-    finally:
-        (M._dispatch_moe, M._dispatch_moe_tiny, D.Dispatcher.grouped_matmul,
-         RP.take_experts) = originals
     s = eng.stats
-    log(f"[moe] launches during the trace: {counts}; grouped_matmul by branch {by_branch}, "
-        f"by table {tables}; take_experts calls {take_calls[0]}")
+    log(f"[moe] launches during the trace: {counts}; {spy}")
     assert all(r.done and len(r.generated) == 16 for r in reqs), "unfinished requests"
     assert loop.pool.prefix_hits > 0, "the shared prefix was never adopted"
     assert loop.disabled_features.get("decode_bucketing"), loop.disabled_features
-    for name in ("grouped_matmul", "paged_quant_decode_attention",
-                 "paged_flash_prefill_attention", "w4a8_matmul", "rmsnorm"):
+    for name in MOE_KERNELS:
         assert counts[name] > 0, f"{name} never launched on the MoE path: {counts}"
-    assert all(n > 0 for n in by_branch.values()), by_branch
-    # chunks skip dead capacity rows, decode reads slabs by id: no slab copy
-    assert tables["full_dispatch"]["rows"] == by_branch["full_dispatch"], tables
-    assert tables["selected_expert"]["ids"] == by_branch["selected_expert"], tables
-    assert take_calls[0] == 0, f"take_experts ran {take_calls[0]} times on the card"
+    spy.check()
     assert eng.dispatch.fallbacks == [], eng.dispatch.fallbacks
     new_tokens = sum(len(r.generated) for r in reqs)
     summary = {
@@ -1214,8 +1355,8 @@ def phase_moe(dev) -> dict:
         "ttft_p50_ms": s.ttft(50) * 1e3, "ttft_p95_ms": s.ttft(95) * 1e3,
         "tpot_p50_ms": s.tpot(50) * 1e3, "tpot_p95_ms": s.tpot(95) * 1e3,
         "decode_tok_per_s": s.decode_tps, "prefill_tok_per_s": s.prefill_tps,
-        "launches": counts, "grouped_matmul_by_branch": by_branch,
-        "grouped_matmul_by_table": tables, "take_experts_calls": take_calls[0],
+        "launches": counts, "grouped_matmul_by_branch": spy.by_branch,
+        "grouped_matmul_by_table": spy.tables, "take_experts_calls": spy.take_calls,
         "disabled_features": loop.disabled_features,
         "device_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
     }
@@ -1224,7 +1365,21 @@ def phase_moe(dev) -> dict:
         f"{summary['tpot_p50_ms']:.2f} ms; decode {s.decode_tps:.1f} tok/s; prefill "
         f"{s.prefill_tps:.1f} tok/s in {s.prefill_chunks} chunks; prefix pages adopted "
         f"{loop.pool.prefix_hits}")
+    # the same trace on the graphs: the warmup's eager runs and captures are
+    # the only Python calls of the graphs' steps, so the spies see each
+    # graph's grouped launches there: chunks with live-row counts, decode
+    # by expert id; every graph of each kind then holds grouped launches
+    graph_spy = MoeSpies()
+    summary["graphs"] = phase_graphs("moonshot-v1-16b-a3b", eng, specs, arrivals, reqs, 16,
+                                     MOE_KERNELS, spies=graph_spy)
+    log(f"[graphs] moonshot-v1-16b-a3b: at warmup {graph_spy}")
+    graph_spy.check()
+    per_graph = summary["graphs"]["graph_launches"]
+    assert all(v.get("grouped_matmul", 0) > 0 for v in per_graph.values()), per_graph
+    summary["graphs"]["grouped_matmul_by_branch_at_warmup"] = graph_spy.by_branch
+    summary["graphs"]["grouped_matmul_by_table_at_warmup"] = graph_spy.tables
     summary["profile"] = profile_loop_decode(eng, specs)
+    summary["profile_graphs"] = profile_loop_decode(eng, specs, cuda_graphs=True)
     prompt = specs[3]
     summary["kernel_vs_plain"] = compare_paths("MoE EngineLoop", eng, chunk_then_decode,
                                                prompt, prompt[128])
@@ -1260,7 +1415,10 @@ def main() -> int:
     phase_kernels(dev, results)
     phase_new_kernels(dev, results)
     eng, specs, arrivals, reqs, summary = phase_main_path(dev)
+    summary["graphs"] = phase_graphs("qwen2-7b", eng, specs, arrivals, reqs, 32,
+                                     LOOP_KERNELS)
     summary["profile"] = profile_loop_decode(eng, specs)
+    summary["profile_graphs"] = profile_loop_decode(eng, specs, cuda_graphs=True)
     checks = phase_kernel_vs_plain(eng, specs, arrivals, reqs)
     generate = phase_generate(eng)
     del eng
@@ -1271,8 +1429,10 @@ def main() -> int:
 
     # launches: the sum over the three serving paths, each counted from zero
     paths = {"EngineLoop qwen2-7b": summary["launches"],
+             "EngineLoop qwen2-7b, CUDA graphs": summary["graphs"]["launches"],
              "Engine.generate qwen2-7b": generate["launches"],
-             "EngineLoop moonshot-v1-16b-a3b": moe["launches"]}
+             "EngineLoop moonshot-v1-16b-a3b": moe["launches"],
+             "EngineLoop moonshot-v1-16b-a3b, CUDA graphs": moe["graphs"]["launches"]}
     kernels = []
     for name in KERNELS:
         r = results[name]

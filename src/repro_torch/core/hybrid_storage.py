@@ -12,11 +12,13 @@ uint16, since numpy has no bf16): the same round-to-nearest-even cast done
 once at export time, so every lookup returns the reference's bf16 rows bit
 for bit at half the Flash footprint.  Reads are not throttled: the
 reference builds its serving engines with ``simulate=False`` as well.
+Rows reach the device through a pinned ``StagedBuffer`` with a
+non-blocking copy, as every host-to-device input of the serving loop does.
 """
 from __future__ import annotations
 
 import os
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -54,6 +56,37 @@ class FlashStore:
         return int(self._maps[name].nbytes)
 
 
+class StagedBuffer:
+    """A device tensor ``target`` that the host fills through a twin in
+    pinned memory: ``put`` writes the twin, enqueues a non-blocking copy
+    into ``target`` on the current stream and records an event after it, so
+    the host never waits for the device to take the values; the next
+    ``put`` first waits on that event, as the copy out of the twin must
+    have finished before the host overwrites it.  ``target`` keeps its
+    storage, so a CUDA graph that reads it sees every ``put``.  On the CPU
+    the twin is plain memory and the copy is immediate."""
+
+    def __init__(self, target: torch.Tensor):
+        self.target = target
+        on_card = target.device.type == "cuda"
+        self.host = torch.empty(target.shape, dtype=target.dtype,
+                                pin_memory=on_card)
+        self._copied = torch.cuda.Event() if on_card else None
+
+    def put(self, values) -> torch.Tensor:
+        """Write ``values`` (broadcast to the target's shape; bf16 as its
+        int16 bits) and copy them to ``target``, which is returned."""
+        if self._copied is not None:
+            self._copied.synchronize()
+        host = self.host.view(torch.int16) if self.host.dtype == torch.bfloat16 \
+            else self.host
+        host.numpy()[...] = values
+        self.target.copy_(self.host, non_blocking=True)
+        if self._copied is not None:
+            self._copied.record()
+        return self.target
+
+
 class EmbeddingStore:
     """The bf16 embedding table on Flash; ``lookup`` returns bf16 rows on
     the requested device."""
@@ -77,9 +110,19 @@ class EmbeddingStore:
         return cls(flash, name)
 
     def lookup(self, token_ids: np.ndarray,
-               device: torch.device = torch.device("cpu")) -> torch.Tensor:
+               device: torch.device = torch.device("cpu"), *,
+               out: Optional[StagedBuffer] = None) -> torch.Tensor:
+        """bf16 rows [*ids.shape, d] on ``device``; with ``out`` (a bf16
+        ``StagedBuffer`` of that shape) the rows go through its pinned twin
+        into its target, which is returned: no copy the host waits for."""
         ids = np.asarray(token_ids)
         rows = self.flash.read_rows(self.name, ids.reshape(-1))
+        if out is not None:
+            if out.target.dtype != torch.bfloat16 or \
+                    tuple(out.target.shape) != (*ids.shape, rows.shape[-1]):
+                raise ValueError(f"out {out.target.dtype} {tuple(out.target.shape)} "
+                                 f"for ids {ids.shape} of width {rows.shape[-1]}")
+            return out.put(rows.view(np.int16).reshape(out.target.shape))
         t = torch.from_numpy(rows.view(np.int16)).view(torch.bfloat16)
         return t.reshape(*ids.shape, rows.shape[-1]).to(device)
 

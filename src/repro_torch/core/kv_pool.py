@@ -144,20 +144,31 @@ def append_paged(pool: PagedLayerKV, k_new: torch.Tensor, v_new: torch.Tensor,
     _write(pool, page, off, kq[:, 0], ks[:, 0], kz[:, 0], v_cast[:, 0])
 
 
+def device_scalar(value, device: torch.device) -> torch.Tensor:
+    """An int as an int32 tensor [1] on ``device``, filled in on the device
+    (no copy from the host); a one-element tensor (the device scalar a CUDA
+    graph reads) passes through."""
+    if torch.is_tensor(value):
+        return value.reshape(1).to(torch.int32)
+    return torch.full((1,), int(value), dtype=torch.int32, device=device)
+
+
 def append_paged_prompt(pool: PagedLayerKV, k_new: torch.Tensor,
-                        v_new: torch.Tensor, pos0: int,
+                        v_new: torch.Tensor, pos0,
                         table_row: torch.Tensor) -> None:
     """Append a C-token prompt chunk for ONE row (k_new/v_new [1, C, Hkv,
     D]) at positions [pos0, pos0 + C) through ``table_row``
-    [pages_per_row]; positions past the table land in the trash page.  In
-    place; quantization matches the decode append bit for bit."""
+    [pages_per_row]; positions past the table land in the trash page.
+    ``pos0`` an int or a one-element device tensor.  In place; quantization
+    matches the decode append bit for bit."""
     b, C = k_new.shape[:2]
     if b != 1:
         raise ValueError("prompt chunks are per-row (B=1)")
     ps = pool.page_size
     kq, ks, kz = kvc.quantize_keys(k_new, bits=pool.key_bits)
     v_cast = kvc.cast_values(v_new, pool.v.dtype)
-    positions = int(pos0) + torch.arange(C, device=table_row.device)
+    positions = (device_scalar(pos0, table_row.device).long()
+                 + torch.arange(C, device=table_row.device))
     logical = positions // ps
     n_p = table_row.shape[0]
     trash = pool.num_pages - 1 - pool.staging
@@ -174,14 +185,14 @@ def gather_pages(pool: PagedLayerKV, table: torch.Tensor):
 
 
 def paged_prefill_attention_ref(qh: torch.Tensor, pool: PagedLayerKV,
-                                table: torch.Tensor, pos0: int,
+                                table: torch.Tensor, pos0,
                                 policy: PrecisionPolicy = DEFAULT_POLICY
                                 ) -> torch.Tensor:
     """Chunk prefill attention through the page table (reference path):
-    qh [1, C, H, D] pre-scaled at absolute positions [pos0, pos0 + C);
-    table [1, pages_per_row].  Returns the compute dtype."""
-    pos0 = torch.full((qh.shape[0],), int(pos0), dtype=torch.int32,
-                      device=qh.device)
+    qh [1, C, H, D] pre-scaled at absolute positions [pos0, pos0 + C)
+    (``pos0`` an int or a one-element tensor); table [1, pages_per_row].
+    Returns the compute dtype."""
+    pos0 = device_scalar(pos0, qh.device).expand(qh.shape[0]).contiguous()
     out = FP.paged_flash_prefill_attention_plain(
         qh, pool.k_q, pool.k_scale, pool.k_zero, pool.v, table, pos0,
         key_bits=pool.key_bits, policy=policy)

@@ -4,7 +4,8 @@ Each module holds its kernels' wrappers and their plain PyTorch versions.
 A wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel (built from ``repro_torch/csrc`` by
 ``loader``) or raises.  Every wrapper counts its launches in
-``<wrapper>.launches``.
+``<wrapper>.launches``; a caller that replays a CUDA graph adds the
+launches its capture recorded (``add_launch_counts``).
 """
 from __future__ import annotations
 
@@ -33,3 +34,12 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in wrappers().values():
         fn.launches = 0
+
+
+def add_launch_counts(counts: Dict[str, int]) -> None:
+    """Add ``counts`` (name -> launches) to the wrappers' counts: what one
+    replay of a CUDA graph launched, or, negated, what its capture counted
+    without launching."""
+    fns = wrappers()
+    for name, n in counts.items():
+        fns[name].launches += n

@@ -8,10 +8,12 @@ sources and flags, one ``nvcc -c`` per source started together, then
 linked.  Every C entry point returns ``cudaGetLastError()``; ``check``
 turns a non-zero code into an exception.  ``stream_ptr`` and ``scratch``
 serve every wrapper: the current stream as a raw pointer, and the cached
-scratch buffers of the kernels that combine partial results across blocks.
+scratch buffers of the kernels that combine partial results across blocks
+(``capture`` scopes them to one CUDA graph).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -155,6 +157,23 @@ def stream_ptr(device: torch.device) -> int:
 
 
 _SCRATCH: dict = {}
+# layout -> scratch buffer, for the length of a capture made by ``capture``
+_CAPTURE_SCRATCH: Optional[dict] = None
+
+
+@contextlib.contextmanager
+def capture(graph: "torch.cuda.CUDAGraph", pool=None):
+    """``torch.cuda.graph(graph, pool=pool)``, in which every launch of one
+    scratch layout shares one buffer, made (and its zeroing captured) at the
+    layout's first launch: the graph's kernels run in order on one stream
+    and leave their counters at 0, as eager launches do."""
+    global _CAPTURE_SCRATCH
+    _CAPTURE_SCRATCH = {}
+    try:
+        with torch.cuda.graph(graph, pool=pool):
+            yield
+    finally:
+        _CAPTURE_SCRATCH = None
 
 
 def scratch(device: torch.device, counters: int, words: int) -> torch.Tensor:
@@ -162,13 +181,17 @@ def scratch(device: torch.device, counters: int, words: int) -> torch.Tensor:
     multiple of 4) then ``words`` 32-bit words of partial results.  Zeroed
     once; every launch leaves its counters at 0 and the partials need no
     clearing, so one buffer per device, stream and layout is reused.  Inside
-    a CUDA-graph capture a buffer not made yet is made for that graph alone
-    (its zeroing is captured with it)."""
+    a CUDA-graph capture the buffer belongs to the graph, its zeroing
+    captured with it: one per layout within ``capture``, one per launch in a
+    capture made otherwise."""
     n = (counters + 3) // 4 * 4 + words
-    key = (device, stream_ptr(device), counters, n)
-    buf = _SCRATCH.get(key)
+    if torch.cuda.is_current_stream_capturing():
+        if _CAPTURE_SCRATCH is None:
+            return torch.zeros((n,), dtype=torch.int32, device=device)
+        cache, key = _CAPTURE_SCRATCH, (device, counters, n)
+    else:
+        cache, key = _SCRATCH, (device, stream_ptr(device), counters, n)
+    buf = cache.get(key)
     if buf is None:
-        buf = torch.zeros((n,), dtype=torch.int32, device=device)
-        if not torch.cuda.is_current_stream_capturing():
-            _SCRATCH[key] = buf
+        buf = cache[key] = torch.zeros((n,), dtype=torch.int32, device=device)
     return buf

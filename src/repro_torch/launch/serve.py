@@ -10,8 +10,10 @@ repro.launch.serve`` (no HTTP gateway).
 
 ``--arch`` takes ``<arch>`` or ``<arch>@reduced`` / ``@tiny`` / ``@tiny-moe``
 (MoE architectures); weights are random, drawn from ``--seed``.  It runs on
-``cuda``; ``--device cpu`` runs the plain PyTorch path instead.  Prints
-every request's tokens and the serving stats.  ``Engine.generate`` decodes
+``cuda``; ``--device cpu`` runs the plain PyTorch path instead.  With
+``--warmup`` (the default) the loop captures every step graph before
+serving and prints the reference's warmup line.  Prints every request's
+tokens and the serving stats.  ``Engine.generate`` decodes
 the whole batch at request 0's position, so ``--no-continuous`` draws every
 prompt at one length (``--max-prompt``).
 """
@@ -47,6 +49,11 @@ def main(argv: Optional[List[str]] = None) -> List[E.Request]:
                     default=True,
                     help="continuous batching (EngineLoop) vs the slot-synchronous "
                          "two-phase Engine.generate")
+    ap.add_argument("--warmup", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="capture every decode-bucket / prompt-chunk step graph "
+                         "before serving (on the card; on the CPU the steps run "
+                         "once, eagerly); --no-warmup captures each where first met")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain path)")
     ap.add_argument("--flash-dir", default=None,
@@ -79,6 +86,12 @@ def main(argv: Optional[List[str]] = None) -> List[E.Request]:
                             prefill_chunk=args.prefill_chunk,
                             prefill_token_budget=args.prefill_token_budget,
                             seed=args.seed)
+        if args.warmup:
+            rep = loop.warmup()
+            print(f"[serve] warmup: {rep['graphs']} graphs "
+                  f"(buckets {rep['decode_buckets']}, "
+                  f"chunks {rep['chunk_sizes']}) in {rep['warmup_s']:.2f}s")
+            t0 = time.perf_counter()
         out = loop.run(reqs)
         how = f"on {args.slots} slots"
     else:
@@ -95,7 +108,8 @@ def main(argv: Optional[List[str]] = None) -> List[E.Request]:
     if args.continuous:
         print(f"[serve] TTFT p50={s.ttft(50) * 1e3:.1f}ms p95={s.ttft(95) * 1e3:.1f}ms; "
               f"TPOT p50={s.tpot(50) * 1e3:.2f}ms; latency p50={s.latency(50):.2f}s; "
-              f"prefix pages adopted {loop.pool.prefix_hits}")
+              f"prefix pages adopted {loop.pool.prefix_hits}; graphs captured "
+              f"{s.compile_events} ({s.recompiles_after_warmup} after warmup)")
     print(f"[serve] prefill {s.prefill_tokens} toks @ {s.prefill_tps:.1f} t/s; "
           f"decode {s.decode_tokens} toks @ {s.decode_tps:.1f} t/s; "
           f"flash reads {s.flash_bytes / 1024:.1f} KiB")

@@ -114,13 +114,14 @@ def attention_decode(x: torch.Tensor, p: dict, cfg: ModelConfig,
 def attention_prefill_paged(x: torch.Tensor, p: dict, cfg: ModelConfig,
                             pat: LayerPattern, pool: KP.PagedLayerKV,
                             table_row: torch.Tensor, positions: torch.Tensor,
-                            pos0: int, dispatch: D.Dispatcher,
+                            pos0, dispatch: D.Dispatcher,
                             policy: PrecisionPolicy = DEFAULT_POLICY
                             ) -> torch.Tensor:
     """One prompt chunk of one row straight into the paged pool: quantize and
     append the chunk's K/V into the row's pages (in place), then attend the
-    chunk's queries (absolute positions ``pos0 + arange(C)``) over the
-    row's stored pages through ``table_row`` [pages_per_row]."""
+    chunk's queries (absolute positions ``pos0 + arange(C)``; ``pos0`` an
+    int or a one-element device tensor) over the row's stored pages through
+    ``table_row`` [pages_per_row]."""
     if pat.window:
         raise NotImplementedError("windowed layers prefill through their ring "
                                   "(ROADMAP queue 1 item 13)")

@@ -9,7 +9,7 @@ reference casts, so the CPU path reproduces the reference's bf16 rounding.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -102,11 +102,29 @@ def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
 
 
+_ROPE_TABLES: Dict[Tuple[int, float, torch.device], torch.Tensor] = {}
+
+
+def rope_table(head_dim: int, theta: float, device: torch.device) -> torch.Tensor:
+    """``rope_freqs`` as a float32 tensor on ``device``, built once per
+    (head_dim, theta, device): building it copies from the host, which makes
+    the host wait for the device and cannot be captured in a CUDA graph, so
+    the first call must come outside any capture (the serving loop runs every
+    step once before capturing it)."""
+    key = (int(head_dim), float(theta), torch.device(device))
+    table = _ROPE_TABLES.get(key)
+    if table is None:
+        table = torch.tensor(rope_freqs(head_dim, theta), dtype=torch.float32,
+                             device=device)
+        _ROPE_TABLES[key] = table
+    return table
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """x [B, T, H, D]; positions [B, T] int -> x's dtype.  float32 math with
     the reference's op order (angles in float32, rotate-half layout)."""
     d = x.shape[-1]
-    freqs = torch.tensor(rope_freqs(d, theta), dtype=torch.float32, device=x.device)
+    freqs = rope_table(d, theta, x.device)
     ang = positions[..., None].float() * freqs                      # [B,T,D/2]
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]

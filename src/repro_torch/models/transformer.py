@@ -121,9 +121,11 @@ def init_paged_cache(cfg: ModelConfig, batch: int, geom: KP.PoolGeometry,
 
 
 def free_slots(cache: dict, rows) -> dict:
-    """Reset finished rows' positions to zero (in place).  The KV
-    bytes stay; per-row masks make them unreachable."""
-    cache["pos"][torch.as_tensor(rows, dtype=torch.long)] = 0
+    """Reset finished rows' positions to zero (in place), one fill a row:
+    an index tensor from the host would be a copy the host waits for.  The
+    KV bytes stay; per-row masks make them unreachable."""
+    for r in rows:
+        cache["pos"][int(r)].fill_(0)
     return cache
 
 
@@ -201,7 +203,7 @@ def _logits(x: torch.Tensor, params: dict, cfg: ModelConfig,
 
 
 def prefill_chunk_paged(params: dict, cfg: ModelConfig, embeds: torch.Tensor,
-                        cache: dict, slot: int, pos0: int, last_idx: int,
+                        cache: dict, slot, pos0, last_idx,
                         dispatch: D.Dispatcher,
                         policy: PrecisionPolicy = DEFAULT_POLICY,
                         collect: Optional[list] = None) -> torch.Tensor:
@@ -209,16 +211,20 @@ def prefill_chunk_paged(params: dict, cfg: ModelConfig, embeds: torch.Tensor,
     pool.  embeds [1, C, d] at absolute positions [pos0, pos0 + C); a
     padded final chunk's keys land in causally dead positions or the trash
     page.  Returns the logits [1, V] of chunk-local index ``last_idx``.
-    The caller advances ``cache["pos"]`` once the whole prompt is in."""
+    ``slot``, ``pos0`` and ``last_idx`` are ints or one-element int32 device
+    tensors: read from the device, they never make the host wait and a CUDA
+    graph replays the step for any values.  The caller advances
+    ``cache["pos"]`` once the whole prompt is in."""
     x = embeds.to(torch.bfloat16)
     B, C = x.shape[:2]
     if B != 1:
         raise ValueError("prompt chunks are per-row")
-    positions = (int(pos0) + torch.arange(C, device=x.device,
-                                          dtype=torch.int32))[None]
-    x = _run_stacks(x, params, cfg, "prefill_paged", positions, cache, int(pos0),
-                    cache["table"][slot], dispatch, policy, collect)
-    last = x[:, int(last_idx):int(last_idx) + 1]
+    slot, pos0, last_idx = (KP.device_scalar(v, x.device) for v in (slot, pos0, last_idx))
+    positions = (pos0 + torch.arange(C, device=x.device, dtype=torch.int32))[None]
+    table_row = cache["table"].index_select(0, slot.long())[0]
+    x = _run_stacks(x, params, cfg, "prefill_paged", positions, cache, pos0,
+                    table_row, dispatch, policy, collect)
+    last = x.index_select(1, last_idx.long())
     return _logits(last, params, cfg, dispatch)[:, 0]
 
 

@@ -20,6 +20,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from repro_torch.core import kv_pool as KP
 from repro_torch.core import quantization as q
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.kernels import flash_prefill as FP
@@ -99,7 +100,10 @@ class Dispatcher:
                 "groups: only per-channel W4A8/W8A8 has a grouped kernel")
         if G * C == 0:                       # empty capacity: no rows at all
             return torch.zeros((G, E, C, w.n), dtype=out_dtype, device=x.device)
-        xq, sx = q.quantize_activations(x.movedim(1, 0).reshape(E, G * C, K))
+        # a view when C == 1 and G > 1 (decode through the capacity dispatch):
+        # quantizing it would keep its strides, and the kernel reads rows
+        xq, sx = q.quantize_activations(
+            x.movedim(1, 0).reshape(E, G * C, K).contiguous())
         fn = GM.grouped_matmul_plain if self._plain else GM.grouped_matmul
         y = fn(xq, sx, w.data, w.scale[:, 0], w.zero[:, 0], bits=w.bits, rows=rows, ids=ids)
         return y[..., :w.n].reshape(E, G, C, w.n).movedim(0, 1).to(out_dtype)
@@ -162,14 +166,15 @@ class Dispatcher:
         return out.to(policy.compute_dtype)
 
     def paged_prefill_attention(self, qh: torch.Tensor, pool, table: torch.Tensor,
-                                pos0: int, policy: PrecisionPolicy) -> torch.Tensor:
+                                pos0, policy: PrecisionPolicy) -> torch.Tensor:
         """Prompt-chunk attention: qh [B, C, H, D] pre-scaled at absolute
-        positions pos0 + arange(C) over ``table`` [B, pages_per_row]."""
+        positions pos0 + arange(C) over ``table`` [B, pages_per_row];
+        ``pos0`` an int or a one-element device tensor (the kernel reads
+        it from device memory)."""
         if pool.window:
             raise NotImplementedError("windowed pools prefill chunk-locally "
                                       "(ROADMAP queue 1 item 13)")
-        pos0_arr = torch.full((qh.shape[0],), int(pos0), dtype=torch.int32,
-                              device=qh.device)
+        pos0_arr = KP.device_scalar(pos0, qh.device).expand(qh.shape[0]).contiguous()
         args = (qh, pool.k_q, pool.k_scale, pool.k_zero, pool.v, table, pos0_arr)
         if self._plain:
             out = FP.paged_flash_prefill_attention_plain(

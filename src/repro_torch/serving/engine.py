@@ -22,6 +22,10 @@ LoRA.  Where the reference loop would take one of those branches, the port
 raises ``NotImplementedError``; with the default DRAM budget the pool holds
 every slot's full row, so a trace that fits never reaches one.
 
+``EngineLoop.warmup`` is the reference's: where the reference pre-compiles
+one step graph per decode bucket and per prompt-chunk size, the port
+captures one CUDA graph each, replayed by ``step()``.
+
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (the tests do); without a card they raise instead of falling back.
 """
@@ -29,11 +33,12 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import kernels as K
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import hybrid_storage as HS
 from repro_torch.core import kv_pool as KP
@@ -127,6 +132,11 @@ class EngineStats:
     # chunks run by the unified step
     shared_prompt_tokens: int = 0
     prefill_chunks: int = 0
+    # step graphs: CUDA graphs the loop has captured (one per decode bucket
+    # and prompt-chunk size), and those captured after warmup() -- 0 means
+    # the hot loop never captured once warmed
+    compile_events: int = 0
+    recompiles_after_warmup: int = 0
     # features the loop resolved off at construction: name -> reason
     disabled_features: Dict[str, str] = dataclasses.field(default_factory=dict)
     requests: List[RequestStats] = dataclasses.field(default_factory=list)
@@ -165,9 +175,11 @@ class Engine:
         self.embedding = embedding
         self.stats = EngineStats()
 
-    def embed(self, token_ids: np.ndarray) -> torch.Tensor:
-        """bf16 rows gathered from Flash (C2), on the engine's device."""
-        rows = self.embedding.lookup(token_ids, self.device)
+    def embed(self, token_ids: np.ndarray,
+              out: Optional[HS.StagedBuffer] = None) -> torch.Tensor:
+        """bf16 rows gathered from Flash (C2), on the engine's device; with
+        ``out``, copied without a host wait into its target (returned)."""
+        rows = self.embedding.lookup(token_ids, self.device, out=out)
         self.stats.flash_bytes = self.embedding.flash.bytes_read
         return rows
 
@@ -247,7 +259,18 @@ class EngineLoop:
     one unified step and returns the ``TokenEvent``s it committed,
     ``poll(uid)`` drains a request's tokens, ``drain()`` steps until idle
     and ``run()`` replays a whole trace.  Per-request TTFT/TPOT/latency land
-    in ``engine.stats.requests``."""
+    in ``engine.stats.requests``.
+
+    Each step shape -- a decode bucket, or the one ``max_slots`` batch when
+    bucketing is off, and a prompt-chunk size -- runs on static inputs the
+    host fills through pinned twins, so no step makes the host wait for the
+    device; the decode step's only wait is sampling's.  On the card each
+    shape is captured once as a CUDA graph and replayed: ``warmup()``
+    captures them all up front, and a shape met later is captured where it
+    is met (counted in ``stats.recompiles_after_warmup``).  A capture that
+    fails raises.  ``cuda_graphs=False`` runs the same steps eagerly on the
+    card, for comparison only; on the CPU nothing is captured.  ``close()``
+    releases the graphs."""
 
     def __init__(self, engine: Engine, max_slots: int = 4,
                  dram_budget_bytes: Optional[int] = None,
@@ -256,7 +279,7 @@ class EngineLoop:
                  default_sampling: Optional[SM.SamplingParams] = None,
                  max_queue: Optional[int] = None,
                  on_token: Optional[Callable[[Request, int, bool], None]] = None,
-                 seed: int = 0):
+                 seed: int = 0, cuda_graphs: bool = True):
         cfg = engine.cfg
         self.eng = engine
         self.cfg = cfg
@@ -279,6 +302,20 @@ class EngineLoop:
         self.cache = T.init_paged_cache(cfg, max_slots, self.geom, self.device)
         self.logits = torch.zeros((max_slots, cfg.padded_vocab_size),
                                   dtype=torch.float32, device=self.device)
+        # step graphs: the table and every step's inputs keep their storage
+        # (a graph reads them at replay), every output lands in a tensor made
+        # before any capture: the pool, cache["pos"], self.logits (decode)
+        # and _chunk_logits (prompt chunks)
+        self._table = HS.StagedBuffer(self.cache["table"])
+        self._chunk_logits = torch.zeros((1, cfg.padded_vocab_size),
+                                         dtype=torch.float32, device=self.device)
+        self._inputs: Dict[Tuple[str, int], Dict[str, HS.StagedBuffer]] = {}
+        self.cuda_graphs = cuda_graphs and self.device.type == "cuda"
+        self._graphs: Dict[Tuple[str, int], "torch.cuda.CUDAGraph"] = {}
+        self._graph_launches: Dict[Tuple[str, int], Dict[str, int]] = {}
+        self._graph_pool = None
+        self.warmed = False
+        self._warmup_graphs = 0
         self._prefilling: Dict[int, dict] = {}
         self._prefill_rr = 0
         self.peak_active = 0
@@ -344,7 +381,7 @@ class EngineLoop:
         if hidden:
             table = table.copy()
             table[hidden] = self.geom.trash_page
-        self.cache["table"] = torch.as_tensor(table, device=self.device)
+        self._table.put(table)
 
     def _admit_into_slot(self, req: Request, slot: int) -> None:
         toks = list(req.prompt_tokens)
@@ -380,7 +417,7 @@ class EngineLoop:
         budget = self.prefill_token_budget
         t0 = time.perf_counter()
         ran = False
-        self.cache["table"] = torch.as_tensor(self.pool.table, device=self.device)
+        self._table.put(self.pool.table)
         while budget > 0 and self._prefilling:
             advanced = False
             order = sorted(self._prefilling)
@@ -398,17 +435,20 @@ class EngineLoop:
                 ids = np.zeros((1, c), np.int64)
                 ids[0, :valid] = np.asarray(toks[st["next"]:st["next"] + valid])
                 last_idx = t - 1 - st["next"] if st["next"] + c >= t else c - 1
-                logits1 = T.prefill_chunk_paged(
-                    eng.params, self.cfg, eng.embed(ids), self.cache, slot,
-                    st["next"], last_idx, eng.dispatch)
+                key = ("chunk", c)
+                self._prepare(key)
+                ins = self._inputs[key]
+                eng.embed(ids, out=ins["emb"])
+                ins["scal"].put((slot, st["next"], last_idx))
+                self._launch(key)
                 st["next"] += valid
                 budget -= valid
                 ran = advanced = True
                 eng.stats.prefill_tokens += valid
                 eng.stats.prefill_chunks += 1
                 if st["next"] >= t:
-                    self.logits[slot] = logits1[0]
-                    self.cache["pos"][slot] = t
+                    self.logits[slot] = self._chunk_logits[0]
+                    self.cache["pos"][slot].fill_(t)
                     self.pool.row_pos[slot] = t
                     self.pool.register_prefix(slot, toks, salt=req.adapter or "")
                     del self._prefilling[slot]
@@ -417,6 +457,136 @@ class EngineLoop:
         if ran:
             _sync(self.device)
             eng.stats.prefill_s += time.perf_counter() - t0
+
+    # --- step graphs --------------------------------------------------------
+    def _chunk_sizes(self) -> tuple:
+        """Every chunk size ``_next_chunk`` can emit: full slabs and the
+        power-of-two final chunks, one prompt-chunk graph each."""
+        return tuple(sorted({self._next_chunk(r)
+                             for r in range(1, self.prefill_chunk + 1)}))
+
+    def compile_events(self) -> int:
+        """CUDA graphs captured so far (monotonic until ``close``): the
+        counterpart of the reference's jit-cache entries.  ``step()``
+        mirrors it into ``EngineStats``."""
+        return len(self._graphs)
+
+    def _step_body(self, key: Tuple[str, int]) -> None:
+        """One step of shape ``key`` on its static inputs: ("decode", b)
+        reads embeddings [b, 1, d] and rows [2, b] (slot ids, active flags);
+        ("chunk", c) reads embeddings [1, c, d] and (slot, pos0, last_idx)."""
+        eng, ins = self.eng, self._inputs[key]
+        if key[0] == "decode":
+            rows = ins["rows"].target
+            idx, act = rows[0], rows[1] != 0
+            logits_b, _ = T.decode_step_bucketed(
+                eng.params, self.cfg, ins["emb"].target, self.cache, idx,
+                eng.dispatch, active=act)
+            # pad rows keep their slot's logits: a fixed-shape write (a
+            # boolean index would make the host wait for its count)
+            self.logits.index_copy_(0, idx, torch.where(
+                act[:, None], logits_b, self.logits.index_select(0, idx)))
+        else:
+            scal = ins["scal"].target
+            self._chunk_logits.copy_(T.prefill_chunk_paged(
+                eng.params, self.cfg, ins["emb"].target, self.cache, scal[0:1],
+                scal[1:2], scal[2:3], eng.dispatch))
+
+    def _prepare(self, key: Tuple[str, int], warm: bool = False) -> None:
+        """Make step shape ``key`` ready at its first use: its static inputs
+        and, with graphs on (or ``warm``), one eager run -- which sets up what
+        a capture cannot: the kernel library, cuBLAS's workspace, RoPE's
+        table, scratch -- against the all-trash table with every row
+        inactive, so only the trash page and ``_chunk_logits`` change; then,
+        with graphs on, its capture."""
+        if key in self._inputs:
+            return
+        kind, n = key
+        d, dev = self.cfg.d_model, self.device
+        if kind == "decode":
+            rows = torch.zeros((2, n), dtype=torch.int64, device=dev)
+            rows[0] = torch.arange(n, device=dev)
+            ins = {"emb": torch.zeros((n, 1, d), dtype=torch.bfloat16, device=dev),
+                   "rows": rows}
+        else:
+            scal = torch.zeros((3,), dtype=torch.int32, device=dev)
+            scal[2] = n - 1
+            ins = {"emb": torch.zeros((1, n, d), dtype=torch.bfloat16, device=dev),
+                   "scal": scal}
+        self._inputs[key] = {k: HS.StagedBuffer(v) for k, v in ins.items()}
+        if warm or self.cuda_graphs:
+            table = self.cache["table"]
+            saved = table.clone()
+            table.fill_(self.geom.trash_page)
+            try:
+                self._step_body(key)
+            finally:
+                table.copy_(saved)
+        if self.cuda_graphs:
+            self._capture(key)
+
+    def _capture(self, key: Tuple[str, int]) -> None:
+        """Capture step ``key`` as a CUDA graph.  The loop's graphs share one
+        memory pool: no graph reads what another's replay writes there, as
+        every output lands in a tensor made before capture.  The launches the
+        wrappers count during capture are what each replay launches."""
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        before = K.launch_counts()
+        with loader.capture(graph, pool=self._graph_pool):
+            self._step_body(key)
+        launched = {n: c - before[n] for n, c in K.launch_counts().items()
+                    if c != before[n]}
+        K.add_launch_counts({n: -c for n, c in launched.items()})
+        self._graphs[key] = graph
+        self._graph_launches[key] = launched
+
+    def _launch(self, key: Tuple[str, int]) -> None:
+        graph = self._graphs.get(key)
+        if graph is None:
+            self._step_body(key)
+        else:
+            graph.replay()
+            K.add_launch_counts(self._graph_launches[key])
+
+    def warmup(self) -> dict:
+        """Make every step shape the hot loop can need ready: one decode step
+        per bucket (the one ``max_slots`` step when bucketing is off) and one
+        prompt-chunk step per chunk size, each run against the all-trash
+        table with every row inactive, so the pool's pages and the loop's
+        state are untouched, and on the card captured.  After this a trace
+        captures nothing (``stats.recompiles_after_warmup`` stays 0).
+        Idempotent.  Returns {"warmup_s", "graphs", "decode_buckets",
+        "chunk_sizes"}; ``graphs`` is 0 where nothing is captured."""
+        t0 = time.perf_counter()
+        chunks = self._chunk_sizes()
+        for key in ([("decode", b) for b in self.buckets]
+                    + [("chunk", c) for c in chunks]):
+            self._prepare(key, warm=True)
+        _sync(self.device)
+        self.warmed = True
+        self._warmup_graphs = self.compile_events()
+        self.eng.stats.compile_events = self._warmup_graphs
+        return {"warmup_s": time.perf_counter() - t0,
+                "graphs": self._warmup_graphs,
+                "decode_buckets": [int(b) for b in self.buckets],
+                "chunk_sizes": [int(c) for c in chunks]}
+
+    def close(self) -> None:
+        """Release the step graphs and their memory pool; a later step
+        prepares (and captures) its shape again, and ``warmup()`` may be
+        called again."""
+        for graph in self._graphs.values():
+            graph.reset()
+        self._graphs.clear()
+        self._graph_launches.clear()
+        self._inputs.clear()
+        self._graph_pool = None
+        self.warmed = False
+        self._warmup_graphs = 0
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
 
     # --- the incremental serving API ---------------------------------------
     def _validate(self, req: Request) -> None:
@@ -503,6 +673,17 @@ class EngineLoop:
         prompt chunks under the token budget, sample one token for every
         decodable row (emitted here), then decode the active rows gathered
         into their smallest covering batch bucket."""
+        try:
+            return self._step()
+        finally:
+            # mirror the graph count into the stats at every exit path, so a
+            # capture in any phase of this step shows at once
+            ev = self.compile_events()
+            self.eng.stats.compile_events = ev
+            if self.warmed:
+                self.eng.stats.recompiles_after_warmup = ev - self._warmup_graphs
+
+    def _step(self) -> List[TokenEvent]:
         eng, sched = self.eng, self.scheduler
         events: List[TokenEvent] = []
         sched.step = self._step_no
@@ -561,23 +742,21 @@ class EngineLoop:
         ids = np.zeros((self.max_slots, 1), np.int64)
         for slot in act_slots:
             ids[slot, 0] = sched.running[slot].generated[-1]
-        self._upload_table(visible=set(act_slots))
         if self._bucketed:
             slot_idx, act_b = bucket_cover(self.buckets, act_slots, self.max_slots)
-            idx_t = torch.as_tensor(slot_idx, dtype=torch.long, device=self.device)
-            act_t = torch.as_tensor(act_b, device=self.device)
-            logits_b, self.cache = T.decode_step_bucketed(
-                eng.params, self.cfg, eng.embed(ids[slot_idx]), self.cache, idx_t,
-                eng.dispatch, active=act_t)
-            self.logits[idx_t[act_t]] = logits_b[act_t]
         else:
-            active = np.zeros((self.max_slots,), bool)
-            active[act_slots] = True
             # every slot rides along; empty and mid-prefill rows write only
-            # to the trash page and keep their positions
-            self.logits, self.cache = T.decode_step(
-                eng.params, self.cfg, eng.embed(ids), self.cache, eng.dispatch,
-                active=torch.as_tensor(active, device=self.device))
+            # to the trash page and keep their positions and logits
+            slot_idx = np.arange(self.max_slots, dtype=np.int32)
+            act_b = np.zeros((self.max_slots,), bool)
+            act_b[act_slots] = True
+        key = ("decode", len(slot_idx))
+        self._prepare(key)
+        self._upload_table(visible=set(act_slots))
+        ins = self._inputs[key]
+        eng.embed(ids[slot_idx], out=ins["emb"])
+        ins["rows"].put(np.stack([slot_idx, act_b]))
+        self._launch(key)
         for slot in act_slots:
             self.pool.row_pos[slot] += 1
         eng.stats.decode_tokens += len(act_slots)

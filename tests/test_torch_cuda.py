@@ -14,6 +14,13 @@ G = 7 and G = 1 with lengths at a page edge, a full 16-page table, a row
 whose only live keys lie in the last split, and a CUDA-graph replay that
 shows the combine counters reset.
 
+The serving loop's step graphs (qwen2-7b@reduced, bucketed; moonshot@tiny-moe,
+one unbucketed decode step): ``warmup()`` captures one graph per decode
+bucket and chunk size and a second call none; a churny 8-slot trace on the
+graphs captures nothing more and commits the eager loop's tokens with the
+same launch counts; the step functions run under sync debug mode "error";
+a replay gives an eager step's launches and bit-equal outputs.
+
 The dense matmul kernel is split over K at decode widths and has two tile
 sizes (16 rows up to M = 16, 64 above): its cases give bit-identical
 outputs for every split count (uneven ranges of K = 18944 among them), M
@@ -42,7 +49,11 @@ from repro_torch.kernels import grouped_matmul as GM  # noqa: E402
 from repro_torch.kernels import quant_attention as QA  # noqa: E402
 from repro_torch.kernels import rmsnorm as RN  # noqa: E402
 from repro_torch.kernels import w4a8_matmul as WM  # noqa: E402
+from repro_torch.configs import registry as PR  # noqa: E402
+from repro_torch.models import transformer as PT  # noqa: E402
 from repro_torch.runtime import plan as RP  # noqa: E402
+from repro_torch.serving import engine as PE  # noqa: E402
+from repro_torch.serving import sampling as PSM  # noqa: E402
 
 PS, PPR, HKV, D = 16, 4, 2, 64
 
@@ -526,3 +537,142 @@ def test_unsupported_configurations_raise_on_the_card(dev):
             WM.w4a8_matmul(xq, sx, w, scale, zero, bits=4, splits=bad)
     K.reset_launch_counts()
     assert set(K.launch_counts().values()) == {0}
+
+
+# ---------------------------------------------------------------------------
+# EngineLoop's step graphs (one CUDA graph per decode bucket and chunk size)
+# ---------------------------------------------------------------------------
+
+GRAPH_ARCHS = ("qwen2-7b@reduced", "moonshot-v1-16b-a3b@tiny-moe")
+
+
+@pytest.fixture(scope="module")
+def card_engines(tmp_path_factory):
+    """arch -> a serving engine on the card (random weights, seed 0)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    built = {}
+
+    def get(arch):
+        if arch not in built:
+            built[arch] = PE.build_engine(PR.get(arch), max_seq=64, device="cuda",
+                                          flash_dir=str(tmp_path_factory.mktemp("flash")))
+        return built[arch]
+    return get
+
+
+def _churn_trace(loop, vocab, n=16, seed=5):
+    """Short prompts and budgets arriving over the first steps: rows finish
+    and slots refill while others decode, so every bucket is met."""
+    rng = np.random.default_rng(seed)
+    sp = PSM.SamplingParams(temperature=0.0, max_new_tokens=8)
+    reqs = [PE.Request(uid=i, sampling=sp, max_new_tokens=int(rng.integers(1, 9)),
+                       prompt_tokens=[int(t) for t in rng.integers(
+                           1, vocab, int(rng.integers(3, 40)))]) for i in range(n)]
+    loop.run(reqs, arrivals=sorted(int(a) for a in rng.integers(0, 12, n)))
+    return [r.generated for r in reqs]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", GRAPH_ARCHS)
+def test_warmup_captures_one_graph_per_step_shape(card_engines, arch):
+    loop = PE.EngineLoop(card_engines(arch), max_slots=4, prefill_chunk=16)
+    rep = loop.warmup()
+    assert rep["graphs"] == len(rep["decode_buckets"]) + len(rep["chunk_sizes"])
+    assert rep["graphs"] == loop.compile_events() > 0
+    assert loop.warmup()["graphs"] == rep["graphs"] == loop.compile_events()
+    loop.close()
+    assert loop.compile_events() == 0 and not loop.warmed
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", GRAPH_ARCHS)
+def test_churny_trace_on_graphs_equals_eager(card_engines, arch):
+    """8 slots: the graph loop captures nothing after warmup and commits the
+    eager loop's greedy tokens; its kernels launch as often as the eager
+    loop's (each replay adds what its capture recorded)."""
+    eng = card_engines(arch)
+    eager = PE.EngineLoop(eng, max_slots=8, prefill_chunk=16, cuda_graphs=False)
+    eager.warmup()
+    K.reset_launch_counts()
+    want = _churn_trace(eager, eng.cfg.vocab_size)
+    eager_counts = K.launch_counts()
+    graphs = PE.EngineLoop(eng, max_slots=8, prefill_chunk=16)
+    graphs.warmup()
+    K.reset_launch_counts()
+    assert _churn_trace(graphs, eng.cfg.vocab_size) == want
+    assert K.launch_counts() == eager_counts
+    assert eng.stats.recompiles_after_warmup == 0
+    assert eng.dispatch.fallbacks == []
+    graphs.close()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", GRAPH_ARCHS)
+def test_step_functions_make_no_host_wait(card_engines, arch):
+    """decode_step_bucketed and prefill_chunk_paged on device inputs under
+    sync debug mode "error" (after a first call, which builds RoPE's table)."""
+    eng = card_engines(arch)
+    dev = eng.device
+    loop = PE.EngineLoop(eng, max_slots=4, prefill_chunk=16)
+    assert loop.pool.alloc_row(1, 24)
+    loop.cache["table"].copy_(torch.from_numpy(loop.pool.table))
+    emb_c = eng.embed(np.arange(1, 17)[None])
+    emb_d = eng.embed(np.asarray([[3], [5], [7], [9]]))
+    scal = torch.tensor([1, 0, 15], dtype=torch.int32, device=dev)
+    idx = torch.tensor([1, 0, 2, 3], device=dev)
+    act = torch.tensor([True, False, False, False], device=dev)
+
+    def run():
+        PT.prefill_chunk_paged(eng.params, eng.cfg, emb_c, loop.cache, scal[0:1],
+                               scal[1:2], scal[2:3], eng.dispatch)
+        PT.decode_step_bucketed(eng.params, eng.cfg, emb_d, loop.cache, idx,
+                                eng.dispatch, active=act)
+    run()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", GRAPH_ARCHS)
+def test_replay_launches_and_outputs_equal_an_eager_step(card_engines, arch):
+    """One decode step (rows 0 and 2 active on pages of their own; the idle
+    rows' all-trash table rows make them race for the trash page, which no
+    active row reads) and one prompt chunk of row 2, through a replayed graph
+    and eagerly, from the same state: the same launch counts and bit-equal
+    logits and positions."""
+    eng = card_engines(arch)
+    loops = [PE.EngineLoop(eng, max_slots=4, prefill_chunk=16, cuda_graphs=g)
+             for g in (False, True)]
+    tok_d = np.asarray([[3], [5], [7], [9]])
+    tok_c = np.arange(1, 17)[None]
+    counts, outs = [], []
+    for loop in loops:
+        loop.warmup()
+        assert loop.pool.alloc_row(0, 16) and loop.pool.alloc_row(2, 16)
+        loop._upload_table(visible={0, 2})
+        dec, chunk = loop._inputs[("decode", 4)], loop._inputs[("chunk", 16)]
+        eng.embed(tok_d, out=dec["emb"])
+        dec["rows"].put(np.asarray([[0, 1, 2, 3], [1, 0, 1, 0]]))
+        eng.embed(tok_c, out=chunk["emb"])
+        chunk["scal"].put((2, 0, 11))
+        K.reset_launch_counts()
+        loop._launch(("decode", 4))
+        loop._launch(("chunk", 16))
+        torch.cuda.synchronize()
+        counts.append(K.launch_counts())
+        outs.append((loop.logits.clone(), loop.cache["pos"].clone(),
+                     loop._chunk_logits.clone()))
+    assert counts[0] == counts[1]
+    for name in ("w4a8_matmul", "paged_quant_decode_attention",
+                 "paged_flash_prefill_attention", "rmsnorm"):
+        assert counts[1][name] > 0, counts
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    assert outs[1][1].tolist() == [1, 0, 1, 0]
+    loops[1].close()

@@ -17,7 +17,10 @@ trace) and profiles 8 four-row decode steps; ``qwen`` serves full-width
 qwen2-7b (random weights, seed 0) through ``EngineLoop`` on the trace of
 ``chip_smoke.py`` (after a short warm-up trace) and through
 ``Engine.generate`` (4 prompts of 320 tokens, 32 new tokens each), and
-profiles 8 four-row ``EngineLoop`` decode steps.  Each run prints one line
+profiles 8 four-row ``EngineLoop`` decode steps.  In a tree whose loop
+captures CUDA graphs, ``moe`` and ``qwen`` then serve the loop's trace and
+profile its decode step again on the graphs (``graph_*`` keys), so eager
+and graph runs alternate with the trees.  Each run prints one line
 ``AB {json}``.  Needs one CUDA card.
 """
 from __future__ import annotations
@@ -57,11 +60,33 @@ def run_moe(root: Path) -> dict:
     _loop, _reqs, wall = CS.serve_trace(eng, specs, arrivals, max_new=16)
     s = eng.stats
     prof = CS.profile_loop_decode(eng, specs, steps=8)
-    return {"wall_s": wall, "ttft_p50_ms": s.ttft(50) * 1e3, "tpot_p50_ms": s.tpot(50) * 1e3,
-            "prefill_tok_s": s.prefill_tps, "decode_tok_s": s.decode_tps,
-            "step_ms": prof["decode_step_ms"], "host_ms": prof["host_enqueue_ms"],
-            "device_ms": prof.get("device_ms_per_step"),
-            "launches": prof.get("device_launches_per_step")}
+    out = {"wall_s": wall, "ttft_p50_ms": s.ttft(50) * 1e3, "tpot_p50_ms": s.tpot(50) * 1e3,
+           "prefill_tok_s": s.prefill_tps, "decode_tok_s": s.decode_tps,
+           "step_ms": prof["decode_step_ms"], "host_ms": prof["host_enqueue_ms"],
+           "device_ms": prof.get("device_ms_per_step"),
+           "launches": prof.get("device_launches_per_step")}
+    return {**out, **run_graphs(CS, eng, specs, arrivals, 16)}
+
+
+def run_graphs(CS, eng, specs, arrivals, max_new: int) -> dict:
+    """A tree whose loop has CUDA graphs serves the trace again on them
+    (after ``warmup()``) and profiles the graph decode step: ``graph_*``."""
+    from repro_torch.serving import engine as E
+    if not hasattr(CS, "make_loop"):
+        return {}
+    loop = CS.make_loop(eng, cuda_graphs=True)
+    loop.warmup()
+    eng.stats = E.EngineStats()
+    _loop, _reqs, wall = CS.serve_trace(eng, specs, arrivals, max_new=max_new, loop=loop)
+    s = eng.stats
+    loop.close()
+    prof = CS.profile_loop_decode(eng, specs, steps=8, cuda_graphs=True)
+    return {"graph_wall_s": wall, "graph_ttft_p50_ms": s.ttft(50) * 1e3,
+            "graph_tpot_p50_ms": s.tpot(50) * 1e3, "graph_prefill_tok_s": s.prefill_tps,
+            "graph_decode_tok_s": s.decode_tps, "graph_step_ms": prof["decode_step_ms"],
+            "graph_host_ms": prof["host_enqueue_ms"],
+            "graph_device_ms": prof.get("device_ms_per_step"),
+            "graph_busy": prof.get("device_busy_share")}
 
 
 def run_qwen(root: Path) -> dict:
@@ -96,8 +121,9 @@ def run_qwen(root: Path) -> dict:
     prof = CS.profile_loop_decode(eng, specs, steps=8)
     out.update({"step_ms": prof["decode_step_ms"], "host_ms": prof["host_enqueue_ms"],
                 "device_ms": prof.get("device_ms_per_step"),
-                "port_kernels": prof.get("port_kernels")})
-    return out
+                "port_kernels": prof.get("port_kernels"),
+                "syncs_per_step": prof.get("syncs_per_step")})
+    return {**out, **run_graphs(CS, eng, specs, arrivals, 32)}
 
 
 def main(argv) -> int:
