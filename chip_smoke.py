@@ -33,6 +33,18 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    requests with 320-token prompts through ``Engine.generate`` (32 new
    tokens, dense caches of 2048 slots); a profiled decode step; kernel path
    against plain path for the whole-prompt prefill and one decode step.
+   Then ``[spill]``, the Flash tier on the same engine: an ``EngineLoop``
+   whose DRAM pool holds 16 pages of 128 tokens (half the trace's 32-page
+   peak; staging reserve 14 pages) serves 830-900-token prompts sharing a
+   256-token prefix, 64 new tokens each, eagerly: with prefix sharing (cold
+   pages of running rows spill), without (decodes in 2+ staging waves),
+   and without it plus a fifth request and queue patience (preemption to
+   Flash and restore).  Every request's greedy tokens must equal an
+   all-DRAM loop's; the staging reserve must come back whole and nothing
+   stay on Flash; the no-sharing run again on a warmed loop's graphs must
+   equal the eager run with no capture after warmup, and each of its steps
+   is timed, its syncs counted and its host time in ``_stage_wave`` summed
+   (a decode step that stages nothing must make exactly one sync).
 5. The MoE path: full-width moonshot-v1-16b-a3b (48 layers, 64 experts
    top-6, random weights) serves 6 greedy requests with prompts of 64-400
    tokens (two sharing a 256-token prefix) on 4 slots through
@@ -1227,6 +1239,237 @@ def phase_generate(eng) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4b: the Flash tier at full width
+# ---------------------------------------------------------------------------
+
+# the DRAM pool of the [spill] runs: the plan's floor of one full row
+# (max_seq 2048 / page 128), half of the four rows' peak KV
+SPILL_POOL_PAGES = 16
+SPILL_NEW = 64
+SPILL_PATIENCE = 16
+
+
+def spill_trace(vocab: int, seed: int = 3):
+    """Five prompts of 830-900 tokens, all opening with one 256-token
+    prefix: four rows end at 8 pages of 128 each, 32 in all."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    shared = [int(t) for t in rng.integers(1, vocab, 256)]
+    return [shared + [int(t) for t in rng.integers(1, vocab, int(n) - 256)]
+            for n in rng.integers(830, 901, 5)]
+
+
+def spill_step_kind(before: dict, after: dict) -> str:
+    """What one ``step()`` did, from the counters around it."""
+    if after["chunks"] > before["chunks"]:
+        return "prefill"
+    if any(after[k] > before[k] for k in ("cold", "spilled", "restored")):
+        return "spill"
+    if after["read"] > before["read"]:
+        return "stage"
+    if after["rates"] > before["rates"]:
+        return "staged_hit"
+    return "plain"
+
+
+def drive_spill(loop, specs, per_step: bool = False):
+    """All requests submitted at step 0 (greedy, ``SPILL_NEW`` tokens), then
+    ``step()`` until idle.  With ``per_step`` each step is timed to the
+    device's end, its host-device synchronizations counted under sync debug
+    mode, its host time in ``_stage_wave`` summed, and its kind recorded.
+    Returns (tokens, steps, waves a step)."""
+    import collections
+    import warnings
+    import torch
+    from repro_torch.serving import engine as E
+    from repro_torch.serving import sampling as SM
+    eng = loop.eng
+    sp = SM.SamplingParams(temperature=0.0, max_new_tokens=SPILL_NEW)
+    reqs = [E.Request(uid=i, prompt_tokens=p, max_new_tokens=SPILL_NEW, sampling=sp)
+            for i, p in enumerate(specs)]
+    waves, stage_s = [], [0.0]
+    plan, stage = loop._plan_waves, loop._stage_wave
+
+    def plan_waves(slots):
+        out = plan(slots)
+        waves.append(len(out))
+        return out
+
+    def stage_wave(needed):
+        t0 = time.perf_counter()
+        stage(needed)
+        stage_s[0] += time.perf_counter() - t0
+    loop._plan_waves, loop._stage_wave = plan_waves, stage_wave
+
+    def counters():
+        s = eng.stats
+        return {"chunks": s.prefill_chunks, "cold": s.cold_spilled_pages,
+                "spilled": s.spilled_pages, "restored": s.restored_pages,
+                "read": loop.spill.flash.bytes_read, "rates": len(s.flash_hit_rates)}
+    for r in reqs:
+        loop.submit(r)
+    steps = []
+    torch.cuda.synchronize()
+    while loop.has_work():
+        if not per_step:
+            loop.step()
+            continue
+        before, stage_s[0] = counters(), 0.0
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                loop.step()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        where = collections.Counter()
+        for w in caught:
+            msg = str(w.message)
+            if "synchroniz" in msg and "prototype" not in msg:
+                f = Path(w.filename)
+                where[f"{f.relative_to(ROOT) if f.is_relative_to(ROOT) else f.name}"
+                      f":{w.lineno}"] += 1
+        steps.append({"kind": spill_step_kind(before, counters()), "wall_ms": wall * 1e3,
+                      "stage_host_ms": stage_s[0] * 1e3, "syncs": sum(where.values()),
+                      "sync_sites": dict(where)})
+    torch.cuda.synchronize()
+    assert all(r.done and len(r.generated) == SPILL_NEW for r in reqs), "unfinished requests"
+    return [r.generated for r in reqs], steps, waves
+
+
+def step_table(steps) -> dict:
+    """Median wall, staging host time and syncs of each kind of step."""
+    import statistics
+    out = {}
+    for kind in ("plain", "staged_hit", "stage", "spill", "prefill"):
+        sel = [s for s in steps if s["kind"] == kind]
+        if sel:
+            out[kind] = {"steps": len(sel),
+                         "wall_ms": statistics.median(s["wall_ms"] for s in sel),
+                         "stage_host_ms": statistics.median(s["stage_host_ms"] for s in sel),
+                         "syncs": sorted({s["syncs"] for s in sel}),
+                         "sync_sites": dict(sorted({k: v for s in sel
+                                                    for k, v in s["sync_sites"].items()
+                                                    }.items()))}
+    return out
+
+
+def phase_spill(eng) -> dict:
+    """The Flash tier on full-width qwen2-7b: an ``EngineLoop`` whose DRAM
+    pool holds ``SPILL_POOL_PAGES`` pages (4 slots, max_seq 2048, page 128,
+    the default staging reserve of 14 pages) serves the spill trace three
+    times, eagerly: (1) prefix sharing on, (2) off, so every row's old pages
+    may spill and decodes need several staging waves, (3) off with a fifth
+    request queued and ``preempt_patience``, so rows are preempted to Flash
+    and restored.  Every request's greedy tokens must equal those of an
+    all-DRAM loop on its graphs; run 2 again on a warmed loop's graphs must
+    equal the eager run and capture nothing after warmup."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.runtime import plan as RP
+    from repro_torch.serving import engine as E
+    specs = spill_trace(eng.cfg.vocab_size)
+    pb = RP.kv_page_bytes(eng.cfg, RP.kv_page_size(eng.max_seq))
+
+    def spill_loop(cuda_graphs=False, **kw):
+        return E.EngineLoop(eng, max_slots=4, prefill_chunk=128, prefill_token_budget=256,
+                            dram_budget_bytes=SPILL_POOL_PAGES * pb,
+                            cuda_graphs=cuda_graphs, **kw)
+
+    ref = E.EngineLoop(eng, max_slots=4, prefill_chunk=128, prefill_token_budget=256)
+    ref.warmup()
+    eng.stats = E.EngineStats()
+    want, ref_steps, _ = drive_spill(ref, specs, per_step=True)
+    ref_pool = ref.geom.num_pages
+    ref.close()
+    geom = eng.plan.kv_pool_geometry(eng.cfg, eng.max_seq, 4,
+                                     dram_budget_bytes=SPILL_POOL_PAGES * pb)
+    log(f"[spill] qwen2-7b: prompts {[len(p) for p in specs]}, {SPILL_NEW} new tokens; "
+        f"all-DRAM reference on graphs ({ref_pool} pages); the spill loops hold "
+        f"{geom.num_pages} pages of {pb / 2**20:.2f} MiB ({geom.num_pages * pb / 2**20:.1f} "
+        f"MiB) and a staging reserve of {geom.staging_pages}")
+    runs = {}
+    K.reset_launch_counts()
+    for name, kw, n in (("sharing", {}, 4),
+                        ("no_sharing", {"prefix_sharing": False}, 4),
+                        ("patience", {"prefix_sharing": False,
+                                      "preempt_patience": SPILL_PATIENCE}, 5)):
+        loop = spill_loop(**kw)
+        eng.stats = E.EngineStats()
+        t0 = time.perf_counter()
+        got, _, waves = drive_spill(loop, specs[:n])
+        wall = time.perf_counter() - t0
+        s = eng.stats
+        differ = [i for i in range(n) if got[i] != want[i]]
+        assert not differ, f"[spill] {name}: greedy tokens differ from all-DRAM for {differ}"
+        r = {"requests": n, "wall_s": wall, "num_pages": loop.geom.num_pages,
+             "staging_pages": loop.geom.staging_pages, "peak_kv_pages": loop.peak_kv_pages,
+             "cold_spilled_pages": s.cold_spilled_pages, "spilled_pages": s.spilled_pages,
+             "restored_pages": s.restored_pages, "preemptions": s.preemptions,
+             "max_waves": max(waves), "steps_with_2plus_waves": sum(w >= 2 for w in waves),
+             "decode_steps": len(waves), "flash_bytes_written": loop.spill.flash.bytes_written,
+             "flash_bytes_read": loop.spill.flash.bytes_read,
+             "staging_hit_rate": s.flash_hit_rate, "staging_steps": len(s.flash_hit_rates),
+             "tokens_equal_all_dram": True}
+        assert loop.pool.staged_count == 0, loop.pool.staged_count
+        assert loop.pool.staging_free == loop.geom.staging_pages, loop.pool.staging_free
+        assert loop.spill.pages_on_flash == 0, loop.spill.pages_on_flash
+        assert 0.0 <= r["staging_hit_rate"] <= 1.0
+        log(f"[spill] {name}: {n} requests in {wall:.2f} s, tokens equal to all-DRAM; "
+            f"peak KV {r['peak_kv_pages']} pages on a {r['num_pages']}-page pool; cold pages "
+            f"spilled {r['cold_spilled_pages']}; preemptions {r['preemptions']} (pages "
+            f"spilled {r['spilled_pages']}, restored {r['restored_pages']}); waves max "
+            f"{r['max_waves']} ({r['steps_with_2plus_waves']} of {r['decode_steps']} decode "
+            f"steps 2+); Flash written {r['flash_bytes_written'] / 2**20:.1f} MiB, read "
+            f"{r['flash_bytes_read'] / 2**20:.1f} MiB; staging hit rate "
+            f"{r['staging_hit_rate']:.3f} over {r['staging_steps']} steps; reserve returned, "
+            "nothing left on Flash")
+        runs[name] = r
+        if name == "no_sharing":
+            eager_tokens = got
+        loop.close()
+    eager_counts = K.launch_counts()
+    assert runs["sharing"]["cold_spilled_pages"] > 0, runs["sharing"]
+    assert runs["no_sharing"]["max_waves"] >= 2, runs["no_sharing"]
+    assert runs["no_sharing"]["peak_kv_pages"] > runs["no_sharing"]["num_pages"]
+    assert runs["patience"]["preemptions"] >= 1 and runs["patience"]["restored_pages"] > 0
+    for name in LOOP_KERNELS:
+        assert eager_counts[name] > 0, f"{name} never launched on the spill path: {eager_counts}"
+    assert eng.dispatch.fallbacks == [], eng.dispatch.fallbacks
+
+    loop = spill_loop(cuda_graphs=True, prefix_sharing=False)
+    rep = loop.warmup()
+    eng.stats = E.EngineStats()
+    K.reset_launch_counts()
+    got, steps, waves = drive_spill(loop, specs[:4], per_step=True)
+    graph_counts = K.launch_counts()
+    s = eng.stats
+    assert got == eager_tokens, "[spill] graphs: greedy tokens differ from the eager run"
+    assert s.recompiles_after_warmup == 0, f"{s.recompiles_after_warmup} captures after warmup"
+    assert max(waves) >= 2, waves
+    for name in LOOP_KERNELS:
+        assert graph_counts[name] > 0, f"{name} never launched inside the graphs: {graph_counts}"
+    assert eng.dispatch.fallbacks == [], eng.dispatch.fallbacks
+    table, ref_table = step_table(steps), step_table(ref_steps)
+    plain = [st["syncs"] for st in ref_steps + steps if st["kind"] == "plain"]
+    assert plain and set(plain) == {1}, f"no-spill decode steps made {sorted(set(plain))} syncs"
+    loop.close()
+    for label, t in (("all-DRAM loop", ref_table), ("spill loop, no sharing", table)):
+        for kind, k in t.items():
+            log(f"[spill] graphs, {label}: {kind} steps {k['steps']}: wall {k['wall_ms']:.2f} ms"
+                f" (median), host in _stage_wave {k['stage_host_ms']:.2f} ms, syncs "
+                f"{k['syncs']} at {k['sync_sites']}")
+    log(f"[spill] graphs: {rep['graphs']} graphs at warmup, tokens equal to the eager run, "
+        f"0 captures after warmup; waves max {max(waves)}; launches {graph_counts}")
+    return {"runs": runs, "launches": eager_counts, "graph_launches": graph_counts,
+            "graph_steps": table, "all_dram_graph_steps": ref_table,
+            "graph_warmup": rep, "pool_page_bytes": pb}
+
+
+# ---------------------------------------------------------------------------
 # phase 5: MoE serving at full width
 # ---------------------------------------------------------------------------
 
@@ -1421,6 +1664,10 @@ def main() -> int:
     summary["profile_graphs"] = profile_loop_decode(eng, specs, cuda_graphs=True)
     checks = phase_kernel_vs_plain(eng, specs, arrivals, reqs)
     generate = phase_generate(eng)
+    t_spill = time.perf_counter()
+    spill = phase_spill(eng)
+    spill["phase_s"] = time.perf_counter() - t_spill
+    log(f"[spill] phase took {spill['phase_s']:.1f} s")
     del eng
     gc.collect()
     torch.cuda.empty_cache()            # the MoE engine needs the room
@@ -1431,6 +1678,8 @@ def main() -> int:
     paths = {"EngineLoop qwen2-7b": summary["launches"],
              "EngineLoop qwen2-7b, CUDA graphs": summary["graphs"]["launches"],
              "Engine.generate qwen2-7b": generate["launches"],
+             "EngineLoop qwen2-7b, Flash tier": spill["launches"],
+             "EngineLoop qwen2-7b, Flash tier, CUDA graphs": spill["graph_launches"],
              "EngineLoop moonshot-v1-16b-a3b": moe["launches"],
              "EngineLoop moonshot-v1-16b-a3b, CUDA graphs": moe["graphs"]["launches"]}
     kernels = []
@@ -1450,7 +1699,7 @@ def main() -> int:
               "grouped_all_shapes": results["grouped_matmul"]["all_shapes"],
               "paged_decode_all_shapes": results["paged_quant_decode_attention"]["all_shapes"],
               "main_path": summary, "kernel_vs_plain": checks,
-              "generate_path": generate, "moe_path": moe,
+              "generate_path": generate, "spill_path": spill, "moe_path": moe,
               "total_s": time.perf_counter() - t_start}
     (OUT / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
     log(f"[done] {detail['total_s']:.1f} s")

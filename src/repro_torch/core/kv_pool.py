@@ -9,17 +9,19 @@ full-attention pool, its reference attention, and the host allocator).
   Unlike the reference's immutable arrays, appends write the pool in
   place — the pool is the largest device allocation and is never copied.
 * ``KVPoolManager`` — the host-side allocator, with the reference's
-  deterministic free list, page refcounts and SHA-256 token-hash prefix
-  index, so allocation and adoption follow the reference step for step.
-  The reference's Flash residency machine (spill/stage/restore) is not
-  ported; ``cold_pages`` is kept so the engine can tell when the reference
-  would spill.
+  deterministic free list, page refcounts, SHA-256 token-hash prefix index
+  and Flash residency machine (spill / stage / commit / unstage / restore,
+  the LIFO staging free list and its LRU), so allocation, adoption and
+  staging follow the reference page id for page id.
+* ``read_pages`` / ``write_pages`` — the device side of the spill tier:
+  every layer's bytes of some physical pages to host arrays and back, in
+  place on the pool tensors (a CUDA graph keeps reading the same storage).
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,7 +37,8 @@ from repro_torch.kernels import quant_attention as QA
 class PoolGeometry:
     """``page_size`` tokens per page, ``num_pages`` allocatable pages (the
     trash page is extra), ``pages_per_row`` table width, ``staging_pages``
-    the reference's staging reserve past the trash page."""
+    the staging reserve past the trash page: device pages that Flash-resident
+    cold pages are gathered into before the paged kernels run."""
     page_size: int
     num_pages: int
     pages_per_row: int
@@ -44,6 +47,11 @@ class PoolGeometry:
     @property
     def trash_page(self) -> int:
         return self.num_pages
+
+    @property
+    def staging_base(self) -> int:
+        """First staging page id: [staging_base, staging_base + staging_pages)."""
+        return self.num_pages + 1
 
     @property
     def total_device_pages(self) -> int:
@@ -59,12 +67,19 @@ class PoolGeometry:
 
 @dataclasses.dataclass(frozen=True)
 class SpillPolicy:
-    """The reference's proactive-spill watermarks (``plan.kv_spill_policy``)."""
+    """Proactive-spill knobs (``plan.kv_spill_policy``): the staging reserve
+    (a row's cap on Flash-resident pages), the trailing full pages a row
+    keeps in DRAM, the free-page watermarks that start and stop the spill,
+    and the cap on pages resident on Flash."""
     staging_pages: int
     hot_pages: int
     low_watermark: int
     high_watermark: int
     flash_budget_pages: int
+
+
+# Per-(row, logical page) residency states of the spill tier.
+RES_DRAM, RES_FLASH, RES_INFLIGHT, RES_STAGED = range(4)
 
 
 @dataclasses.dataclass
@@ -184,6 +199,56 @@ def gather_pages(pool: PagedLayerKV, table: torch.Tensor):
                  for x in (pool.k_q, pool.k_scale, pool.k_zero, pool.v))
 
 
+KV_FIELDS = ("k_q", "k_scale", "k_zero", "v")
+
+
+def _bytes_view(x: torch.Tensor) -> torch.Tensor:
+    """fp8 has no numpy dtype: its bytes travel as uint8."""
+    return x.view(torch.uint8) if x.dtype == q.FP8_DTYPE else x
+
+
+def read_pages(pool: PagedLayerKV, phys: Sequence[int]) -> Dict[str, np.ndarray]:
+    """Every layer's bytes of physical pages ``phys`` of a stacked pool, as
+    host arrays [L, len(phys), page, ...] by field (fp8 values as uint8).  On
+    the card the pages are gathered on the device and copied into pinned
+    memory without blocking, then the host waits once for the stream: the
+    bytes are those of every kernel enqueued before."""
+    on_card = pool.k_q.device.type == "cuda"
+    out = {}
+    for f in KV_FIELDS:
+        x = _bytes_view(getattr(pool, f))
+        g = (torch.stack([x[:, int(p)] for p in phys], 1) if len(phys)
+             else x[:, :0])
+        host = torch.empty(g.shape, dtype=g.dtype, pin_memory=on_card)
+        host.copy_(g, non_blocking=True)
+        out[f] = host
+    if on_card:
+        torch.cuda.current_stream(pool.k_q.device).synchronize()
+    return {f: t.numpy() for f, t in out.items()}
+
+
+def write_pages(pool: PagedLayerKV, phys: Sequence[int],
+                arrays: Dict[str, np.ndarray]) -> None:
+    """Write host arrays [L, len(phys), page, ...] (as ``read_pages`` gives
+    them) into physical pages ``phys`` of a stacked pool, in place.  On the
+    card the bytes go through pinned memory in one non-blocking copy a field
+    on the current stream, then into each page: the host does not wait, and
+    PyTorch's pinned allocator holds each buffer until its copy has run."""
+    on_card = pool.k_q.device.type == "cuda"
+    for f in KV_FIELDS:
+        x = _bytes_view(getattr(pool, f))
+        src = arrays[f]
+        if src.shape[:2] != (x.shape[0], len(phys)) or src.shape[2:] != x.shape[2:]:
+            raise ValueError(f"{f}: {src.shape} for {len(phys)} pages of {tuple(x.shape)}")
+        host = torch.empty(src.shape, dtype=x.dtype, pin_memory=on_card)
+        if host.numpy().dtype != src.dtype:
+            raise ValueError(f"{f}: {src.dtype} bytes for a {x.dtype} pool")
+        host.numpy()[...] = src
+        staged = host.to(x.device, non_blocking=True)
+        for j, p in enumerate(phys):
+            x[:, int(p)].copy_(staged[:, j])
+
+
 def paged_prefill_attention_ref(qh: torch.Tensor, pool: PagedLayerKV,
                                 table: torch.Tensor, pos0,
                                 policy: PrecisionPolicy = DEFAULT_POLICY
@@ -226,11 +291,23 @@ class KVPoolManager:
     token-hash chain prefix index (full prompt pages registered after
     prefill hold one pin each and are adopted copy-free by later prompts
     with the same prefix, capped before the prompt's last token; pins are
-    evicted newest-first when the free list runs short)."""
+    evicted newest-first when the free list runs short).
 
-    def __init__(self, geom: PoolGeometry, num_slots: int):
+    The spill tier: every (row, logical page) has a residency — RES_DRAM
+    (``row_pages`` holds its pool page), RES_FLASH (bytes on Flash only;
+    ``row_pages`` holds -1 and the table the trash page), RES_INFLIGHT (a
+    staging copy is under way; still the trash page) or RES_STAGED (bytes in
+    one of the ``geom.staging_pages`` staging pages, which the table names,
+    so the kernels read it like any page).  Only full, single-owner pages
+    outside a row's hot tail spill; they are immutable, so the Flash copy is
+    authoritative and staging is a cache (``unstage`` writes nothing back).
+    ``spilled_pages`` counts pages of preempted rows on Flash."""
+
+    def __init__(self, geom: PoolGeometry, num_slots: int,
+                 prefix_sharing: bool = True):
         self.geom = geom
         self.num_slots = num_slots
+        self.prefix_sharing = prefix_sharing
         self._free: List[int] = list(range(geom.num_pages - 1, -1, -1))
         self.table = np.full((num_slots, geom.pages_per_row),
                              geom.trash_page, np.int32)
@@ -241,10 +318,20 @@ class KVPoolManager:
         self._chain_of_page: Dict[int, bytes] = {}
         self._index_order: List[int] = []
         self.row_shared = np.zeros(num_slots, np.int64)
+        self.spilled_pages = 0
         self.alloc_failures = 0
         self.prefix_hits = 0
         self.prefix_misses = 0
         self.prefix_evictions = 0
+        # residency per (row, logical page); the staging reserve is a LIFO
+        # free list of staging pages with an LRU over the staged ones
+        self.row_res: List[List[int]] = [[] for _ in range(num_slots)]
+        self._staging_free: List[int] = list(
+            range(geom.staging_base + geom.staging_pages - 1,
+                  geom.staging_base - 1, -1))
+        self._staged: Dict[Tuple[int, int], int] = {}    # (row, idx) -> page
+        self._stage_lru: List[Tuple[int, int]] = []      # oldest first
+        self.cold_spills = 0
 
     # --- accounting --------------------------------------------------------
     @property
@@ -268,7 +355,39 @@ class KVPoolManager:
         return self.geom.pages_for(tokens)
 
     def pages_held(self, row: int) -> int:
+        """Logical pages the row holds (DRAM and Flash)."""
         return len(self.row_pages[row])
+
+    def dram_pages_held(self, row: int) -> int:
+        return sum(1 for p in self.row_pages[row] if p >= 0)
+
+    def flash_idxs(self, row: int) -> List[int]:
+        """Logical pages of the row off DRAM (FLASH, IN_FLIGHT or STAGED):
+        the pages a decode step must stage."""
+        return [i for i, s in enumerate(self.row_res[row]) if s != RES_DRAM]
+
+    def flash_pages_of(self, row: int) -> int:
+        return len(self.flash_idxs(row))
+
+    @property
+    def flash_page_count(self) -> int:
+        """Cold pages of running rows off DRAM (preempted rows' pages are
+        counted in ``spilled_pages``)."""
+        return sum(self.flash_pages_of(r) for r in range(self.num_slots))
+
+    @property
+    def staged_count(self) -> int:
+        return len(self._staged)
+
+    @property
+    def staging_free(self) -> int:
+        return len(self._staging_free)
+
+    def residency(self) -> Dict[str, int]:
+        return {"dram_pages": self.pages_in_use,
+                "free_pages": self.free_pages,
+                "flash_pages": self.spilled_pages + self.flash_page_count,
+                "staged_pages": self.staged_count}
 
     # --- prefix index ------------------------------------------------------
     def _chain_keys(self, token_ids, salt: str) -> List[bytes]:
@@ -288,6 +407,8 @@ class KVPoolManager:
         return max(0, (int(n_tokens) - 1) // self.geom.page_size)
 
     def _lookup_chain(self, token_ids, salt: str) -> List[int]:
+        if not self.prefix_sharing:
+            return []
         pages = []
         cap = self._shareable_pages(len(token_ids))
         for key in self._chain_keys(token_ids, salt)[:cap]:
@@ -297,21 +418,37 @@ class KVPoolManager:
             pages.append(p)
         return pages
 
+    def probe_shared_pages(self, token_ids, salt: str = "") -> int:
+        """Pages a fresh prompt would adopt from the index now."""
+        return len(self._lookup_chain(token_ids, salt))
+
     def probe_admission_discount(self, token_ids, salt: str = "") -> int:
         """Adoptable pages another row still holds (refcount >= 2) — they
         cost an admission nothing."""
         return sum(1 for p in self._lookup_chain(token_ids, salt)
                    if self.refcount[p] >= 2)
 
+    def retract_prompt_stats(self, row: int, tokens: int) -> None:
+        """Undo a row's adoption statistics when its prefill restarts (the
+        re-admission counts the same prompt again)."""
+        if not self.prefix_sharing:
+            return
+        adopted = int(self.row_shared[row]) // self.geom.page_size
+        self.prefix_hits -= adopted
+        self.prefix_misses -= max(0, self._shareable_pages(tokens) - adopted)
+
     def register_prefix(self, row: int, token_ids, salt: str = "") -> int:
-        """Index the row's full prompt pages; returns pages newly pinned."""
+        """Index the row's full prompt pages; returns pages newly pinned
+        (Flash-resident pages are never indexed)."""
+        if not self.prefix_sharing:
+            return 0
         pages = self.row_pages[row]
         pinned = 0
         for i, key in enumerate(self._chain_keys(token_ids, salt)):
             if key in self._page_of_chain or i >= len(pages):
                 continue
             p = pages[i]
-            if p in self._chain_of_page:
+            if p < 0 or p in self._chain_of_page:
                 continue
             self._page_of_chain[key] = p
             self._chain_of_page[p] = key
@@ -342,28 +479,48 @@ class KVPoolManager:
 
     # --- transitions -------------------------------------------------------
     def alloc_row(self, row: int, tokens: int, token_ids=None,
-                  salt: str = "") -> bool:
+                  salt: str = "", flash_idxs=()) -> bool:
         """All-or-nothing allocation of the pages holding ``tokens``; with
         ``token_ids`` the longest indexed prefix is adopted copy-free and
-        ``row_shared[row]`` records the adopted token count."""
+        ``row_shared[row]`` records the adopted token count.
+        ``flash_idxs``: logical pages that stay on Flash (a preempted row
+        resuming with its cold pages there): no pool page for them, and
+        their table entries stay on the trash page until staged."""
         if self.row_pages[row]:
             raise RuntimeError(f"row {row} still holds pages")
         total = self.pages_for(tokens)
+        flash = set(int(i) for i in flash_idxs)
+        if not all(0 <= i < total for i in flash):
+            raise ValueError(f"Flash pages {sorted(flash)} outside {total}")
         shared = (self._lookup_chain(token_ids, salt)
                   if token_ids is not None else [])
+        if shared and flash:
+            raise ValueError("adoption and a Flash restore never mix")
+        need = total - len(flash)
         for p in shared:                 # adoption refs BEFORE reserving
             self.refcount[p] += 1
-        if not self._reserve(total - len(shared)):
+        if not self._reserve(need - len(shared)):
             for p in shared:
                 self.refcount[p] -= 1
             self.alloc_failures += 1
             return False
-        fresh = [self._free.pop() for _ in range(total - len(shared))]
+        fresh = [self._free.pop() for _ in range(need - len(shared))]
         for p in fresh:
             self.refcount[p] = 1
-        pages = shared + fresh
-        self.table[row, :total] = pages
+        it = iter(shared + fresh)
+        pages, res = [], []
+        for i in range(total):
+            if i in flash:
+                pages.append(-1)
+                res.append(RES_FLASH)
+                self.table[row, i] = self.geom.trash_page
+            else:
+                p = next(it)
+                pages.append(p)
+                res.append(RES_DRAM)
+                self.table[row, i] = p
         self.row_pages[row] = pages
+        self.row_res[row] = res
         self.row_shared[row] = len(shared) * self.geom.page_size
         self.prefix_hits += len(shared)
         if token_ids is not None:
@@ -371,7 +528,8 @@ class KVPoolManager:
         return True
 
     def ensure(self, row: int, pos: int) -> bool:
-        """Allocate-on-append for an append at position ``pos``."""
+        """Allocate-on-append for an append at position ``pos``; False when
+        the pool is out of pages (the engine spills and retries)."""
         idx = int(pos) // self.geom.page_size
         held = self.row_pages[row]
         if idx < len(held):
@@ -384,13 +542,24 @@ class KVPoolManager:
         page = self._free.pop()
         self.refcount[page] = 1
         held.append(page)
+        self.row_res[row].append(RES_DRAM)
         self.table[row, idx] = page
         return True
 
     def free_row(self, row: int) -> int:
-        """Refcount-decrement reclaim; returns pages actually freed."""
+        """Refcount-decrement reclaim; staged and in-flight pages give back
+        their staging page, Flash pages are forgotten (the engine drops
+        their blobs by uid).  Returns pages actually freed."""
+        pages = self.row_pages[row]
         freed = 0
-        for p in reversed(self.row_pages[row]):
+        for i in reversed(range(len(pages))):
+            p = pages[i]
+            if p < 0:
+                if self.row_res[row][i] in (RES_STAGED, RES_INFLIGHT):
+                    key = (row, i)
+                    self._staging_free.append(self._staged.pop(key))
+                    self._stage_lru.remove(key)
+                continue
             self.refcount[p] -= 1
             if self.refcount[p] < 0:
                 raise RuntimeError(f"double free of page {p}")
@@ -398,20 +567,105 @@ class KVPoolManager:
                 self._free.append(p)
                 freed += 1
         self.row_pages[row] = []
+        self.row_res[row] = []
         self.table[row, :] = self.geom.trash_page
         self.row_pos[row] = 0
         self.row_shared[row] = 0
         return freed
 
+    # --- the spill tier: residency transitions -----------------------------
     def cold_pages(self, row: int, hot_pages: int = 1) -> List[int]:
-        """The reference's spill candidates for one row, oldest first: full
-        pages outside the trailing ``hot_pages`` owned by this row alone
-        and not pinned by the prefix index."""
+        """Spill candidates for one row, oldest first: full DRAM pages
+        outside the trailing ``hot_pages`` owned by this row alone and not
+        pinned by the prefix index."""
         full = int(self.row_pos[row]) // self.geom.page_size
         out = []
         for i in range(min(full - hot_pages, len(self.row_pages[row]))):
+            if self.row_res[row][i] != RES_DRAM:
+                continue
             p = self.row_pages[row][i]
             if self.refcount[p] != 1 or p in self._chain_of_page:
                 continue
             out.append(i)
         return out
+
+    def _expect(self, row: int, idx: int, *states: int) -> None:
+        if self.row_res[row][idx] not in states:
+            raise RuntimeError(f"page ({row}, {idx}) is in state "
+                               f"{self.row_res[row][idx]}, not {states}")
+
+    def spill_page(self, row: int, idx: int) -> int:
+        """DRAM -> FLASH for one cold page whose bytes the caller has written
+        to the spill store; its table entry flips to the trash page.
+        Returns the freed pool page."""
+        self._expect(row, idx, RES_DRAM)
+        p = self.row_pages[row][idx]
+        if self.refcount[p] != 1 or p in self._chain_of_page:
+            raise RuntimeError(f"page {p} is shared or pinned")
+        self.refcount[p] = 0
+        self._free.append(p)
+        self.row_pages[row][idx] = -1
+        self.row_res[row][idx] = RES_FLASH
+        self.table[row, idx] = self.geom.trash_page
+        self.cold_spills += 1
+        return p
+
+    def begin_stage(self, row: int, idx: int) -> Optional[int]:
+        """FLASH -> IN_FLIGHT: claim a staging page (None when the reserve
+        is exhausted: evict with ``stage_victim``/``unstage`` first).  The
+        table keeps the trash page until ``commit_stage``.  A STAGED page
+        is an LRU touch and returns its staging page."""
+        key = (row, idx)
+        if self.row_res[row][idx] == RES_STAGED:
+            self._stage_lru.remove(key)
+            self._stage_lru.append(key)
+            return self._staged[key]
+        self._expect(row, idx, RES_FLASH)
+        if not self._staging_free:
+            return None
+        sid = self._staging_free.pop()
+        self._staged[key] = sid
+        self._stage_lru.append(key)
+        self.row_res[row][idx] = RES_INFLIGHT
+        return sid
+
+    def commit_stage(self, row: int, idx: int) -> None:
+        """IN_FLIGHT -> STAGED: the bytes are in the staging page; only now
+        does the table name it."""
+        self._expect(row, idx, RES_INFLIGHT)
+        self.row_res[row][idx] = RES_STAGED
+        self.table[row, idx] = self._staged[(row, idx)]
+
+    def unstage(self, row: int, idx: int) -> None:
+        """STAGED -> FLASH: evict from the staging cache (no writeback)."""
+        self._expect(row, idx, RES_STAGED)
+        key = (row, idx)
+        self._staging_free.append(self._staged.pop(key))
+        self._stage_lru.remove(key)
+        self.row_res[row][idx] = RES_FLASH
+        self.table[row, idx] = self.geom.trash_page
+
+    def stage_victim(self, protect) -> Optional[Tuple[int, int]]:
+        """The LRU-oldest staged page not in ``protect`` (the pages the
+        current wave needs)."""
+        for key in self._stage_lru:
+            if key not in protect \
+                    and self.row_res[key[0]][key[1]] == RES_STAGED:
+                return key
+        return None
+
+    def restore_page(self, row: int, idx: int) -> int:
+        """FLASH/STAGED -> DRAM: a pool page again (the caller writes the
+        bytes back); -1 when no page could be reserved."""
+        self._expect(row, idx, RES_FLASH, RES_STAGED)
+        if self.row_res[row][idx] == RES_STAGED:
+            self.unstage(row, idx)
+        if not self._reserve(1):
+            self.alloc_failures += 1
+            return -1
+        p = self._free.pop()
+        self.refcount[p] = 1
+        self.row_pages[row][idx] = p
+        self.row_res[row][idx] = RES_DRAM
+        self.table[row, idx] = p
+        return p

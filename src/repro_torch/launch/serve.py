@@ -44,6 +44,10 @@ def main(argv: Optional[List[str]] = None) -> List[E.Request]:
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--prefill-chunk", type=int, default=64)
     ap.add_argument("--prefill-token-budget", type=int, default=None)
+    ap.add_argument("--preempt-patience", type=int, default=0,
+                    help="evict a long-running request (its KV spilled to Flash "
+                         "and restored on resume) once the queue's head has "
+                         "waited this many steps; 0 never preempts")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--continuous", action=argparse.BooleanOptionalAction,
                     default=True,
@@ -85,6 +89,7 @@ def main(argv: Optional[List[str]] = None) -> List[E.Request]:
         loop = E.EngineLoop(eng, max_slots=args.slots,
                             prefill_chunk=args.prefill_chunk,
                             prefill_token_budget=args.prefill_token_budget,
+                            preempt_patience=args.preempt_patience,
                             seed=args.seed)
         if args.warmup:
             rep = loop.warmup()
@@ -109,7 +114,11 @@ def main(argv: Optional[List[str]] = None) -> List[E.Request]:
         print(f"[serve] TTFT p50={s.ttft(50) * 1e3:.1f}ms p95={s.ttft(95) * 1e3:.1f}ms; "
               f"TPOT p50={s.tpot(50) * 1e3:.2f}ms; latency p50={s.latency(50):.2f}s; "
               f"prefix pages adopted {loop.pool.prefix_hits}; graphs captured "
-              f"{s.compile_events} ({s.recompiles_after_warmup} after warmup)")
+              f"{s.compile_events} ({s.recompiles_after_warmup} after warmup); "
+              f"preemptions {s.preemptions}, pages spilled {s.spilled_pages} / "
+              f"restored {s.restored_pages}, cold pages spilled "
+              f"{s.cold_spilled_pages}")
+        loop.close()
     print(f"[serve] prefill {s.prefill_tokens} toks @ {s.prefill_tps:.1f} t/s; "
           f"decode {s.decode_tokens} toks @ {s.decode_tps:.1f} t/s; "
           f"flash reads {s.flash_bytes / 1024:.1f} KiB")

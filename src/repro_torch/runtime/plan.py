@@ -197,9 +197,9 @@ class ExecutionPlan:
                          ) -> kv_pool.PoolGeometry:
         """Page size from the lane grid; page inventory from the DRAM
         budget, clamped to [one full row, the full per-slot reservation].
-        ``staging_pages`` sizes the reference's Flash staging reserve (the
-        pool arrays keep its pages so the trash page id and pool shapes
-        match the reference; the port never stages into them)."""
+        ``staging_pages`` sizes the staging reserve past the trash page
+        (default ``pages_per_row - 2``, at least 2: a row can stage every
+        page that may spill for one decode wave; 0 turns the reserve off)."""
         ps = kv_page_size(max_seq)
         ppr = -(-max_seq // ps)
         if dram_budget_bytes is None:
@@ -215,13 +215,22 @@ class ExecutionPlan:
                                     staging_pages=int(staging_pages))
 
     def kv_spill_policy(self, cfg, geom: kv_pool.PoolGeometry,
-                        max_slots: int) -> kv_pool.SpillPolicy:
-        """The reference's proactive-spill watermarks (default Flash
-        budget).  The port reads them only to detect the steps where the
-        reference would spill — and raises there."""
+                        max_slots: int,
+                        flash_budget_bytes: Optional[int] = None
+                        ) -> kv_pool.SpillPolicy:
+        """Proactive-spill watermarks and budgets: the loop spills cold pages
+        of running rows when the free list drops below ``low_watermark``
+        (refilling to ``high_watermark``), keeps the last ``hot_pages`` full
+        pages of every row in DRAM, and puts at most ``flash_budget_pages``
+        on Flash (default: the full per-slot reservation)."""
+        if flash_budget_bytes is None:
+            budget = max_slots * geom.pages_per_row
+        else:
+            pb = kv_page_bytes(cfg, geom.page_size)
+            budget = flash_budget_bytes // pb if pb else 0
         low = max(1, geom.num_pages // 8)
         high = max(low, geom.num_pages // 4)
         return kv_pool.SpillPolicy(
             staging_pages=geom.staging_pages, hot_pages=1,
             low_watermark=low, high_watermark=high,
-            flash_budget_pages=max_slots * geom.pages_per_row)
+            flash_budget_pages=int(budget))

@@ -16,11 +16,13 @@
 MoE models decode every slot each step, unbucketed, as the reference loop
 does (``disabled_features["decode_bucketing"]`` says why).
 
-Not ported (ROADMAP queue 1 items 10, 11 and 16): Flash spill of KV pages
-(proactive spill, preemption to Flash), weight and expert streaming, and
-LoRA.  Where the reference loop would take one of those branches, the port
-raises ``NotImplementedError``; with the default DRAM budget the pool holds
-every slot's full row, so a trace that fits never reaches one.
+The KV pool has the reference's Flash tier (C2): cold prompt pages of
+running rows spill to Flash under page pressure and are gathered back into
+a staging reserve of device pages before each decode, in as many waves as
+the reserve needs; a request preempted under queue patience or page
+pressure spills its row to Flash and is restored bit for bit.  Not ported
+(ROADMAP queue 1 items 11 and 16): weight and expert streaming, and LoRA,
+which raise ``NotImplementedError``.
 
 ``EngineLoop.warmup`` is the reference's: where the reference pre-compiles
 one step graph per decode bucket and per prompt-chunk size, the port
@@ -102,6 +104,7 @@ class RequestStats:
     tpot_s: float          # mean inter-token time after the first
     latency_s: float       # arrival -> completion
     new_tokens: int
+    preemptions: int = 0
 
 
 def percentile(xs: Sequence[float], p: float) -> float:
@@ -128,6 +131,17 @@ class EngineStats:
     prefill_s: float = 0.0
     decode_s: float = 0.0
     flash_bytes: int = 0
+    # the spill tier: pool pages moved to / back from Flash by preemption,
+    # cold pages of running rows moved to Flash, evictions, and the staging
+    # accounting (a hit is a needed cold page already staged or served
+    # through the prefetch pipeline; a miss a synchronous Flash read)
+    spilled_pages: int = 0
+    restored_pages: int = 0
+    cold_spilled_pages: int = 0
+    preemptions: int = 0
+    flash_page_hits: int = 0
+    flash_page_misses: int = 0
+    flash_hit_rates: List[float] = dataclasses.field(default_factory=list)
     # prefix sharing: prompt tokens adopted from the page index, and prompt
     # chunks run by the unified step
     shared_prompt_tokens: int = 0
@@ -148,6 +162,12 @@ class EngineStats:
     @property
     def decode_tps(self) -> float:
         return self.decode_tokens / self.decode_s if self.decode_s else 0.0
+
+    @property
+    def flash_hit_rate(self) -> float:
+        """Aggregate staging hit rate (1.0 when no page was ever cold)."""
+        total = self.flash_page_hits + self.flash_page_misses
+        return self.flash_page_hits / total if total else 1.0
 
     def ttft(self, p: float = 50.0) -> float:
         return percentile([r.ttft_s for r in self.requests], p)
@@ -269,13 +289,30 @@ class EngineLoop:
     captures them all up front, and a shape met later is captured where it
     is met (counted in ``stats.recompiles_after_warmup``).  A capture that
     fails raises.  ``cuda_graphs=False`` runs the same steps eagerly on the
-    card, for comparison only; on the CPU nothing is captured.  ``close()``
-    releases the graphs."""
+    card, for comparison only; on the CPU nothing is captured.
+
+    Under page pressure (``dram_budget_bytes`` below the trace's KV) the
+    Flash tier keeps every request running: cold pages of running rows
+    spill (``proactive_spill``, up to ``flash_budget_bytes`` on Flash) and
+    each decode stages them back into the reserve past the trash page, wave
+    by wave, each wave replaying its bucket's graph; when that is not
+    enough the row holding the most DRAM pages is preempted (and, with
+    ``preempt_patience``, a long runner when the queue's head has waited
+    that many steps), its pages saved to Flash and restored page-exact on
+    re-admission; a row caught mid-prefill resumes from its last chunk.
+    Every page write lands in the existing pool tensors, so the graphs keep
+    reading them.  ``close()`` releases the graphs and stops the Flash
+    prefetch worker."""
 
     def __init__(self, engine: Engine, max_slots: int = 4,
+                 token_budget: Optional[int] = None,
+                 preempt_patience: int = 0,
                  dram_budget_bytes: Optional[int] = None,
                  prefill_chunk: int = 64,
                  prefill_token_budget: Optional[int] = None,
+                 prefix_sharing: bool = True,
+                 proactive_spill: bool = True,
+                 flash_budget_bytes: Optional[int] = None,
                  default_sampling: Optional[SM.SamplingParams] = None,
                  max_queue: Optional[int] = None,
                  on_token: Optional[Callable[[Request, int, bool], None]] = None,
@@ -285,20 +322,27 @@ class EngineLoop:
         self.cfg = cfg
         self.device = engine.device
         self.max_slots = max_slots
-        # the reference's geometry, staging reserve included, so that the
-        # trash page id, pool shapes and allocation match it step for step
+        # the reference's geometry, staging reserve included, so that page
+        # ids, pool shapes and allocation match it step for step
+        self.proactive = proactive_spill
         self.geom = engine.plan.kv_pool_geometry(
-            cfg, engine.max_seq, max_slots, dram_budget_bytes=dram_budget_bytes)
-        self.spill_policy = engine.plan.kv_spill_policy(cfg, self.geom, max_slots)
+            cfg, engine.max_seq, max_slots, dram_budget_bytes=dram_budget_bytes,
+            staging_pages=None if self.proactive else 0)
+        self.spill_policy = engine.plan.kv_spill_policy(
+            cfg, self.geom, max_slots, flash_budget_bytes=flash_budget_bytes)
         self.prefill_chunk = RP.prefill_chunk_schedule(cfg, prefill_chunk,
                                                        self.geom.page_size)
         self.prefill_token_budget = (prefill_token_budget
                                      if prefill_token_budget is not None
                                      else max(prefill_chunk, 64))
-        self.pool = KP.KVPoolManager(self.geom, max_slots)
+        self.pool = KP.KVPoolManager(self.geom, max_slots,
+                                     prefix_sharing=prefix_sharing)
+        # KV pages spill beside the Flash embedding, with their own byte counts
+        self.spill = HS.PageSpillStore(HS.FlashStore(engine.embedding.flash.root))
         self.scheduler = ContinuousScheduler(
-            max_slots, engine.max_seq, pool=self.pool,
-            spill_headroom=self._spill_headroom)
+            max_slots, engine.max_seq, self.pool, token_budget=token_budget,
+            preempt_patience=preempt_patience,
+            spill_headroom=self._spill_headroom if self.proactive else None)
         self.cache = T.init_paged_cache(cfg, max_slots, self.geom, self.device)
         self.logits = torch.zeros((max_slots, cfg.padded_vocab_size),
                                   dtype=torch.float32, device=self.device)
@@ -318,6 +362,12 @@ class EngineLoop:
         self._warmup_graphs = 0
         self._prefilling: Dict[int, dict] = {}
         self._prefill_rr = 0
+        # uid -> spill record of a preempted request (its pages on Flash)
+        self._spilled: Dict[int, dict] = {}
+        # restored slots that owe one decode of their last sampled token
+        # (evicted between sampling and its KV append) before sampling again
+        self._hold: set = set()
+        self._step_hits = self._step_misses = 0
         self.peak_active = 0
         self.peak_kv_pages = 0
         self.default_sampling = default_sampling
@@ -340,42 +390,238 @@ class EngineLoop:
                 if not no_moe else "max_slots == 1: nothing to bucket")
         engine.stats.disabled_features = dict(self.disabled_features)
 
-    # --- where the reference would leave the ported slice ------------------
+    # --- row snapshot / restore (preemption to Flash) ----------------------
+    def _pooled_groups(self):
+        """(group name, stacked pool) of every full-attention page pool: the
+        layer groups that carry per-page bytes."""
+        for si, (patterns, _count) in enumerate(self.cfg.layer_plan()):
+            for pi, _pat in enumerate(patterns):
+                yield f"s{si}p{pi}", self.cache["stacks"][si][pi]
+
+    def _row_groups(self, phys: Sequence[int]):
+        """(group name, host arrays) of a row's decode state: the bytes of
+        its DRAM pages ``phys`` in every pooled group (the port's stacks are
+        all full-attention pools)."""
+        for group, pool in self._pooled_groups():
+            yield group, KP.read_pages(pool, phys)
+
+    def _spill_row(self, slot: int, req: Request, pending: bool) -> None:
+        """Move a preempted row's DRAM pages to Flash and free them; pages
+        the proactive tier already spilled stay there, keyed by uid.
+        ``pending``: the row was evicted after sampling and before its
+        token's KV append, so the token replays through decode on resume
+        instead of sampling again from saved logits."""
+        n_kv = int(self.pool.row_pos[slot])
+        n_pages = self.pool.pages_for(n_kv)
+        held = self.pool.row_pages[slot]
+        dram_idxs = [i for i in range(n_pages) if held[i] >= 0]
+        flash_idxs = [i for i in range(n_pages) if held[i] < 0]
+        groups = []
+        for gi, (group, arrays) in enumerate(
+                self._row_groups([held[i] for i in dram_idxs])):
+            self.spill.put(req.uid, group, arrays,
+                           pages=len(dram_idxs) if gi == 0 else 0)
+            groups.append(group)
+        self._spilled[req.uid] = {
+            "n_kv": n_kv, "pending": pending, "groups": groups,
+            "dram_idxs": dram_idxs, "flash_idxs": flash_idxs,
+            "logits": None if pending else self.logits[slot].clone()}
+        req.spilled_flash_pages = len(flash_idxs)
+        self.pool.free_row(slot)
+        self.eng.stats.spilled_pages += len(dram_idxs)
+        self.eng.stats.preemptions += 1
+        self.pool.spilled_pages += n_pages
+        T.free_slots(self.cache, [slot])
+        self._hold.discard(slot)
+
+    def _restore_into_slot(self, req: Request, slot: int, rec: dict) -> None:
+        """Bring a spilled row back page-exact: fresh pool pages for its
+        snapshot (cold pages stay on Flash and rejoin through staging), each
+        layer group read from Flash with the next group prefetched, written
+        in place; then sampling resumes from the saved logits, or the slot
+        holds one step to replay a pending token.  A mid-prefill victim
+        takes pages for its whole prompt and resumes chunking."""
+        n_kv = rec["n_kv"]
+        pf = rec.get("prefill")
+        alloc_tokens = pf["t"] if pf is not None else n_kv
+        ok = self.pool.alloc_row(slot, alloc_tokens, flash_idxs=rec["flash_idxs"])
+        while not ok and self._spill_one_cold(exclude={slot}):
+            ok = self.pool.alloc_row(slot, alloc_tokens,
+                                     flash_idxs=rec["flash_idxs"])
+        if not ok:
+            raise RuntimeError("admission checked that the pages were free "
+                               "or spillable")
+        req.spilled_flash_pages = 0
+        self.pool.spilled_pages -= self.pool.pages_for(n_kv)
+        phys = [self.pool.row_pages[slot][i] for i in rec["dram_idxs"]]
+        groups = rec["groups"]
+        self.spill.prefetch_async(req.uid, groups[0])
+        for gi, (group, pool) in enumerate(self._pooled_groups()):
+            if gi + 1 < len(groups):
+                self.spill.prefetch_async(req.uid, groups[gi + 1])
+            KP.write_pages(pool, phys, self.spill.fetch(req.uid, group))
+        self.spill.drop_groups(req.uid, groups)
+        self.eng.stats.restored_pages += len(rec["dram_idxs"])
+        if pf is not None:
+            # like a fresh admission, pos stays 0 until the prompt is in
+            req.resume_prefill = False
+            self._prefilling[slot] = {"req": req, "tokens": pf["tokens"],
+                                      "t": pf["t"], "next": n_kv}
+            return
+        self.cache["pos"][slot].fill_(n_kv)
+        self.pool.row_pos[slot] = n_kv
+        if rec["pending"]:
+            self._hold.add(slot)
+        else:
+            self.logits[slot].copy_(rec["logits"])
+
+    # --- proactive spill: cold pages of running rows -----------------------
     def _cold_candidates(self) -> List:
-        """The reference's proactive-spill candidates, (logical page, slot)
-        oldest first: full single-owner pages outside each running row's
-        hot tail.  Nothing is ever on Flash here, so every row has its full
-        staging room and the whole Flash budget is left."""
+        """(logical page, slot) spill candidates over running decode rows,
+        oldest page first: full single-owner DRAM pages outside each row's
+        hot tail, from rows with staging room left (a row's Flash pages must
+        fit the reserve for one wave), capped by the Flash budget left."""
+        if not self.proactive:
+            return []
+        pol = self.spill_policy
+        budget_left = pol.flash_budget_pages - self.spill.pages_on_flash
+        if budget_left <= 0:
+            return []
         out = []
         for slot, req in enumerate(self.scheduler.running):
             if req is None or slot in self._prefilling:
                 continue
-            idxs = self.pool.cold_pages(slot, self.spill_policy.hot_pages)
-            out.extend((i, slot) for i in idxs[:self.spill_policy.staging_pages])
+            room = pol.staging_pages - self.pool.flash_pages_of(slot)
+            if room <= 0:
+                continue
+            out.extend((i, slot) for i in
+                       self.pool.cold_pages(slot, pol.hot_pages)[:room])
         out.sort()
-        return out[:self.spill_policy.flash_budget_pages]
+        return out[:budget_left]
 
     def _spill_headroom(self) -> int:
-        """Pages admission may oversubscribe the pool by, as the reference
-        counts them (its scheduler calls this through ``_fits``)."""
+        """Pages admission may oversubscribe the pool by now (the scheduler
+        calls this through ``_fits``)."""
         return len(self._cold_candidates())
 
-    @staticmethod
-    def _not_ported(what: str) -> NotImplementedError:
-        return NotImplementedError(
-            f"the reference loop would {what}: KV spill to Flash is not "
-            "ported (ROADMAP queue 1 item 10)")
+    def _spill_cold_page(self, slot: int, idx: int) -> None:
+        """One cold page of a running row: every pooled group's bytes of it
+        to Flash, then its pool page is free; the row keeps decoding, the
+        page rejoining each step through the staging reserve."""
+        uid = self.scheduler.running[slot].uid
+        phys = self.pool.row_pages[slot][idx]
+        for gi, (group, pool) in enumerate(self._pooled_groups()):
+            self.spill.put_page(uid, idx, group, KP.read_pages(pool, [phys]),
+                                count_page=gi == 0)
+        self.pool.spill_page(slot, idx)
+        self.eng.stats.cold_spilled_pages += 1
+
+    def _spill_one_cold(self, exclude: set = frozenset()) -> bool:
+        """Spill the oldest cold candidate; False when none is eligible."""
+        for idx, slot in self._cold_candidates():
+            if slot not in exclude:
+                self._spill_cold_page(slot, idx)
+                return True
+        return False
 
     def _proactive_spill(self) -> None:
-        if (self.pool.free_pages < self.spill_policy.low_watermark
-                and self._cold_candidates()):
-            raise self._not_ported("spill cold pages of running rows")
+        """Below the low watermark of free pages, spill cold pages until the
+        high watermark (or the candidates run out)."""
+        if not self.proactive \
+                or self.pool.free_pages >= self.spill_policy.low_watermark:
+            return
+        while self.pool.free_pages < self.spill_policy.high_watermark \
+                and self._spill_one_cold():
+            pass
+
+    # --- decode-time staging: gather Flash pages for a wave ----------------
+    def _stage_wave(self, needed: List) -> None:
+        """Make every (slot, idx) in ``needed`` visible to the kernels:
+        staged pages are LRU touches (hits); Flash pages claim a staging
+        page (evicting LRU pages the wave does not need) and their group
+        blobs stream in from Flash, the next group read ahead while one
+        installs.  All the wave's pages of a group reach the pool in one
+        copy a field, queued on the stream behind every earlier wave's
+        replay; table entries flip to the staging page only at commit."""
+        stats = self.eng.stats
+        to_fetch = []
+        for slot, idx in needed:
+            if self.pool.row_res[slot][idx] == KP.RES_STAGED:
+                self.pool.begin_stage(slot, idx)
+                self._step_hits += 1
+                stats.flash_page_hits += 1
+            else:
+                to_fetch.append((slot, idx))
+        if not to_fetch:
+            return
+        groups = [g for g, _ in self._pooled_groups()]
+        uid_of = {slot: self.scheduler.running[slot].uid for slot, _ in to_fetch}
+        for slot, idx in to_fetch:
+            self.spill.prefetch_page(uid_of[slot], idx, groups[0])
+        protect = set(needed)
+        updates: Dict[str, list] = {}
+        for slot, idx in to_fetch:
+            sid = self.pool.begin_stage(slot, idx)
+            while sid is None:
+                victim = self.pool.stage_victim(protect)
+                if victim is None:
+                    raise RuntimeError("the staging reserve cannot hold the wave")
+                self.pool.unstage(*victim)
+                sid = self.pool.begin_stage(slot, idx)
+            uid = uid_of[slot]
+            m0 = self.spill.prefetch_misses
+            for gi, group in enumerate(groups):
+                if gi + 1 < len(groups):
+                    self.spill.prefetch_page(uid, idx, groups[gi + 1])
+                updates.setdefault(group, []).append(
+                    (sid, self.spill.fetch_page(uid, idx, group)))
+            if self.spill.prefetch_misses > m0:
+                self._step_misses += 1
+                stats.flash_page_misses += 1
+            else:
+                self._step_hits += 1
+                stats.flash_page_hits += 1
+        for group, pool in self._pooled_groups():
+            pages = updates[group]
+            KP.write_pages(pool, [sid for sid, _ in pages], {
+                f: np.concatenate([arrays[f] for _, arrays in pages], axis=1)
+                for f in KP.KV_FIELDS})
+        for slot, idx in to_fetch:
+            self.pool.commit_stage(slot, idx)
+
+    def _plan_waves(self, slots: List[int]) -> List[List[int]]:
+        """Partition the decodable slots into staging waves whose Flash
+        pages fit the reserve at once; rows with none ride in the first
+        wave, so the no-spill steady state is one wave."""
+        flashy = {s: self.pool.flash_pages_of(s) for s in slots}
+        plain = [s for s in slots if not flashy[s]]
+        cap = max(1, self.spill_policy.staging_pages)
+        waves: List[List[int]] = []
+        cur: List[int] = []
+        load = 0
+        for s in sorted(s for s in slots if flashy[s]):
+            n = flashy[s]
+            if n > cap:
+                raise RuntimeError(f"row {s} holds {n} Flash pages, more than "
+                                   f"the staging reserve of {cap}")
+            if cur and load + n > cap:
+                waves.append(cur)
+                cur, load = [], 0
+            cur.append(s)
+            load += n
+        if cur:
+            waves.append(cur)
+        if not waves:
+            return [plain]
+        waves[0] = plain + waves[0]
+        return waves
 
     # --- admission + the unified prefill step ------------------------------
     def _upload_table(self, visible) -> None:
         """Upload the page table with every slot outside ``visible`` masked
-        to the trash page (rows mid-prefill and empty rows never see
-        dispatch; their ride-along appends land in the trash)."""
+        to the trash page (rows mid-prefill, rows of a later staging wave
+        and empty rows never see dispatch; their ride-along appends land in
+        the trash)."""
         table = self.pool.table
         hidden = [s for s in range(self.max_slots) if s not in visible]
         if hidden:
@@ -384,17 +630,81 @@ class EngineLoop:
         self._table.put(table)
 
     def _admit_into_slot(self, req: Request, slot: int) -> None:
+        rec = self._spilled.pop(req.uid, None)
+        if rec is not None:
+            self._restore_into_slot(req, slot, rec)
+            return
+        if req.generated:
+            raise RuntimeError(f"request {req.uid} was preempted without a "
+                               "spill record")
         toks = list(req.prompt_tokens)
         t = len(toks)
-        ok = self.pool.alloc_row(slot, t, token_ids=toks, salt=req.adapter or "")
+        ids = toks if self.pool.prefix_sharing else None
+        ok = self.pool.alloc_row(slot, t, token_ids=ids, salt=req.adapter or "")
+        while not ok and self._spill_one_cold(exclude={slot}):
+            # admission counted the spillable cold pages: deliver them
+            ok = self.pool.alloc_row(slot, t, token_ids=ids,
+                                     salt=req.adapter or "")
         if not ok:
-            if any(s != slot for _i, s in self._cold_candidates()):
-                raise self._not_ported("spill cold pages to admit a request")
-            raise RuntimeError("admission checked that the pages were free")
+            raise RuntimeError("admission checked that the pages were free "
+                               "or spillable")
         shared = int(self.pool.row_shared[slot])
         self.eng.stats.shared_prompt_tokens += shared
         self._prefilling[slot] = {"req": req, "tokens": toks, "t": t,
                                   "next": shared}
+
+    def _spill_prefilling_row(self, victim: Request) -> None:
+        """Evict a mid-prefill row under page pressure: with a chunk done,
+        its written pages go to Flash and it resumes from its last chunk
+        boundary; with none, it is freed and requeued and its adoption
+        statistics are taken back (the re-admission counts them again)."""
+        vslot = victim.slot
+        st = self._prefilling[vslot]
+        done = st["next"]
+        self.eng.stats.preemptions += 1
+        if done <= 0:
+            self.eng.stats.shared_prompt_tokens -= int(self.pool.row_shared[vslot])
+            self.pool.retract_prompt_stats(vslot, st["t"])
+            self.scheduler.evict(victim)
+            del self._prefilling[vslot]
+            self.pool.free_row(vslot)
+            T.free_slots(self.cache, [vslot])
+            return
+        n_pages = self.pool.pages_for(done)
+        held = self.pool.row_pages[vslot]
+        dram_idxs = list(range(n_pages))
+        groups = []
+        for gi, (group, arrays) in enumerate(
+                self._row_groups([held[i] for i in dram_idxs])):
+            self.spill.put(victim.uid, group, arrays,
+                           pages=n_pages if gi == 0 else 0)
+            groups.append(group)
+        self._spilled[victim.uid] = {
+            "n_kv": done, "pending": False, "groups": groups,
+            "dram_idxs": dram_idxs, "flash_idxs": [], "logits": None,
+            "prefill": {"t": st["t"], "tokens": st["tokens"]}}
+        # the restore adopts nothing: admission charges the whole prompt
+        victim.resume_prefill = True
+        self.scheduler.evict(victim)
+        del self._prefilling[vslot]
+        self.pool.free_row(vslot)
+        self.eng.stats.spilled_pages += n_pages
+        self.pool.spilled_pages += n_pages
+        T.free_slots(self.cache, [vslot])
+
+    def _pick_page_victim(self, exclude: set) -> Optional[Request]:
+        """Page pressure: the decoding row holding the most DRAM pages
+        (excluding ``exclude``); rows restored this step (``_hold``) only as
+        a last resort."""
+        cands = [r for r in self.scheduler.running
+                 if r is not None and r.slot not in exclude
+                 and r.slot not in self._prefilling]
+        fresh = [r for r in cands if r.slot not in self._hold]
+        cands = fresh or cands
+        if not cands:
+            return None
+        return max(cands, key=lambda r: (self.pool.dram_pages_held(r.slot),
+                                         len(r.generated)))
 
     def _next_chunk(self, remaining: int) -> int:
         """Full ``prefill_chunk`` slabs, then one power-of-two final chunk
@@ -574,9 +884,11 @@ class EngineLoop:
                 "chunk_sizes": [int(c) for c in chunks]}
 
     def close(self) -> None:
-        """Release the step graphs and their memory pool; a later step
-        prepares (and captures) its shape again, and ``warmup()`` may be
-        called again."""
+        """Release the step graphs and their memory pool and stop the Flash
+        prefetch worker; a later step prepares (and captures) its shape
+        again, ``warmup()`` may be called again, and Flash reads become
+        synchronous."""
+        self.spill.close()
         for graph in self._graphs.values():
             graph.reset()
         self._graphs.clear()
@@ -659,7 +971,7 @@ class EngineLoop:
         ``SamplingParams`` and each group samples the full logits."""
         groups: Dict[SM.SamplingParams, List[int]] = {}
         for slot, req in enumerate(self.scheduler.running):
-            if req is None or slot in self._prefilling:
+            if req is None or slot in self._prefilling or slot in self._hold:
                 continue
             groups.setdefault(req.sampling, []).append(slot)
         tok = np.zeros((self.max_slots,), np.int64)
@@ -669,10 +981,11 @@ class EngineLoop:
         return tok
 
     def step(self) -> List[TokenEvent]:
-        """Advance the loop by ONE unified step: admit from the queue, run
-        prompt chunks under the token budget, sample one token for every
-        decodable row (emitted here), then decode the active rows gathered
-        into their smallest covering batch bucket."""
+        """Advance the loop by ONE unified step: preempt or spill under
+        pressure, admit from the queue, run prompt chunks under the token
+        budget, sample one token for every decodable row (emitted here),
+        then decode in staging waves, each gathered into its smallest
+        covering batch bucket."""
         try:
             return self._step()
         finally:
@@ -689,6 +1002,11 @@ class EngineLoop:
         sched.step = self._step_no
         t_step = time.perf_counter()
         pf0 = eng.stats.prefill_s
+        # rows that owe a pending decode, or are mid-prefill, are not victims
+        preempted = sched.maybe_preempt(
+            exclude_slots=set(self._hold) | set(self._prefilling))
+        if preempted is not None:
+            self._spill_row(*preempted, pending=False)
         self._proactive_spill()
         for slot, req in sched.admit():
             self._admit_into_slot(req, slot)
@@ -705,7 +1023,7 @@ class EngineLoop:
         tok_np = self._sample()
         now = time.perf_counter()
         for slot, req in enumerate(running):
-            if req is None or slot in self._prefilling:
+            if req is None or slot in self._hold or slot in self._prefilling:
                 continue
             t_id = int(tok_np[slot])
             req.generated.append(t_id)
@@ -719,20 +1037,39 @@ class EngineLoop:
                 req.finish_t = now
                 sched.finish(req)
                 self.pool.free_row(slot)
+                self.spill.drop(req.uid)
                 T.free_slots(self.cache, [slot])
                 eng.stats.requests.append(RequestStats(
                     uid=req.uid, ttft_s=req.ttft, tpot_s=req.tpot,
                     latency_s=req.finish_t - req.arrival_t,
-                    new_tokens=len(req.generated)))
+                    new_tokens=len(req.generated), preemptions=req.preemptions))
 
-        # allocate-on-append: rows crossing a page boundary take a page
-        act_slots = []
+        # allocate-on-append: rows crossing a page boundary take a page; when
+        # the pool runs dry, a cold page spills first, then the row holding
+        # the most DRAM pages is preempted, then a mid-prefill row
         for slot, req in enumerate(sched.running):
             if req is None or slot in self._prefilling:
                 continue
-            if not self.pool.ensure(slot, int(self.pool.row_pos[slot])):
-                raise self._not_ported("spill or preempt under page pressure")
-            act_slots.append(slot)
+            while not self.pool.ensure(slot, int(self.pool.row_pos[slot])):
+                if self._spill_one_cold():
+                    continue
+                victim = self._pick_page_victim(exclude={slot})
+                if victim is None:
+                    pref = [r for r in sched.running
+                            if r is not None and r.slot != slot
+                            and r.slot in self._prefilling]
+                    if not pref:
+                        raise RuntimeError("the pool cannot hold a single request")
+                    self._spill_prefilling_row(max(
+                        pref, key=lambda r: self.pool.pages_held(r.slot)))
+                    continue
+                vslot = victim.slot
+                sched.evict(victim)
+                self._spill_row(vslot, victim, pending=True)
+
+        act_slots = [slot for slot, req in enumerate(sched.running)
+                     if req is not None and slot not in self._prefilling]
+        self._hold.clear()
         if not act_slots:
             self._step_no += 1
             eng.stats.decode_s += ((time.perf_counter() - t_step)
@@ -742,21 +1079,31 @@ class EngineLoop:
         ids = np.zeros((self.max_slots, 1), np.int64)
         for slot in act_slots:
             ids[slot, 0] = sched.running[slot].generated[-1]
-        if self._bucketed:
-            slot_idx, act_b = bucket_cover(self.buckets, act_slots, self.max_slots)
-        else:
-            # every slot rides along; empty and mid-prefill rows write only
-            # to the trash page and keep their positions and logits
-            slot_idx = np.arange(self.max_slots, dtype=np.int32)
-            act_b = np.zeros((self.max_slots,), bool)
-            act_b[act_slots] = True
-        key = ("decode", len(slot_idx))
-        self._prepare(key)
-        self._upload_table(visible=set(act_slots))
-        ins = self._inputs[key]
-        eng.embed(ids[slot_idx], out=ins["emb"])
-        ins["rows"].put(np.stack([slot_idx, act_b]))
-        self._launch(key)
+        flash_needs = sum(self.pool.flash_pages_of(s) for s in act_slots)
+        self._step_hits = self._step_misses = 0
+        for wave in self._plan_waves(act_slots):
+            needed = [(s, i) for s in wave for i in self.pool.flash_idxs(s)]
+            if needed:
+                self._stage_wave(needed)
+            if self._bucketed:
+                slot_idx, act_b = bucket_cover(self.buckets, wave, self.max_slots)
+            else:
+                # every slot rides along; rows outside the wave write only to
+                # the trash page and keep their positions and logits
+                slot_idx = np.arange(self.max_slots, dtype=np.int32)
+                act_b = np.zeros((self.max_slots,), bool)
+                act_b[wave] = True
+            key = ("decode", len(slot_idx))
+            self._prepare(key)
+            self._upload_table(visible=set(wave))
+            ins = self._inputs[key]
+            eng.embed(ids[slot_idx], out=ins["emb"])
+            ins["rows"].put(np.stack([slot_idx, act_b]))
+            self._launch(key)
+        if flash_needs:
+            total = self._step_hits + self._step_misses
+            eng.stats.flash_hit_rates.append(
+                self._step_hits / total if total else 1.0)
         for slot in act_slots:
             self.pool.row_pos[slot] += 1
         eng.stats.decode_tokens += len(act_slots)

@@ -21,6 +21,13 @@ graphs captures nothing more and commits the eager loop's tokens with the
 same launch counts; the step functions run under sync debug mode "error";
 a replay gives an eager step's launches and bit-equal outputs.
 
+The Flash tier: both paged kernels over tables that mix pool pages and
+staging pages (ids past the trash page); page bytes (fp8 included) to Flash
+through pinned memory and back into staging and fresh pool pages, bit for
+bit, in place and with no host wait on the way in; a warmed loop whose
+decode runs in several staging waves commits the eager loop's tokens with
+no capture after warmup; a no-spill decode step still waits once.
+
 The dense matmul kernel is split over K at decode widths and has two tile
 sizes (16 rows up to M = 16, 64 above): its cases give bit-identical
 outputs for every split count (uneven ranges of K = 18944 among them), M
@@ -50,6 +57,8 @@ from repro_torch.kernels import quant_attention as QA  # noqa: E402
 from repro_torch.kernels import rmsnorm as RN  # noqa: E402
 from repro_torch.kernels import w4a8_matmul as WM  # noqa: E402
 from repro_torch.configs import registry as PR  # noqa: E402
+from repro_torch.core import hybrid_storage as HS  # noqa: E402
+from repro_torch.core import kv_pool as KP  # noqa: E402
 from repro_torch.models import transformer as PT  # noqa: E402
 from repro_torch.runtime import plan as RP  # noqa: E402
 from repro_torch.serving import engine as PE  # noqa: E402
@@ -676,3 +685,165 @@ def test_replay_launches_and_outputs_equal_an_eager_step(card_engines, arch):
         assert torch.equal(a, b)
     assert outs[1][1].tolist() == [1, 0, 1, 0]
     loops[1].close()
+
+
+# ---------------------------------------------------------------------------
+# the Flash tier: staging pages past the trash page, pinned page copies, waves
+# ---------------------------------------------------------------------------
+
+def _staging_pool(dev, n_pages=6, staging=6, hkv=4, D=128, seed=0):
+    """A pool of 128-key pages laid out as the serving loop's: ``n_pages``
+    pool pages, the trash page, then the staging reserve, all filled."""
+    geom = KP.PoolGeometry(page_size=128, num_pages=n_pages, pages_per_row=8,
+                           staging_pages=staging)
+    rng = np.random.default_rng(seed)
+    P = geom.total_device_pages
+    k = torch.from_numpy(rng.normal(size=(P, 128, hkv, D)).astype(np.float32))
+    v = torch.from_numpy(rng.normal(size=(P, 128, hkv, D)).astype(np.float32))
+    kq, ks, kz = KV.quantize_keys(k.bfloat16())
+    pool = tuple(t.contiguous().to(dev) for t in (kq, ks, kz, KV.cast_values(v, Q.FP8_DTYPE)))
+    return geom, pool
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,hkv", [(7, 4), (1, 16)])
+def test_paged_kernels_read_staging_pages(dev, G, hkv):
+    """Tables that mix pool pages and staging pages (ids past the trash
+    page), as a decode wave uploads them: both paged kernels equal their
+    plain versions."""
+    D = 128
+    geom, pool = _staging_pool(dev, hkv=hkv, seed=G)
+    s0, trash = geom.staging_base, geom.trash_page
+    table = np.full((3, geom.pages_per_row), trash, np.int32)
+    table[0, :5] = [s0 + 3, 0, s0, 4, s0 + 5]
+    table[1, :3] = [2, s0 + 1, 5]
+    table[2, :6] = [s0 + 2, s0 + 4, 1, 3, s0 + 3, s0]
+    table = torch.from_numpy(table).to(dev)
+    length = torch.tensor([600, 300, 700], dtype=torch.int32, device=dev)
+    base = torch.zeros((3,), dtype=torch.int32, device=dev)
+    q = (torch.randn((3, hkv * G, D), device=dev) / math.sqrt(D)).bfloat16()
+    _close(QA.paged_quant_decode_attention(q, *pool, table, base, length),
+           QA.paged_quant_decode_attention_plain(q, *pool, table, base, length), 2e-2)
+    qc = (torch.randn((1, 64, hkv * G, D), device=dev) / math.sqrt(D)).bfloat16()
+    p0 = torch.tensor([640], dtype=torch.int32, device=dev)
+    _close(FP.paged_flash_prefill_attention(qc, *pool, table[2:3], p0),
+           FP.paged_flash_prefill_attention_plain(qc, *pool, table[2:3], p0), 2e-2)
+
+
+@pytest.mark.gpu
+def test_page_spill_stage_restore_bit_exact(dev, tmp_path):
+    """Pages of a stacked pool (fp8 values included) to Flash through pinned
+    memory, back into staging pages and into fresh pool pages: bit for bit,
+    the pool tensors keep their storage, and the writes make no host wait."""
+    geom = KP.PoolGeometry(page_size=128, num_pages=8, pages_per_row=8,
+                           staging_pages=4)
+    pool = KP.init_paged_layer(geom, 4, 128, layers=3, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    pool.k_q.copy_(torch.randint(-128, 128, pool.k_q.shape, generator=gen, device=dev))
+    pool.k_scale.copy_(torch.rand(pool.k_scale.shape, generator=gen, device=dev))
+    pool.k_zero.copy_(torch.randn(pool.k_zero.shape, generator=gen, device=dev))
+    pool.v.copy_((torch.randn(pool.v.shape, generator=gen, device=dev) * 100
+                  ).to(Q.FP8_DTYPE))
+    ptrs = [getattr(pool, f).data_ptr() for f in KP.KV_FIELDS]
+    want = {f: KP._bytes_view(getattr(pool, f)).clone() for f in KP.KV_FIELDS}
+    store = HS.PageSpillStore(HS.FlashStore(str(tmp_path)))
+    try:
+        src = [5, 0, 3]
+        store.put(1, "s0p0", KP.read_pages(pool, src), pages=3)
+        sids = [geom.staging_base + i for i in (2, 0, 3)]
+        got = store.fetch(1, "s0p0")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            KP.write_pages(pool, sids, got)          # staging
+            KP.write_pages(pool, [7, 6, 1], got)     # a restore into fresh pages
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        for f in KP.KV_FIELDS:
+            x = KP._bytes_view(getattr(pool, f))
+            assert torch.equal(x[:, sids], want[f][:, src]), f
+            assert torch.equal(x[:, [7, 6, 1]], want[f][:, src]), f
+        assert [getattr(pool, f).data_ptr() for f in KP.KV_FIELDS] == ptrs
+    finally:
+        store.close()
+
+
+def _spill_trace(loop, vocab):
+    """4 rows whose KV outgrows a 6-page pool with prefix sharing off: cold
+    pages spill and the decode needs several staging waves."""
+    rng = np.random.default_rng(23)
+    sp = PSM.SamplingParams(temperature=0.0, max_new_tokens=20)
+    reqs = [PE.Request(uid=i, sampling=sp, max_new_tokens=20,
+                       prompt_tokens=[int(t) for t in rng.integers(1, vocab, 30)])
+            for i in range(4)]
+    waves = []
+    plan = loop._plan_waves
+
+    def plan_waves(slots):
+        out = plan(slots)
+        waves.append(len(out))
+        return out
+    loop._plan_waves = plan_waves
+    loop.run(reqs)
+    return [r.generated for r in reqs], waves
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", GRAPH_ARCHS)
+def test_spill_waves_on_graphs_equal_eager(card_engines, arch):
+    """Waves replay the bucket graphs captured at warmup: the warmed loop
+    commits the eager loop's tokens, with cold spills, 2+ waves, the same
+    launch counts and no capture after warmup; the reserve comes back whole."""
+    eng = card_engines(arch)
+    pb = RP.kv_page_bytes(eng.cfg, RP.kv_page_size(eng.max_seq))
+    kw = dict(max_slots=4, dram_budget_bytes=6 * pb, prefix_sharing=False)
+    eager = PE.EngineLoop(eng, cuda_graphs=False, **kw)
+    K.reset_launch_counts()
+    eng.stats = PE.EngineStats()
+    want, eager_waves = _spill_trace(eager, eng.cfg.vocab_size)
+    eager_counts = K.launch_counts()
+    assert eng.stats.cold_spilled_pages > 0 and max(eager_waves) >= 2
+    eager.close()
+    graphs = PE.EngineLoop(eng, **kw)
+    graphs.warmup()
+    K.reset_launch_counts()
+    eng.stats = PE.EngineStats()
+    got, waves = _spill_trace(graphs, eng.cfg.vocab_size)
+    assert got == want and waves == eager_waves
+    assert K.launch_counts() == eager_counts
+    assert eng.stats.recompiles_after_warmup == 0
+    assert graphs.pool.staged_count == 0 and graphs.spill.pages_on_flash == 0
+    assert eng.dispatch.fallbacks == []
+    graphs.close()
+
+
+@pytest.mark.gpu
+def test_no_spill_decode_step_makes_one_sync(card_engines):
+    """With the Flash tier in place, a warmed loop's decode step that needs
+    no staging still makes one host wait: sampling's."""
+    import warnings
+    eng = card_engines("qwen2-7b@reduced")
+    loop = PE.EngineLoop(eng, max_slots=4, prefill_chunk=16)
+    loop.warmup()
+    sp = PSM.SamplingParams(temperature=0.0, max_new_tokens=16)
+    for i in range(4):
+        loop.submit(PE.Request(uid=i, prompt_tokens=[3 + i, 5, 7, 9], max_new_tokens=16,
+                               sampling=sp))
+    while loop._prefilling or sum(r is not None for r in loop.scheduler.running) < 4:
+        loop.step()
+    loop.step()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            loop.step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught
+             if "synchroniz" in str(w.message) and "prototype" not in str(w.message)]
+    assert len(syncs) == 1, [f"{w.filename}:{w.lineno}" for w in syncs]
+    assert loop.pool.flash_page_count == 0
+    loop.drain()
+    loop.close()
