@@ -56,6 +56,23 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    decode step, eager and on its graph; kernel path against plain path for
    one prompt chunk and one decode step.
 
+6. ``[wstream]``, weights streamed from Flash through a ring of device slots:
+   full-width qwen2-7b (28 groups, a budget of the head plus 7 groups: a
+   7-slot ring) serves 4 greedy requests of 64-400 prompt tokens (two
+   sharing a 256-token prefix, 16 new tokens, all at step 0) first on the
+   resident engine, then on an engine built from the same parameters under
+   that budget, the resident one released: the same greedy tokens, the
+   stack's device memory freed (within 5% of the policy's bytes), the four
+   kernels launched, nothing fallen back, the CUDA-graph gate recorded,
+   one sync a decode step.  Then full-width moonshot-v1-16b-a3b with its
+   experts streamed (48 groups, a 16-slot ring: the head plus a third of
+   the stack), 4 requests of 48-128 tokens, 8 new: the resident loop's
+   tokens, the grouped kernel on both branches, expert prefetch hits and
+   fewer bytes than whole groups.  Each part prints its export, Flash
+   bytes, installs and wall time a step, one install's host-to-device rate,
+   the time waited for Flash and the syncs of a decode step, and deletes
+   its blobs.  The blobs are read back from the host's page cache.
+
 Launch counts are zeroed just before each serving path and read just after
 it (a graph replay adds the launches its capture recorded): every kernel of
 the path must have launched, and nothing fell back.
@@ -1626,7 +1643,263 @@ def phase_moe(dev) -> dict:
     prompt = specs[3]
     summary["kernel_vs_plain"] = compare_paths("MoE EngineLoop", eng, chunk_then_decode,
                                                prompt, prompt[128])
-    return summary
+    return eng, summary
+
+
+# ---------------------------------------------------------------------------
+# phase 6: weight and expert streaming from Flash through a ring of slots
+# ---------------------------------------------------------------------------
+
+WSTREAM_DENSE_RING = 7        # qwen2-7b: 7 slots for 28 groups
+WSTREAM_MOE_RING = 16         # moonshot: 16 slots for 48 groups (head + stack / 3)
+WSTREAM_MEMORY_SLACK = 0.05   # device weight bytes after the export vs the policy's
+
+
+def wstream_trace(vocab: int, lens, seed: int):
+    """Prompts of ``lens`` tokens; the first and third open with one
+    256-token prefix where they are that long."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    shared = [int(t) for t in rng.integers(1, vocab, 256)]
+    return [shared + [int(t) for t in rng.integers(1, vocab, n - 256)]
+            if i in (0, 2) and n > 256 else [int(t) for t in rng.integers(1, vocab, n)]
+            for i, n in enumerate(lens)]
+
+
+def drive_wstream(loop, specs, max_new: int) -> dict:
+    """Every request at step 0 (greedy), then ``step()`` until idle, each
+    step timed to the device's end and classed (a step that ran a prompt
+    chunk, or a decode step), with the ring installs and Flash bytes it
+    took; the host-device synchronizations of one decode step with all rows
+    decoding are counted (that step is not timed)."""
+    import torch
+    from repro_torch.serving import engine as E
+    from repro_torch.serving import sampling as SM
+    eng = loop.eng
+    rings = [*loop._wstreams.values(), *loop._expert_rings.values()]
+    store = eng.weight_store
+    sp = SM.SamplingParams(temperature=0.0, max_new_tokens=max_new)
+    reqs = [E.Request(uid=i, prompt_tokens=p, max_new_tokens=max_new, sampling=sp)
+            for i, p in enumerate(specs)]
+
+    def counters():
+        return (eng.stats.prefill_chunks, sum(r.installs for r in rings),
+                sum(getattr(r, "expert_installs", 0) for r in rings),
+                store.flash.bytes_read if store is not None else 0)
+    for r in reqs:
+        loop.submit(r)
+    steps, syncs = [], None
+    torch.cuda.synchronize()
+    t_run = time.perf_counter()
+    while loop.has_work():
+        decoding = sum(r is not None for r in loop.scheduler.running)
+        if syncs is None and not loop._prefilling and decoding == len(reqs) \
+                and min(len(r.generated) for r in reqs) >= 1:
+            syncs = count_syncs(loop.step)
+            continue
+        before = counters()
+        t0 = time.perf_counter()
+        loop.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        after = counters()
+        steps.append({"kind": "chunk" if after[0] > before[0] else "decode",
+                      "wall_ms": wall * 1e3, "group_installs": after[1] - before[1],
+                      "expert_installs": after[2] - before[2],
+                      "flash_read_mb": (after[3] - before[3]) / 1e6})
+    wall = time.perf_counter() - t_run
+    assert all(r.done and len(r.generated) == max_new for r in reqs), "unfinished requests"
+    return {"tokens": [r.generated for r in reqs], "steps": steps, "wall_s": wall,
+            "syncs": syncs}
+
+
+def wstream_steps(steps) -> dict:
+    """Median wall time, installs and Flash megabytes of each kind of step."""
+    import statistics
+    out = {}
+    for kind in ("decode", "chunk"):
+        sel = [s for s in steps if s["kind"] == kind]
+        if sel:
+            out[kind] = {"steps": len(sel), **{
+                k: statistics.median(s[k] for s in sel)
+                for k in ("wall_ms", "group_installs", "expert_installs", "flash_read_mb")}}
+    return out
+
+
+def install_rate(ring, store, stack: int) -> dict:
+    """Host-to-device rate of one install: a fetched (pinned) group blob
+    copied into a ring slot 20 times, timed with CUDA events."""
+    import torch
+    blob = store.fetch_group(stack, 1)
+    dst = ring.shared_buf[1] if hasattr(ring, "shared_buf") else ring.buffers[1]
+    n = 20
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    dst.copy_(blob.buffer, non_blocking=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(n):
+        dst.copy_(blob.buffer, non_blocking=True)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / n
+    ring.slot_group[1] = -1            # the slot no longer holds its group
+    if hasattr(ring, "exp_group"):
+        ring.exp_group[1] = [-1] * ring.experts
+    return {"bytes": int(blob.buffer.numel()), "ms": ms,
+            "gb_per_s": blob.buffer.numel() / ms / 1e6, "pinned": blob.buffer.is_pinned()}
+
+
+def phase_wstream(holder: list, label: str, ring_slots: int, lens, max_new: int,
+                  seed: int, spies=None) -> dict:
+    """One part of ``[wstream]``: ``holder`` hands over the resident engine
+    (its caller keeps no other reference).  An all-resident eager loop
+    serves the trace; then a streamed engine is built from the same
+    parameters under a budget of the head plus ``ring_slots`` groups, the
+    resident engine is released, and the streamed loop (asked for CUDA
+    graphs, which the streaming gate turns off) serves the trace again: its
+    greedy tokens must equal the resident run's, the stack's device memory
+    must be freed, every kernel of the path must launch and nothing fall
+    back.  The Flash blobs are deleted at the end.  Every rate here reads
+    blobs the host has just written: page-cache reads."""
+    import shutil
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.runtime import plan as RP
+    from repro_torch.serving import engine as E
+    eng = holder.pop()
+    cfg = eng.cfg
+    moe = bool(cfg.num_experts)
+    kernels = MOE_KERNELS if moe else LOOP_KERNELS
+    specs = wstream_trace(cfg.vocab_size, lens, seed)
+    eng.stats = E.EngineStats()
+    loop, reqs, res_wall = serve_trace(eng, specs, [0] * len(specs), max_new=max_new)
+    want = [r.generated for r in reqs]
+    res = {"wall_s": res_wall, "decode_tok_per_s": eng.stats.decode_tps,
+           "prefill_tok_per_s": eng.stats.prefill_tps}
+    loop.close()
+    del loop, reqs
+    gc.collect()
+
+    full = RP.weight_stream_policy(cfg, eng.params)
+    count = cfg.layer_plan()[0][1]
+    group_bytes = -(-(full.resident_bytes - full.head_bytes) // count)
+    budget = full.head_bytes + ring_slots * group_bytes
+    root = eng.embedding.flash.root
+    free = shutil.disk_usage(root).free
+    log(f"[wstream] {label}: {count} groups of {group_bytes / 1e6:.2f} MB (stack "
+        f"{(full.resident_bytes - full.head_bytes) / 1e9:.2f} GB, head "
+        f"{full.head_bytes / 1e6:.1f} MB); budget head + {ring_slots} groups; Flash "
+        f"directory has {free / 1e9:.1f} GB free; all-resident eager run "
+        f"{res_wall:.2f} s")
+    assert free > 1.1 * (full.resident_bytes - full.head_bytes), "no room on Flash"
+    params, emb = eng.params, eng.embedding
+    torch.cuda.synchronize()
+    mem_resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    streamed = E.Engine(cfg, params, emb, max_seq=eng.max_seq, device=eng.device,
+                        weight_dram_budget_bytes=budget)
+    torch.cuda.synchronize()
+    export_s = time.perf_counter() - t0
+    del eng, params
+    gc.collect()
+    pol = streamed.weight_policy
+    (spl,) = pol.streamed
+    assert spl.ring_groups == ring_slots and bool(spl.experts) == moe, pol
+    freed = mem_resident - torch.cuda.memory_allocated()
+    weights_after = full.resident_bytes - freed
+    loop = make_loop(streamed, cuda_graphs=True)
+    ring = (loop._expert_rings or loop._wstreams)[spl.stack]
+    if moe:
+        ring_alloc = sum(b.numel() for b in ring.shared_buf) + sum(
+            t.numel() * t.element_size() for ts in ring.tables for t in ts)
+    else:
+        ring_alloc = sum(b.numel() for b in ring.buffers)
+    on_card = weights_after + ring_alloc
+    log(f"[wstream] {label}: exported in {export_s:.1f} s, Flash written "
+        f"{streamed.weight_store.flash.bytes_written / 1e9:.2f} GB; device weight bytes "
+        f"{on_card / 1e9:.3f} GB (resident {weights_after / 1e9:.3f} + ring "
+        f"{ring_alloc / 1e9:.3f}) against the policy's {pol.resident_bytes / 1e9:.3f} GB; "
+        f"disabled {loop.disabled_features}")
+    assert on_card <= (1 + WSTREAM_MEMORY_SLACK) * pol.resident_bytes, \
+        f"the streamed stack's memory was not freed: {on_card} > {pol.resident_bytes}"
+    assert not loop.cuda_graphs and "cuda_graphs" in loop.disabled_features
+    assert loop.disabled_features.get("decode_bucketing", "").startswith("weight streaming")
+    rep = None
+    if not moe:
+        rep = loop.warmup()
+        assert rep["graphs"] == 0, rep
+        log(f"[wstream] {label}: warmup {rep['warmup_s']:.1f} s, {rep['graphs']} graphs "
+            f"(chunks {rep['chunk_sizes']})")
+    streamed.stats = E.EngineStats()
+    h0, m0 = streamed.weight_store.prefetch_hits, streamed.weight_store.prefetch_misses
+    read0 = streamed.weight_store.flash.bytes_read
+    stall0 = sum(r.stall_s for r in (*loop._wstreams.values(), *loop._expert_rings.values()))
+    K.reset_launch_counts()
+    if spies is not None:
+        with spies:
+            run = drive_wstream(loop, specs, max_new)
+    else:
+        run = drive_wstream(loop, specs, max_new)
+    counts = K.launch_counts()
+    s = streamed.stats
+    differ = [i for i in range(len(specs)) if run["tokens"][i] != want[i]]
+    assert not differ, f"[wstream] {label}: greedy tokens differ from all-resident for {differ}"
+    for name in kernels:
+        assert counts[name] > 0, f"{name} never launched on the streamed path: {counts}"
+    if spies is not None:
+        spies.check()
+    assert streamed.dispatch.fallbacks == [], streamed.dispatch.fallbacks
+    hits = streamed.weight_store.prefetch_hits - h0
+    misses = streamed.weight_store.prefetch_misses - m0
+    table = wstream_steps(run["steps"])
+    rate = install_rate(ring, streamed.weight_store, spl.stack)
+    out = {"resident": res, "groups": count, "group_bytes": group_bytes,
+           "ring_groups": spl.ring_groups, "budget": budget,
+           "policy_resident_bytes": pol.resident_bytes, "device_weight_bytes": on_card,
+           "export_s": export_s, "flash_bytes_written": streamed.weight_store.flash.bytes_written,
+           "flash_bytes_read": streamed.weight_store.flash.bytes_read - read0,
+           "wall_s": run["wall_s"], "steps": table, "syncs": run["syncs"],
+           "weight_group_hits": hits, "weight_group_misses": misses,
+           "weight_stall_s": s.weight_stall_s - stall0, "install": rate,
+           "warmup": rep, "launches": counts, "disabled_features": loop.disabled_features,
+           "decode_tok_per_s": s.decode_tps, "prefill_tok_per_s": s.prefill_tps,
+           "tokens_equal_resident": True, "flash": "page-cache reads"}
+    log(f"[wstream] {label}: {len(specs)} requests (prompts {[len(p) for p in specs]}, "
+        f"{max_new} new) in {run['wall_s']:.2f} s, greedy tokens equal to all-resident; "
+        f"Flash read {out['flash_bytes_read'] / 1e9:.2f} GB (page-cache reads); prefetch "
+        f"hits {hits}, misses {misses} (hit rate {hits / max(1, hits + misses):.3f}); "
+        f"waited for Flash {out['weight_stall_s']:.2f} s; "
+        f"launches {counts}")
+    for kind, k in table.items():
+        log(f"[wstream] {label}: {kind} steps {k['steps']}: wall {k['wall_ms']:.1f} ms "
+            f"(median), group installs {k['group_installs']:.0f}, expert installs "
+            f"{k['expert_installs']:.0f}, Flash read {k['flash_read_mb']:.0f} MB a step")
+    log(f"[wstream] {label}: one install of {rate['bytes'] / 1e6:.2f} MB from pinned "
+        f"host memory ({rate['pinned']}): {rate['ms']:.3f} ms, {rate['gb_per_s']:.1f} GB/s; "
+        f"a decode step with every row decoding made {run['syncs']['syncs_per_step']} "
+        f"host-device synchronizations at {run['syncs']['sync_sites']}")
+    if moe:
+        out.update({k: getattr(s, k) for k in (
+            "expert_prefetch_hits", "expert_prefetch_misses", "expert_bytes_fetched",
+            "expert_bytes_baseline")})
+        out["expert_bytes_saved_frac"] = s.expert_bytes_saved_frac
+        out["expert_reruns"] = loop.expert_reruns
+        out["grouped_matmul_by_branch"] = spies.by_branch
+        assert s.expert_prefetch_hits > 0, out
+        assert s.expert_bytes_fetched < s.expert_bytes_baseline, out
+        log(f"[wstream] {label}: experts: hits {s.expert_prefetch_hits}, misses "
+            f"{s.expert_prefetch_misses} (hit rate {s.expert_prefetch_hit_rate:.3f}), "
+            f"groups run again {loop.expert_reruns}; fetched "
+            f"{s.expert_bytes_fetched / 1e9:.2f} GB against whole groups' "
+            f"{s.expert_bytes_baseline / 1e9:.2f} GB (saved {s.expert_bytes_saved_frac:.3f}); "
+            f"{spies}")
+    else:
+        assert run["syncs"]["syncs_per_step"] == 1, run["syncs"]
+    loop.close()
+    streamed.close()
+    assert not [f for f in Path(root).iterdir() if f.name.startswith("wgrp")], \
+        "weight blobs left on Flash"
+    return out
 
 
 def main() -> int:
@@ -1668,11 +1941,23 @@ def main() -> int:
     spill = phase_spill(eng)
     spill["phase_s"] = time.perf_counter() - t_spill
     log(f"[spill] phase took {spill['phase_s']:.1f} s")
+    t_ws = time.perf_counter()
+    holder = [eng]
     del eng
+    wstream = {"qwen2-7b": phase_wstream(holder, "qwen2-7b", WSTREAM_DENSE_RING,
+                                         [400, 64, 300, 170], 16, seed=5)}
+    log(f"[wstream] qwen2-7b part took {time.perf_counter() - t_ws:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()            # the MoE engine needs the room
     torch.cuda.reset_peak_memory_stats(dev)
-    moe = phase_moe(dev)
+    eng_moe, moe = phase_moe(dev)
+    t_ws = time.perf_counter()
+    holder = [eng_moe]
+    del eng_moe
+    wstream["moonshot-v1-16b-a3b"] = phase_wstream(
+        holder, "moonshot-v1-16b-a3b", WSTREAM_MOE_RING, [128, 48, 96, 77], 8, seed=6,
+        spies=MoeSpies())
+    log(f"[wstream] moonshot-v1-16b-a3b part took {time.perf_counter() - t_ws:.1f} s")
 
     # launches: the sum over the three serving paths, each counted from zero
     paths = {"EngineLoop qwen2-7b": summary["launches"],
@@ -1680,8 +1965,11 @@ def main() -> int:
              "Engine.generate qwen2-7b": generate["launches"],
              "EngineLoop qwen2-7b, Flash tier": spill["launches"],
              "EngineLoop qwen2-7b, Flash tier, CUDA graphs": spill["graph_launches"],
+             "EngineLoop qwen2-7b, weights streamed": wstream["qwen2-7b"]["launches"],
              "EngineLoop moonshot-v1-16b-a3b": moe["launches"],
-             "EngineLoop moonshot-v1-16b-a3b, CUDA graphs": moe["graphs"]["launches"]}
+             "EngineLoop moonshot-v1-16b-a3b, CUDA graphs": moe["graphs"]["launches"],
+             "EngineLoop moonshot-v1-16b-a3b, experts streamed":
+                 wstream["moonshot-v1-16b-a3b"]["launches"]}
     kernels = []
     for name in KERNELS:
         r = results[name]
@@ -1700,6 +1988,7 @@ def main() -> int:
               "paged_decode_all_shapes": results["paged_quant_decode_attention"]["all_shapes"],
               "main_path": summary, "kernel_vs_plain": checks,
               "generate_path": generate, "spill_path": spill, "moe_path": moe,
+              "wstream": wstream,
               "total_s": time.perf_counter() - t_start}
     (OUT / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
     log(f"[done] {detail['total_s']:.1f} s")

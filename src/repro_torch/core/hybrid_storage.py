@@ -1,6 +1,6 @@
 """DRAM-Flash hybrid storage (paper §4.1, C2) — port of
-``repro.core.hybrid_storage``: the Flash embedding table and the paged-KV
-spill tier.
+``repro.core.hybrid_storage``: the Flash embedding table, the paged-KV
+spill tier and the weight groups of streamed stacks.
 
 "Flash" is a directory of disk-backed ``numpy.memmap`` arrays; "DRAM" is the
 device.  The embedding table lives on Flash and never occupies device
@@ -20,15 +20,22 @@ non-blocking copy, as every host-to-device input of the serving loop does.
 row snapshots of preempted requests and page-granular blobs of running
 rows' cold pages, each one layer group's raw bytes (int8 keys, float32
 scales and zeros, fp8 values as uint8, since numpy has no fp8).  Its
-``_FlashPrefetcher`` worker thread reads blobs ahead of the consumer; it
-uses numpy only and never touches the device.
+``_FlashPrefetcher`` worker thread reads blobs ahead of the consumer.
+
+``WeightGroupStore`` keeps the layer groups of streamed weight stacks: one
+blob per (stack, group) and, for an expert-granular MoE stack, one per
+(stack, group, expert), each holding its leaves' raw bytes back to back
+(bf16 as its bits) with the leaves' offsets kept in memory.  Its worker
+reads a blob into one host buffer -- pinned on the card, so the serving
+loop only enqueues a non-blocking copy into a device ring slot -- where each
+leaf starts on a ``WEIGHT_ALIGN`` boundary, the layout of the slot itself.
 """
 from __future__ import annotations
 
 import os
 import queue
 import threading
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -88,6 +95,30 @@ class FlashStore:
         mm = self._maps[name]
         self._read(mm.nbytes)
         return mm
+
+    def write_blob(self, name: str, arrays: Sequence[np.ndarray]) -> None:
+        """Write the arrays' bytes back to back as one file."""
+        with open(self.path(name), "wb") as f:
+            for a in arrays:
+                f.write(memoryview(np.ascontiguousarray(a)).cast("B"))
+        with self._count:
+            self.bytes_written += sum(int(a.nbytes) for a in arrays)
+
+    def read_blob_into(self, name: str, outs: Sequence[np.ndarray]) -> None:
+        """Fill the byte arrays ``outs`` in turn from one file that
+        ``write_blob`` wrote."""
+        n = 0
+        with open(self.path(name), "rb", buffering=0) as f:
+            for out in outs:
+                view = memoryview(out).cast("B")
+                got = 0
+                while got < len(view):
+                    k = f.readinto(view[got:])
+                    if not k:
+                        raise EOFError(f"{name}: short blob")
+                    got += k
+                n += got
+        self._read(n)
 
     def delete(self, name: str) -> None:
         """Drop a stored array and its backing file."""
@@ -193,8 +224,12 @@ class _FlashPrefetcher:
     from Flash into an in-memory cache ahead of the consumer (the §4.1
     compute/IO overlap).  Subclasses implement ``_load(key)`` and
     ``_has(key)``.  The worker starts at the first request (a store that is
-    never asked ahead starts no thread) and runs numpy only.  After
-    ``close()`` requests are ignored and every fetch reads synchronously."""
+    never asked ahead starts no thread).  It makes no CUDA stream call: a
+    load reads files into host memory, which ``WeightGroupStore`` takes
+    pinned from PyTorch's caching host allocator (the consumer's copy out
+    of it records the event that keeps the buffer until the copy has run).
+    After ``close()`` requests are ignored and every fetch reads
+    synchronously."""
 
     def __init__(self):
         self._cache: Dict = {}
@@ -367,3 +402,153 @@ class PageSpillStore(_FlashPrefetcher):
             for group in groups:
                 if (uid, group) in self._meta:
                     self._drop_key((uid, group))
+
+
+# ---------------------------------------------------------------------------
+# the weight groups of streamed stacks
+# ---------------------------------------------------------------------------
+
+# byte alignment of every leaf in a host buffer and a device ring slot
+WEIGHT_ALIGN = 256
+
+
+def _spec_nbytes(shape, dtype) -> int:
+    return int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+
+
+def leaf_offsets(specs: Sequence[Tuple[tuple, torch.dtype]]) -> Tuple[List[int], int]:
+    """Byte offsets of leaves ``specs`` ((shape, dtype) each) laid out in
+    order, each on a ``WEIGHT_ALIGN`` boundary, and the layout's size."""
+    offsets, end = [], 0
+    for shape, dtype in specs:
+        start = -(-end // WEIGHT_ALIGN) * WEIGHT_ALIGN
+        offsets.append(start)
+        end = start + _spec_nbytes(shape, dtype)
+    return offsets, -(-end // WEIGHT_ALIGN) * WEIGHT_ALIGN
+
+
+def leaf_views(buf: torch.Tensor, specs, offsets) -> List[torch.Tensor]:
+    """Typed views of the leaves laid out in the byte tensor ``buf``."""
+    return [buf[o:o + _spec_nbytes(shape, dtype)].view(dtype).view(shape)
+            for (shape, dtype), o in zip(specs, offsets)]
+
+
+def _host_bytes(t: torch.Tensor) -> np.ndarray:
+    """A tensor's bytes on the host as a flat numpy array (bf16 as its
+    bits: numpy has no bf16)."""
+    return t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy()
+
+
+class WeightBlob:
+    """One fetched weight blob: the host byte buffer (pinned when the store
+    pins) and a typed view of each leaf in it."""
+
+    def __init__(self, buffer: torch.Tensor, leaves: List[torch.Tensor]):
+        self.buffer = buffer
+        self.leaves = leaves
+
+
+class WeightGroupStore(_FlashPrefetcher):
+    """Per-layer weight groups of streamed stacks on Flash, as the
+    reference's: at engine build time each streamed stack is exported one
+    layer group at a time (``put_group``), an expert-granular MoE stack's
+    expert tables one expert at a time (``put_expert_group``; the group's
+    blob then holds its shared leaves only: router, norms, attention).  At
+    serve time the loop prefetches the next group while one computes.
+
+    Keys are ``(stack, group)`` and ``(stack, group, expert)``.  A fetch
+    returns a ``WeightBlob`` whose leaves come in the order they were put;
+    its buffer is read in the worker (a hit moves no byte on the consumer's
+    thread), pinned when ``pin_memory``.  Blob names carry the store's id,
+    so stores and the page spill tier share one Flash root."""
+
+    def __init__(self, flash: FlashStore, pin_memory: bool = False):
+        self.flash = flash
+        self.pin_memory = pin_memory
+        self._names: Dict[tuple, str] = {}
+        self._specs: Dict[tuple, list] = {}
+        self._group_nbytes: Dict[tuple, int] = {}
+        super().__init__()
+
+    # -- export (engine build time) -----------------------------------------
+    def _put(self, key: tuple, name: str, tensors: Sequence[torch.Tensor]) -> None:
+        name = f"wgrp{id(self):x}_{name}"
+        arrays = [_host_bytes(t) for t in tensors]
+        self.flash.write_blob(name, arrays)
+        with self._lock:
+            self._names[key] = name
+            self._specs[key] = [(tuple(t.shape), t.dtype) for t in tensors]
+            self._group_nbytes[key] = sum(int(a.nbytes) for a in arrays)
+            self._cache.pop(key, None)          # stale
+
+    def put_group(self, stack: int, group: int,
+                  tensors: Sequence[torch.Tensor]) -> None:
+        """Persist one layer group's leaves (an expert-granular stack's
+        shared leaves only)."""
+        self._put((stack, group), f"s{stack}_g{group}", tensors)
+
+    def put_expert_group(self, stack: int, group: int, expert: int,
+                         tensors: Sequence[torch.Tensor]) -> None:
+        """Persist ONE expert's slice of one layer group's expert tables."""
+        self._put((stack, group, expert), f"s{stack}_g{group}_e{expert}", tensors)
+
+    # -- prefetch pump -------------------------------------------------------
+    def _load(self, key: tuple) -> WeightBlob:
+        with self._lock:
+            name, specs = self._names[key], self._specs[key]
+        offsets, total = leaf_offsets(specs)
+        buf = torch.empty((total,), dtype=torch.uint8, pin_memory=self.pin_memory)
+        host = buf.numpy()
+        self.flash.read_blob_into(name, [host[o:o + _spec_nbytes(*sp)]
+                                         for sp, o in zip(specs, offsets)])
+        return WeightBlob(buf, leaf_views(buf, specs, offsets))
+
+    def _has(self, key: tuple) -> bool:
+        return key in self._names
+
+    def prefetch_group(self, stack: int, group: int) -> None:
+        """Queue group (stack, group) for a background read."""
+        self._request((stack, group))
+
+    def fetch_group(self, stack: int, group: int) -> WeightBlob:
+        """One group's leaves (blocking on an in-flight prefetch; a
+        synchronous Flash read on a miss)."""
+        return self._obtain((stack, group))
+
+    def prefetch_expert(self, stack: int, group: int, expert: int) -> None:
+        """Queue one expert's slice of a group for a background read."""
+        self._request((stack, group, expert))
+
+    def fetch_expert(self, stack: int, group: int, expert: int) -> WeightBlob:
+        """One expert slice's leaves (blocking on an in-flight prefetch; a
+        synchronous Flash read on a cold-expert miss)."""
+        return self._obtain((stack, group, expert))
+
+    # -- accounting ----------------------------------------------------------
+    def group_nbytes(self, stack: int, group: int = 0) -> int:
+        return self._group_nbytes.get((stack, group), 0)
+
+    def expert_nbytes(self, stack: int, group: int = 0, expert: int = 0) -> int:
+        return self._group_nbytes.get((stack, group, expert), 0)
+
+    def stack_nbytes(self, stack: int) -> int:
+        return sum(n for k, n in self._group_nbytes.items() if k[0] == stack)
+
+    @property
+    def total_nbytes(self) -> int:
+        return sum(self._group_nbytes.values())
+
+    def groups(self) -> list:
+        with self._lock:
+            return sorted(self._names)
+
+    def drop_all(self) -> None:
+        """Stop the worker and delete every blob from Flash."""
+        self.close()
+        with self._lock:
+            for name in self._names.values():
+                self.flash.delete(name)
+            self._names.clear()
+            self._specs.clear()
+            self._group_nbytes.clear()
+            self._cache.clear()

@@ -9,7 +9,9 @@ repro.launch.serve`` (no HTTP gateway).
       --max-seq 1024 --max-prompt 400
 
 ``--arch`` takes ``<arch>`` or ``<arch>@reduced`` / ``@tiny`` / ``@tiny-moe``
-(MoE architectures); weights are random, drawn from ``--seed``.  It runs on
+(MoE architectures); weights are random, drawn from ``--seed``.  With
+``--weight-dram-budget BYTES`` the stacks that overflow the budget stream
+from Flash through a ring of device slots (``EngineLoop`` only).  It runs on
 ``cuda``; ``--device cpu`` runs the plain PyTorch path instead.  With
 ``--warmup`` (the default) the loop captures every step graph before
 serving and prints the reference's warmup line.  Prints every request's
@@ -58,6 +60,10 @@ def main(argv: Optional[List[str]] = None) -> List[E.Request]:
                     help="capture every decode-bucket / prompt-chunk step graph "
                          "before serving (on the card; on the CPU the steps run "
                          "once, eagerly); --no-warmup captures each where first met")
+    ap.add_argument("--weight-dram-budget", type=int, default=None, metavar="BYTES",
+                    help="device byte budget for the WEIGHTS: stacks that overflow "
+                         "it stream per layer group from Flash through a ring of "
+                         "device slots (default: everything resident)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain path)")
     ap.add_argument("--flash-dir", default=None,
@@ -67,10 +73,17 @@ def main(argv: Optional[List[str]] = None) -> List[E.Request]:
     cfg = registry.get(args.arch)
     t0 = time.perf_counter()
     eng = E.build_engine(cfg, seed=args.seed, max_seq=args.max_seq,
-                         flash_dir=args.flash_dir, device=args.device)
+                         flash_dir=args.flash_dir, device=args.device,
+                         weight_dram_budget_bytes=args.weight_dram_budget)
     print(f"[serve] arch={cfg.name} quant={cfg.quant.tag()} on {eng.device} "
           f"(embedding on Flash, int8-K/fp8-V paged KV); built in "
           f"{time.perf_counter() - t0:.1f}s")
+    pol = eng.weight_policy
+    if pol.active:
+        print(f"[serve] weight streaming: {len(pol.streamed)} stack(s) on Flash, "
+              f"ring {pol.ring_bytes / 1024:.0f} KiB, resident "
+              f"{pol.resident_bytes / 1024:.0f} KiB of budget "
+              f"{pol.dram_budget_bytes / 1024:.0f} KiB")
     rng = np.random.default_rng(args.seed)
     sp = SM.SamplingParams(temperature=args.temperature, top_k=args.top_k,
                            max_new_tokens=args.max_new)
@@ -118,10 +131,17 @@ def main(argv: Optional[List[str]] = None) -> List[E.Request]:
               f"preemptions {s.preemptions}, pages spilled {s.spilled_pages} / "
               f"restored {s.restored_pages}, cold pages spilled "
               f"{s.cold_spilled_pages}")
+        if pol.active:
+            print(f"[serve] weight groups: hit rate {s.weight_stream_hit_rate:.3f} "
+                  f"({s.weight_group_hits} hits, {s.weight_group_misses} misses), "
+                  f"stall {s.weight_stall_s * 1e3:.1f} ms; experts: hit rate "
+                  f"{s.expert_prefetch_hit_rate:.3f}, bytes saved "
+                  f"{s.expert_bytes_saved_frac:.3f}")
         loop.close()
     print(f"[serve] prefill {s.prefill_tokens} toks @ {s.prefill_tps:.1f} t/s; "
           f"decode {s.decode_tokens} toks @ {s.decode_tps:.1f} t/s; "
           f"flash reads {s.flash_bytes / 1024:.1f} KiB")
+    eng.close()
     return out
 
 

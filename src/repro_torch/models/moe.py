@@ -21,7 +21,7 @@ index, which a stable descending sort reproduces.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -151,13 +151,15 @@ def _num_groups(batch: int, mesh_data: int = 16) -> int:
 
 
 def apply_moe(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
-              dispatch: D.Dispatcher, full_capacity: bool = False
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+              dispatch: D.Dispatcher, full_capacity: bool = False,
+              collect: Optional[dict] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B, T, d] -> (y [B, T, d], aux [2]).  Tokens form G = gcd(B, 16)
     groups; sequences longer than ``MOE_CHUNK_TOKENS // B`` that it divides
     are dispatched chunk by chunk along T.  ``full_capacity`` (serving)
     sizes expert capacity to the worst case, so routing never depends on
-    the prefill chunk length."""
+    the prefill chunk length.  With ``collect`` a dict, the router's top-k
+    expert ids land in ``collect["moe_ids"]`` [B, T, K] (on the device):
+    what the serving loop reads to stream only the experts a step needs."""
     B, T, d = x.shape
     G = _num_groups(B)
     bg = B // G                                      # sequences per group
@@ -168,10 +170,16 @@ def apply_moe(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
         outs = [_dispatch_moe(xc[i], p, cfg, dispatch, full_capacity) for i in range(nc)]
         y = torch.stack([o[0] for o in outs]).reshape(nc, G, bg, ct, d)
         y = y.permute(1, 2, 0, 3, 4).reshape(B, T, d)
+        if collect is not None:
+            ids = torch.stack([o[2] for o in outs])
+            ids = ids.reshape(nc, G, bg, ct, ids.shape[-1]).permute(1, 2, 0, 3, 4)
+            collect["moe_ids"] = ids.reshape(B, T, ids.shape[-1])
         return y, torch.stack([o[1] for o in outs]).mean(0)
     if B * T * cfg.experts_per_tok <= cfg.num_experts:
-        y, aux, _ids = _dispatch_moe_tiny(x.reshape(G, bg * T, d), p, cfg, dispatch)
+        y, aux, ids = _dispatch_moe_tiny(x.reshape(G, bg * T, d), p, cfg, dispatch)
     else:
-        y, aux, _ids = _dispatch_moe(x.reshape(G, bg * T, d), p, cfg, dispatch,
-                                     full_capacity)
+        y, aux, ids = _dispatch_moe(x.reshape(G, bg * T, d), p, cfg, dispatch,
+                                    full_capacity)
+    if collect is not None:
+        collect["moe_ids"] = ids.reshape(B, T, ids.shape[-1])
     return y.reshape(B, T, d), aux

@@ -10,11 +10,15 @@ Parameters keep the reference's tree: ``{"stacks": (stack, ...),
 period pattern whose leaves are stacked on a leading [count] axis.  Layers
 run as a Python loop over that axis (the reference scans it).  Caches and
 page pools are updated in place.
+
+A stack streamed from Flash runs one layer group at a time out of a ring
+slot's parameter tree (``run_stack_group``); the paged steps take the
+caller's stack runner for that (``run_stacks``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -135,10 +139,12 @@ def free_slots(cache: dict, rows) -> dict:
 
 def _apply_layer(x: torch.Tensor, pp: dict, cfg: ModelConfig, pat: LayerPattern,
                  mode: str, positions: torch.Tensor, cache, pos, table,
-                 dispatch: D.Dispatcher, policy: PrecisionPolicy):
+                 dispatch: D.Dispatcher, policy: PrecisionPolicy,
+                 collect: Optional[dict] = None):
     """One layer.  ``cache`` is this layer's ``PagedLayerKV`` (modes
     "prefill_paged" and "decode") or ``LayerKVCache`` ("prefill" and
-    "decode").  Returns (x, the layer's cache after the step)."""
+    "decode").  ``collect``: an MoE layer's router ids (``apply_moe``).
+    Returns (x, the layer's cache after the step)."""
     h = L.rms_norm(x, pp["ln1"], cfg.rms_eps, dispatch)
     if mode == "prefill_paged":
         att = A.attention_prefill_paged(h, pp["attn"], cfg, pat, cache, table,
@@ -157,7 +163,7 @@ def _apply_layer(x: torch.Tensor, pp: dict, cfg: ModelConfig, pat: LayerPattern,
     if pat.moe:
         # serving sizes expert capacity to the worst case: no token drops
         y, _aux = M.apply_moe(h2, pp["moe"], cfg, dispatch=dispatch,
-                              full_capacity=True)
+                              full_capacity=True, collect=collect)
     else:
         y = L.apply_ffn(h2, pp["ffn"], cfg, dispatch)
     return x + y, cache
@@ -195,6 +201,32 @@ def _run_stacks(x: torch.Tensor, params: dict, cfg: ModelConfig, mode: str,
     return x
 
 
+def run_stack_group(gp: tuple, cfg: ModelConfig, stack_idx: int, mode: str,
+                    x: torch.Tensor, positions: torch.Tensor, cache: dict,
+                    group: int, pos, table, dispatch: D.Dispatcher,
+                    policy: PrecisionPolicy = DEFAULT_POLICY,
+                    collect: Optional[dict] = None) -> torch.Tensor:
+    """ONE layer group of one stack on the paged pool (modes "decode" and
+    "prefill_paged", arguments as ``_run_stacks``'s): ``gp`` is the group's
+    parameter tree (one dict per period pattern, no leading [count] axis;
+    a ring slot's), run against layer ``group`` of the stack's page pools.
+    The layers are the ones ``_run_stacks`` applies, in its order, so a pass
+    over every group is the resident step.  With ``collect`` a dict, the
+    group's MoE router ids land in ``collect["moe_ids"]`` [n_moe, B, T, K]."""
+    patterns, _count = cfg.layer_plan()[stack_idx]
+    ids = []
+    for pi, pat in enumerate(patterns):
+        sub = None if collect is None else {}
+        x, _ = _apply_layer(x, gp[pi], cfg, pat, mode, positions,
+                            cache["stacks"][stack_idx][pi].layer(group), pos, table,
+                            dispatch, policy, sub)
+        if sub:
+            ids.append(sub["moe_ids"])
+    if collect is not None and ids:
+        collect["moe_ids"] = torch.stack(ids)
+    return x
+
+
 def _logits(x: torch.Tensor, params: dict, cfg: ModelConfig,
             dispatch: D.Dispatcher) -> torch.Tensor:
     h = L.rms_norm(x, params["final_norm"], cfg.rms_eps, dispatch)
@@ -206,7 +238,8 @@ def prefill_chunk_paged(params: dict, cfg: ModelConfig, embeds: torch.Tensor,
                         cache: dict, slot, pos0, last_idx,
                         dispatch: D.Dispatcher,
                         policy: PrecisionPolicy = DEFAULT_POLICY,
-                        collect: Optional[list] = None) -> torch.Tensor:
+                        collect: Optional[list] = None,
+                        run_stacks: Optional[Callable] = None) -> torch.Tensor:
     """One prompt chunk for decode row ``slot`` written straight into the
     pool.  embeds [1, C, d] at absolute positions [pos0, pos0 + C); a
     padded final chunk's keys land in causally dead positions or the trash
@@ -214,7 +247,9 @@ def prefill_chunk_paged(params: dict, cfg: ModelConfig, embeds: torch.Tensor,
     ``slot``, ``pos0`` and ``last_idx`` are ints or one-element int32 device
     tensors: read from the device, they never make the host wait and a CUDA
     graph replays the step for any values.  The caller advances
-    ``cache["pos"]`` once the whole prompt is in."""
+    ``cache["pos"]`` once the whole prompt is in.  ``run_stacks(x, mode,
+    positions, pos, table)`` replaces the resident stacks' run (streamed
+    weights)."""
     x = embeds.to(torch.bfloat16)
     B, C = x.shape[:2]
     if B != 1:
@@ -222,8 +257,11 @@ def prefill_chunk_paged(params: dict, cfg: ModelConfig, embeds: torch.Tensor,
     slot, pos0, last_idx = (KP.device_scalar(v, x.device) for v in (slot, pos0, last_idx))
     positions = (pos0 + torch.arange(C, device=x.device, dtype=torch.int32))[None]
     table_row = cache["table"].index_select(0, slot.long())[0]
-    x = _run_stacks(x, params, cfg, "prefill_paged", positions, cache, pos0,
-                    table_row, dispatch, policy, collect)
+    if run_stacks is not None:
+        x = run_stacks(x, "prefill_paged", positions, pos0, table_row)
+    else:
+        x = _run_stacks(x, params, cfg, "prefill_paged", positions, cache, pos0,
+                        table_row, dispatch, policy, collect)
     last = x.index_select(1, last_idx.long())
     return _logits(last, params, cfg, dispatch)[:, 0]
 
@@ -232,22 +270,26 @@ def decode_step_bucketed(params: dict, cfg: ModelConfig, embeds: torch.Tensor,
                          cache: dict, slot_idx: torch.Tensor, dispatch: D.Dispatcher,
                          active: Optional[torch.Tensor] = None,
                          policy: PrecisionPolicy = DEFAULT_POLICY,
-                         collect: Optional[list] = None
+                         collect: Optional[list] = None,
+                         run_stacks: Optional[Callable] = None
                          ) -> Tuple[torch.Tensor, dict]:
     """One decode step over a bucket of rows gathered from the slot set:
     embeds [b, 1, d]; ``slot_idx`` [b] names each bucket row's slot (pad
     rows are distinct idle slots, masked by ``active`` [b] and routed to the
     trash page by their all-trash table rows).  Only ``pos`` and the table
     are gathered — the pool is physical-page addressed and never moves.
-    Returns (logits [b, V] in bucket order, cache with ``pos`` advanced for
-    the active rows)."""
+    ``run_stacks`` as in ``prefill_chunk_paged``.  Returns (logits [b, V] in
+    bucket order, cache with ``pos`` advanced for the active rows)."""
     x = embeds.to(torch.bfloat16)
     b, T = x.shape[:2]
     idx = slot_idx.long()
     pos = cache["pos"][idx]
     positions = pos[:, None] + torch.arange(T, device=x.device, dtype=pos.dtype)[None]
-    x = _run_stacks(x, params, cfg, "decode", positions, cache, pos,
-                    cache["table"][idx], dispatch, policy, collect)
+    if run_stacks is not None:
+        x = run_stacks(x, "decode", positions, pos, cache["table"][idx])
+    else:
+        x = _run_stacks(x, params, cfg, "decode", positions, cache, pos,
+                        cache["table"][idx], dispatch, policy, collect)
     stepped = pos + T if active is None else torch.where(active, pos + T, pos)
     cache["pos"][idx] = stepped
     return _logits(x, params, cfg, dispatch)[:, -1], cache

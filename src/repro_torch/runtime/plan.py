@@ -12,14 +12,18 @@
   the decode batch-bucket ladder and the prefill chunk cap — the same
   geometry as the reference, so allocation and scheduling follow it step
   for step.
+* The weight placement under a device byte budget (``weight_stream_policy``):
+  which stacks stay resident and which stream from Flash through a ring of
+  layer-group slots, with the reference's byte counts — taken over the same
+  packed leaves, so every decision and counter follows it.
 
-The reference's TPU tile solver and weight streaming are not part of the
-port: tiles are the CUDA kernels' own, and every weight stays resident.
+The reference's TPU tile solver is not part of the port: tiles are the CUDA
+kernels' own.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -132,6 +136,165 @@ def is_expert_path(path) -> bool:
     return any(getattr(p, "key", p) in EXPERT_PARAM_KEYS for p in path)
 
 
+_CARRIER_FIELDS = ("data", "scale", "zero")
+
+
+def tree_leaves_with_path(tree, path: tuple = ()) -> Iterator[Tuple[tuple, torch.Tensor]]:
+    """(key path, tensor) of every array leaf of a parameter tree: dicts by
+    sorted key and tuples by index (the reference's flattening order), a
+    packed or quantized linear as its ``data``, ``scale`` and ``zero``
+    fields; ``None`` (a stack exported to Flash) has no leaves."""
+    if tree is None:
+        return
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_leaves_with_path(tree[k], path + (k,))
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            yield from tree_leaves_with_path(v, path + (i,))
+    elif isinstance(tree, (PackedLinear, q.QuantizedTensor)):
+        for f in _CARRIER_FIELDS:
+            yield path + (f,), getattr(tree, f)
+    else:
+        yield path, tree
+
+
+def map_tree(fn, tree):
+    """``tree`` with every array leaf replaced by ``fn(leaf)``, called in
+    ``tree_leaves_with_path`` order (the same structure and packed-linear
+    metadata)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (tuple, list)):
+        return tuple(map_tree(fn, v) for v in tree)
+    if isinstance(tree, (PackedLinear, q.QuantizedTensor)):
+        return dataclasses.replace(tree, **{f: fn(getattr(tree, f))
+                                            for f in _CARRIER_FIELDS})
+    return fn(tree)
+
+
+# ---------------------------------------------------------------------------
+# Weight streaming: the placement of the weights under a device byte budget
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class StreamedStackPlan:
+    """One stack whose layer groups stream through a ring of device slots."""
+    stack: int                 # index into cfg.layer_plan()
+    count: int                 # layer groups in the stack
+    group_bytes: int           # bytes of one group's leaf slices
+    ring_groups: int           # ring slots (>= 2: double-buffered)
+    experts: int = 0           # > 0: expert-granular streaming (MoE stack)
+    expert_bytes: int = 0      # bytes of ONE expert's slice of one group
+    shared_bytes: int = 0      # bytes of a group's non-expert (shared) leaves
+
+    @property
+    def ring_bytes(self) -> int:
+        return self.ring_groups * self.group_bytes
+
+
+@dataclasses.dataclass(frozen=True)
+class WeightStreamPolicy:
+    """Device/Flash placement of the weights under a byte budget, the
+    reference's: ``lm_head`` and ``final_norm`` (read whole every step) stay
+    resident; stacks stay resident in layer order while they fit, and each
+    overflowing stack streams group by group through a ring whose slot count
+    is sized from the budget left.  ``placement`` maps each entry to "dram"
+    or "stream"."""
+    dram_budget_bytes: Optional[int]
+    head_bytes: int                     # lm_head + final_norm (resident)
+    resident_bytes: int                 # head + resident stacks + rings
+    streamed: Tuple[StreamedStackPlan, ...]
+    placement: Dict[str, str]
+
+    @property
+    def active(self) -> bool:
+        return bool(self.streamed)
+
+    @property
+    def ring_bytes(self) -> int:
+        return sum(s.ring_bytes for s in self.streamed)
+
+    def streamed_stack(self, stack: int) -> Optional[StreamedStackPlan]:
+        for s in self.streamed:
+            if s.stack == stack:
+                return s
+        return None
+
+
+def _tree_nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for _p, t in tree_leaves_with_path(tree))
+
+
+def _expert_group_bytes(stack_tree, count: int, experts: int) -> Tuple[int, int]:
+    """(per-expert bytes, shared bytes) of ONE layer group of a stack: the
+    ``w_gate``/``w_up``/``w_down`` leaves split per expert, every other leaf
+    (router, norms, attention) is shared.  (0, group bytes) for a stack
+    without expert leaves."""
+    leaves = list(tree_leaves_with_path(stack_tree))
+    nb = lambda t: t.numel() * t.element_size()
+    expert_total = sum(nb(t) for p, t in leaves if is_expert_path(p))
+    shared_total = sum(nb(t) for p, t in leaves if not is_expert_path(p))
+    if not expert_total or not experts:
+        return 0, -(-(expert_total + shared_total) // count)
+    return -(-expert_total // (count * experts)), -(-shared_total // count)
+
+
+def weight_stream_policy(cfg, params, dram_budget_bytes: Optional[int] = None,
+                         ring_groups: int = 2,
+                         expert_granular: bool = True) -> WeightStreamPolicy:
+    """The weight placement of ``params`` under ``dram_budget_bytes`` (the
+    budget for the weights; ``None``: everything resident).  A stack streams
+    only when its ring would be smaller than the stack (``ring < count``);
+    the ring takes the budget left, up to ``count - 1`` slots, floored at
+    ``ring_groups`` (2: group g computes while g + 1 installs)."""
+    plan_stacks = cfg.layer_plan()
+    head_bytes = _tree_nbytes(params["final_norm"]) + _tree_nbytes(params["lm_head"])
+    placement: Dict[str, str] = {"final_norm": "dram", "lm_head": "dram"}
+    if dram_budget_bytes is None:
+        for si in range(len(plan_stacks)):
+            placement[f"stacks/{si}"] = "dram"
+        resident = head_bytes + sum(_tree_nbytes(s) for s in params["stacks"])
+        return WeightStreamPolicy(dram_budget_bytes=None, head_bytes=head_bytes,
+                                  resident_bytes=resident, streamed=(),
+                                  placement=placement)
+    left = int(dram_budget_bytes) - head_bytes
+    resident = head_bytes
+    streamed = []
+    for si, (_patterns, count) in enumerate(plan_stacks):
+        stack_bytes = _tree_nbytes(params["stacks"][si])
+        group_bytes = -(-stack_bytes // count)
+        if stack_bytes <= left:
+            placement[f"stacks/{si}"] = "dram"
+            resident += stack_bytes
+            left -= stack_bytes
+            continue
+        ring = max(ring_groups, min(count - 1, left // group_bytes if group_bytes
+                                    else ring_groups))
+        # a 2-group stack cannot double-buffer a strict subset: resident
+        if ring >= count or count < 3:
+            placement[f"stacks/{si}"] = "dram"
+            resident += stack_bytes
+            left -= stack_bytes
+            continue
+        placement[f"stacks/{si}"] = "stream"
+        experts = expert_bytes = shared_bytes = 0
+        if expert_granular and getattr(cfg, "num_experts", 0):
+            eb, sb = _expert_group_bytes(params["stacks"][si], count, cfg.num_experts)
+            if eb:
+                experts, expert_bytes, shared_bytes = cfg.num_experts, eb, sb
+        streamed.append(StreamedStackPlan(
+            stack=si, count=count, group_bytes=group_bytes, ring_groups=int(ring),
+            experts=experts, expert_bytes=expert_bytes, shared_bytes=shared_bytes))
+        resident += ring * group_bytes
+        left -= ring * group_bytes
+    return WeightStreamPolicy(dram_budget_bytes=int(dram_budget_bytes),
+                              head_bytes=head_bytes, resident_bytes=resident,
+                              streamed=tuple(streamed), placement=placement)
+
+
 def decode_buckets(max_slots: int, uniform: bool = True) -> Tuple[int, ...]:
     """Batch-size ladder for bucketed decode: 1/2/4/... below
     ``max_slots``, topped by ``max_slots`` itself."""
@@ -183,9 +346,11 @@ def kv_page_bytes(cfg, page_size: int) -> int:
 
 @dataclasses.dataclass
 class ExecutionPlan:
-    """Decided once per model: the packed params and the pool geometry."""
+    """Decided once per model: the packed params, the pool geometry and the
+    weights' placement."""
     quant_tag: str
     params: Any
+    placement: Dict[str, str] = dataclasses.field(default_factory=dict)
 
     def decode_buckets(self, max_slots: int,
                        uniform: bool = True) -> Tuple[int, ...]:
@@ -234,3 +399,15 @@ class ExecutionPlan:
             staging_pages=geom.staging_pages, hot_pages=1,
             low_watermark=low, high_watermark=high,
             flash_budget_pages=int(budget))
+
+    def weight_placement(self, cfg, dram_budget_bytes: Optional[int] = None,
+                         ring_groups: int = 2,
+                         expert_granular: bool = True) -> WeightStreamPolicy:
+        """The weights' placement under a byte budget (``weight_stream_policy``);
+        its per-entry decisions merge into ``self.placement``."""
+        policy = weight_stream_policy(cfg, self.params,
+                                      dram_budget_bytes=dram_budget_bytes,
+                                      ring_groups=ring_groups,
+                                      expert_granular=expert_granular)
+        self.placement.update(policy.placement)
+        return policy

@@ -20,9 +20,18 @@ The KV pool has the reference's Flash tier (C2): cold prompt pages of
 running rows spill to Flash under page pressure and are gathered back into
 a staging reserve of device pages before each decode, in as many waves as
 the reserve needs; a request preempted under queue patience or page
-pressure spills its row to Flash and is restored bit for bit.  Not ported
-(ROADMAP queue 1 items 11 and 16): weight and expert streaming, and LoRA,
-which raise ``NotImplementedError``.
+pressure spills its row to Flash and is restored bit for bit.
+
+So do the weights: an ``Engine`` built with ``weight_dram_budget_bytes``
+keeps the stacks that overflow the budget on Flash (``runtime.plan``'s
+policy), one blob per layer group (per expert, for an expert-granular MoE
+stack), and frees their device memory.  ``EngineLoop`` then runs those
+stacks group by group out of a ring of device slots allocated once and
+written in place, the next group's Flash read queued while one computes;
+an MoE group installs the experts its router history predicts and runs
+again when the router picked a cold one.  That split step runs eagerly
+(``disabled_features["cuda_graphs"]``).  Not ported (ROADMAP queue 1 item
+16): LoRA, which raises ``NotImplementedError``.
 
 ``EngineLoop.warmup`` is the reference's: where the reference pre-compiles
 one step graph per decode bucket and per prompt-chunk size, the port
@@ -151,6 +160,20 @@ class EngineStats:
     # the hot loop never captured once warmed
     compile_events: int = 0
     recompiles_after_warmup: int = 0
+    # weight streaming: layer groups (and expert slices) served through the
+    # prefetch pipeline vs synchronous Flash reads, the seconds the loop
+    # waited for Flash, and the device bytes of resident weights and rings
+    weight_group_hits: int = 0
+    weight_group_misses: int = 0
+    weight_stall_s: float = 0.0
+    dram_weight_bytes: int = 0
+    # router-aware expert streaming, per decode visit of an MoE group: routed
+    # experts the prediction had installed (hits) or not (misses), and the
+    # Flash bytes fetched vs the install-every-expert baseline
+    expert_prefetch_hits: int = 0
+    expert_prefetch_misses: int = 0
+    expert_bytes_fetched: int = 0
+    expert_bytes_baseline: int = 0
     # features the loop resolved off at construction: name -> reason
     disabled_features: Dict[str, str] = dataclasses.field(default_factory=dict)
     requests: List[RequestStats] = dataclasses.field(default_factory=list)
@@ -169,6 +192,28 @@ class EngineStats:
         total = self.flash_page_hits + self.flash_page_misses
         return self.flash_page_hits / total if total else 1.0
 
+    @property
+    def weight_stream_hit_rate(self) -> float:
+        """Share of streamed weight fetches served through the prefetch
+        pipeline (1.0 when nothing streams)."""
+        total = self.weight_group_hits + self.weight_group_misses
+        return self.weight_group_hits / total if total else 1.0
+
+    @property
+    def expert_prefetch_hit_rate(self) -> float:
+        """Share of routed experts the router-history prediction had
+        installed when their group ran (1.0 when no expert stack streams)."""
+        total = self.expert_prefetch_hits + self.expert_prefetch_misses
+        return self.expert_prefetch_hits / total if total else 1.0
+
+    @property
+    def expert_bytes_saved_frac(self) -> float:
+        """Share of whole-group streaming's Flash traffic that per-expert
+        fetches avoided on the decode path (0.0 when none streams)."""
+        if not self.expert_bytes_baseline:
+            return 0.0
+        return 1.0 - self.expert_bytes_fetched / self.expert_bytes_baseline
+
     def ttft(self, p: float = 50.0) -> float:
         return percentile([r.ttft_s for r in self.requests], p)
 
@@ -179,13 +224,182 @@ class EngineStats:
         return percentile([r.latency_s for r in self.requests], p)
 
 
+def _alloc_slot(specs, device: torch.device):
+    """One device byte buffer laid out as ``HS.leaf_offsets(specs)`` and a
+    typed view of each leaf in it."""
+    offsets, total = HS.leaf_offsets(specs)
+    buf = torch.empty((total,), dtype=torch.uint8, device=device)
+    return buf, HS.leaf_views(buf, specs, offsets)
+
+
+def _slot_tree(skeleton, leaves):
+    """The group parameter tree of ``skeleton`` (meta tensors) with its
+    leaves, in ``RP.tree_leaves_with_path`` order, taken from ``leaves``."""
+    it = iter(leaves)
+    return RP.map_tree(lambda _meta: next(it), skeleton)
+
+
+class WeightRing:
+    """A ring of device slots for ONE streamed stack.  Group ``g`` runs out
+    of slot ``g % ring_groups``, so with at least 2 slots the group computing
+    and the group installing never share one.  Each slot is one byte buffer
+    allocated once, with the group's leaves as views into it; an install is
+    one non-blocking copy of a fetched blob (pinned, laid out as the slot)
+    into it.  The copies and the launches share one stream, so an install
+    into a slot runs after every launch that reads the group before it."""
+
+    def __init__(self, store: HS.WeightGroupStore, stack: int, count: int,
+                 ring_groups: int, skeleton, device: torch.device):
+        if ring_groups < 2:
+            raise ValueError("the ring must double-buffer")
+        self.store = store
+        self.stack = stack
+        self.count = count
+        self.ring_groups = ring_groups
+        specs = [(tuple(t.shape), t.dtype) for _p, t in RP.tree_leaves_with_path(skeleton)]
+        self.buffers, self.slots = [], []
+        for _ in range(ring_groups):
+            buf, leaves = _alloc_slot(specs, device)
+            self.buffers.append(buf)
+            self.slots.append(_slot_tree(skeleton, leaves))
+        self.slot_group = [-1] * ring_groups
+        self.stall_s = 0.0                # waiting for Flash
+        self.installs = 0
+
+    def slot_of(self, group: int) -> int:
+        return group % self.ring_groups
+
+    def prefetch(self, group: int) -> None:
+        # a group already in its slot needs no read (a fetch nobody takes
+        # would only hold host memory)
+        if 0 <= group < self.count and self.slot_group[self.slot_of(group)] != group:
+            self.store.prefetch_group(self.stack, group)
+
+    def obtain(self, group: int):
+        """The group's parameter tree, installing it into its slot if the
+        slot holds another group (waiting for an in-flight prefetch, counted
+        in ``stall_s``, or reading Flash on a miss)."""
+        r = self.slot_of(group)
+        if self.slot_group[r] != group:
+            t0 = time.perf_counter()
+            blob = self.store.fetch_group(self.stack, group)
+            self.stall_s += time.perf_counter() - t0
+            self.buffers[r].copy_(blob.buffer, non_blocking=True)
+            self.slot_group[r] = group
+            self.installs += 1
+        return self.slots[r]
+
+
+class ExpertWeightRing:
+    """A ring of device slots for ONE expert-granular streamed MoE stack.
+    Slot ``g % ring_groups`` holds the group's shared leaves (router, norms,
+    attention: one byte buffer, one copy an install) and the full ``[E,
+    ...]`` expert tables, zeroed at allocation, into which each expert's
+    slice installs on its own (one copy a leaf into ``table[e]``) -- only
+    for the experts the router history predicts or the step picked.  An
+    expert never installed reads as zeros, one last installed for another
+    group as stale; the selected-expert path reads experts by id, so one it
+    does not route to is never read, and the loop runs the group again
+    after installing any routed expert that was cold."""
+
+    def __init__(self, store: HS.WeightGroupStore, stack: int, count: int,
+                 ring_groups: int, experts: int, skeleton, flags: Sequence[bool],
+                 device: torch.device):
+        if ring_groups < 2:
+            raise ValueError("the ring must double-buffer")
+        self.store = store
+        self.stack = stack
+        self.count = count
+        self.ring_groups = ring_groups
+        self.experts = experts
+        metas = [t for _p, t in RP.tree_leaves_with_path(skeleton)]
+        shared = [(tuple(t.shape), t.dtype) for t, f in zip(metas, flags) if not f]
+        self.shared_buf, self.tables, self.slots = [], [], []
+        for _ in range(ring_groups):
+            buf, shared_leaves = _alloc_slot(shared, device)
+            tables = [torch.zeros(t.shape, dtype=t.dtype, device=device)
+                      for t, f in zip(metas, flags) if f]
+            s_it, t_it = iter(shared_leaves), iter(tables)
+            self.shared_buf.append(buf)
+            self.tables.append(tables)
+            self.slots.append(_slot_tree(skeleton, [next(t_it) if f else next(s_it)
+                                                    for f in flags]))
+        self.slot_group = [-1] * ring_groups          # the shared leaves' group
+        self.exp_group = [[-1] * experts for _ in range(ring_groups)]
+        self.stall_s = 0.0
+        self.installs = 0                 # shared-leaf installs
+        self.expert_installs = 0          # per-expert slice installs
+
+    def slot_of(self, group: int) -> int:
+        return group % self.ring_groups
+
+    def installed(self, group: int) -> set:
+        """Experts whose slices of ``group`` are in its slot now."""
+        r = self.slot_of(group)
+        return {e for e in range(self.experts) if self.exp_group[r][e] == group}
+
+    def prefetch(self, group: int, experts) -> None:
+        """Queue the group's shared leaves and the given experts' slices for
+        background reads, skipping what is installed."""
+        if not (0 <= group < self.count):
+            return
+        r = self.slot_of(group)
+        if self.slot_group[r] != group:
+            self.store.prefetch_group(self.stack, group)
+        for e in experts:
+            e = int(e)
+            if 0 <= e < self.experts and self.exp_group[r][e] != group:
+                self.store.prefetch_expert(self.stack, group, e)
+
+    def ensure(self, group: int, experts) -> Tuple[int, bool]:
+        """Install the group's shared leaves and the given experts' slices
+        into its slot.  Returns (expert slices installed, whether the shared
+        leaves were)."""
+        r = self.slot_of(group)
+        shared_new = False
+        if self.slot_group[r] != group:
+            t0 = time.perf_counter()
+            blob = self.store.fetch_group(self.stack, group)
+            self.stall_s += time.perf_counter() - t0
+            self.shared_buf[r].copy_(blob.buffer, non_blocking=True)
+            self.slot_group[r] = group
+            self.installs += 1
+            shared_new = True
+        n_new = 0
+        for e in sorted({int(e) for e in experts}):
+            if self.exp_group[r][e] == group:
+                continue
+            t0 = time.perf_counter()
+            blob = self.store.fetch_expert(self.stack, group, e)
+            self.stall_s += time.perf_counter() - t0
+            for table, piece in zip(self.tables[r], blob.leaves):
+                table[e].copy_(piece, non_blocking=True)
+            self.exp_group[r][e] = group
+            self.expert_installs += 1
+            n_new += 1
+        return n_new, shared_new
+
+    def obtain(self, group: int):
+        """The group's parameter tree (``ensure`` it first)."""
+        r = self.slot_of(group)
+        if self.slot_group[r] != group:
+            raise RuntimeError(f"group {group} is not installed: ensure() it first")
+        return self.slots[r]
+
+
 class Engine:
     """Model parameters (resident on ``device``), the Flash embedding, the
-    dispatcher and the serving stats."""
+    dispatcher and the serving stats.  With ``weight_dram_budget_bytes`` the
+    stacks that overflow it are exported to Flash at construction and
+    dropped from ``params`` (``weight_policy``, ``weight_store``); their
+    device memory is freed once the caller holds no reference to the tree
+    it passed in."""
 
     def __init__(self, cfg: ModelConfig, params: dict,
                  embedding: HS.EmbeddingStore, max_seq: int = 256,
-                 device=None, backend: str = "kernel"):
+                 device=None, backend: str = "kernel",
+                 weight_dram_budget_bytes: Optional[int] = None,
+                 weight_ring_groups: int = 2, expert_streaming: bool = True):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.plan = RP.ExecutionPlan(quant_tag=cfg.quant.tag(), params=params)
@@ -194,6 +408,49 @@ class Engine:
         self.max_seq = max_seq
         self.embedding = embedding
         self.stats = EngineStats()
+        self.weight_policy = self.plan.weight_placement(
+            cfg, weight_dram_budget_bytes, ring_groups=weight_ring_groups,
+            expert_granular=expert_streaming)
+        self.weight_store: Optional[HS.WeightGroupStore] = None
+        # stack -> (group skeleton: meta tensors, per-leaf expert flags)
+        self._stream_skel: Dict[int, tuple] = {}
+        if self.weight_policy.active:
+            self._export_streamed_stacks()
+        self.stats.dram_weight_bytes = self.weight_policy.resident_bytes
+
+    def _export_streamed_stacks(self) -> None:
+        """Write each streamed stack to Flash one layer group at a time (an
+        expert-granular stack's expert tables one expert at a time, its
+        shared leaves in the group's blob) and drop it from ``params``."""
+        self.weight_store = HS.WeightGroupStore(
+            HS.FlashStore(self.embedding.flash.root),
+            pin_memory=self.device.type == "cuda")
+        stacks = list(self.params["stacks"])
+        for sp in self.weight_policy.streamed:
+            si = sp.stack
+            paths, leaves = zip(*RP.tree_leaves_with_path(stacks[si]))
+            flags = [bool(sp.experts) and RP.is_expert_path(p) for p in paths]
+            for g in range(sp.count):
+                self.weight_store.put_group(
+                    si, g, [t[g] for t, f in zip(leaves, flags) if not f])
+                if sp.experts:
+                    tables = [t[g].cpu() for t, f in zip(leaves, flags) if f]
+                    for e in range(sp.experts):
+                        self.weight_store.put_expert_group(
+                            si, g, e, [tab[e] for tab in tables])
+            self._stream_skel[si] = (
+                RP.map_tree(lambda t: torch.empty(t.shape[1:], dtype=t.dtype,
+                                                  device="meta"), stacks[si]),
+                flags)
+            stacks[si] = None
+        self.params = dict(self.params, stacks=tuple(stacks))
+        self.plan.params = self.params
+
+    def close(self) -> None:
+        """Stop the weight store's prefetch worker and delete the streamed
+        stacks' blobs from Flash (the engine serves no streamed step after)."""
+        if self.weight_store is not None:
+            self.weight_store.drop_all()
 
     def embed(self, token_ids: np.ndarray,
               out: Optional[HS.StagedBuffer] = None) -> torch.Tensor:
@@ -213,6 +470,8 @@ class Engine:
         if any(r.adapter is not None for r in requests):
             raise NotImplementedError("LoRA adapters are not ported "
                                       "(ROADMAP queue 1 item 16)")
+        if self.weight_policy.active:
+            raise RuntimeError("weight streaming requires the EngineLoop step path")
         cfg = self.cfg
         gen = generator or torch.Generator(device=self.device).manual_seed(0)
         caches, last_logits = [], []
@@ -302,7 +561,13 @@ class EngineLoop:
     re-admission; a row caught mid-prefill resumes from its last chunk.
     Every page write lands in the existing pool tensors, so the graphs keep
     reading them.  ``close()`` releases the graphs and stops the Flash
-    prefetch worker."""
+    prefetch worker.
+
+    On an engine whose weights stream (``Engine.weight_policy.active``) each
+    step runs the split step at ``max_slots`` shape, eagerly: streamed
+    stacks group by group out of rings of device slots this loop allocates,
+    each group's Flash read queued one group ahead (wrapping to the next
+    step's first); ``disabled_features`` records both gates."""
 
     def __init__(self, engine: Engine, max_slots: int = 4,
                  token_budget: Optional[int] = None,
@@ -370,6 +635,7 @@ class EngineLoop:
         self._step_hits = self._step_misses = 0
         self.peak_active = 0
         self.peak_kv_pages = 0
+        self.expert_reruns = 0          # MoE groups run again for a cold expert
         self.default_sampling = default_sampling
         self.max_queue = max_queue
         self.on_token = on_token
@@ -382,12 +648,53 @@ class EngineLoop:
         # couples the batch's tokens in the reference, which gates them off)
         no_moe = not any(pat.moe for pats, _ in cfg.layer_plan() for pat in pats)
         self._bucketed = no_moe and max_slots > 1
+        # weight streaming: the split step runs every streamed stack group by
+        # group out of its ring at max_slots shape, as the reference's does.
+        # An expert ring installs the experts its router history predicts:
+        # per (stack, group), the union of the last two decode visits' picks,
+        # starting from every expert, so prediction only ever narrows
+        self.wpolicy = engine.weight_policy
+        self._wstreams: Dict[int, WeightRing] = {}
+        self._expert_rings: Dict[int, ExpertWeightRing] = {}
+        self._expert_pred: Dict[tuple, set] = {}
+        self._expert_last: Dict[tuple, set] = {}
+        # the decode step's active rows on the host (router accounting)
+        self._host_active = np.zeros((max_slots,), bool)
+        if self.wpolicy.active:
+            self._bucketed = False
+            for spl in self.wpolicy.streamed:
+                skel, flags = engine._stream_skel[spl.stack]
+                if spl.experts:
+                    self._expert_rings[spl.stack] = ExpertWeightRing(
+                        engine.weight_store, spl.stack, spl.count, spl.ring_groups,
+                        spl.experts, skel, flags, self.device)
+                    for g in range(spl.count):
+                        self._expert_pred[(spl.stack, g)] = set(range(spl.experts))
+                        self._expert_last[(spl.stack, g)] = set(range(spl.experts))
+                else:
+                    self._wstreams[spl.stack] = WeightRing(
+                        engine.weight_store, spl.stack, spl.count, spl.ring_groups,
+                        skel, self.device)
+            # the prefetch chain walks the streamed groups in execution order
+            # and wraps from the last to the first, so the next step's first
+            # read is in flight when the step starts
+            seq = [(spl.stack, g) for spl in self.wpolicy.streamed
+                   for g in range(spl.count)]
+            self._stream_next = {seq[i]: seq[(i + 1) % len(seq)] for i in range(len(seq))}
+            self._prefetch_sg(*seq[0])
         self.buckets = engine.plan.decode_buckets(max_slots, uniform=self._bucketed)
         self.disabled_features: Dict[str, str] = {}
         if not self._bucketed:
             self.disabled_features["decode_bucketing"] = (
-                "MoE: expert capacity couples tokens across the batch"
+                "weight streaming: the split step runs at max_slots shape only"
+                if self.wpolicy.active
+                else "MoE: expert capacity couples tokens across the batch"
                 if not no_moe else "max_slots == 1: nothing to bucket")
+        if self.wpolicy.active and self.cuda_graphs:
+            self.disabled_features["cuda_graphs"] = (
+                "weight streaming: the split step installs ring slots on the "
+                "host between groups; it runs eagerly")
+            self.cuda_graphs = False
         engine.stats.disabled_features = dict(self.disabled_features)
 
     # --- row snapshot / restore (preemption to Flash) ----------------------
@@ -786,12 +1093,13 @@ class EngineLoop:
         reads embeddings [b, 1, d] and rows [2, b] (slot ids, active flags);
         ("chunk", c) reads embeddings [1, c, d] and (slot, pos0, last_idx)."""
         eng, ins = self.eng, self._inputs[key]
+        run = self._stream_stacks if self.wpolicy.active else None
         if key[0] == "decode":
             rows = ins["rows"].target
             idx, act = rows[0], rows[1] != 0
             logits_b, _ = T.decode_step_bucketed(
                 eng.params, self.cfg, ins["emb"].target, self.cache, idx,
-                eng.dispatch, active=act)
+                eng.dispatch, active=act, run_stacks=run)
             # pad rows keep their slot's logits: a fixed-shape write (a
             # boolean index would make the host wait for its count)
             self.logits.index_copy_(0, idx, torch.where(
@@ -800,7 +1108,92 @@ class EngineLoop:
             scal = ins["scal"].target
             self._chunk_logits.copy_(T.prefill_chunk_paged(
                 eng.params, self.cfg, ins["emb"].target, self.cache, scal[0:1],
-                scal[1:2], scal[2:3], eng.dispatch))
+                scal[1:2], scal[2:3], eng.dispatch, run_stacks=run))
+
+    # --- the weight-streamed split step -----------------------------------
+    def _prefetch_sg(self, si: int, g: int) -> None:
+        """Queue group ``g`` of stack ``si``'s Flash reads on its ring (an
+        expert ring: the shared leaves and the predicted experts)."""
+        ring = self._wstreams.get(si)
+        if ring is not None:
+            ring.prefetch(g)
+        else:
+            self._expert_rings[si].prefetch(g, self._expert_pred[(si, g)])
+
+    def _run_expert_group(self, ering: ExpertWeightRing, spl, si: int, g: int,
+                          mode: str, x, positions, pos, table) -> torch.Tensor:
+        """One expert-granular group: install the shared leaves and the
+        predicted experts, run the group, then read the router's picks for
+        the active rows; a routed expert that was cold is installed and the
+        group runs again (the group is a pure function of its slot and
+        inputs, so the last run is the resident step's, KV writes
+        included).  Prompt chunks install every expert and are left out of
+        the accounting, as are steps with no active row (warmup)."""
+        def run(collect=None):
+            return T.run_stack_group(ering.obtain(g), self.cfg, si, mode, x,
+                                     positions, self.cache, g, pos, table,
+                                     self.eng.dispatch, collect=collect)
+        if mode != "decode":
+            ering.ensure(g, range(spl.experts))
+            return run()
+        stats = self.eng.stats
+        n_new, shared_new = ering.ensure(g, self._expert_pred[(si, g)])
+        installed = ering.installed(g)
+        collect: dict = {}
+        out = run(collect)
+        act = self._host_active
+        if not act.any():
+            return out
+
+        def picked(ids) -> set:      # the readback: one sync a group run
+            return {int(e) for e in np.unique(ids.cpu().numpy()[:, act])}
+        actual = picked(collect["moe_ids"])
+        stats.expert_prefetch_hits += len(actual & installed)
+        stats.expert_prefetch_misses += len(actual - installed)
+        # more than one re-run only where a group holds several MoE layers
+        # (a later router reads what an earlier layer's stale experts made)
+        for _ in range(spl.experts):
+            missing = actual - ering.installed(g)
+            if not missing:
+                break
+            n_new += ering.ensure(g, missing)[0]
+            self.expert_reruns += 1
+            collect = {}
+            out = run(collect)
+            actual = picked(collect["moe_ids"])
+        fetched = (spl.shared_bytes if shared_new else 0) + n_new * spl.expert_bytes
+        stats.expert_bytes_fetched += fetched
+        # whole-group streaming refetches the group when the slot was stale;
+        # when it was not, neither moves bytes beyond what was fetched
+        stats.expert_bytes_baseline += (spl.shared_bytes + spl.experts * spl.expert_bytes
+                                        if shared_new else fetched)
+        self._expert_pred[(si, g)] = actual | self._expert_last[(si, g)]
+        self._expert_last[(si, g)] = actual
+        return out
+
+    def _stream_stacks(self, x, mode: str, positions, pos, table) -> torch.Tensor:
+        """Every stack for one step in the split mode: resident stacks layer
+        by layer, streamed ones group by group out of their ring, the chain
+        successor's Flash reads queued before each install so they overlap
+        the group that computes."""
+        eng, cfg = self.eng, self.cfg
+        for si, (_patterns, count) in enumerate(cfg.layer_plan()):
+            ring = self._wstreams.get(si)
+            ering = self._expert_rings.get(si)
+            for g in range(count):
+                if ring is None and ering is None:
+                    gp = tuple(T.layer_slice(p, g) for p in eng.params["stacks"][si])
+                    x = T.run_stack_group(gp, cfg, si, mode, x, positions, self.cache, g,
+                                          pos, table, eng.dispatch)
+                    continue
+                self._prefetch_sg(*self._stream_next[(si, g)])
+                if ering is not None:
+                    x = self._run_expert_group(ering, self.wpolicy.streamed_stack(si), si,
+                                               g, mode, x, positions, pos, table)
+                else:
+                    x = T.run_stack_group(ring.obtain(g), cfg, si, mode, x, positions,
+                                          self.cache, g, pos, table, eng.dispatch)
+        return x
 
     def _prepare(self, key: Tuple[str, int], warm: bool = False) -> None:
         """Make step shape ``key`` ready at its first use: its static inputs
@@ -828,6 +1221,7 @@ class EngineLoop:
             table = self.cache["table"]
             saved = table.clone()
             table.fill_(self.geom.trash_page)
+            self._host_active[:] = False
             try:
                 self._step_body(key)
             finally:
@@ -992,9 +1386,18 @@ class EngineLoop:
             # mirror the graph count into the stats at every exit path, so a
             # capture in any phase of this step shows at once
             ev = self.compile_events()
-            self.eng.stats.compile_events = ev
+            stats = self.eng.stats
+            stats.compile_events = ev
             if self.warmed:
-                self.eng.stats.recompiles_after_warmup = ev - self._warmup_graphs
+                stats.recompiles_after_warmup = ev - self._warmup_graphs
+            if self.wpolicy.active:
+                store = self.eng.weight_store
+                stats.weight_group_hits = store.prefetch_hits
+                stats.weight_group_misses = store.prefetch_misses
+                stats.weight_stall_s = sum(r.stall_s for r in (
+                    *self._wstreams.values(), *self._expert_rings.values()))
+                # resident_bytes counts the rings' slots
+                stats.dram_weight_bytes = self.wpolicy.resident_bytes
 
     def _step(self) -> List[TokenEvent]:
         eng, sched = self.eng, self.scheduler
@@ -1099,6 +1502,7 @@ class EngineLoop:
             ins = self._inputs[key]
             eng.embed(ids[slot_idx], out=ins["emb"])
             ins["rows"].put(np.stack([slot_idx, act_b]))
+            self._host_active = act_b
             self._launch(key)
         if flash_needs:
             total = self._step_hits + self._step_misses
@@ -1152,12 +1556,16 @@ class EngineLoop:
 def build_engine(cfg: ModelConfig, seed: int = 0, max_seq: int = 256,
                  flash_dir: Optional[str] = None, device=None,
                  params: Optional[dict] = None,
-                 embedding: Optional[HS.EmbeddingStore] = None) -> Engine:
+                 embedding: Optional[HS.EmbeddingStore] = None,
+                 weight_dram_budget_bytes: Optional[int] = None,
+                 weight_ring_groups: int = 2,
+                 expert_streaming: bool = True) -> Engine:
     """A serving engine with random weights drawn on ``device`` from
     ``seed`` (quantized, packed) and a random N(0, 0.02) embedding table
     written to Flash in chunks — or with converted ``params`` /
     ``embedding`` (``repro_torch.convert``).  ``flash_dir`` defaults to
-    ``build/flash`` in the checkout."""
+    ``build/flash`` in the checkout.  The weight-streaming arguments are
+    ``Engine``'s."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     if params is None:
@@ -1168,4 +1576,7 @@ def build_engine(cfg: ModelConfig, seed: int = 0, max_seq: int = 256,
         embedding = HS.EmbeddingStore.create(
             flash, cfg.padded_vocab_size, d,
             lambda a, b: torch.randn((b - a, d), generator=gen, device=dev) * 0.02)
-    return Engine(cfg, params, embedding, max_seq=max_seq, device=dev)
+    return Engine(cfg, params, embedding, max_seq=max_seq, device=dev,
+                  weight_dram_budget_bytes=weight_dram_budget_bytes,
+                  weight_ring_groups=weight_ring_groups,
+                  expert_streaming=expert_streaming)

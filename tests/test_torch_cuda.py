@@ -28,6 +28,13 @@ bit, in place and with no host wait on the way in; a warmed loop whose
 decode runs in several staging waves commits the eager loop's tokens with
 no capture after warmup; a no-spill decode step still waits once.
 
+Weight streaming: a group blob read into pinned memory lands in a ring slot
+bit for bit, in place, with no host wait; on qwen2-7b@tiny (6 groups, a
+2-slot ring) a prompt and its decode steps give the resident engine's
+logits bit for bit; on moonshot@tiny-moe with an emptied expert prediction
+every decode visit runs its group again and the logits still equal the
+resident engine's, with nothing falling back.
+
 The dense matmul kernel is split over K at decode widths and has two tile
 sizes (16 rows up to M = 16, 64 above): its cases give bit-identical
 outputs for every split count (uneven ranges of K = 18944 among them), M
@@ -847,3 +854,115 @@ def test_no_spill_decode_step_makes_one_sync(card_engines):
     assert loop.pool.flash_page_count == 0
     loop.drain()
     loop.close()
+
+
+# ---------------------------------------------------------------------------
+# weight and expert streaming: ring slots written in place
+# ---------------------------------------------------------------------------
+
+def _meta_skeleton(stack):
+    return RP.map_tree(lambda t: torch.empty(t.shape[1:], dtype=t.dtype, device="meta"),
+                       stack)
+
+
+@pytest.mark.gpu
+def test_ring_install_lands_in_place(dev, tmp_path):
+    """Groups of int8, float32 and bf16 leaves (odd sizes) read into pinned
+    memory by the prefetch worker and installed into ring slots: bit for bit,
+    each slot keeps its storage, and an install makes no host wait."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stack = ({"a": torch.randint(-128, 128, (3, 64, 48), dtype=torch.int8, device=dev,
+                                 generator=gen),
+              "b": torch.randn((3, 17), device=dev, generator=gen),
+              "c": torch.randn((3, 5, 9), device=dev, generator=gen).bfloat16()},)
+    leaves = [t for _p, t in RP.tree_leaves_with_path(stack)]
+    store = HS.WeightGroupStore(HS.FlashStore(str(tmp_path)), pin_memory=True)
+    try:
+        for g in range(3):
+            store.put_group(0, g, [t[g] for t in leaves])
+        ring = PE.WeightRing(store, 0, 3, 2, _meta_skeleton(stack), dev)
+        ptrs = [b.data_ptr() for b in ring.buffers]
+        for g in (0, 1, 2, 0):
+            ring.prefetch(g)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                tree = ring.obtain(g)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            for (_p, got), want in zip(RP.tree_leaves_with_path(tree), leaves):
+                assert got.dtype == want.dtype and torch.equal(got, want[g])
+        assert [b.data_ptr() for b in ring.buffers] == ptrs
+        assert ring.installs == 4 and store.prefetch_hits == 4
+        assert store.fetch_group(0, 1).buffer.is_pinned()
+    finally:
+        store.drop_all()
+
+
+def _same_weights(arch, tmp_path, dev, budget_of):
+    """A resident engine and a streamed one on the same weights (seed 0)."""
+    cfg = PR.get(arch)
+    res = PE.build_engine(cfg, seed=0, max_seq=64, device=dev, flash_dir=str(tmp_path))
+    params = PT.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    pol = RP.weight_stream_policy(cfg, params)
+    st = PE.Engine(cfg, params, res.embedding, max_seq=64, device=dev,
+                   weight_dram_budget_bytes=budget_of(pol.head_bytes,
+                                                      pol.resident_bytes - pol.head_bytes))
+    return res, st
+
+
+@pytest.mark.gpu
+def test_streamed_step_logits_equal_resident(dev, tmp_path):
+    """qwen2-7b@tiny, 6 groups through a 2-slot ring: one prompt (two
+    chunks) and the decode steps after it give bit-equal logits to the
+    resident engine's, with no fallback."""
+    res, st = _same_weights("qwen2-7b@tiny", tmp_path, dev, lambda head, _s: head)
+    assert st.weight_policy.streamed[0].ring_groups == 2
+    loops = [PE.EngineLoop(e, max_slots=1, prefill_chunk=16, cuda_graphs=False)
+             for e in (res, st)]
+    sp = PSM.SamplingParams(temperature=0.0, max_new_tokens=3)
+    for loop in loops:
+        loop.submit(PE.Request(uid=0, prompt_tokens=list(range(3, 23)), max_new_tokens=3,
+                               sampling=sp))
+    while loops[0].has_work():
+        for loop in loops:
+            loop.step()
+        torch.cuda.synchronize()
+        assert torch.equal(loops[0]._chunk_logits, loops[1]._chunk_logits)
+        assert torch.equal(loops[0].logits, loops[1].logits)
+    assert not loops[1].has_work()
+    assert res.dispatch.fallbacks == [] and st.dispatch.fallbacks == []
+    for loop in loops:
+        loop.close()
+    st.close()
+
+
+@pytest.mark.gpu
+def test_expert_ring_rerun_equals_resident(dev, tmp_path):
+    """moonshot@tiny-moe with its experts streamed and the prediction
+    emptied before every step: each decode visit runs its group again after
+    installing the routed experts, and the logits equal the resident
+    engine's bit for bit."""
+    res, st = _same_weights("moonshot-v1-16b-a3b@tiny-moe", tmp_path, dev,
+                            lambda head, stack: head + stack // 3)
+    assert st.weight_policy.streamed[0].experts == 8
+    loops = [PE.EngineLoop(e, max_slots=4, prefill_chunk=16, cuda_graphs=False)
+             for e in (res, st)]
+    sp = PSM.SamplingParams(temperature=0.0, max_new_tokens=6)
+    for loop in loops:
+        for i in range(3):
+            loop.submit(PE.Request(uid=i, prompt_tokens=list(range(2 + i, 12 + 2 * i)),
+                                   max_new_tokens=6, sampling=sp))
+    while loops[0].has_work():
+        for k in loops[1]._expert_pred:
+            loops[1]._expert_pred[k] = set()
+        for loop in loops:
+            loop.step()
+        torch.cuda.synchronize()
+        assert torch.equal(loops[0].logits, loops[1].logits)
+    assert loops[1].expert_reruns > 0 and st.stats.expert_prefetch_misses > 0
+    assert res.dispatch.fallbacks == [] and st.dispatch.fallbacks == []
+    for loop in loops:
+        loop.close()
+    st.close()
