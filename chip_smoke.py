@@ -33,6 +33,26 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    requests with 320-token prompts through ``Engine.generate`` (32 new
    tokens, dense caches of 2048 slots); a profiled decode step; kernel path
    against plain path for the whole-prompt prefill and one decode step.
+   Then ``[lora]``, multi-LoRA on the same engine: five requests (prompts of
+   150-300 tokens, 16 new tokens) with no adapter, adapter A (rank 8) and
+   adapter B (rank 4) decoding in one bucket, one prompt under no adapter
+   and then under A (no adoption across adapters) and again under A after
+   a slot frees (it adopts).  The trace runs with no adapter loaded (every
+   row the base model's), then with A and B loaded eagerly and on a loop
+   warmed with them: graph tokens equal eager, base rows equal the
+   no-adapter run, adapter rows differ, no capture after warmup; adapter C
+   loaded after warmup captures nothing and its replay equals eager.  The
+   bypass's norm against the projection's is printed; one LoRA chunk and
+   decode step are held, kernel path against plain, layer by layer; and
+   ``Engine.generate`` runs two 256-token prompts, one under A.  Then
+   ``[gateway]``: an ``EngineService`` over a graph loop warms up on its
+   engine thread (not ready until it is done) while six threads submit
+   requests mixed across adapters; each stream must carry the tokens
+   ``EngineLoop.run`` commits on graphs, its first token while the engine
+   still has work; a second round after warmup gives TTFT p50/p95 and TPOT
+   p50 through the service; where aiohttp is installed, an SSE completion,
+   ``/healthz`` and ``/v1/stats`` through ``GatewayServer`` with urllib
+   (the line says whether it ran).  The adapters are unloaded after it.
    Then ``[spill]``, the Flash tier on the same engine: an ``EngineLoop``
    whose DRAM pool holds 16 pages of 128 tokens (half the trace's 32-page
    peak; staging reserve 14 pages) serves 830-900-token prompts sharing a
@@ -744,6 +764,12 @@ def make_trace(vocab: int, seed: int = 0):
     return specs, arrivals
 
 
+def step_name(key) -> str:
+    """A step shape's name: ("decode", 4, True) -> "decode4+lora"."""
+    kind, n, lora = key
+    return f"{kind}{n}" + ("+lora" if lora else "")
+
+
 def make_loop(engine, cuda_graphs: bool = False, prefill_token_budget: int = 256):
     """The serving paths' ``EngineLoop``: 4 slots, 128-token chunks; eager on
     the card unless ``cuda_graphs``."""
@@ -753,15 +779,17 @@ def make_loop(engine, cuda_graphs: bool = False, prefill_token_budget: int = 256
                         cuda_graphs=cuda_graphs)
 
 
-def serve_trace(engine, specs, arrivals, max_new: int = 32, loop=None):
+def serve_trace(engine, specs, arrivals, max_new: int = 32, loop=None, adapters=None):
     """Drive ``EngineLoop`` (``loop``, by default a new eager one) through
-    submit/step; returns (loop, requests, wall seconds)."""
+    submit/step, request i under adapter ``adapters[i]`` if given; returns
+    (loop, requests, wall seconds)."""
     import torch
     from repro_torch.serving import engine as E
     from repro_torch.serving import sampling as SM
     loop = make_loop(engine) if loop is None else loop
     sp = SM.SamplingParams(temperature=0.0, max_new_tokens=max_new)
-    reqs = [E.Request(uid=i, prompt_tokens=p, max_new_tokens=max_new, sampling=sp)
+    reqs = [E.Request(uid=i, prompt_tokens=p, max_new_tokens=max_new, sampling=sp,
+                      adapter=adapters[i] if adapters else None)
             for i, p in enumerate(specs)]
     pending = sorted(range(len(reqs)), key=lambda i: (arrivals[i], i))
     torch.cuda.synchronize()
@@ -857,7 +885,7 @@ def phase_graphs(label: str, eng, specs, arrivals, eager_reqs, max_new: int,
     # after warmup each graph's inputs are the warm run's (all-trash table,
     # every row inactive), so these replays change no state
     replay_ms = {}
-    for (kind, n), graph in loop._graphs.items():
+    for key, graph in loop._graphs.items():
         times = []
         for _ in range(5):
             torch.cuda.synchronize()
@@ -865,7 +893,7 @@ def phase_graphs(label: str, eng, specs, arrivals, eager_reqs, max_new: int,
             graph.replay()
             times.append(time.perf_counter() - t0)
         torch.cuda.synchronize()
-        replay_ms[f"{kind}{n}"] = statistics.median(times) * 1e3
+        replay_ms[step_name(key)] = statistics.median(times) * 1e3
     log(f"[graphs] {label}: host time of one replay call, median of 5: " + ", ".join(
         f"{k} {v:.2f} ms" for k, v in replay_ms.items()))
     K.reset_launch_counts()
@@ -891,7 +919,7 @@ def phase_graphs(label: str, eng, specs, arrivals, eager_reqs, max_new: int,
         "decode_tok_per_s": s.decode_tps, "prefill_tok_per_s": s.prefill_tps,
         "compile_events": s.compile_events,
         "recompiles_after_warmup": s.recompiles_after_warmup,
-        "graph_launches": {f"{k}{n}": v for (k, n), v in loop._graph_launches.items()},
+        "graph_launches": {step_name(k): v for k, v in loop._graph_launches.items()},
         "launches": counts, "tokens_equal_eager": True,
     }
     log(f"[graphs] {label}: {len(reqs)} requests, {new_tokens} new tokens in {wall:.2f} s, "
@@ -1008,9 +1036,11 @@ def profile_steps(label: str, step, steps: int = 4) -> dict:
     return out
 
 
-def profile_loop_decode(eng, specs, steps: int = 4, cuda_graphs: bool = False) -> dict:
-    """A full-batch ``EngineLoop`` step with four rows decoding, eager or
-    (``cuda_graphs``, after ``warmup()``) replaying its CUDA graph."""
+def profile_loop_decode(eng, specs, steps: int = 4, cuda_graphs: bool = False,
+                        adapters=(None,) * 4) -> dict:
+    """A full-batch ``EngineLoop`` step with four rows decoding (row i under
+    adapter ``adapters[i]``), eager or (``cuda_graphs``, after ``warmup()``)
+    replaying its CUDA graph."""
     from repro_torch.serving import engine as E
     from repro_torch.serving import sampling as SM
     loop = make_loop(eng, cuda_graphs=cuda_graphs, prefill_token_budget=512)
@@ -1019,10 +1049,11 @@ def profile_loop_decode(eng, specs, steps: int = 4, cuda_graphs: bool = False) -
     sp = SM.SamplingParams(temperature=0.0, max_new_tokens=64)
     for i, p in enumerate(specs[:4]):
         loop.submit(E.Request(uid=100 + i, prompt_tokens=p[:128], max_new_tokens=64,
-                              sampling=sp))
+                              sampling=sp, adapter=adapters[i]))
     while loop._prefilling or sum(r is not None for r in loop.scheduler.running) < 4:
         loop.step()
-    how = "CUDA graphs" if cuda_graphs else "eager"
+    how = ("CUDA graphs" if cuda_graphs else "eager") + (
+        f", adapters {list(adapters)}" if any(adapters) else "")
     out = profile_steps(f"{eng.cfg.name} EngineLoop decode step, 4 rows, {how}",
                         loop.step, steps)
     out["rows"] = 4
@@ -1036,11 +1067,11 @@ def profile_loop_decode(eng, specs, steps: int = 4, cuda_graphs: bool = False) -
 # kernel path against plain path at full width, layer by layer
 # ---------------------------------------------------------------------------
 
-def run_layers(engine, x, mode, positions, pos, table, caches, fed):
+def run_layers(engine, x, mode, positions, pos, table, caches, fed, lora=None):
     """Every layer of the (single-stack) model on ``x``; with ``fed``
     (another run's per-layer outputs) layer i takes that run's output of
     layer i-1 instead of its own input, and the logits are taken on that
-    run's last hidden state."""
+    run's last hidden state.  ``lora``: the step's adapter tables and ids."""
     from repro_torch.core.precision import DEFAULT_POLICY
     from repro_torch.models import transformer as T
     cfg = engine.cfg
@@ -1050,16 +1081,17 @@ def run_layers(engine, x, mode, positions, pos, table, caches, fed):
         inp = x if fed is None or li == 0 else fed[li - 1]
         x, _ = T._apply_layer(inp, T.layer_slice(stack, li), cfg, cfg.period[0], mode,
                               positions, caches.layer(li), pos, table, engine.dispatch,
-                              DEFAULT_POLICY)
+                              DEFAULT_POLICY, lora=lora)
         outs.append(x)
     last = outs[-1] if fed is None else fed[-1]
     return outs, T._logits(last[:, -1:], engine.params, cfg, engine.dispatch)[:, 0]
 
 
-def chunk_then_decode(engine, prompt, nxt, feed=None):
+def chunk_then_decode(engine, prompt, nxt, feed=None, lora=None):
     """One 128-token prompt chunk into a fresh paged pool and the decode step
-    of token ``nxt`` after it.  Returns the per-layer hidden states and the
-    logits of both."""
+    of token ``nxt`` after it (``lora``: the adapter tables and the row's id,
+    carried by both).  Returns the per-layer hidden states and the logits of
+    both."""
     import numpy as np
     import torch
     from repro_torch.serving import engine as E
@@ -1072,11 +1104,11 @@ def chunk_then_decode(engine, prompt, nxt, feed=None):
     ids = np.asarray(prompt[:128], np.int64)[None]
     chunk = run_layers(engine, engine.embed(ids), "prefill_paged",
                        torch.arange(128, device=dev)[None], 0, cache["table"][0], pool,
-                       None if feed is None else feed["chunk"][0])
+                       None if feed is None else feed["chunk"][0], lora)
     pos = torch.tensor([128], dtype=torch.int32, device=dev)
     dec = run_layers(engine, engine.embed(np.asarray([[nxt]], np.int64)), "decode",
                      pos[:, None], pos, cache["table"][:1], pool,
-                     None if feed is None else feed["decode"][0])
+                     None if feed is None else feed["decode"][0], lora)
     return {"chunk": chunk, "decode": dec}
 
 
@@ -1253,6 +1285,352 @@ def phase_generate(eng) -> dict:
     summary["kernel_vs_plain"] = compare_paths("Engine.generate", eng, prefill_then_decode,
                                                prompts[0], prompts[1][0])
     return summary
+
+
+# ---------------------------------------------------------------------------
+# phase 4a: multi-LoRA and the streaming gateway at full width
+# ---------------------------------------------------------------------------
+
+LORA_NEW = 16
+# adapter factors: A ~ N(0, 1/d) keeps x.A at the input's rms (RMSNorm'd, ~1);
+# B ~ N(0, LORA_B_STD^2) then puts the bypass at about sqrt(rank) * LORA_B_STD,
+# against ~sqrt(d) * 0.02 = 1.2 for a random projection (weights N(0, 0.02^2)):
+# a third to a half of it at rank 4-8, so an adapter row's greedy tokens leave
+# the base model's
+LORA_B_STD = 0.2
+GATEWAY_NEW = 16
+
+
+def lora_factors(cfg, rank: int, rng):
+    """One adapter: ((A_q [d, r], B_q [r, H*hd]), (A_v [d, r], B_v [r, Hkv*hd]))."""
+    import numpy as np
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    return tuple((rng.normal(size=(d, rank)).astype(np.float32) / math.sqrt(d),
+                  rng.normal(size=(rank, heads * hd)).astype(np.float32) * LORA_B_STD)
+                 for heads in (cfg.num_heads, cfg.num_kv_heads))
+
+
+def lora_trace(vocab: int, seed: int = 4):
+    """Five requests on 4 slots: base and adapter rows decoding in one
+    bucket, prompt 0 under no adapter and then under A (different salt: no
+    adoption), and again under A after a slot frees (adopts A's pages)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    p0, p1, p2 = ([int(t) for t in rng.integers(1, vocab, n)] for n in (300, 200, 150))
+    trace = [(p0, None, 0), (p1, "B", 0), (p2, None, 1), (p0, "A", 5), (p0, "A", 10)]
+    return [t[0] for t in trace], [t[1] for t in trace], [t[2] for t in trace]
+
+
+def snoop_adoption(loop) -> dict:
+    """uid -> prompt tokens the request adopted from the prefix index."""
+    shared, admit = {}, loop._admit_into_slot
+
+    def admit_into_slot(req, slot):
+        admit(req, slot)
+        shared[req.uid] = int(loop.pool.row_shared[slot])
+    loop._admit_into_slot = admit_into_slot
+    return shared
+
+
+def bypass_ratio(eng, prompt) -> dict:
+    """||bypass|| / ||projection|| of each loaded adapter at layer 0's q and v
+    on a prompt's first 128 tokens."""
+    import numpy as np
+    import torch
+    from repro_torch.core import lora as LR
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    cfg = eng.cfg
+    lp = T.layer_slice(eng.params["stacks"][0][0], 0)
+    h = L.rms_norm(eng.embed(np.asarray(prompt[:128], np.int64)[None]), lp["ln1"],
+                   cfg.rms_eps, eng.dispatch)
+    out = {}
+    for name, slot in sorted(eng.lora_q._names.items()):
+        ids = torch.tensor([slot], device=eng.device)
+        for proj, reg in (("q", eng.lora_q), ("v", eng.lora_v)):
+            y = L.apply_linear(h, lp["attn"]["w" + proj], cfg.quant, eng.dispatch)
+            byp = LR.lora_apply_batched(h, *reg.device_tables(), ids)
+            out[f"{name}.{proj}"] = float(byp.norm() / y.float().norm())
+    return out
+
+
+def phase_lora(eng, card: str) -> dict:
+    """Multi-LoRA (C7) on the qwen2-7b engine: a mixed trace with no adapter
+    loaded (every row the base model's), then with adapters A (rank 8) and B
+    (rank 4) eagerly and on a loop warmed with them loaded; a third adapter
+    loaded after warmup; one LoRA chunk and decode step on the kernels
+    against the plain path; ``Engine.generate`` with an adapter row.  Leaves
+    A, B and C loaded."""
+    import functools
+    import numpy as np
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.serving import engine as E
+    from repro_torch.serving import sampling as SM
+    cfg = eng.cfg
+    assert not eng.lora_q._names, "the engine already has adapters"
+    rng = np.random.default_rng(0)
+    factors = {"A": lora_factors(cfg, 8, rng), "B": lora_factors(cfg, 4, rng),
+               "C": lora_factors(cfg, 8, rng)}
+    specs, adapters, arrivals = lora_trace(cfg.vocab_size)
+    t0 = time.perf_counter()
+    # no adapter loaded: the reference ignores the names (only the prefix
+    # salt reads them), so every row is the base model's
+    loop, base, _ = serve_trace(eng, specs, arrivals, LORA_NEW, adapters=adapters)
+    loop.close()
+    for name in ("A", "B"):
+        eng.load_adapter(name, *factors[name])
+    ratio = bypass_ratio(eng, specs[0])
+    log(f"[lora] adapters A (rank 8), B (rank 4): bypass / projection norm at layer 0: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ratio.items()))
+
+    def run(cuda_graphs: bool):
+        eng.stats = E.EngineStats()
+        loop = make_loop(eng, cuda_graphs=cuda_graphs)
+        shared = snoop_adoption(loop)
+        rep = loop.warmup() if cuda_graphs else None
+        K.reset_launch_counts()
+        _, reqs, wall = serve_trace(eng, specs, arrivals, LORA_NEW, loop=loop,
+                                    adapters=adapters)
+        counts = K.launch_counts()
+        how = "CUDA graphs" if cuda_graphs else "eager"
+        assert all(r.done and len(r.generated) == LORA_NEW for r in reqs), how
+        for name in LOOP_KERNELS:
+            assert counts[name] > 0, f"[lora] {how}: {name} never launched: {counts}"
+        assert eng.dispatch.fallbacks == [], eng.dispatch.fallbacks
+        assert shared[3] == 0, f"[lora] {how}: adopted across adapters {shared}"
+        assert shared[4] > 0, f"[lora] {how}: no adoption under one adapter {shared}"
+        s = eng.stats
+        log(f"[lora] {how}: {len(reqs)} requests (adapters {adapters}, prompts "
+            f"{[len(p) for p in specs]}) in {wall:.2f} s; TTFT p50 {s.ttft(50) * 1e3:.1f} ms "
+            f"p95 {s.ttft(95) * 1e3:.1f} ms; TPOT p50 {s.tpot(50) * 1e3:.2f} ms; prompt "
+            f"tokens adopted by uid {shared}; launches {counts} ({card})")
+        return loop, reqs, {"wall_s": wall, "ttft_p50_ms": s.ttft(50) * 1e3,
+                            "ttft_p95_ms": s.ttft(95) * 1e3, "tpot_p50_ms": s.tpot(50) * 1e3,
+                            "adopted_tokens": shared, "launches": counts, "warmup": rep}
+    loop, eager, out_e = run(False)
+    loop.close()
+    gloop, graphs, out_g = run(True)
+    s = eng.stats
+    assert all(key[2] for key in gloop._graphs), "a graph was captured without LoRA"
+    assert s.recompiles_after_warmup == 0, f"{s.recompiles_after_warmup} captures after warmup"
+    differ = [r.uid for r, e in zip(graphs, eager) if r.generated != e.generated]
+    assert not differ, f"[lora] graph tokens differ from eager for {differ}"
+    for r, b, a in zip(eager, base, adapters):
+        if a is None:
+            assert r.generated == b.generated, f"[lora] base row {r.uid} moved"
+        else:
+            assert r.generated != b.generated, f"[lora] adapter row {r.uid} equals base"
+    # a third adapter loaded after warmup: written into the tables in place,
+    # no capture, and the next replay reads it
+    ev0 = gloop.compile_events()
+    eng.load_adapter("C", *factors["C"])
+    sp = SM.SamplingParams(temperature=0.0, max_new_tokens=LORA_NEW)
+
+    def one_c(loop):
+        req = E.Request(uid=100, prompt_tokens=specs[1], max_new_tokens=LORA_NEW,
+                        sampling=sp, adapter="C")
+        loop.submit(req)
+        while loop.has_work():
+            loop.step()
+        return req.generated
+    c_graph = one_c(gloop)
+    assert gloop.compile_events() == ev0 and s.recompiles_after_warmup == 0, \
+        "loading an adapter after warmup captured a graph"
+    gloop.close()
+    # a 4-row decode step on its graph with adapter rows, beside the base
+    # step [profile] measured on the same engine earlier in this run
+    profile = profile_loop_decode(eng, specs, cuda_graphs=True,
+                                  adapters=(None, "A", "B", "C"))
+    eloop = make_loop(eng)
+    c_eager = one_c(eloop)
+    eloop.close()
+    assert c_graph == c_eager, "[lora] adapter C on the graphs differs from eager"
+    assert c_graph != base[1].generated, "[lora] adapter C equals the base model"
+    log(f"[lora] graphs: warmup {out_g['warmup']['graphs']} graphs in "
+        f"{out_g['warmup']['warmup_s']:.2f} s, all with LoRA on; tokens equal eager; base "
+        f"rows equal the no-adapter loop, adapter rows differ; 0 captures after warmup; "
+        f"adapter C loaded after warmup: no capture, its replay equals eager ({card})")
+    # one LoRA chunk and decode step (adapter A), kernel path against plain
+    ids = torch.tensor([eng.lora_q.slot("A")], device=eng.device)
+    check = compare_paths("EngineLoop + LoRA", eng,
+                          functools.partial(chunk_then_decode, lora=eng._lora_tables(ids)),
+                          specs[0], specs[0][128])
+    # Engine.generate: two 256-token prompts, one under adapter A
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, 256)] for _ in range(2)]
+    greqs = [E.Request(uid=i, prompt_tokens=p, max_new_tokens=LORA_NEW, adapter=a)
+             for i, (p, a) in enumerate(zip(prompts, ("A", None)))]
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    eng.generate(greqs, sp)
+    gen_wall = time.perf_counter() - t1
+    gen_counts = K.launch_counts()
+    assert all(r.done and len(r.generated) == LORA_NEW for r in greqs)
+    for name in ("quant_decode_attention", "flash_prefill_attention", "w4a8_matmul",
+                 "rmsnorm"):
+        assert gen_counts[name] > 0, f"{name} never launched on Engine.generate: {gen_counts}"
+    assert eng.dispatch.fallbacks == [], eng.dispatch.fallbacks
+    log(f"[lora] Engine.generate, 2 x 256-token prompts (adapter A, none), {LORA_NEW} new "
+        f"tokens in {gen_wall:.2f} s; launches {gen_counts}")
+    return {"bypass_ratio": ratio, "eager": out_e, "graphs": out_g,
+            "recompiles_after_warmup": s.recompiles_after_warmup,
+            "tokens_equal_eager": True, "base_rows_equal_no_adapter": True,
+            "late_load_captures": 0, "kernel_vs_plain": check,
+            "generate": {"wall_s": gen_wall, "launches": gen_counts},
+            "profile_graphs": profile,
+            "launches": out_e["launches"], "graph_launches": out_g["launches"],
+            "generate_launches": gen_counts, "phase_s": time.perf_counter() - t0}
+
+
+def http_round_trip(url: str, prompt, adapter) -> dict:
+    """SSE ``/v1/completions``, ``/healthz`` and ``/v1/stats`` with urllib."""
+    import urllib.request
+    body = json.dumps({"prompt": prompt, "max_tokens": GATEWAY_NEW, "adapter": adapter,
+                       "stream": True}).encode()
+    req = urllib.request.Request(url + "/v1/completions", data=body,
+                                 headers={"Content-Type": "application/json"})
+    events = []
+    with urllib.request.urlopen(req, timeout=300) as r:
+        assert r.headers["Content-Type"].startswith("text/event-stream")
+        for line in r:
+            line = line.decode().strip()
+            if line:
+                data = line[len("data: "):]
+                events.append(data if data == "[DONE]" else json.loads(data))
+    assert events[-1] == "[DONE]" and len(events) == GATEWAY_NEW + 1, events[-2:]
+    reasons = [e["choices"][0]["finish_reason"] for e in events[:-1]]
+    assert reasons == [None] * (GATEWAY_NEW - 1) + ["length"], reasons
+    with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+        health = json.loads(r.read())
+        assert r.status == 200 and health["ready"] is True, health
+    with urllib.request.urlopen(url + "/v1/stats", timeout=60) as r:
+        stats = json.loads(r.read())
+    assert stats["recompiles_after_warmup"] == 0, stats
+    return {"tokens": [e["choices"][0]["token"] for e in events[:-1]], "healthz": health,
+            "stats_recompiles_after_warmup": stats["recompiles_after_warmup"]}
+
+
+def phase_gateway(eng, card: str) -> dict:
+    """The streaming gateway over a graph loop on the qwen2-7b engine (with
+    adapters A, B and C loaded): ``EngineService(warmup=True)`` is not ready
+    while its engine thread captures the graphs; six threads submit at once
+    meanwhile (host work only), mixed across adapters, and each stream
+    carries the tokens ``EngineLoop.run`` commits on graphs; a second round
+    after warmup gives TTFT and TPOT through the service.  Where aiohttp is
+    installed, the HTTP round trip through ``GatewayServer``.  Unloads the
+    adapters at the end."""
+    import concurrent.futures
+    import importlib.util
+    import threading
+    import numpy as np
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.serving import engine as E
+    from repro_torch.serving import gateway as G
+    from repro_torch.serving import sampling as SM
+    cfg = eng.cfg
+    t0 = time.perf_counter()
+    have_http = importlib.util.find_spec("aiohttp") is not None
+    rng = np.random.default_rng(7)
+    # distinct lengths: the queue orders equal arrivals by cost, not by uid,
+    # so the service admits them in the order EngineLoop.run does
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, n)]
+               for n in (260, 96, 180, 64, 140, 220)]
+    adapters = [None, "A", "B", "C", None, "A"]
+    sp = SM.SamplingParams(temperature=0.0, max_new_tokens=GATEWAY_NEW)
+    ref_loop = make_loop(eng, cuda_graphs=True)
+    ref_loop.warmup()
+    ref = ref_loop.run([E.Request(uid=i, prompt_tokens=p, max_new_tokens=GATEWAY_NEW,
+                                  sampling=sp, adapter=a)
+                        for i, (p, a) in enumerate(zip(prompts, adapters))])
+    ref_loop.close()
+    want = {tuple(r.prompt_tokens): r.generated for r in ref}
+
+    eng.stats = E.EngineStats()
+    loop = make_loop(eng, cuda_graphs=True)
+    svc = G.EngineService(loop, warmup=True)
+    gw = G.GatewayServer(svc, model_name=cfg.name) if have_http else None
+    first = {}
+    inner = loop.on_token
+
+    def on_token(req, tok, done):           # engine thread, at each emission
+        first.setdefault(req.uid, (done, loop.has_work()))
+        inner(req, tok, done)
+    loop.on_token = on_token
+    gc.collect()
+    K.reset_launch_counts()
+    t_start = time.perf_counter()
+    (gw if gw is not None else svc).start()
+    ready_at_start = svc.ready
+    barrier = threading.Barrier(len(prompts))
+
+    def client(i):
+        barrier.wait()
+        return svc.submit(prompts[i], sp, adapter=adapters[i])
+    with concurrent.futures.ThreadPoolExecutor(len(prompts)) as pool:
+        streams = list(pool.map(client, range(len(prompts))))
+    submitted_while_warming = not svc.ready
+    while not svc.ready:                     # host state only: no CUDA call
+        assert svc._thread.is_alive(), "the engine thread died during warmup"
+        time.sleep(0.01)
+    warmup_s = time.perf_counter() - t_start
+    heads = [s.get(timeout=600) for s in streams]
+    outs = [[tok] + s.collect(timeout=600) for (tok, _d), s in zip(heads, streams)]
+    assert not ready_at_start and submitted_while_warming, \
+        (ready_at_start, submitted_while_warming)
+    assert all(not done for _t, done in heads), "a first token came marked done"
+    assert all(first[s.uid] == (False, True) for s in streams), first
+    differ = [i for i, (p, o) in enumerate(zip(prompts, outs)) if o != want[tuple(p)]]
+    assert not differ, f"[gateway] streams differ from EngineLoop.run for {differ}"
+    # round 2, after warmup: TTFT and TPOT through the service
+    with concurrent.futures.ThreadPoolExecutor(len(prompts)) as pool:
+        streams2 = list(pool.map(client, range(len(prompts))))
+    outs2 = [s.collect(timeout=600) for s in streams2]
+    uids2 = {s.uid for s in streams2}
+    with svc._mu:        # the step that emitted a last token has recorded it
+        recs = [r for r in eng.stats.requests if r.uid in uids2]
+    assert len(recs) == len(prompts), recs
+    ttft = [r.ttft_s for r in recs]
+    tpot = [r.tpot_s for r in recs]
+    stats = svc.stats_snapshot()
+    assert stats["recompiles_after_warmup"] == 0, stats
+    assert stats["warmed"] and stats["compile_events"] > 0, stats
+    http = {"ran": False}
+    if gw is not None:
+        http = {"ran": True, **http_round_trip(gw.url, prompts[1], "A")}
+        gw.close()
+    else:
+        svc.close()
+    counts = K.launch_counts()
+    for name in LOOP_KERNELS:
+        assert counts[name] > 0, f"[gateway] {name} never launched: {counts}"
+    assert eng.dispatch.fallbacks == [], eng.dispatch.fallbacks
+    for name in list(eng.lora_q._names):
+        eng.lora_q.unload(name)
+        eng.lora_v.unload(name)
+    out = {"warmup_s": warmup_s, "ready_before_warmup_end": ready_at_start,
+           "submits_during_warmup": submitted_while_warming,
+           "tokens_equal_engine_loop_run": True,
+           "round2_tokens_equal_round1": sum(a == b for a, b in zip(outs, outs2)),
+           "ttft_p50_ms": E.percentile(ttft, 50) * 1e3,
+           "ttft_p95_ms": E.percentile(ttft, 95) * 1e3,
+           "tpot_p50_ms": E.percentile(tpot, 50) * 1e3,
+           "recompiles_after_warmup": stats["recompiles_after_warmup"],
+           "compile_events": stats["compile_events"], "http": http, "launches": counts,
+           "phase_s": time.perf_counter() - t0}
+    log(f"[gateway] EngineService over a graph loop: not ready at start, ready after "
+        f"{warmup_s:.2f} s of warmup on the engine thread ({stats['compile_events']} "
+        f"graphs); 6 concurrent submits (adapters {adapters}) landed during warmup and "
+        f"stream EngineLoop.run's tokens; each first token came while the engine had work "
+        f"({card})")
+    log(f"[gateway] through the service after warmup, 6 concurrent requests of "
+        f"{GATEWAY_NEW} tokens: TTFT p50 {out['ttft_p50_ms']:.1f} ms p95 "
+        f"{out['ttft_p95_ms']:.1f} ms, TPOT p50 {out['tpot_p50_ms']:.2f} ms; "
+        f"{stats['recompiles_after_warmup']} captures after warmup ({card})")
+    log(f"[gateway] HTTP round trip (SSE /v1/completions, /healthz, /v1/stats): "
+        + ("ran" if http["ran"] else "not run: aiohttp is not installed here"))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1937,6 +2315,10 @@ def main() -> int:
     summary["profile_graphs"] = profile_loop_decode(eng, specs, cuda_graphs=True)
     checks = phase_kernel_vs_plain(eng, specs, arrivals, reqs)
     generate = phase_generate(eng)
+    lora = phase_lora(eng, card)
+    log(f"[lora] phase took {lora['phase_s']:.1f} s")
+    gateway = phase_gateway(eng, card)
+    log(f"[gateway] phase took {gateway['phase_s']:.1f} s")
     t_spill = time.perf_counter()
     spill = phase_spill(eng)
     spill["phase_s"] = time.perf_counter() - t_spill
@@ -1963,6 +2345,10 @@ def main() -> int:
     paths = {"EngineLoop qwen2-7b": summary["launches"],
              "EngineLoop qwen2-7b, CUDA graphs": summary["graphs"]["launches"],
              "Engine.generate qwen2-7b": generate["launches"],
+             "EngineLoop qwen2-7b, LoRA": lora["launches"],
+             "EngineLoop qwen2-7b, LoRA, CUDA graphs": lora["graph_launches"],
+             "Engine.generate qwen2-7b, LoRA": lora["generate_launches"],
+             "EngineService qwen2-7b, LoRA, CUDA graphs": gateway["launches"],
              "EngineLoop qwen2-7b, Flash tier": spill["launches"],
              "EngineLoop qwen2-7b, Flash tier, CUDA graphs": spill["graph_launches"],
              "EngineLoop qwen2-7b, weights streamed": wstream["qwen2-7b"]["launches"],
@@ -1987,7 +2373,8 @@ def main() -> int:
               "grouped_all_shapes": results["grouped_matmul"]["all_shapes"],
               "paged_decode_all_shapes": results["paged_quant_decode_attention"]["all_shapes"],
               "main_path": summary, "kernel_vs_plain": checks,
-              "generate_path": generate, "spill_path": spill, "moe_path": moe,
+              "generate_path": generate, "lora_path": lora, "gateway_path": gateway,
+              "spill_path": spill, "moe_path": moe,
               "wstream": wstream,
               "total_s": time.perf_counter() - t_start}
     (OUT / "chip_smoke.json").write_text(json.dumps(detail, indent=1))

@@ -1,12 +1,17 @@
 """Serving driver: a trace of requests through the continuous-batching
-``EngineLoop`` on the card, or with ``--no-continuous`` through the
-slot-synchronous ``Engine.generate`` — the counterpart of ``python -m
-repro.launch.serve`` (no HTTP gateway).
+``EngineLoop`` on the card, with ``--no-continuous`` through the
+slot-synchronous ``Engine.generate``, or with ``--http PORT`` the streaming
+HTTP gateway over an ``EngineLoop`` — the counterpart of ``python -m
+repro.launch.serve``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \\
       --requests 8 --max-new 32 --slots 4 --max-seq 2048
   PYTHONPATH=src python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b \\
       --max-seq 1024 --max-prompt 400
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b@reduced \\
+      --device cpu --http 8090
+  curl -N http://127.0.0.1:8090/v1/completions -d \\
+      '{"prompt": "hello", "max_tokens": 16, "stream": true}'
 
 ``--arch`` takes ``<arch>`` or ``<arch>@reduced`` / ``@tiny`` / ``@tiny-moe``
 (MoE architectures); weights are random, drawn from ``--seed``.  With
@@ -14,8 +19,9 @@ repro.launch.serve`` (no HTTP gateway).
 from Flash through a ring of device slots (``EngineLoop`` only).  It runs on
 ``cuda``; ``--device cpu`` runs the plain PyTorch path instead.  With
 ``--warmup`` (the default) the loop captures every step graph before
-serving and prints the reference's warmup line.  Prints every request's
-tokens and the serving stats.  ``Engine.generate`` decodes
+serving and prints the reference's warmup line (with ``--http``, the
+gateway's ``/healthz`` answers 503 until it is done).  Prints every
+request's tokens and the serving stats.  ``Engine.generate`` decodes
 the whole batch at request 0's position, so ``--no-continuous`` draws every
 prompt at one length (``--max-prompt``).
 """
@@ -64,6 +70,14 @@ def main(argv: Optional[List[str]] = None) -> List[E.Request]:
                     help="device byte budget for the WEIGHTS: stacks that overflow "
                          "it stream per layer group from Flash through a ring of "
                          "device slots (default: everything resident)")
+    ap.add_argument("--http", type=int, default=None, metavar="PORT",
+                    help="serve the streaming HTTP gateway on PORT "
+                         "instead of replaying a trace")
+    ap.add_argument("--host", default="127.0.0.1",
+                    help="gateway bind address (with --http)")
+    ap.add_argument("--max-queue", type=int, default=64,
+                    help="gateway backpressure: waiting requests beyond "
+                         "this bound are rejected with HTTP 429")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain path)")
     ap.add_argument("--flash-dir", default=None,
@@ -84,6 +98,26 @@ def main(argv: Optional[List[str]] = None) -> List[E.Request]:
               f"ring {pol.ring_bytes / 1024:.0f} KiB, resident "
               f"{pol.resident_bytes / 1024:.0f} KiB of budget "
               f"{pol.dram_budget_bytes / 1024:.0f} KiB")
+    if args.http is not None:
+        from repro_torch.data.tokenizer import ByteTokenizer
+        from repro_torch.serving import gateway as G
+        loop = E.EngineLoop(eng, max_slots=args.slots,
+                            prefill_chunk=args.prefill_chunk,
+                            prefill_token_budget=args.prefill_token_budget,
+                            preempt_patience=args.preempt_patience,
+                            max_queue=args.max_queue, seed=args.seed)
+        tok = ByteTokenizer(cfg.vocab_size) if cfg.vocab_size >= 258 else None
+        print(f"[serve] gateway on http://{args.host}:{args.http} "
+              f"({args.slots} slots, queue bound {args.max_queue}, "
+              f"{'byte tokenizer' if tok else 'token-id prompts only'})",
+              flush=True)
+        try:
+            G.serve(G.EngineService(loop, warmup=args.warmup),
+                    host=args.host, port=args.http,
+                    tokenizer=tok, model_name=cfg.name)
+        finally:
+            eng.close()
+        return []
     rng = np.random.default_rng(args.seed)
     sp = SM.SamplingParams(temperature=args.temperature, top_k=args.top_k,
                            max_new_tokens=args.max_new)

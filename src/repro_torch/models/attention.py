@@ -3,7 +3,9 @@
 pre-scale of the paper's mixed-precision policy, and the two cache layouts'
 entry points — whole-prompt prefill into a dense ``LayerKVCache`` and
 one-token decode against it (``Engine.generate``), chunked prefill and
-one-token decode against the paged pool (``EngineLoop``).
+one-token decode against the paged pool (``EngineLoop``).  Every entry
+point takes ``lora``, the per-row multi-LoRA bypass on the q and v
+projections (C7; ``core.lora``).
 
 The blockwise reference ``flash_attention`` lives beside the prefill
 kernels' plain versions (``kernels.flash_prefill``) and is re-exported
@@ -12,13 +14,14 @@ here; the reference's dense ``decode_attention_ref`` is
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import LayerPattern, ModelConfig
 from repro_torch.core import kv_cache as kvc
 from repro_torch.core import kv_pool as KP
+from repro_torch.core import lora as LR
 from repro_torch.core.precision import DEFAULT_POLICY, PrecisionPolicy
 from repro_torch.kernels.flash_prefill import FLASH_BK, flash_attention  # noqa: F401
 from repro_torch.models import layers as L
@@ -39,12 +42,22 @@ def attn_params(b: L.ParamBuilder, cfg: ModelConfig, lead: tuple = ()) -> dict:
 
 
 def _project_qkv(x: torch.Tensor, p: dict, cfg: ModelConfig,
-                 dispatch: D.Dispatcher
+                 dispatch: D.Dispatcher, lora: Optional[dict] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q/k/v projections of x (the port has no cross attention: k and v
+    read x too).  ``lora``: the adapter tables ("wq_a", "wq_b", "wv_a",
+    "wv_b") and each row's adapter id ("ids" [B]); the bypass is computed
+    in float32 from the bf16 input, cast to the projection's dtype and
+    added before the bias, as in the reference."""
     hd = cfg.resolved_head_dim
     qp = L.apply_linear(x, p["wq"], cfg.quant, dispatch)
     kp = L.apply_linear(x, p["wk"], cfg.quant, dispatch)
     vp = L.apply_linear(x, p["wv"], cfg.quant, dispatch)
+    if lora is not None:
+        qp = qp + LR.lora_apply_batched(x, lora["wq_a"], lora["wq_b"],
+                                        lora["ids"]).to(qp.dtype)
+        vp = vp + LR.lora_apply_batched(x, lora["wv_a"], lora["wv_b"],
+                                        lora["ids"]).to(vp.dtype)
     if "bq" in p:
         qp = qp + p["bq"].to(qp.dtype)
         kp = kp + p["bk"].to(kp.dtype)
@@ -66,7 +79,8 @@ def _prescale(qh: torch.Tensor, hd: int, policy: PrecisionPolicy) -> torch.Tenso
 def attention_prefill(x: torch.Tensor, p: dict, cfg: ModelConfig,
                       pat: LayerPattern, positions: torch.Tensor,
                       cache: kvc.LayerKVCache, dispatch: D.Dispatcher,
-                      policy: PrecisionPolicy = DEFAULT_POLICY
+                      policy: PrecisionPolicy = DEFAULT_POLICY,
+                      lora: Optional[dict] = None
                       ) -> Tuple[torch.Tensor, kvc.LayerKVCache]:
     """Whole-prompt prefill of x [B, T, d] into the empty layer ``cache``
     (written in place): quantize and store K/V at [0, T), then attend over
@@ -78,7 +92,7 @@ def attention_prefill(x: torch.Tensor, p: dict, cfg: ModelConfig,
         raise NotImplementedError("windowed layers prefill through their ring "
                                   "(ROADMAP queue 1 item 13)")
     B, T = x.shape[:2]
-    qh, kh, vh = _project_qkv(x, p, cfg, dispatch)
+    qh, kh, vh = _project_qkv(x, p, cfg, dispatch, lora)
     qh = L.positional(qh, cfg, positions)
     kh = L.positional(kh, cfg, positions)
     cache = kvc.append(cache, kh, vh, 0)
@@ -96,13 +110,14 @@ def attention_prefill(x: torch.Tensor, p: dict, cfg: ModelConfig,
 def attention_decode(x: torch.Tensor, p: dict, cfg: ModelConfig,
                      pat: LayerPattern, cache: kvc.LayerKVCache, pos,
                      positions: torch.Tensor, dispatch: D.Dispatcher,
-                     policy: PrecisionPolicy = DEFAULT_POLICY
+                     policy: PrecisionPolicy = DEFAULT_POLICY,
+                     lora: Optional[dict] = None
                      ) -> Tuple[torch.Tensor, kvc.LayerKVCache]:
     """One decode step against a dense cache: append the new token's
     quantized K/V at ``pos`` (a scalar, or [B] per row; in place), then
     attend over the first ``pos + 1`` slots."""
     B, T = x.shape[:2]
-    qh, kh, vh = _project_qkv(x, p, cfg, dispatch)
+    qh, kh, vh = _project_qkv(x, p, cfg, dispatch, lora)
     qh = L.positional(qh, cfg, positions)
     kh = L.positional(kh, cfg, positions)
     cache = kvc.append(cache, kh, vh, pos)
@@ -115,8 +130,8 @@ def attention_prefill_paged(x: torch.Tensor, p: dict, cfg: ModelConfig,
                             pat: LayerPattern, pool: KP.PagedLayerKV,
                             table_row: torch.Tensor, positions: torch.Tensor,
                             pos0, dispatch: D.Dispatcher,
-                            policy: PrecisionPolicy = DEFAULT_POLICY
-                            ) -> torch.Tensor:
+                            policy: PrecisionPolicy = DEFAULT_POLICY,
+                            lora: Optional[dict] = None) -> torch.Tensor:
     """One prompt chunk of one row straight into the paged pool: quantize and
     append the chunk's K/V into the row's pages (in place), then attend the
     chunk's queries (absolute positions ``pos0 + arange(C)``; ``pos0`` an
@@ -126,7 +141,7 @@ def attention_prefill_paged(x: torch.Tensor, p: dict, cfg: ModelConfig,
         raise NotImplementedError("windowed layers prefill through their ring "
                                   "(ROADMAP queue 1 item 13)")
     B, C = x.shape[:2]
-    qh, kh, vh = _project_qkv(x, p, cfg, dispatch)
+    qh, kh, vh = _project_qkv(x, p, cfg, dispatch, lora)
     qh = L.positional(qh, cfg, positions)
     kh = L.positional(kh, cfg, positions)
     KP.append_paged_prompt(pool, kh, vh, pos0, table_row)
@@ -139,8 +154,8 @@ def attention_decode_paged(x: torch.Tensor, p: dict, cfg: ModelConfig,
                            pat: LayerPattern, pool: KP.PagedLayerKV,
                            table: torch.Tensor, pos: torch.Tensor,
                            positions: torch.Tensor, dispatch: D.Dispatcher,
-                           policy: PrecisionPolicy = DEFAULT_POLICY
-                           ) -> torch.Tensor:
+                           policy: PrecisionPolicy = DEFAULT_POLICY,
+                           lora: Optional[dict] = None) -> torch.Tensor:
     """One decode step per row against the pool: append the new token's
     quantized K/V into its page through ``table`` [B, pages_per_row] (in
     place), then attend over the row's pages up to ``pos + 1``."""
@@ -148,7 +163,7 @@ def attention_decode_paged(x: torch.Tensor, p: dict, cfg: ModelConfig,
         raise NotImplementedError("windowed decode reads a ring view "
                                   "(ROADMAP queue 1 item 13)")
     B, T = x.shape[:2]
-    qh, kh, vh = _project_qkv(x, p, cfg, dispatch)
+    qh, kh, vh = _project_qkv(x, p, cfg, dispatch, lora)
     qh = L.positional(qh, cfg, positions)
     kh = L.positional(kh, cfg, positions)
     KP.append_paged(pool, kh, vh, pos, table)

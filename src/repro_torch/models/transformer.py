@@ -14,6 +14,10 @@ page pools are updated in place.
 A stack streamed from Flash runs one layer group at a time out of a ring
 slot's parameter tree (``run_stack_group``); the paged steps take the
 caller's stack runner for that (``run_stacks``).
+
+Every step takes ``lora`` (multi-LoRA, C7): the adapter tables and one
+adapter id per batch row, carried to every layer's q/v projections as the
+reference's ``StepCtx.lora`` is.
 """
 from __future__ import annotations
 
@@ -140,7 +144,7 @@ def free_slots(cache: dict, rows) -> dict:
 def _apply_layer(x: torch.Tensor, pp: dict, cfg: ModelConfig, pat: LayerPattern,
                  mode: str, positions: torch.Tensor, cache, pos, table,
                  dispatch: D.Dispatcher, policy: PrecisionPolicy,
-                 collect: Optional[dict] = None):
+                 collect: Optional[dict] = None, lora: Optional[dict] = None):
     """One layer.  ``cache`` is this layer's ``PagedLayerKV`` (modes
     "prefill_paged" and "decode") or ``LayerKVCache`` ("prefill" and
     "decode").  ``collect``: an MoE layer's router ids (``apply_moe``).
@@ -148,16 +152,16 @@ def _apply_layer(x: torch.Tensor, pp: dict, cfg: ModelConfig, pat: LayerPattern,
     h = L.rms_norm(x, pp["ln1"], cfg.rms_eps, dispatch)
     if mode == "prefill_paged":
         att = A.attention_prefill_paged(h, pp["attn"], cfg, pat, cache, table,
-                                        positions, pos, dispatch, policy)
+                                        positions, pos, dispatch, policy, lora)
     elif mode == "prefill":
         att, cache = A.attention_prefill(h, pp["attn"], cfg, pat, positions, cache,
-                                         dispatch, policy)
+                                         dispatch, policy, lora)
     elif isinstance(cache, KP.PagedLayerKV):
         att = A.attention_decode_paged(h, pp["attn"], cfg, pat, cache, table, pos,
-                                       positions, dispatch, policy)
+                                       positions, dispatch, policy, lora)
     else:
         att, cache = A.attention_decode(h, pp["attn"], cfg, pat, cache, pos,
-                                        positions, dispatch, policy)
+                                        positions, dispatch, policy, lora)
     x = x + att
     h2 = L.rms_norm(x, pp["ln2"], cfg.rms_eps, dispatch)
     if pat.moe:
@@ -172,7 +176,8 @@ def _apply_layer(x: torch.Tensor, pp: dict, cfg: ModelConfig, pat: LayerPattern,
 def _run_stacks(x: torch.Tensor, params: dict, cfg: ModelConfig, mode: str,
                 positions: torch.Tensor, cache: dict, pos, table,
                 dispatch: D.Dispatcher, policy: PrecisionPolicy = DEFAULT_POLICY,
-                collect: Optional[list] = None) -> torch.Tensor:
+                collect: Optional[list] = None,
+                lora: Optional[dict] = None) -> torch.Tensor:
     """Every layer in order.  ``mode`` "prefill_paged": ``pos`` is the
     chunk's first position and ``table`` the row's [pages_per_row] table;
     "prefill": the dense caches are empty and fill from position 0;
@@ -189,7 +194,7 @@ def _run_stacks(x: torch.Tensor, params: dict, cfg: ModelConfig, mode: str,
             for pi, pat in enumerate(patterns):
                 x, new = _apply_layer(x, layer_slice(sp[pi], li), cfg, pat, mode,
                                       positions, cache["stacks"][si][pi].layer(li),
-                                      pos, table, dispatch, policy)
+                                      pos, table, dispatch, policy, lora=lora)
                 if isinstance(new, kvc.LayerKVCache):
                     lengths[pi].append(new.length)
                 if collect is not None:
@@ -205,7 +210,8 @@ def run_stack_group(gp: tuple, cfg: ModelConfig, stack_idx: int, mode: str,
                     x: torch.Tensor, positions: torch.Tensor, cache: dict,
                     group: int, pos, table, dispatch: D.Dispatcher,
                     policy: PrecisionPolicy = DEFAULT_POLICY,
-                    collect: Optional[dict] = None) -> torch.Tensor:
+                    collect: Optional[dict] = None,
+                    lora: Optional[dict] = None) -> torch.Tensor:
     """ONE layer group of one stack on the paged pool (modes "decode" and
     "prefill_paged", arguments as ``_run_stacks``'s): ``gp`` is the group's
     parameter tree (one dict per period pattern, no leading [count] axis;
@@ -219,7 +225,7 @@ def run_stack_group(gp: tuple, cfg: ModelConfig, stack_idx: int, mode: str,
         sub = None if collect is None else {}
         x, _ = _apply_layer(x, gp[pi], cfg, pat, mode, positions,
                             cache["stacks"][stack_idx][pi].layer(group), pos, table,
-                            dispatch, policy, sub)
+                            dispatch, policy, sub, lora)
         if sub:
             ids.append(sub["moe_ids"])
     if collect is not None and ids:
@@ -239,7 +245,8 @@ def prefill_chunk_paged(params: dict, cfg: ModelConfig, embeds: torch.Tensor,
                         dispatch: D.Dispatcher,
                         policy: PrecisionPolicy = DEFAULT_POLICY,
                         collect: Optional[list] = None,
-                        run_stacks: Optional[Callable] = None) -> torch.Tensor:
+                        run_stacks: Optional[Callable] = None,
+                        lora: Optional[dict] = None) -> torch.Tensor:
     """One prompt chunk for decode row ``slot`` written straight into the
     pool.  embeds [1, C, d] at absolute positions [pos0, pos0 + C); a
     padded final chunk's keys land in causally dead positions or the trash
@@ -248,8 +255,8 @@ def prefill_chunk_paged(params: dict, cfg: ModelConfig, embeds: torch.Tensor,
     tensors: read from the device, they never make the host wait and a CUDA
     graph replays the step for any values.  The caller advances
     ``cache["pos"]`` once the whole prompt is in.  ``run_stacks(x, mode,
-    positions, pos, table)`` replaces the resident stacks' run (streamed
-    weights)."""
+    positions, pos, table, lora)`` replaces the resident stacks' run
+    (streamed weights).  ``lora["ids"]`` holds the row's one adapter id."""
     x = embeds.to(torch.bfloat16)
     B, C = x.shape[:2]
     if B != 1:
@@ -258,10 +265,10 @@ def prefill_chunk_paged(params: dict, cfg: ModelConfig, embeds: torch.Tensor,
     positions = (pos0 + torch.arange(C, device=x.device, dtype=torch.int32))[None]
     table_row = cache["table"].index_select(0, slot.long())[0]
     if run_stacks is not None:
-        x = run_stacks(x, "prefill_paged", positions, pos0, table_row)
+        x = run_stacks(x, "prefill_paged", positions, pos0, table_row, lora)
     else:
         x = _run_stacks(x, params, cfg, "prefill_paged", positions, cache, pos0,
-                        table_row, dispatch, policy, collect)
+                        table_row, dispatch, policy, collect, lora)
     last = x.index_select(1, last_idx.long())
     return _logits(last, params, cfg, dispatch)[:, 0]
 
@@ -271,14 +278,16 @@ def decode_step_bucketed(params: dict, cfg: ModelConfig, embeds: torch.Tensor,
                          active: Optional[torch.Tensor] = None,
                          policy: PrecisionPolicy = DEFAULT_POLICY,
                          collect: Optional[list] = None,
-                         run_stacks: Optional[Callable] = None
+                         run_stacks: Optional[Callable] = None,
+                         lora: Optional[dict] = None
                          ) -> Tuple[torch.Tensor, dict]:
     """One decode step over a bucket of rows gathered from the slot set:
     embeds [b, 1, d]; ``slot_idx`` [b] names each bucket row's slot (pad
     rows are distinct idle slots, masked by ``active`` [b] and routed to the
     trash page by their all-trash table rows).  Only ``pos`` and the table
     are gathered — the pool is physical-page addressed and never moves.
-    ``run_stacks`` as in ``prefill_chunk_paged``.  Returns (logits [b, V] in
+    ``run_stacks`` as in ``prefill_chunk_paged``; ``lora["ids"]`` [b] in
+    bucket order.  Returns (logits [b, V] in
     bucket order, cache with ``pos`` advanced for the active rows)."""
     x = embeds.to(torch.bfloat16)
     b, T = x.shape[:2]
@@ -286,10 +295,10 @@ def decode_step_bucketed(params: dict, cfg: ModelConfig, embeds: torch.Tensor,
     pos = cache["pos"][idx]
     positions = pos[:, None] + torch.arange(T, device=x.device, dtype=pos.dtype)[None]
     if run_stacks is not None:
-        x = run_stacks(x, "decode", positions, pos, cache["table"][idx])
+        x = run_stacks(x, "decode", positions, pos, cache["table"][idx], lora)
     else:
         x = _run_stacks(x, params, cfg, "decode", positions, cache, pos,
-                        cache["table"][idx], dispatch, policy, collect)
+                        cache["table"][idx], dispatch, policy, collect, lora)
     stepped = pos + T if active is None else torch.where(active, pos + T, pos)
     cache["pos"][idx] = stepped
     return _logits(x, params, cfg, dispatch)[:, -1], cache
@@ -298,7 +307,8 @@ def decode_step_bucketed(params: dict, cfg: ModelConfig, embeds: torch.Tensor,
 def prefill(params: dict, cfg: ModelConfig, embeds: torch.Tensor, max_seq: int,
             dispatch: D.Dispatcher, positions: Optional[torch.Tensor] = None,
             policy: PrecisionPolicy = DEFAULT_POLICY,
-            collect: Optional[list] = None) -> Tuple[torch.Tensor, dict]:
+            collect: Optional[list] = None,
+            lora: Optional[dict] = None) -> Tuple[torch.Tensor, dict]:
     """Whole-prompt prefill of embeds [B, T, d] into fresh dense caches of
     ``max_seq`` slots.  Returns (logits [B, V] of the last token, cache
     with ``pos`` = T)."""
@@ -308,7 +318,7 @@ def prefill(params: dict, cfg: ModelConfig, embeds: torch.Tensor, max_seq: int,
         positions = torch.arange(T, device=x.device)[None].expand(B, T)
     cache = init_cache(cfg, B, max_seq, device=x.device)
     x = _run_stacks(x, params, cfg, "prefill", positions, cache, None, None,
-                    dispatch, policy, collect)
+                    dispatch, policy, collect, lora)
     cache["pos"] = torch.tensor(T, dtype=torch.int32, device=x.device)
     return _logits(x[:, -1:], params, cfg, dispatch)[:, 0], cache
 
@@ -317,7 +327,8 @@ def decode_step(params: dict, cfg: ModelConfig, embeds: torch.Tensor, cache: dic
                 dispatch: D.Dispatcher, positions: Optional[torch.Tensor] = None,
                 active: Optional[torch.Tensor] = None,
                 policy: PrecisionPolicy = DEFAULT_POLICY,
-                collect: Optional[list] = None) -> Tuple[torch.Tensor, dict]:
+                collect: Optional[list] = None,
+                lora: Optional[dict] = None) -> Tuple[torch.Tensor, dict]:
     """One decode step of every row: embeds [B, 1, d] against dense caches
     (``pos`` a scalar or [B]) or the paged pool (``pos`` [B], ``table``).
     ``active`` [B] keeps inactive rows' positions; their KV bytes need no
@@ -334,6 +345,6 @@ def decode_step(params: dict, cfg: ModelConfig, embeds: torch.Tensor, cache: dic
         else:
             positions = pos.expand(B, T)
     x = _run_stacks(x, params, cfg, "decode", positions, cache, pos,
-                    cache.get("table"), dispatch, policy, collect)
+                    cache.get("table"), dispatch, policy, collect, lora)
     cache["pos"] = pos + T if active is None else torch.where(active, pos + T, pos)
     return _logits(x, params, cfg, dispatch)[:, -1], cache

@@ -30,8 +30,13 @@ stacks group by group out of a ring of device slots allocated once and
 written in place, the next group's Flash read queued while one computes;
 an MoE group installs the experts its router history predicts and runs
 again when the router picked a cold one.  That split step runs eagerly
-(``disabled_features["cuda_graphs"]``).  Not ported (ROADMAP queue 1 item
-16): LoRA, which raises ``NotImplementedError``.
+(``disabled_features["cuda_graphs"]``).
+
+Multi-LoRA (C7): ``Engine.load_adapter`` loads an adapter's q and v
+factors online into registries whose device tables keep their storage;
+every step of either path adds the per-row bypass of each row's adapter
+(slot 0, the zero adapter, for rows without one).  Until the first adapter
+is loaded the steps carry no bypass at all, as the reference's do.
 
 ``EngineLoop.warmup`` is the reference's: where the reference pre-compiles
 one step graph per decode bucket and per prompt-chunk size, the port
@@ -53,6 +58,7 @@ from repro_torch import kernels as K
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import hybrid_storage as HS
 from repro_torch.core import kv_pool as KP
+from repro_torch.core import lora as LR
 from repro_torch.kernels import loader
 from repro_torch.models import transformer as T
 from repro_torch.runtime import dispatch as D
@@ -408,6 +414,12 @@ class Engine:
         self.max_seq = max_seq
         self.embedding = embedding
         self.stats = EngineStats()
+        # multi-LoRA (C7): online-loaded adapter registries for q/v
+        hd = cfg.resolved_head_dim
+        self.lora_q = LR.LoraRegistry(cfg.d_model, cfg.num_heads * hd,
+                                      max_rank=8, device=self.device)
+        self.lora_v = LR.LoraRegistry(cfg.d_model, cfg.num_kv_heads * hd,
+                                      max_rank=8, device=self.device)
         self.weight_policy = self.plan.weight_placement(
             cfg, weight_dram_budget_bytes, ring_groups=weight_ring_groups,
             expert_granular=expert_streaming)
@@ -452,6 +464,42 @@ class Engine:
         if self.weight_store is not None:
             self.weight_store.drop_all()
 
+    # --- multi-LoRA (C7) ------------------------------------------------------
+    def load_adapter(self, name: str, q_ab, v_ab) -> None:
+        """Online-load one adapter: q_ab/v_ab = (A [d, r], B [r, out]).  The
+        device tables are written in place on the current stream."""
+        self.lora_q.load(name, *q_ab)
+        self.lora_v.load(name, *v_ab)
+
+    def _lora_ids(self, requests: Sequence[Optional[Request]],
+                  rows: Optional[Sequence[int]] = None) -> Optional[List[int]]:
+        """Per-row adapter slots (``None`` entries, empty continuous-batching
+        slots, select the zero adapter), or None while no adapter is loaded;
+        an adapter name nobody loaded raises ``KeyError`` then."""
+        if not self.lora_q._names:
+            return None
+        ids = [self.lora_q.slot(r.adapter) if r is not None else 0
+               for r in requests]
+        if rows is not None:
+            ids = [ids[int(i)] for i in rows]
+        return ids
+
+    def _lora_tables(self, ids: torch.Tensor) -> dict:
+        """The step-side LoRA argument: the device tables and ``ids`` [B]."""
+        qa, qb = self.lora_q.device_tables()
+        va, vb = self.lora_v.device_tables()
+        return {"wq_a": qa, "wq_b": qb, "wv_a": va, "wv_b": vb, "ids": ids}
+
+    def _lora_for(self, requests: Sequence[Optional[Request]],
+                  rows: Optional[Sequence[int]] = None) -> Optional[dict]:
+        """Per-row adapter tables (the reference's), None while no adapter
+        is loaded."""
+        ids = self._lora_ids(requests, rows)
+        if ids is None:
+            return None
+        return self._lora_tables(torch.tensor(ids, dtype=torch.int64,
+                                              device=self.device))
+
     def embed(self, token_ids: np.ndarray,
               out: Optional[HS.StagedBuffer] = None) -> torch.Tensor:
         """bf16 rows gathered from Flash (C2), on the engine's device; with
@@ -466,20 +514,20 @@ class Engine:
         own dense cache, concatenate the caches on the batch axis, then
         decode the batch until every request is done.  As in the reference,
         the batch decodes at request 0's position (one scalar ``pos``), so
-        requests must have prompts of equal length to decode correctly."""
-        if any(r.adapter is not None for r in requests):
-            raise NotImplementedError("LoRA adapters are not ported "
-                                      "(ROADMAP queue 1 item 16)")
+        requests must have prompts of equal length to decode correctly.
+        Each request's adapter rides along (its prompt alone, then its row
+        of the batch)."""
         if self.weight_policy.active:
             raise RuntimeError("weight streaming requires the EngineLoop step path")
         cfg = self.cfg
         gen = generator or torch.Generator(device=self.device).manual_seed(0)
         caches, last_logits = [], []
         t0 = time.perf_counter()
-        for req in requests:
+        for ri, req in enumerate(requests):
             toks = np.asarray(req.prompt_tokens)[None, :]
             logits, cache = T.prefill(self.params, cfg, self.embed(toks),
-                                      self.max_seq, self.dispatch)
+                                      self.max_seq, self.dispatch,
+                                      lora=self._lora_for(requests, rows=[ri]))
             caches.append(cache)
             last_logits.append(logits)
             self.stats.prefill_tokens += toks.size
@@ -488,6 +536,7 @@ class Engine:
 
         cache = _concat_caches(caches)
         logits = torch.cat(last_logits, dim=0)
+        lora = self._lora_for(requests)
         t0 = time.perf_counter()
         for _ in range(sampling.max_new_tokens):
             tok_np = SM.sample(logits, sampling, cfg.vocab_size, gen).cpu().numpy()
@@ -502,7 +551,7 @@ class Engine:
                 break
             # C2: the next token's embedding row comes from Flash
             logits, cache = T.decode_step(self.params, cfg, self.embed(tok_np[:, None]),
-                                          cache, self.dispatch)
+                                          cache, self.dispatch, lora=lora)
             self.stats.decode_tokens += len(requests)
         _sync(self.device)
         self.stats.decode_s += time.perf_counter() - t0
@@ -546,9 +595,15 @@ class EngineLoop:
     device; the decode step's only wait is sampling's.  On the card each
     shape is captured once as a CUDA graph and replayed: ``warmup()``
     captures them all up front, and a shape met later is captured where it
-    is met (counted in ``stats.recompiles_after_warmup``).  A capture that
-    fails raises.  ``cuda_graphs=False`` runs the same steps eagerly on the
-    card, for comparison only; on the CPU nothing is captured.
+    is met (counted in ``stats.recompiles_after_warmup``).  A shape's key
+    also says whether LoRA is on, as the reference's steps retrace once when
+    the first adapter is loaded: adapters loaded before ``warmup()`` are in
+    every graph it captures, the first load after it captures each shape
+    once more where met, and later loads and unloads capture nothing (the
+    adapter tables keep their storage; each row's adapter id is a static
+    input).  A capture that fails raises.  ``cuda_graphs=False`` runs the
+    same steps eagerly on the card, for comparison only; on the CPU nothing
+    is captured.
 
     Under page pressure (``dram_budget_bytes`` below the trace's KV) the
     Flash tier keeps every request running: cold pages of running rows
@@ -618,10 +673,10 @@ class EngineLoop:
         self._table = HS.StagedBuffer(self.cache["table"])
         self._chunk_logits = torch.zeros((1, cfg.padded_vocab_size),
                                          dtype=torch.float32, device=self.device)
-        self._inputs: Dict[Tuple[str, int], Dict[str, HS.StagedBuffer]] = {}
+        self._inputs: Dict[Tuple[str, int, bool], Dict[str, HS.StagedBuffer]] = {}
         self.cuda_graphs = cuda_graphs and self.device.type == "cuda"
-        self._graphs: Dict[Tuple[str, int], "torch.cuda.CUDAGraph"] = {}
-        self._graph_launches: Dict[Tuple[str, int], Dict[str, int]] = {}
+        self._graphs: Dict[Tuple[str, int, bool], "torch.cuda.CUDAGraph"] = {}
+        self._graph_launches: Dict[Tuple[str, int, bool], Dict[str, int]] = {}
         self._graph_pool = None
         self.warmed = False
         self._warmup_graphs = 0
@@ -1052,11 +1107,14 @@ class EngineLoop:
                 ids = np.zeros((1, c), np.int64)
                 ids[0, :valid] = np.asarray(toks[st["next"]:st["next"] + valid])
                 last_idx = t - 1 - st["next"] if st["next"] + c >= t else c - 1
-                key = ("chunk", c)
+                adapters = self._row_lora(req)
+                key = ("chunk", c, adapters is not None)
                 self._prepare(key)
                 ins = self._inputs[key]
                 eng.embed(ids, out=ins["emb"])
                 ins["scal"].put((slot, st["next"], last_idx))
+                if adapters is not None:
+                    ins["lora"].put(adapters)
                 self._launch(key)
                 st["next"] += valid
                 budget -= valid
@@ -1082,24 +1140,34 @@ class EngineLoop:
         return tuple(sorted({self._next_chunk(r)
                              for r in range(1, self.prefill_chunk + 1)}))
 
+    def _slot_lora(self, rows: Optional[Sequence[int]] = None) -> Optional[List[int]]:
+        """The adapter slots of the running rows at ``rows`` (every slot by
+        default), or None while no adapter is loaded."""
+        return self.eng._lora_ids(self.scheduler.running, rows)
+
+    def _row_lora(self, req: Request) -> Optional[List[int]]:
+        return self.eng._lora_ids([req])
+
     def compile_events(self) -> int:
         """CUDA graphs captured so far (monotonic until ``close``): the
         counterpart of the reference's jit-cache entries.  ``step()``
         mirrors it into ``EngineStats``."""
         return len(self._graphs)
 
-    def _step_body(self, key: Tuple[str, int]) -> None:
-        """One step of shape ``key`` on its static inputs: ("decode", b)
+    def _step_body(self, key: Tuple[str, int, bool]) -> None:
+        """One step of shape ``key`` on its static inputs: ("decode", b, _)
         reads embeddings [b, 1, d] and rows [2, b] (slot ids, active flags);
-        ("chunk", c) reads embeddings [1, c, d] and (slot, pos0, last_idx)."""
+        ("chunk", c, _) reads embeddings [1, c, d] and (slot, pos0,
+        last_idx); with LoRA on (``key[2]``) also each row's adapter id."""
         eng, ins = self.eng, self._inputs[key]
         run = self._stream_stacks if self.wpolicy.active else None
+        lora = eng._lora_tables(ins["lora"].target) if key[2] else None
         if key[0] == "decode":
             rows = ins["rows"].target
             idx, act = rows[0], rows[1] != 0
             logits_b, _ = T.decode_step_bucketed(
                 eng.params, self.cfg, ins["emb"].target, self.cache, idx,
-                eng.dispatch, active=act, run_stacks=run)
+                eng.dispatch, active=act, run_stacks=run, lora=lora)
             # pad rows keep their slot's logits: a fixed-shape write (a
             # boolean index would make the host wait for its count)
             self.logits.index_copy_(0, idx, torch.where(
@@ -1108,7 +1176,7 @@ class EngineLoop:
             scal = ins["scal"].target
             self._chunk_logits.copy_(T.prefill_chunk_paged(
                 eng.params, self.cfg, ins["emb"].target, self.cache, scal[0:1],
-                scal[1:2], scal[2:3], eng.dispatch, run_stacks=run))
+                scal[1:2], scal[2:3], eng.dispatch, run_stacks=run, lora=lora))
 
     # --- the weight-streamed split step -----------------------------------
     def _prefetch_sg(self, si: int, g: int) -> None:
@@ -1121,7 +1189,7 @@ class EngineLoop:
             self._expert_rings[si].prefetch(g, self._expert_pred[(si, g)])
 
     def _run_expert_group(self, ering: ExpertWeightRing, spl, si: int, g: int,
-                          mode: str, x, positions, pos, table) -> torch.Tensor:
+                          mode: str, x, positions, pos, table, lora) -> torch.Tensor:
         """One expert-granular group: install the shared leaves and the
         predicted experts, run the group, then read the router's picks for
         the active rows; a routed expert that was cold is installed and the
@@ -1132,7 +1200,7 @@ class EngineLoop:
         def run(collect=None):
             return T.run_stack_group(ering.obtain(g), self.cfg, si, mode, x,
                                      positions, self.cache, g, pos, table,
-                                     self.eng.dispatch, collect=collect)
+                                     self.eng.dispatch, collect=collect, lora=lora)
         if mode != "decode":
             ering.ensure(g, range(spl.experts))
             return run()
@@ -1171,7 +1239,8 @@ class EngineLoop:
         self._expert_last[(si, g)] = actual
         return out
 
-    def _stream_stacks(self, x, mode: str, positions, pos, table) -> torch.Tensor:
+    def _stream_stacks(self, x, mode: str, positions, pos, table,
+                       lora: Optional[dict] = None) -> torch.Tensor:
         """Every stack for one step in the split mode: resident stacks layer
         by layer, streamed ones group by group out of their ring, the chain
         successor's Flash reads queued before each install so they overlap
@@ -1184,18 +1253,19 @@ class EngineLoop:
                 if ring is None and ering is None:
                     gp = tuple(T.layer_slice(p, g) for p in eng.params["stacks"][si])
                     x = T.run_stack_group(gp, cfg, si, mode, x, positions, self.cache, g,
-                                          pos, table, eng.dispatch)
+                                          pos, table, eng.dispatch, lora=lora)
                     continue
                 self._prefetch_sg(*self._stream_next[(si, g)])
                 if ering is not None:
                     x = self._run_expert_group(ering, self.wpolicy.streamed_stack(si), si,
-                                               g, mode, x, positions, pos, table)
+                                               g, mode, x, positions, pos, table, lora)
                 else:
                     x = T.run_stack_group(ring.obtain(g), cfg, si, mode, x, positions,
-                                          self.cache, g, pos, table, eng.dispatch)
+                                          self.cache, g, pos, table, eng.dispatch,
+                                          lora=lora)
         return x
 
-    def _prepare(self, key: Tuple[str, int], warm: bool = False) -> None:
+    def _prepare(self, key: Tuple[str, int, bool], warm: bool = False) -> None:
         """Make step shape ``key`` ready at its first use: its static inputs
         and, with graphs on (or ``warm``), one eager run -- which sets up what
         a capture cannot: the kernel library, cuBLAS's workspace, RoPE's
@@ -1204,7 +1274,7 @@ class EngineLoop:
         with graphs on, its capture."""
         if key in self._inputs:
             return
-        kind, n = key
+        kind, n, lora = key
         d, dev = self.cfg.d_model, self.device
         if kind == "decode":
             rows = torch.zeros((2, n), dtype=torch.int64, device=dev)
@@ -1216,6 +1286,8 @@ class EngineLoop:
             scal[2] = n - 1
             ins = {"emb": torch.zeros((1, n, d), dtype=torch.bfloat16, device=dev),
                    "scal": scal}
+        if lora:
+            ins["lora"] = torch.zeros((ins["emb"].shape[0],), dtype=torch.int64, device=dev)
         self._inputs[key] = {k: HS.StagedBuffer(v) for k, v in ins.items()}
         if warm or self.cuda_graphs:
             table = self.cache["table"]
@@ -1229,7 +1301,7 @@ class EngineLoop:
         if self.cuda_graphs:
             self._capture(key)
 
-    def _capture(self, key: Tuple[str, int]) -> None:
+    def _capture(self, key: Tuple[str, int, bool]) -> None:
         """Capture step ``key`` as a CUDA graph.  The loop's graphs share one
         memory pool: no graph reads what another's replay writes there, as
         every output lands in a tensor made before capture.  The launches the
@@ -1246,7 +1318,7 @@ class EngineLoop:
         self._graphs[key] = graph
         self._graph_launches[key] = launched
 
-    def _launch(self, key: Tuple[str, int]) -> None:
+    def _launch(self, key: Tuple[str, int, bool]) -> None:
         graph = self._graphs.get(key)
         if graph is None:
             self._step_body(key)
@@ -1259,14 +1331,17 @@ class EngineLoop:
         per bucket (the one ``max_slots`` step when bucketing is off) and one
         prompt-chunk step per chunk size, each run against the all-trash
         table with every row inactive, so the pool's pages and the loop's
-        state are untouched, and on the card captured.  After this a trace
-        captures nothing (``stats.recompiles_after_warmup`` stays 0).
+        state are untouched, and on the card captured, with LoRA on if an
+        adapter is loaded.  After this a trace captures nothing
+        (``stats.recompiles_after_warmup`` stays 0) unless the first adapter
+        is loaded later.
         Idempotent.  Returns {"warmup_s", "graphs", "decode_buckets",
         "chunk_sizes"}; ``graphs`` is 0 where nothing is captured."""
         t0 = time.perf_counter()
         chunks = self._chunk_sizes()
-        for key in ([("decode", b) for b in self.buckets]
-                    + [("chunk", c) for c in chunks]):
+        lora = bool(self.eng.lora_q._names)
+        for key in ([("decode", b, lora) for b in self.buckets]
+                    + [("chunk", c, lora) for c in chunks]):
             self._prepare(key, warm=True)
         _sync(self.device)
         self.warmed = True
@@ -1317,9 +1392,6 @@ class EngineLoop:
                 raise ValueError(f"request {req.uid} has no SamplingParams and "
                                  "the loop has no default_sampling")
             req.sampling = self.default_sampling
-        if req.adapter is not None:
-            raise NotImplementedError("LoRA adapters are not ported "
-                                      "(ROADMAP queue 1 item 16)")
         self._validate(req)
         if (self.max_queue is not None
                 and len(self.scheduler.waiting) >= self.max_queue):
@@ -1496,12 +1568,15 @@ class EngineLoop:
                 slot_idx = np.arange(self.max_slots, dtype=np.int32)
                 act_b = np.zeros((self.max_slots,), bool)
                 act_b[wave] = True
-            key = ("decode", len(slot_idx))
+            adapters = self._slot_lora(slot_idx)
+            key = ("decode", len(slot_idx), adapters is not None)
             self._prepare(key)
             self._upload_table(visible=set(wave))
             ins = self._inputs[key]
             eng.embed(ids[slot_idx], out=ins["emb"])
             ins["rows"].put(np.stack([slot_idx, act_b]))
+            if adapters is not None:
+                ins["lora"].put(adapters)
             self._host_active = act_b
             self._launch(key)
         if flash_needs:

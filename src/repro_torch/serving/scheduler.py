@@ -38,7 +38,7 @@ class Request:
     uid: int
     prompt_tokens: List[int]
     max_new_tokens: int = 32
-    adapter: Optional[str] = None      # multi-LoRA (C7); not ported
+    adapter: Optional[str] = None      # multi-LoRA (C7): Engine.load_adapter name
     # per-request sampling (None until EngineLoop.submit resolves it
     # against the loop default)
     sampling: Optional["SamplingParams"] = None

@@ -672,14 +672,14 @@ def test_replay_launches_and_outputs_equal_an_eager_step(card_engines, arch):
         loop.warmup()
         assert loop.pool.alloc_row(0, 16) and loop.pool.alloc_row(2, 16)
         loop._upload_table(visible={0, 2})
-        dec, chunk = loop._inputs[("decode", 4)], loop._inputs[("chunk", 16)]
+        dec, chunk = loop._inputs[("decode", 4, False)], loop._inputs[("chunk", 16, False)]
         eng.embed(tok_d, out=dec["emb"])
         dec["rows"].put(np.asarray([[0, 1, 2, 3], [1, 0, 1, 0]]))
         eng.embed(tok_c, out=chunk["emb"])
         chunk["scal"].put((2, 0, 11))
         K.reset_launch_counts()
-        loop._launch(("decode", 4))
-        loop._launch(("chunk", 16))
+        loop._launch(("decode", 4, False))
+        loop._launch(("chunk", 16, False))
         torch.cuda.synchronize()
         counts.append(K.launch_counts())
         outs.append((loop.logits.clone(), loop.cache["pos"].clone(),
@@ -692,6 +692,57 @@ def test_replay_launches_and_outputs_equal_an_eager_step(card_engines, arch):
         assert torch.equal(a, b)
     assert outs[1][1].tolist() == [1, 0, 1, 0]
     loops[1].close()
+
+
+@pytest.mark.gpu
+def test_lora_graphs_follow_the_reference_retraces(card_engines):
+    """Multi-LoRA on the graphs (qwen2-7b@reduced): a loop warmed with no
+    adapter captures each shape once more, with LoRA, where the first
+    adapter's trace meets it; a second adapter loaded after that captures
+    nothing, and its replay reads the tables written in place (tokens equal
+    an eager loop's); base rows keep their tokens; unloading every adapter
+    captures nothing."""
+    eng = card_engines("qwen2-7b@reduced")
+    cfg, hd = eng.cfg, eng.cfg.resolved_head_dim
+    rng = np.random.default_rng(0)
+
+    def factors(r):
+        return tuple((rng.normal(size=(cfg.d_model, r)).astype(np.float32) * 0.3,
+                      rng.normal(size=(r, h * hd)).astype(np.float32) * 0.3)
+                     for h in (cfg.num_heads, cfg.num_kv_heads))
+    prompts = [[int(t) for t in rng.integers(1, 400, n)] for n in (20, 9)]
+    sp = PSM.SamplingParams(temperature=0.0, max_new_tokens=6)
+
+    def serve(loop, adapters):
+        reqs = [PE.Request(uid=i, prompt_tokens=p, max_new_tokens=6, sampling=sp, adapter=a)
+                for i, (p, a) in enumerate(zip(prompts, adapters))]
+        loop.run(reqs)
+        return [r.generated for r in reqs]
+    graphs = PE.EngineLoop(eng, max_slots=4, prefill_chunk=16)
+    n0 = graphs.warmup()["graphs"]
+    try:
+        base = serve(graphs, [None, None])
+        eng.load_adapter("x", *factors(8))
+        got = serve(graphs, [None, "x"])
+        lora_keys = [k for k in graphs._graphs if k[2]]
+        assert lora_keys and eng.stats.recompiles_after_warmup == len(lora_keys)
+        assert got[0] == base[0] and got[1] != base[1]
+        eng.load_adapter("y", *factors(4))
+        got = serve(graphs, [None, "y"])
+        assert eng.stats.recompiles_after_warmup == len(lora_keys)
+        eager = PE.EngineLoop(eng, max_slots=4, prefill_chunk=16, cuda_graphs=False)
+        assert serve(eager, [None, "y"]) == got and got[0] == base[0]
+        for name in ("x", "y"):
+            eng.lora_q.unload(name)
+            eng.lora_v.unload(name)
+        assert serve(graphs, [None, "x"]) == base
+        assert graphs.compile_events() == n0 + len(lora_keys)
+        assert eng.dispatch.fallbacks == []
+    finally:
+        for name in list(eng.lora_q._names):
+            eng.lora_q.unload(name)
+            eng.lora_v.unload(name)
+        graphs.close()
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.core import kv_cache as KV  # noqa: E402

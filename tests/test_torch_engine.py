@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_intra_op_thread  # noqa: E402,F401
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -191,8 +192,6 @@ def test_incremental_api(engines):
     loop = PE.EngineLoop(pe, max_slots=2, default_sampling=sp, max_queue=2)
     with pytest.raises(PE.AdmissionError):
         loop.submit(PE.Request(uid=9, prompt_tokens=[1] * 60, max_new_tokens=8))
-    with pytest.raises(NotImplementedError):
-        loop.submit(PE.Request(uid=8, prompt_tokens=[1, 2], adapter="a"))
     events = []
     loop.on_token = lambda req, tok, done: events.append((req.uid, tok, done))
     for uid in (1, 2):
@@ -204,6 +203,45 @@ def test_incremental_api(engines):
     assert done and len(toks) == 3
     assert [e for e in events if e[0] == 1] == [(1, t, i == 2) for i, t in enumerate(toks)]
     assert pe.dispatch.fallbacks == []
+    _unknown_adapter_as_in_reference(*engines)
+
+
+def _unknown_adapter_as_in_reference(je, pe):
+    """An adapter name nobody loaded, held to the reference's behaviour
+    (a known fault of the reference, ROADMAP queue 3): while no adapter is
+    loaded ``_lora_for`` returns None and the name is ignored (the request
+    is served on the base weights); once one is loaded, the unknown name
+    raises KeyError at the step that first runs the request."""
+    assert pe._lora_for([PE.Request(uid=8, prompt_tokens=[1, 2], adapter="a")]) is None
+    assert je._lora_for([JRequest(uid=8, prompt_tokens=[1, 2], adapter="a")]) is None
+    sp = PS.SamplingParams(temperature=0.0, max_new_tokens=3)
+    loop = PE.EngineLoop(pe, max_slots=2)
+    reqs = [PE.Request(uid=u, prompt_tokens=[5, 6, 7, 8], max_new_tokens=3, adapter=a)
+            for u, a in ((8, "a"), (9, None))]
+    loop.run(reqs, sp)
+    loop.close()
+    assert reqs[0].generated == reqs[1].generated and len(reqs[0].generated) == 3
+    rng = np.random.default_rng(0)
+    cfg, hd = pe.cfg, pe.cfg.resolved_head_dim
+    q = (rng.normal(size=(cfg.d_model, 2)).astype(np.float32),
+         rng.normal(size=(2, cfg.num_heads * hd)).astype(np.float32))
+    v = (rng.normal(size=(cfg.d_model, 2)).astype(np.float32),
+         rng.normal(size=(2, cfg.num_kv_heads * hd)).astype(np.float32))
+    for eng, loop_cls, req_cls, sp_cls in ((je, JE.EngineLoop, JRequest, JS.SamplingParams),
+                                           (pe, PE.EngineLoop, PE.Request, PS.SamplingParams)):
+        eng.load_adapter("known", q, v)
+        try:
+            loop = loop_cls(eng, max_slots=2,
+                            default_sampling=sp_cls(temperature=0.0, max_new_tokens=3))
+            loop.submit(req_cls(uid=10, prompt_tokens=[5, 6, 7], max_new_tokens=3,
+                                adapter="a"))
+            with pytest.raises(KeyError):
+                loop.step()
+            loop.close()
+        finally:
+            eng.lora_q.unload("known")
+            eng.lora_v.unload("known")
+    assert pe._lora_for([None]) is None
 
 
 def test_stochastic_sampling_matches_distribution():

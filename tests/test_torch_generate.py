@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_intra_op_thread  # noqa: E402,F401
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -35,16 +36,28 @@ STRICT = {"xla_allow_excess_precision": False}
 MAX_SEQ = 64
 
 
-def _engines(arch, tmp_path, monkeypatch):
-    """(reference engine with strict jits, the port's engine on its weights)."""
-    monkeypatch.setattr(jax, "jit", functools.partial(jax.jit, compiler_options=STRICT))
-    je = JE.build_engine(JR.get(arch), max_seq=MAX_SEQ, flash_dir=str(tmp_path / "ref"))
-    monkeypatch.undo()
-    emb = CV.embedding_from_reference(je.embedding.flash._maps[je.embedding.name],
-                                      str(tmp_path / "port"))
-    pe = PE.build_engine(PR.get(arch), max_seq=MAX_SEQ, device="cpu",
-                         params=CV.params_from_reference(je.params), embedding=emb)
-    return je, pe
+@pytest.fixture(scope="module")
+def engine_pairs(tmp_path_factory):
+    """arch -> (reference engine with strict jits, the port's engine on its
+    weights), built once for the module."""
+    built = {}
+
+    def get(arch):
+        if arch not in built:
+            orig = jax.jit
+            jax.jit = functools.partial(orig, compiler_options=STRICT)
+            try:
+                je = JE.build_engine(JR.get(arch), max_seq=MAX_SEQ,
+                                     flash_dir=str(tmp_path_factory.mktemp("ref")))
+            finally:
+                jax.jit = orig
+            emb = CV.embedding_from_reference(je.embedding.flash._maps[je.embedding.name],
+                                              str(tmp_path_factory.mktemp("port")))
+            pe = PE.build_engine(PR.get(arch), max_seq=MAX_SEQ, device="cpu",
+                                 params=CV.params_from_reference(je.params), embedding=emb)
+            built[arch] = (je, pe)
+        return built[arch]
+    return get
 
 
 def _reference_layers(je, mode):
@@ -78,8 +91,8 @@ def _close(a, b):
 
 
 @pytest.mark.parametrize("arch", ["qwen2-7b@reduced", "moonshot-v1-16b-a3b@reduced"])
-def test_prefill_and_decode_step_per_layer_match_reference(arch, tmp_path, monkeypatch):
-    je, pe = _engines(arch, tmp_path, monkeypatch)
+def test_prefill_and_decode_step_per_layer_match_reference(arch, engine_pairs):
+    je, pe = engine_pairs(arch)
     cfg = je.cfg
     B, T = 2, 12
     ids = np.random.default_rng(1).integers(1, 500, size=(B, T))
@@ -114,11 +127,12 @@ def test_prefill_and_decode_step_per_layer_match_reference(arch, tmp_path, monke
 
 
 @pytest.mark.parametrize("arch", ["qwen2-7b@reduced", "moonshot-v1-16b-a3b@reduced"])
-def test_generate_greedy_tokens_equal_reference(arch, tmp_path, monkeypatch):
+def test_generate_greedy_tokens_equal_reference(arch, engine_pairs):
     """Three requests with 12-token prompts, 8 greedy tokens each.  On the
     MoE model the 3-row decode routes 6 pairs over 4 experts: one group of
     three tokens through the capacity dispatch."""
-    je, pe = _engines(arch, tmp_path, monkeypatch)
+    je, pe = engine_pairs(arch)
+    je.stats, pe.stats = JE.EngineStats(), PE.EngineStats()
     rng = np.random.default_rng(3)
     prompts = [[int(t) for t in rng.integers(1, 500, 12)] for _ in range(3)]
     sj = JS.SamplingParams(temperature=0.0, max_new_tokens=8)

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_intra_op_thread  # noqa: E402,F401
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -67,18 +68,6 @@ def _budget(arch, params):
     of the stack (MoE)."""
     head, stacks = _head_and_stacks(params)
     return head + (int(0.6 * stacks) if arch == DENSE else stacks // 3)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_intra_op_thread():
-    """The loops here run layers of width 256: one intra-op thread computes
-    them as fast as several, and leaves the cores to the prefetch workers
-    whose reads each streamed group waits for (with several test workers,
-    spinning intra-op threads starve them)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
