@@ -9,9 +9,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    build of the Hopper kernels from ``src/repro_torch/csrc``.
 2. Each of the seven kernels against its plain PyTorch version on the card,
    at the serving paths' shapes (qwen2-7b, G=7; moonshot-v1-16b-a3b, G=1;
-   the decode kernels and the dense matmul with the split count their
-   wrappers choose, the matmul at every dense linear of both models at
-   M = 1, 4, 128 and 320)
+   the decode kernels also at glm4-9b's G=16 and at G=24, two head tiles a
+   KV head, each timed with its bound and SDPA; the decode kernels and the
+   dense matmul with the split count their wrappers choose, the matmul at
+   every dense linear of both models at M = 1, 4, 128 and 320)
    and at small ``@reduced`` shapes, with the tolerance of the matching CPU
    test; the dense prefill kernel also non-causal and windowed; the grouped
    kernel with expert ids (decode) and live-row counts (full-capacity
@@ -65,6 +66,14 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    equal the eager run with no capture after warmup, and each of its steps
    is timed, its syncs counted and its host time in ``_stage_wave`` summed
    (a decode step that stages nothing must make exactly one sync).
+4c. ``[glm4]``, 16 query heads per KV head: full-width glm4-9b (40 layers,
+   d_model 4096, 32/2 heads, d_ff 13696, vocab 151552; random weights from
+   seed 0) serves 6 greedy requests of the qwen2-7b trace's kind (16 new
+   tokens) through ``EngineLoop`` eagerly and on its CUDA graphs (tokens
+   equal, no capture after warmup), a graph decode step profiled, one
+   chunk and one decode step kernel vs plain layer by layer, and
+   ``Engine.generate`` (4 x 320-token prompts, both dense kernels) as in
+   phase 4.  The engine is released before the MoE engine is built.
 5. The MoE path: full-width moonshot-v1-16b-a3b (48 layers, 64 experts
    top-6, random weights) serves 6 greedy requests with prompts of 64-400
    tokens (two sharing a 256-token prefix) on 4 slots through
@@ -386,10 +395,14 @@ def phase_kernels(dev, results: dict) -> None:
     # --- paged_quant_decode_attention --------------------------------------
     # (B, H, Hkv, D, page, pages per row, lengths): qwen2-7b at max_seq 2048
     # (G=7) with the trace's ragged lengths (row 2), moonshot-v1-16b-a3b at
-    # max_seq 1024 (G=1, row 2b), and @reduced (G=1, D=64).  The timed shapes
-    # print the split count the wrapper chooses from their shapes.
+    # max_seq 1024 (G=1, row 2b), glm4-9b (G=16: both halves of a block's
+    # 16-row tile, row 2c), G=24 (two head tiles a KV head), and @reduced
+    # (G=1, D=64).  The timed shapes print the split count the wrapper
+    # chooses from their shapes.
     cases = [(4, 28, 4, 128, 128, 16, [732, 296, 512, 41]),
              (4, 16, 16, 128, 128, 8, [416, 80, 272, 64]),
+             (4, 32, 2, 128, 128, 16, [732, 296, 512, 41]),
+             (4, 48, 2, 128, 128, 16, [732, 296, 512, 41]),
              (3, 4, 4, 64, 16, 4, [37, 5, 64])]
     pd_rows, pd_errs = [], []
     for B, H, Hkv, D, ps, ppr, lengths in cases:
@@ -407,10 +420,11 @@ def phase_kernels(dev, results: dict) -> None:
         err = check_close("paged_quant_decode_attention", got, want,
                           f"B={B} G={H // Hkv} D={D} lengths={lengths}")
         pd_errs.append(err)
-        splits = QA.decode_splits(B, Hkv, ppr)
+        tiles = QA.head_tiles(H // Hkv)
+        splits = QA.decode_splits(B, Hkv * tiles, ppr)
         log(f"[kernels] paged_quant_decode_attention G={H // Hkv} D={D} "
-            f"lengths={lengths}: {splits} splits of {-(-ppr // splits)} pages "
-            f"({B * Hkv * splits} blocks), max abs err {err:.3e}")
+            f"lengths={lengths}: {splits} splits of {-(-ppr // splits)} pages, {tiles} "
+            f"head tile(s) ({B * Hkv * tiles * splits} blocks), max abs err {err:.3e}")
         if D == 128:
             sets = [(q, *p, table, base, length) for p in pools]
             ms = time_ms(QA.paged_quant_decode_attention, sets)
@@ -430,7 +444,7 @@ def phase_kernels(dev, results: dict) -> None:
             ops = 4 * live * H * D
             b = bound(bytes_, ops, BF16_FLOPS_PER_S)
             row = dict(err=err, ms=ms, graph_ms=gms, plain_ms=plain_ms, library_ms=lib_ms,
-                       library_graph_ms=lib_gms, bound=b, splits=splits,
+                       library_graph_ms=lib_gms, bound=b, splits=splits, head_tiles=tiles,
                        shape=f"B={B} H={H} Hkv={Hkv} D={D} page={ps} pages={ppr} "
                              f"lengths={lengths}")
             pd_rows.append(row)
@@ -639,16 +653,22 @@ def phase_new_kernels(dev, results: dict) -> None:
     # --- quant_decode_attention (dense cache) -------------------------------
     # (B, H, Hkv, D, S, lengths): Engine.generate's decode at qwen2-7b (4 rows
     # of a 320-token prompt + 32 steps in 2048-slot caches, G=7), moonshot's
-    # G=1 with ragged per-row lengths, and @reduced
+    # G=1 with ragged per-row lengths, glm4-9b's G=16 (row 6b) and G=24 (two
+    # head tiles) at qwen2-7b's lengths, and @reduced.  Timed: D = 128, G > 1.
+    dd_rows, dd_errs = [], []
     for B, H, Hkv, D, S, lengths in ((4, 28, 4, 128, 2048, [352] * 4),
                                      (4, 16, 16, 128, 2048, [700, 5, 1333, 2048]),
+                                     (4, 32, 2, 128, 2048, [352] * 4),
+                                     (4, 48, 2, 128, 2048, [352] * 4),
                                      (3, 4, 2, 64, 64, [37, 5, 64])):
+        G = H // Hkv
+        timed = G > 1 and D == 128
         def cache():
             k = torch.randn((B, S, Hkv, D), generator=gen, device=dev)
             v = torch.randn((B, S, Hkv, D), generator=gen, device=dev)
             kq, ks, kz = KV.quantize_keys(k.to(torch.bfloat16))
             return kq, ks, kz, KV.cast_values(v, Q.FP8_DTYPE)
-        caches = [cache() for _ in range(8 if H == 28 else 1)]
+        caches = [cache() for _ in range(8 if timed else 1)]
         q = (torch.randn((B, H, D), generator=gen, device=dev) / math.sqrt(D)).to(torch.bfloat16)
         uniform = len(set(lengths)) == 1
         length = torch.tensor(lengths[0] if uniform else lengths, dtype=torch.int32,
@@ -658,12 +678,14 @@ def phase_new_kernels(dev, results: dict) -> None:
         want = QA.quant_decode_attention_plain(
             q, *caches[0], torch.tensor(lengths, dtype=torch.int32, device=dev))
         err = check_close("quant_decode_attention", got, want,
-                          f"B={B} G={H // Hkv} D={D} S={S} lengths={lengths}")
-        splits = QA.decode_splits(B, Hkv, -(-S // QA.DENSE_BLOCK))
-        log(f"[kernels] quant_decode_attention G={H // Hkv} D={D} S={S} "
-            f"lengths={lengths}: {splits} splits ({B * Hkv * splits} blocks), max abs "
-            f"err {err:.3e}")
-        if H == 28:
+                          f"B={B} G={G} D={D} S={S} lengths={lengths}")
+        dd_errs.append(err)
+        tiles = QA.head_tiles(G)
+        splits = QA.decode_splits(B, Hkv * tiles, -(-S // QA.DENSE_BLOCK))
+        log(f"[kernels] quant_decode_attention G={G} D={D} S={S} "
+            f"lengths={lengths}: {splits} splits, {tiles} head tile(s) "
+            f"({B * Hkv * tiles * splits} blocks), max abs err {err:.3e}")
+        if timed:
             sets = [(q, *c, length) for c in caches]
             ms = time_ms(QA.quant_decode_attention, sets)
             gms = graph_ms(QA.quant_decode_attention, sets)
@@ -671,7 +693,6 @@ def phase_new_kernels(dev, results: dict) -> None:
             plain_ms = time_ms(QA.quant_decode_attention_plain, [(q, *caches[0], plens)],
                                iters=5)
             kq, ks, kz, v = caches[0]
-            G = H // Hkv
             kd = KV.dequantize_keys(kq, ks, kz).transpose(1, 2).repeat_interleave(G, dim=1)
             vd = v.to(torch.bfloat16).transpose(1, 2).repeat_interleave(G, dim=1)
             mask = (torch.arange(S, device=dev)[None] < plens[:, None])[:, None, None, :]
@@ -679,18 +700,19 @@ def phase_new_kernels(dev, results: dict) -> None:
                 a, b, c, attn_mask=m, scale=1.0), [(q[:, :, None], kd, vd, mask)])
             live = sum(lengths)
             bytes_ = q.numel() * 2 + live * Hkv * (2 * D + 8) + B * H * D * 4
-            results["quant_decode_attention"] = dict(
+            b = bound(bytes_, 4 * live * H * D, BF16_FLOPS_PER_S)
+            dd_rows.append(dict(
                 err=err, ms=ms, graph_ms=gms, plain_ms=plain_ms, library_ms=lib_ms,
-                library_graph_ms=lib_gms,
-                bound=bound(bytes_, 4 * live * H * D, BF16_FLOPS_PER_S), splits=splits,
+                library_graph_ms=lib_gms, bound=b, splits=splits, head_tiles=tiles,
                 shape=f"B={B} H={H} Hkv={Hkv} D={D} S={S} length={lengths[0]} "
-                      "(Engine.generate decode, qwen2-7b)")
-            b = results["quant_decode_attention"]["bound"]
+                      f"(Engine.generate decode, G={G})"))
             log(f"[kernels]   {ms:.4f} ms a call, {f4(gms)} ms on the device, bound "
                 f"{b[0]:.5f} ms ({b[1]}); plain {plain_ms:.4f} ms; SDPA {f4(lib_ms)} ms a "
                 f"call, {f4(lib_gms)} ms on the device")
             del kd, vd
         del caches
+    results["quant_decode_attention"] = dict(dd_rows[0], err=max(dd_errs),
+                                             all_shapes=dd_rows)
 
     # --- flash_prefill_attention (unquantized K/V) --------------------------
     # (B, T, S, H, Hkv, D, causal, window): Engine.generate's prefill at
@@ -747,12 +769,14 @@ def bound(bytes_: float, ops: float, peak_ops: float):
 # phase 3: the main path at full width
 # ---------------------------------------------------------------------------
 
-def make_trace(vocab: int, seed: int = 0):
+def make_trace(vocab: int, seed: int = 0, requests: int = 8):
+    """``requests`` (at most 8) prompts of 40-700 tokens, every third
+    sharing a 256-token prefix, and their arrival steps."""
     import numpy as np
     rng = np.random.default_rng(seed)
     shared = [int(t) for t in rng.integers(1, vocab, 256)]
     specs = []
-    for i in range(8):
+    for i in range(requests):
         n = int(rng.integers(40, 701))
         if i % 3 == 0:
             n = max(n, 300)
@@ -760,7 +784,7 @@ def make_trace(vocab: int, seed: int = 0):
         else:
             prompt = [int(t) for t in rng.integers(1, vocab, n)]
         specs.append(prompt)
-    arrivals = [0, 0, 1, 2, 4, 7, 11, 16]
+    arrivals = [0, 0, 1, 2, 4, 7, 11, 16][:requests]
     return specs, arrivals
 
 
@@ -1236,10 +1260,11 @@ def phase_kernel_vs_plain(eng, specs, arrivals, reqs):
 # phase 4: Engine.generate at full width
 # ---------------------------------------------------------------------------
 
-def phase_generate(eng) -> dict:
+def phase_generate(eng, tag: str = "generate") -> dict:
     """Four greedy requests with equal-length prompts through the
     slot-synchronous ``Engine.generate`` (it decodes the batch at request
-    0's position, so unequal prompts would decode at the wrong offsets)."""
+    0's position, so unequal prompts would decode at the wrong offsets);
+    ``tag`` heads its log lines."""
     import numpy as np
     import torch
     from repro_torch import kernels as K
@@ -1259,7 +1284,7 @@ def phase_generate(eng) -> dict:
     wall = time.perf_counter() - t0
     counts = K.launch_counts()
     s = eng.stats
-    log(f"[generate] launches: {counts}")
+    log(f"[{tag}] Engine.generate launches: {counts}")
     assert all(r.done and len(r.generated) == 32 for r in reqs), "unfinished requests"
     for name in ("quant_decode_attention", "flash_prefill_attention", "w4a8_matmul",
                  "rmsnorm"):
@@ -1269,7 +1294,8 @@ def phase_generate(eng) -> dict:
                "prefill_s": s.prefill_s, "decode_s": s.decode_s,
                "prefill_tok_per_s": s.prefill_tps, "decode_tok_per_s": s.decode_tps,
                "decode_step_ms": s.decode_s / 31 * 1e3, "launches": counts}
-    log(f"[generate] 4 requests x 320-token prompts, 128 new tokens in {wall:.2f} s; "
+    log(f"[{tag}] Engine.generate: 4 requests x 320-token prompts, 128 new tokens in "
+        f"{wall:.2f} s; "
         f"prefill {s.prefill_tps:.1f} tok/s ({s.prefill_s:.2f} s), decode "
         f"{s.decode_tps:.1f} tok/s ({summary['decode_step_ms']:.1f} ms a 4-row step)")
     caches = [T.prefill(eng.params, cfg, eng.embed(np.asarray(p)[None]), eng.max_seq,
@@ -1280,10 +1306,10 @@ def phase_generate(eng) -> dict:
     def step():
         _, state["cache"] = T.decode_step(eng.params, cfg, embeds, state["cache"],
                                           eng.dispatch)
-    summary["profile"] = profile_steps("qwen2-7b Engine.generate decode step, 4 rows",
+    summary["profile"] = profile_steps(f"{cfg.name} Engine.generate decode step, 4 rows",
                                        step)
-    summary["kernel_vs_plain"] = compare_paths("Engine.generate", eng, prefill_then_decode,
-                                               prompts[0], prompts[1][0])
+    summary["kernel_vs_plain"] = compare_paths(f"{cfg.name} Engine.generate", eng,
+                                               prefill_then_decode, prompts[0], prompts[1][0])
     return summary
 
 
@@ -1865,6 +1891,70 @@ def phase_spill(eng) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4c: glm4-9b at full width (16 query heads per KV head)
+# ---------------------------------------------------------------------------
+
+GLM4_REQUESTS = 6
+GLM4_NEW = 16
+
+
+def phase_glm4(dev):
+    """glm4-9b (40 layers, d_model 4096, 32 heads over 2 KV heads, d_ff
+    13696) from seed 0: both decode kernels at G = 16, every linear through
+    ``w4a8_matmul`` (d_ff 13696: 107 column tiles of 128).  A 6-request
+    trace through ``EngineLoop`` eagerly and on its CUDA graphs, a graph
+    decode step profiled, one chunk and one decode step kernel vs plain,
+    and ``Engine.generate`` (which also holds its prefill and decode step
+    kernel vs plain).  Returns (engine, summary)."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.configs import registry
+    from repro_torch.serving import engine as E
+
+    cfg = registry.get("glm4-9b")
+    assert cfg.num_heads // cfg.num_kv_heads == 16
+    t0 = time.perf_counter()
+    eng = E.build_engine(cfg, seed=0, max_seq=2048, device=dev,
+                         flash_dir=str(ROOT / "build" / "flash-glm4"))
+    torch.cuda.synchronize()
+    log(f"[glm4] glm4-9b: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads (G = 16), d_ff {cfg.d_ff}, vocab "
+        f"{cfg.padded_vocab_size}; built in {time.perf_counter() - t0:.1f} s; device "
+        f"memory {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
+    specs, arrivals = make_trace(cfg.vocab_size, requests=GLM4_REQUESTS)
+    log(f"[glm4] trace: prompts {[len(p) for p in specs]}, arrivals {arrivals}; eager")
+    K.reset_launch_counts()
+    loop, reqs, wall = serve_trace(eng, specs, arrivals, max_new=GLM4_NEW)
+    counts = K.launch_counts()
+    loop.close()
+    s = eng.stats
+    log(f"[glm4] launches during the trace: {counts}")
+    assert all(r.done and len(r.generated) == GLM4_NEW for r in reqs), "unfinished requests"
+    for name in LOOP_KERNELS:
+        assert counts[name] > 0, f"{name} never launched on glm4-9b's EngineLoop: {counts}"
+    assert eng.dispatch.fallbacks == [], eng.dispatch.fallbacks
+    new_tokens = sum(len(r.generated) for r in reqs)
+    summary = {
+        "wall_s": wall, "new_tokens": new_tokens, "prefill_tokens": s.prefill_tokens,
+        "prefix_hits_pages": loop.pool.prefix_hits,
+        "ttft_p50_ms": s.ttft(50) * 1e3, "ttft_p95_ms": s.ttft(95) * 1e3,
+        "tpot_p50_ms": s.tpot(50) * 1e3, "decode_tok_per_s": s.decode_tps,
+        "prefill_tok_per_s": s.prefill_tps, "launches": counts,
+    }
+    log(f"[glm4] {len(reqs)} requests, {new_tokens} new tokens in {wall:.2f} s; TTFT p50 "
+        f"{summary['ttft_p50_ms']:.1f} ms p95 {summary['ttft_p95_ms']:.1f} ms; TPOT p50 "
+        f"{summary['tpot_p50_ms']:.2f} ms; prefix pages adopted {loop.pool.prefix_hits}")
+    summary["graphs"] = phase_graphs("glm4-9b", eng, specs, arrivals, reqs, GLM4_NEW,
+                                     LOOP_KERNELS)
+    summary["profile_graphs"] = profile_loop_decode(eng, specs, cuda_graphs=True)
+    prompt = next(p for p in specs if len(p) > 128)
+    summary["kernel_vs_plain"] = compare_paths("glm4-9b EngineLoop", eng, chunk_then_decode,
+                                               prompt, prompt[128])
+    summary["generate"] = phase_generate(eng, tag="glm4")
+    return eng, summary
+
+
+# ---------------------------------------------------------------------------
 # phase 5: MoE serving at full width
 # ---------------------------------------------------------------------------
 
@@ -2330,6 +2420,13 @@ def main() -> int:
                                          [400, 64, 300, 170], 16, seed=5)}
     log(f"[wstream] qwen2-7b part took {time.perf_counter() - t_ws:.1f} s")
     gc.collect()
+    torch.cuda.empty_cache()
+    t_glm = time.perf_counter()
+    eng_glm, glm4 = phase_glm4(dev)
+    del eng_glm
+    glm4["phase_s"] = time.perf_counter() - t_glm
+    log(f"[glm4] phase took {glm4['phase_s']:.1f} s")
+    gc.collect()
     torch.cuda.empty_cache()            # the MoE engine needs the room
     torch.cuda.reset_peak_memory_stats(dev)
     eng_moe, moe = phase_moe(dev)
@@ -2352,6 +2449,9 @@ def main() -> int:
              "EngineLoop qwen2-7b, Flash tier": spill["launches"],
              "EngineLoop qwen2-7b, Flash tier, CUDA graphs": spill["graph_launches"],
              "EngineLoop qwen2-7b, weights streamed": wstream["qwen2-7b"]["launches"],
+             "EngineLoop glm4-9b": glm4["launches"],
+             "EngineLoop glm4-9b, CUDA graphs": glm4["graphs"]["launches"],
+             "Engine.generate glm4-9b": glm4["generate"]["launches"],
              "EngineLoop moonshot-v1-16b-a3b": moe["launches"],
              "EngineLoop moonshot-v1-16b-a3b, CUDA graphs": moe["graphs"]["launches"],
              "EngineLoop moonshot-v1-16b-a3b, experts streamed":
@@ -2372,9 +2472,10 @@ def main() -> int:
               "rmsnorm_all_shapes": results["rmsnorm"]["all_shapes"],
               "grouped_all_shapes": results["grouped_matmul"]["all_shapes"],
               "paged_decode_all_shapes": results["paged_quant_decode_attention"]["all_shapes"],
+              "dense_decode_all_shapes": results["quant_decode_attention"]["all_shapes"],
               "main_path": summary, "kernel_vs_plain": checks,
               "generate_path": generate, "lora_path": lora, "gateway_path": gateway,
-              "spill_path": spill, "moe_path": moe,
+              "spill_path": spill, "glm4_path": glm4, "moe_path": moe,
               "wstream": wstream,
               "total_s": time.perf_counter() - t_start}
     (OUT / "chip_smoke.json").write_text(json.dumps(detail, indent=1))

@@ -1,9 +1,10 @@
 """Architecture registry: ``<arch>`` / ``<arch>@<variant>`` lookup.
 
-The port serves the paper's three dense decoders and two MoE decoders
-(moonshot-v1-16b-a3b, and dbrx-132b, whose ``@tiny-moe`` variant -- GQA with
-two key/value heads, 8 experts at top-2 -- is the expert-streaming test
-model); the other reference configs are not ported yet.
+The port serves the paper's three dense decoders, glm4-9b (a dense decoder
+with 16 query heads per KV head) and two MoE decoders (moonshot-v1-16b-a3b,
+and dbrx-132b, whose ``@tiny-moe`` variant -- GQA with two key/value heads,
+8 experts at top-2 -- is the expert-streaming test model); the other
+reference configs are not ported yet.
 ``reduced``, ``tiny`` and ``tiny_moe`` are copies of the reference
 transforms (only the branches a full-attention decoder reaches)."""
 from __future__ import annotations
@@ -11,8 +12,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict
 
-from repro_torch.configs import (dbrx_132b, llama3_8b, moonshot_v1_16b_a3b,
-                                 qwen2_1_5b, qwen2_7b)
+from repro_torch.configs import (dbrx_132b, glm4_9b, llama3_8b,
+                                 moonshot_v1_16b_a3b, qwen2_1_5b, qwen2_7b)
 from repro_torch.configs.base import ModelConfig
 
 PAPER_MODELS = {
@@ -23,6 +24,7 @@ PAPER_MODELS = {
 
 ARCHS: Dict[str, ModelConfig] = {
     "moonshot-v1-16b-a3b": moonshot_v1_16b_a3b.CONFIG,
+    "glm4-9b": glm4_9b.CONFIG,
     "dbrx-132b": dbrx_132b.CONFIG, **PAPER_MODELS}
 
 VARIANTS = ("reduced", "tiny", "tiny-moe")

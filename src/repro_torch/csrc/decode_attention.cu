@@ -12,10 +12,11 @@
 //
 // Design: decode::attend (csrc/decode_attention.cuh) over the row's cache
 // read as pages of 128 slots, split over them: ``splits`` blocks a (row, KV
-// head), each a contiguous run of 128-slot blocks; blocks past the row's
-// length are never read and a split holding none of the live prefix exits
-// at once.  The dense cache is the slot-synchronous Engine.generate path's
-// (and the cross-attention cache's) layout.
+// head, tile of up to 16 query heads), each a contiguous run of 128-slot
+// blocks; blocks past the row's length are never read and a split holding
+// none of the live prefix exits at once.  The dense cache is the
+// slot-synchronous Engine.generate path's (and the cross-attention cache's)
+// layout.
 #include "decode_attention.cuh"
 
 namespace {
@@ -30,28 +31,27 @@ struct DensePages {
   __device__ int size(int p) const { return min(ps, S - p * ps); }
 };
 
-template <int D>
+template <int D, int ROWS>
 __global__ void __launch_bounds__(decode::THREADS)
 dense_decode_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ kq,
                     const float* __restrict__ kscale, const float* __restrict__ kzero,
                     const uint8_t* __restrict__ v, const int* __restrict__ length,
                     float* __restrict__ out, int* __restrict__ scratch, int S, int Hkv,
                     int G, int splits) {
-  const int pair = blockIdx.y;
-  const int b = pair / Hkv, h = pair % Hkv;
-  const size_t row = static_cast<size_t>(b) * Hkv * G * D;
+  const int b = blockIdx.y / Hkv, h = blockIdx.y % Hkv;
   const DensePages pg{static_cast<size_t>(b) * S, S, (S + BS - 1) / BS, BS, 0, 0,
                       min(length[b], S)};
-  decode::attend<D>(pg, q + row, kq, kscale, kzero, v, out + row,
-                    decode::partials(scratch, pair, splits, G, D),
-                    scratch + pair, h, Hkv, G, blockIdx.x, splits);
+  decode::attend_tile<D, ROWS>(pg, q, kq, kscale, kzero, v, out, scratch, b, h, Hkv, G,
+                               splits);
 }
 
 template <int D>
 void launch(const void* q, const void* kq, const void* kscale, const void* kzero,
             const void* v, const void* length, void* out, void* scratch, int B, int S,
             int Hkv, int G, int splits, cudaStream_t stream) {
-  dense_decode_kernel<D><<<decode::grid(B, Hkv, splits), decode::THREADS, 0, stream>>>(
+  // a tile of at most 8 heads is compiled with its other 8 rows zero
+  const auto kernel = G > 8 ? dense_decode_kernel<D, decode::RT> : dense_decode_kernel<D, 8>;
+  kernel<<<decode::grid(B, Hkv, G, splits), decode::THREADS, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(kq),
       static_cast<const float*>(kscale), static_cast<const float*>(kzero),
       static_cast<const uint8_t*>(v), static_cast<const int*>(length),
@@ -63,7 +63,7 @@ void launch(const void* q, const void* kq, const void* kscale, const void* kzero
 // q bf16 [B, H, D] pre-scaled; kq int8 [B, S, Hkv, D]; kscale/kzero f32
 // [B, S, Hkv]; v fp8 e4m3 bytes [B, S, Hkv, D]; length int32 [B]; out f32
 // [B, H, D]; scratch as for the paged kernel, over ceil(S / 128) key blocks.
-// G = H / Hkv <= 8, D % 16 == 0, D <= 128.
+// Any G = H / Hkv (ceil(G / 16) head tiles); D % 16 == 0, D <= 128.
 static int decode_attention(
     const void* q, const void* kq, const void* kscale, const void* kzero,
     const void* v, const void* length, void* out, void* scratch, int B, int S, int Hkv,

@@ -12,30 +12,37 @@
 // launch costs is mostly the latency of its loads, and the design's job is
 // to have many of them in flight on many SMs at once.
 //
-// Design.  The grid is (split, row x KV head): each (row, KV head) has
-// ``splits`` blocks, each taking a contiguous run of pages (chosen on the
-// host from shapes alone, kernels/quant_attention.py::decode_splits); a
-// block whose pages hold no live key exits at once, so page ids past the
-// row's length (and the trash page) are never read.  A block of 4 warps
-// walks its live tiles of up to 64 keys (a tile never crosses a page).
-// Each tile's int8 keys, fp8 values and per-key scale and zero come in
-// through cp.async (16 bytes a thread, neighbouring threads on neighbouring
-// bytes of a key row), double-buffered, so the next tile lands while this
-// one is scored.  Warp w takes keys 16w..16w+15 of every tile, with its own
-// online softmax: S = Q.K^T on mma.sync m16n8k16, the group's G <= 8 query
-// heads padding one 16-row tile, keys dequantized in registers through
-// dequant_key and rounded to bf16; then O += P.V on the same MMA, P rounded
-// to bf16 and the e4m3 values converted to bf16 (exact) in registers.  The
-// key order inside a warp's 16 is permuted so that the S accumulators are
-// P's A fragment and each value fragment comes from whole 4-byte words.  At
-// the end of the split the warps merge in shared memory.  With one live
-// split the block writes the output; otherwise it writes its partial
-// (running max m, denominator l, unnormalised acc[G, D], float32) to the
-// scratch buffer, and the last block of the (row, KV head) to finish --
-// found by an atomicAdd on the pair's counter after a __threadfence --
-// combines the partials exactly (rescaled by exp(m_s - m), summed, divided
-// by max(l, 1e-30)) and resets the counter to 0 for the next launch or
-// CUDA-graph replay.  One launch, no allocation in the kernel.
+// Design.  The grid is (split, row x KV head, head tile): each (row, KV
+// head) has ``splits`` blocks for each tile of up to 16 of its G query
+// heads, each taking a contiguous run of pages (chosen on the host from
+// shapes alone, kernels/quant_attention.py::decode_splits); a block whose
+// pages hold no live key exits at once, so page ids past the row's length
+// (and the trash page) are never read.  The head tiles of one (row, KV
+// head) read the same keys and values and keep their own partials and
+// combine counter; G <= 16 is one tile.  A block of 4 warps walks its live
+// tiles of up to 64 keys (a tile never crosses a page).  Each tile's int8
+// keys, fp8 values and per-key scale and zero come in through cp.async (16
+// bytes a thread, neighbouring threads on neighbouring bytes of a key row),
+// double-buffered, so the next tile lands while this one is scored.  Warp w
+// takes keys 16w..16w+15 of every tile, with its own online softmax: S =
+// Q.K^T on mma.sync m16n8k16, the head tile's query heads in the A tile's
+// rows (head g in row g, rows past the tile's heads zero), each row with
+// its own running max and denominator (a lane holds rows g and g + 8; a
+// kernel for groups of at most 8 heads is compiled with rows 8..15
+// constant zero, so they cost it no registers), keys dequantized in
+// registers through dequant_key and rounded to bf16; then O += P.V on the
+// same MMA, P rounded to bf16 and the e4m3 values converted to bf16
+// (exact) in registers.  The key order inside a warp's 16 is permuted so
+// that the S accumulators are P's A fragment and each value fragment comes
+// from whole 4-byte words.  At the end of the split the warps merge in
+// shared memory.  With one live split the block writes the output;
+// otherwise it writes its partial (running max m, denominator l,
+// unnormalised acc[heads, D], float32) to the scratch buffer, and the last
+// block of the (row, KV head, head tile) to finish -- found by an
+// atomicAdd on the tile's counter after a __threadfence -- combines the
+// partials exactly (rescaled by exp(m_s - m), summed, divided by max(l,
+// 1e-30)) and resets the counter to 0 for the next launch or CUDA-graph
+// replay.  One launch, no allocation in the kernel.
 //
 // Rounding against the plain version (kernels/quant_attention.py): keys are
 // rounded to bf16 after dequantization and P to bf16 before P.V, as there;
@@ -57,6 +64,9 @@ constexpr int VP = 160;                // bytes per value row in shared memory:
                                        // 40 words, conflict-free fragment loads
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int MAX_SPLITS = 256;        // splits a (row, KV head) at most
+constexpr int RT = 16;                 // query heads a block: the rows of one A tile
+
+constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
 template <int D>
 struct Geo {
@@ -66,9 +76,12 @@ struct Geo {
   static constexpr int NB = DP / 8;                    // n8 column blocks of O
   static constexpr int KD = D / 16;                    // k16 steps of Q.K^T
   static constexpr int STAGE = TS * KP + TS * VP + TS * 8;   // keys, values, (scale, zero)
-  static constexpr int SMEM = 2 * STAGE;
-  static_assert(SMEM >= (3 * WARPS * 8 + WARPS * 8 * D + 16) * 4, "merge area");
-  static_assert(SMEM >= (2 * MAX_SPLITS * 8 + 8) * 4, "combine area");
+  static constexpr int MERGE = (3 * WARPS * RT + WARPS * RT * D + 2 * RT) * 4;
+  static constexpr int COMBINE = (2 * MAX_SPLITS * RT + RT) * 4;
+  // the stage buffers, reused by the warps' merge and the splits' combine
+  // (the combine area is the larger below D = 80)
+  static constexpr int SMEM = cmax(2 * STAGE, cmax(MERGE, COMBINE));
+  static_assert(SMEM <= 48 * 1024, "static shared memory");
 };
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -79,6 +92,29 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// One query row's online softmax step over a lane's four keys x (live
+// where ``live``), reduced over the lane's quad: updates the row's running
+// max m and denominator l, writes the unnormalised probabilities p and
+// returns the factor that rescales the row's accumulators.
+__device__ __forceinline__ float online_softmax(const float (&x)[4], const bool (&live)[4],
+                                                float& m, float& l, float (&p)[4]) {
+  float mx = REPRO_NEG_INF;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (live[i]) mx = fmaxf(mx, x[i]);
+  const float mn = fmaxf(m, quad_max(mx));
+  const float corr = exp2f((m - mn) * LOG2E);
+  float sum = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    p[i] = live[i] ? exp2f((x[i] - mn) * LOG2E) : 0.f;
+    sum += p[i];
+  }
+  l = l * corr + quad_sum(sum);
+  m = mn;
+  return corr;
 }
 
 // Byte e of x (lo) and of y (hi), two fp8 e4m3 values -> one register of two
@@ -113,10 +149,11 @@ __device__ __forceinline__ void load_key_words(uint32_t (&w)[D / 16], const uint
 // Pages: page p of the row (0 <= p < n_pages) holds size(p) keys at logical
 // positions (base + p) * ps + [0, size(p)); first(p) is the flat token index
 // (row of the [..., Hkv, D] arrays) of its first key.  [lo, hi) are the live
-// positions.  q: the row's bf16 queries [H, D]; out: the row's f32 output
-// [H, D]; part: this (row, KV head)'s partials [splits][G * (D + 2)] and
-// counter its combine counter (unused when one split is live).
-template <int D, class Pages>
+// positions.  q: the tile's bf16 queries [G, D] (G <= ROWS heads of KV
+// head h; ROWS is 8 or RT); out: their f32 output [G, D]; part: the tile's
+// partials [splits][G * (D + 2)] and counter its combine counter (unused
+// when one split is live).
+template <int D, int ROWS, class Pages>
 __device__ __forceinline__ void attend(const Pages& pg, const __nv_bfloat16* __restrict__ q,
                                        const int8_t* __restrict__ kq,
                                        const float* __restrict__ kscale,
@@ -125,6 +162,8 @@ __device__ __forceinline__ void attend(const Pages& pg, const __nv_bfloat16* __r
                                        float* __restrict__ out, float* __restrict__ part,
                                        int* __restrict__ counter, int h, int Hkv, int G,
                                        int split, int splits) {
+  static_assert(ROWS == 8 || ROWS == RT, "a tile holds 8 or 16 heads");
+  constexpr bool TWO = ROWS > 8;              // rows 8..15 hold heads
   using Gm = Geo<D>;
   constexpr int KP = Gm::KP;
   __shared__ __align__(16) uint8_t smem[Gm::SMEM];
@@ -135,7 +174,7 @@ __device__ __forceinline__ void attend(const Pages& pg, const __nv_bfloat16* __r
 
   if (pg.lo >= pg.hi) {                       // no live key: zeros, once
     if (split == 0)
-      for (int i = tid; i < G * D; i += THREADS) out[h * G * D + i] = 0.f;
+      for (int i = tid; i < G * D; i += THREADS) out[i] = 0.f;
     return;
   }
   // live pages, splits and tiles (tile it: page it / tpp, keys (it % tpp) * TS ..)
@@ -177,22 +216,26 @@ __device__ __forceinline__ void attend(const Pages& pg, const __nv_bfloat16* __r
   mma::cp_async_commit();
 
   // Q's A fragments: step c covers dims D/4 * t + 4c .. + 3 for this lane's
-  // k slots (2t, 2t + 1, 2t + 8, 2t + 9); rows 8..15 (and g >= G) are zero
-  uint32_t qa[Gm::KD][2];
+  // k slots (2t, 2t + 1, 2t + 8, 2t + 9), of head g in row g and head g + 8
+  // in row g + 8 (registers 0, 2 and 1, 3); rows of no head are zero
+  uint32_t qa[Gm::KD][4];
 #pragma unroll
-  for (int c = 0; c < Gm::KD; ++c) {
-    qa[c][0] = qa[c][1] = 0u;
-    if (g < G) {
-      const __nv_bfloat16* qr = q + (static_cast<size_t>(h) * G + g) * D + D / 4 * t + 4 * c;
-      qa[c][0] = *reinterpret_cast<const uint32_t*>(qr);
-      qa[c][1] = *reinterpret_cast<const uint32_t*>(qr + 2);
+  for (int c = 0; c < Gm::KD; ++c)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      qa[c][hf] = qa[c][2 + hf] = 0u;
+      if ((hf == 0 || TWO) && g + 8 * hf < G) {
+        const __nv_bfloat16* qr = q + static_cast<size_t>(g + 8 * hf) * D + D / 4 * t + 4 * c;
+        qa[c][hf] = *reinterpret_cast<const uint32_t*>(qr);
+        qa[c][2 + hf] = *reinterpret_cast<const uint32_t*>(qr + 2);
+      }
     }
-  }
 
-  float o[Gm::NB][4];
+  float o[Gm::NB][4];                         // [.][0..1] row g, [.][2..3] row g + 8
 #pragma unroll
   for (int j = 0; j < Gm::NB; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  float m = REPRO_NEG_INF, l = 0.f;           // row g's running max and denominator
+  float m[2] = {REPRO_NEG_INF, REPRO_NEG_INF};   // rows g, g + 8: running max
+  float l[2] = {0.f, 0.f};                       // and denominator
 
   for (int it = it0, n = 0; it < it1; ++it, ++n) {
     const int slot = n & 1;
@@ -221,7 +264,6 @@ __device__ __forceinline__ void attend(const Pages& pg, const __nv_bfloat16* __r
       }
 #pragma unroll
       for (int c = 0; c < Gm::KD; ++c) {
-        const uint32_t a[4] = {qa[c][0], 0u, qa[c][1], 0u};
 #pragma unroll
         for (int jb = 0; jb < 2; ++jb) {
           const uint32_t w = kw[jb][c] ^ 0x80808080u;
@@ -229,39 +271,35 @@ __device__ __forceinline__ void attend(const Pages& pg, const __nv_bfloat16* __r
 #pragma unroll
           for (int i = 0; i < 4; ++i)
             k[i] = dequant_key(int8_byte_to_float(w, i), scale[jb], zero[jb]);
-          mma::mma_bf16(s[jb], a, mma::pack_bf16(k[0], k[1]), mma::pack_bf16(k[2], k[3]));
+          mma::mma_bf16(s[jb], qa[c], mma::pack_bf16(k[0], k[1]), mma::pack_bf16(k[2], k[3]));
         }
       }
-      // online softmax of row g over the warp's keys, float32
-      const float x[4] = {s[0][0], s[0][1], s[1][0], s[1][1]};
+      // online softmax of rows g and g + 8 over the warp's keys, float32
       bool live[4];
-      float mx = REPRO_NEG_INF;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int key = 16 * warp + 4 * i + t;
         const int pos = pos0 + key;
         live[i] = key < nt && pos >= pg.lo && pos < pg.hi;
-        if (live[i]) mx = fmaxf(mx, x[i]);
       }
-      const float mn = fmaxf(m, quad_max(mx));
-      const float corr = exp2f((m - mn) * LOG2E);
-      float pr[4], sum = 0.f;
+      float pr[2][4] = {};
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pr[i] = live[i] ? exp2f((x[i] - mn) * LOG2E) : 0.f;
-        sum += pr[i];
-      }
-      l = l * corr + quad_sum(sum);
-      m = mn;
+      for (int hf = 0; hf < 2; ++hf) {
+        if (hf == 1 && !TWO) break;
+        const float x[4] = {s[0][2 * hf], s[0][2 * hf + 1], s[1][2 * hf], s[1][2 * hf + 1]};
+        const float corr = online_softmax(x, live, m[hf], l[hf], pr[hf]);
 #pragma unroll
-      for (int j = 0; j < Gm::NB; ++j) {
-        o[j][0] *= corr;
-        o[j][1] *= corr;
+        for (int j = 0; j < Gm::NB; ++j) {
+          o[j][2 * hf] *= corr;
+          o[j][2 * hf + 1] *= corr;
+        }
       }
       // O += P.V.  Value word g + 8u of keys t, 4 + t, 8 + t, 12 + t gives,
       // byte e, column g of n8 block 4u + e (dim 32u + 4g + e).
-      const uint32_t pa[4] = {mma::pack_bf16(pr[0], pr[1]), 0u,
-                              mma::pack_bf16(pr[2], pr[3]), 0u};
+      const uint32_t pa[4] = {mma::pack_bf16(pr[0][0], pr[0][1]),
+                              mma::pack_bf16(pr[1][0], pr[1][1]),
+                              mma::pack_bf16(pr[0][2], pr[0][3]),
+                              mma::pack_bf16(pr[1][2], pr[1][3])};
 #pragma unroll
       for (int u = 0; u < Gm::DP / 32; ++u) {
         uint32_t xv[4];
@@ -283,41 +321,45 @@ __device__ __forceinline__ void attend(const Pages& pg, const __nv_bfloat16* __r
   // merge the warps (the stage buffers become the merge area; only empty
   // copy groups can still be pending)
   mma::cp_async_wait<0>();
-  float* mw = reinterpret_cast<float*>(smem);  // [WARPS][8]
-  float* lw = mw + WARPS * 8;                  // [WARPS][8]
-  float* aw = lw + WARPS * 8;                  // [WARPS][8][D]
-  if (g < G) {
-    if (t == 0) {
-      mw[warp * 8 + g] = m;
-      lw[warp * 8 + g] = l;
+  float* mw = reinterpret_cast<float*>(smem);  // [WARPS][RT]
+  float* lw = mw + WARPS * RT;                 // [WARPS][RT]
+  float* aw = lw + WARPS * RT;                 // [WARPS][RT][D]
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = g + 8 * hf;
+    if ((hf == 0 || TWO) && r < G) {
+      if (t == 0) {
+        mw[warp * RT + r] = m[hf];
+        lw[warp * RT + r] = l[hf];
+      }
+      // accumulator o[4u + e][2hf + c] is row r, dim 32u + 8t + 4c + e
+#pragma unroll
+      for (int u = 0; u < Gm::DP / 32; ++u)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int d = 32 * u + 8 * t + 4 * c + e;
+            if (d < D) aw[(warp * RT + r) * D + d] = o[4 * u + e][2 * hf + c];
+          }
     }
-    // accumulator o[4u + e][c] is row g, dim 32u + 8t + 4c + e
-#pragma unroll
-    for (int u = 0; u < Gm::DP / 32; ++u)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int d = 32 * u + 8 * t + 4 * c + e;
-          if (d < D) aw[(warp * 8 + g) * D + d] = o[4 * u + e][c];
-        }
   }
   __syncthreads();
-  float* fw = aw + WARPS * 8 * D;              // [WARPS][8] exp(m_w - M)
-  float* ml = fw + WARPS * 8;                  // [8] M, then [8] l, of the split
+  float* fw = aw + WARPS * RT * D;             // [WARPS][RT] exp(m_w - M)
+  float* ml = fw + WARPS * RT;                 // [RT] M, then [RT] l, of the split
   if (tid < G) {
     float M = REPRO_NEG_INF;
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) M = fmaxf(M, mw[w * 8 + tid]);
+    for (int w = 0; w < WARPS; ++w) M = fmaxf(M, mw[w * RT + tid]);
     float Lsum = 0.f;
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) {
-      const float f = exp2f((mw[w * 8 + tid] - M) * LOG2E);
-      fw[w * 8 + tid] = f;
-      Lsum += f * lw[w * 8 + tid];
+      const float f = exp2f((mw[w * RT + tid] - M) * LOG2E);
+      fw[w * RT + tid] = f;
+      Lsum += f * lw[w * RT + tid];
     }
     ml[tid] = M;
-    ml[8 + tid] = Lsum;
+    ml[RT + tid] = Lsum;
   }
   __syncthreads();
   const int stride = G * (D + 2);              // floats of one split's partial
@@ -326,48 +368,49 @@ __device__ __forceinline__ void attend(const Pages& pg, const __nv_bfloat16* __r
     const int gg = i / D, d = i % D;
     float A = 0.f;
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) A += fw[w * 8 + gg] * aw[(w * 8 + gg) * D + d];
+    for (int w = 0; w < WARPS; ++w) A += fw[w * RT + gg] * aw[(w * RT + gg) * D + d];
     if (n_live == 1)
-      out[h * G * D + i] = A / fmaxf(ml[8 + gg], 1e-30f);
+      out[i] = A / fmaxf(ml[RT + gg], 1e-30f);
     else
       mine[2 * G + i] = A;
   }
   if (n_live == 1) return;
   if (tid < G) {
     mine[tid] = ml[tid];
-    mine[G + tid] = ml[8 + tid];
+    mine[G + tid] = ml[RT + tid];
   }
 
-  // the last live split of this (row, KV head) to finish combines them all
+  // the last live split of this (row, KV head, head tile) to finish
+  // combines them all
   __threadfence();
   __syncthreads();
   if (tid == 0) is_last = atomicAdd(counter, 1) == n_live - 1;
   __syncthreads();
   if (!is_last) return;
   __threadfence();
-  float* fs = reinterpret_cast<float*>(smem);  // [n_live][8] m_s, then exp(m_s - M)
-  float* ls = fs + MAX_SPLITS * 8;             // [n_live][8] l_s
-  float* lt = ls + MAX_SPLITS * 8;             // [8] the total l
+  float* fs = reinterpret_cast<float*>(smem);  // [n_live][RT] m_s, then exp(m_s - M)
+  float* ls = fs + MAX_SPLITS * RT;            // [n_live][RT] l_s
+  float* lt = ls + MAX_SPLITS * RT;            // [RT] the total l
   for (int j = tid; j < n_live * G; j += THREADS) {
     const int s = j / G, gg = j % G;
     const float* ps = part + (s_lo + s) * stride;
-    fs[s * 8 + gg] = __ldcg(ps + gg);
-    ls[s * 8 + gg] = __ldcg(ps + G + gg);
+    fs[s * RT + gg] = __ldcg(ps + gg);
+    ls[s * RT + gg] = __ldcg(ps + G + gg);
   }
   __syncthreads();
   if (tid < G) {
     float M = REPRO_NEG_INF;
-    for (int s = 0; s < n_live; ++s) M = fmaxf(M, fs[s * 8 + tid]);
+    for (int s = 0; s < n_live; ++s) M = fmaxf(M, fs[s * RT + tid]);
     float Lsum = 0.f;
     for (int s = 0; s < n_live; ++s) {
-      const float f = exp2f((fs[s * 8 + tid] - M) * LOG2E);
-      fs[s * 8 + tid] = f;
-      Lsum += f * ls[s * 8 + tid];
+      const float f = exp2f((fs[s * RT + tid] - M) * LOG2E);
+      fs[s * RT + tid] = f;
+      Lsum += f * ls[s * RT + tid];
     }
     lt[tid] = Lsum;
   }
   __syncthreads();
-  constexpr int PER_THREAD = (8 * D + THREADS - 1) / THREADS;   // of G * D, at most
+  constexpr int PER_THREAD = (ROWS * D + THREADS - 1) / THREADS;  // of G * D, at most
   float a[PER_THREAD];
 #pragma unroll
   for (int k = 0; k < PER_THREAD; ++k) a[k] = 0.f;
@@ -376,26 +419,47 @@ __device__ __forceinline__ void attend(const Pages& pg, const __nv_bfloat16* __r
 #pragma unroll
     for (int k = 0; k < PER_THREAD; ++k) {
       const int i = tid + k * THREADS;
-      if (i < G * D) a[k] += fs[s * 8 + i / D] * __ldcg(ps + i);
+      if (i < G * D) a[k] += fs[s * RT + i / D] * __ldcg(ps + i);
     }
   }
 #pragma unroll
   for (int k = 0; k < PER_THREAD; ++k) {
     const int i = tid + k * THREADS;
-    if (i < G * D) out[h * G * D + i] = a[k] / fmaxf(lt[i / D], 1e-30f);
+    if (i < G * D) out[i] = a[k] / fmaxf(lt[i / D], 1e-30f);
   }
   if (tid == 0) *counter = 0;                  // clean for the next launch or replay
 }
 
-// Scratch layout: B * Hkv combine counters (int32, padded to a multiple of
-// 4), then B * Hkv * splits partials of G * (D + 2) floats.
-__device__ __forceinline__ float* partials(int* scratch, int pair, int splits, int G, int D) {
-  const int n_pairs = (gridDim.y + 3) & ~3;
-  return reinterpret_cast<float*>(scratch + n_pairs)
-         + static_cast<size_t>(pair) * splits * G * (D + 2);
+// Head tiles of a group of G query heads: ceil(G / RT).
+__host__ __device__ inline int head_tiles(int G) { return (G + RT - 1) / RT; }
+
+// This block's share of a launch over the grid below: row b, KV head h
+// (blockIdx.y = b * Hkv + h), head tile blockIdx.z (heads RT * z .. of the
+// group), split blockIdx.x.  q and out: [B, Hkv * G, D].  Scratch layout:
+// one combine counter a (row, KV head, head tile) (int32, padded to a
+// multiple of 4), then each one's ``splits`` partials of min(G, RT) *
+// (D + 2) floats.
+template <int D, int ROWS, class Pages>
+__device__ __forceinline__ void attend_tile(const Pages& pg, const __nv_bfloat16* __restrict__ q,
+                                            const int8_t* __restrict__ kq,
+                                            const float* __restrict__ kscale,
+                                            const float* __restrict__ kzero,
+                                            const uint8_t* __restrict__ v,
+                                            float* __restrict__ out, int* __restrict__ scratch,
+                                            int b, int h, int Hkv, int G, int splits) {
+  const int g0 = RT * blockIdx.z;
+  const int tile = blockIdx.y * gridDim.z + blockIdx.z;
+  const size_t at = (static_cast<size_t>(b * Hkv + h) * G + g0) * D;
+  float* part = reinterpret_cast<float*>(scratch + ((gridDim.y * gridDim.z + 3) & ~3))
+                + static_cast<size_t>(tile) * splits * min(G, RT) * (D + 2);
+  attend<D, ROWS>(pg, q + at, kq, kscale, kzero, v, out + at, part, scratch + tile, h, Hkv,
+                  min(RT, G - g0), blockIdx.x, splits);
 }
 
-// Grid of a launch: splits on x, one (row, KV head) pair per y.
-inline dim3 grid(int B, int Hkv, int splits) { return dim3(splits, B * Hkv); }
+// Grid of a launch: splits on x, one (row, KV head) pair per y, head tiles
+// on z.
+inline dim3 grid(int B, int Hkv, int G, int splits) {
+  return dim3(splits, B * Hkv, head_tiles(G));
+}
 
 }  // namespace decode

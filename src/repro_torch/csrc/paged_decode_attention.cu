@@ -14,13 +14,14 @@
 // ridge; at decode's 1-2 MB a launch is mostly load latency.
 //
 // Design: decode::attend (csrc/decode_attention.cuh) split over the row's
-// pages: ``splits`` blocks a (row, KV head), each a contiguous run of table
-// columns, so a 4-row qwen2-7b step's 16 (row, KV head) pairs fill the card
-// with one page a block instead of walking up to 16 pages in one block.  A
-// block reads the physical page id from the table in global memory (there
-// is no scalar prefetch on this card) only for the pages it stages, and a
-// split with no live position exits at once, so only ceil(length / page)
-// pages are touched and the trash page never is.
+// pages: ``splits`` blocks a (row, KV head, tile of up to 16 query heads),
+// each a contiguous run of table columns, so a 4-row qwen2-7b step's 16
+// (row, KV head) pairs fill the card with one page a block instead of
+// walking up to 16 pages in one block.  A block reads the physical page id
+// from the table in global memory (there is no scalar prefetch on this
+// card) only for the pages it stages, and a split with no live position
+// exits at once, so only ceil(length / page) pages are touched and the
+// trash page never is.
 #include "decode_attention.cuh"
 
 namespace {
@@ -32,7 +33,7 @@ struct PagedPages {
   __device__ int size(int) const { return ps; }
 };
 
-template <int D>
+template <int D, int ROWS>
 __global__ void __launch_bounds__(decode::THREADS)
 paged_decode_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ kq,
                     const float* __restrict__ kscale, const float* __restrict__ kzero,
@@ -40,17 +41,14 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restric
                     const int* __restrict__ base, const int* __restrict__ length,
                     float* __restrict__ out, int* __restrict__ scratch, int Hkv, int G,
                     int ps, int n_pages, int window, int splits) {
-  const int pair = blockIdx.y;
-  const int b = pair / Hkv, h = pair % Hkv;
-  const size_t row = static_cast<size_t>(b) * Hkv * G * D;
+  const int b = blockIdx.y / Hkv, h = blockIdx.y % Hkv;
   const int len = length[b];
   const int bs = base[b];
   const int lo = max(window ? max(0, len - window) : 0, bs * ps);
   const int hi = min(len, (bs + n_pages) * ps);
   const PagedPages pg{table + static_cast<size_t>(b) * n_pages, n_pages, ps, bs, lo, hi};
-  decode::attend<D>(pg, q + row, kq, kscale, kzero, v, out + row,
-                    decode::partials(scratch, pair, splits, G, D),
-                    scratch + pair, h, Hkv, G, blockIdx.x, splits);
+  decode::attend_tile<D, ROWS>(pg, q, kq, kscale, kzero, v, out, scratch, b, h, Hkv, G,
+                               splits);
 }
 
 template <int D>
@@ -58,7 +56,9 @@ void launch(const void* q, const void* kq, const void* kscale, const void* kzero
             const void* v, const void* table, const void* base, const void* length,
             void* out, void* scratch, int B, int Hkv, int G, int ps, int n_pages,
             int window, int splits, cudaStream_t stream) {
-  paged_decode_kernel<D><<<decode::grid(B, Hkv, splits), decode::THREADS, 0, stream>>>(
+  // a tile of at most 8 heads is compiled with its other 8 rows zero
+  const auto kernel = G > 8 ? paged_decode_kernel<D, decode::RT> : paged_decode_kernel<D, 8>;
+  kernel<<<decode::grid(B, Hkv, G, splits), decode::THREADS, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(kq),
       static_cast<const float*>(kscale), static_cast<const float*>(kzero),
       static_cast<const uint8_t*>(v), static_cast<const int*>(table),
@@ -73,7 +73,7 @@ void launch(const void* q, const void* kq, const void* kscale, const void* kzero
 // [P, ps, Hkv]; v fp8 e4m3 bytes [P, ps, Hkv, D]; table int32 [B, n_pages];
 // base/length int32 [B]; out f32 [B, H, D]; scratch int32, zeroed once and
 // left zeroed by every launch (decode_attention.cuh; may be null when splits
-// is 1).  G = H / Hkv <= 8, D % 16 == 0, D <= 128.
+// is 1).  Any G = H / Hkv (ceil(G / 16) head tiles); D % 16 == 0, D <= 128.
 static int paged_decode_attention(
     const void* q, const void* kq, const void* kscale, const void* kzero,
     const void* v, const void* table, const void* base, const void* length,

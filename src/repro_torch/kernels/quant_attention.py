@@ -6,7 +6,9 @@ Ports of ``repro/kernels/quant_attention.py``: ``quant_decode_attention``
 paged_decode_attention.cu``).  Both kernels share their body
 (``csrc/decode_attention.cuh``), split over the keys: ``decode_splits``
 chooses the split count from shapes, and each wrapper hands the kernel a
-cached scratch buffer for the partials and combine counters.
+cached scratch buffer for the partials and combine counters.  A block takes
+up to ``HEAD_TILE`` query heads of one KV head (the rows of one tensor-core
+tile); a group of more takes ``head_tiles(G)`` blocks a split.
 """
 from __future__ import annotations
 
@@ -19,16 +21,22 @@ from repro_torch.core import quantization as q
 from repro_torch.kernels import loader
 
 NEG_INF = -1e30
-MAX_GROUP = 8        # query heads per KV head: one padded 16-row MMA tile
+HEAD_TILE = 16       # query heads a block: the rows of one 16-row MMA tile
 DENSE_BLOCK = 128    # slots of a dense cache the decode kernel reads as a page
 TARGET_BLOCKS = 2 * 132   # about two blocks per SM of an H100
 MAX_SPLITS = 256     # the kernels' bound (csrc/decode_attention.cuh)
 
 
+def head_tiles(G: int) -> int:
+    """Blocks a (row, KV head, split) takes for its G query heads."""
+    return -(-G // HEAD_TILE)
+
+
 def decode_splits(B: int, Hkv: int, n_blocks: int) -> int:
-    """How many blocks share one (row, KV head) in the decode kernels: each
-    takes a contiguous run of key blocks (pages, or ``DENSE_BLOCK`` slots of
-    a dense cache), so that B * Hkv * splits reaches at least
+    """How many blocks share one (row, KV head) -- or, with ``Hkv`` counting
+    KV heads times ``head_tiles(G)``, one head tile -- in the decode kernels:
+    each takes a contiguous run of key blocks (pages, or ``DENSE_BLOCK``
+    slots of a dense cache), so that B * Hkv * splits reaches at least
     ``TARGET_BLOCKS`` where there are enough key blocks.  Shapes only:
     reading ``length`` would make the host wait for the device."""
     if n_blocks <= 1:
@@ -40,12 +48,15 @@ def decode_splits(B: int, Hkv: int, n_blocks: int) -> int:
 
 def _scratch(dev: torch.device, pairs: int, splits: int, G: int,
              D: int) -> Optional[torch.Tensor]:
-    """The decode kernels' scratch (``loader.scratch``): ``pairs`` combine
-    counters, then the splits' partials (float32 max, denominator and acc
-    [G, D] each).  None for one split, which writes the output itself."""
+    """The decode kernels' scratch (``loader.scratch``): a combine counter
+    for each of the ``pairs`` (row, KV head) pairs' head tiles, then their
+    splits' partials (float32 max, denominator and acc [heads, D] each, for
+    the tile's up to ``HEAD_TILE`` heads).  None for one split, which writes
+    the output itself."""
     if splits == 1:
         return None
-    return loader.scratch(dev, pairs, pairs * splits * G * (D + 2))
+    tiles = pairs * head_tiles(G)
+    return loader.scratch(dev, tiles, tiles * splits * min(G, HEAD_TILE) * (D + 2))
 
 
 def gather_rows(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -57,15 +68,13 @@ def gather_rows(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 
 def _check_decode_kernel_operands(q_, k_q, k_scale, k_zero, v, key_bits: int) -> None:
     """What the CUDA decode kernels take; anything else raises on the card."""
-    H, D = q_.shape[-2:]
-    G = H // k_q.shape[-2]
+    D = q_.shape[-1]
     if key_bits != 8 or k_q.shape[-1] != D:
         raise NotImplementedError("int4 keys: no CUDA decode kernel yet")
     if v.dtype != q.FP8_DTYPE:
         raise NotImplementedError(f"values {v.dtype}: the kernel reads fp8 e4m3")
-    if G > MAX_GROUP or D % 16 or D > 128:
-        raise NotImplementedError(f"G={G}, D={D}: kernel takes G <= {MAX_GROUP}, "
-                                  "D a multiple of 16 up to 128")
+    if D % 16 or D > 128:
+        raise NotImplementedError(f"D={D}: the kernel takes a multiple of 16 up to 128")
     if (k_q.dtype, k_scale.dtype, k_zero.dtype) != (torch.int8, torch.float32,
                                                     torch.float32):
         raise TypeError("cache dtypes must be int8 keys, float32 scale/zero")
@@ -135,7 +144,7 @@ def quant_decode_attention(
         return out.zero_()
     lib = loader.build()
     G = H // Hkv
-    splits = decode_splits(B, Hkv, -(-S // DENSE_BLOCK))
+    splits = decode_splits(B, Hkv * head_tiles(G), -(-S // DENSE_BLOCK))
     scratch = _scratch(dev, B * Hkv, splits, G, D)
     code = lib.decode_attention_launch(
         q_.data_ptr(), k_q.data_ptr(), k_scale.data_ptr(), k_zero.data_ptr(),
@@ -220,7 +229,7 @@ def paged_quant_decode_attention(
         return out
     lib = loader.build()
     G, n_pages = H // Hkv, table.shape[1]
-    splits = decode_splits(B, Hkv, n_pages)
+    splits = decode_splits(B, Hkv * head_tiles(G), n_pages)
     scratch = _scratch(dev, B * Hkv, splits, G, D)
     code = lib.paged_decode_attention_launch(
         q_.data_ptr(), k_q.data_ptr(), k_scale.data_ptr(), k_zero.data_ptr(),

@@ -12,7 +12,11 @@ Without a card each test skips.
 The decode kernels are split over keys: their cases cover 128-key pages at
 G = 7 and G = 1 with lengths at a page edge, a full 16-page table, a row
 whose only live keys lie in the last split, and a CUDA-graph replay that
-shows the combine counters reset.
+shows the combine counters reset.  A block takes up to 16 query heads (both
+halves of its tensor-core tile) and larger groups take several head tiles:
+the same cases run at G = 16 (glm4-9b), 24 and 32, at D = 64 and 128, with
+empty rows, window and base masks, and outputs allocated over NaN so that a
+row the kernel leaves unwritten fails.
 
 The serving loop's step graphs (qwen2-7b@reduced, bucketed; moonshot@tiny-moe,
 one unbucketed decode step): ``warmup()`` captures one graph per decode
@@ -421,7 +425,7 @@ _PAGED_LENGTHS = [[127, 128, 129, 1], [732, 296, 512, 41], [2048, 1, 255, 257]]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("G,hkv", [(7, 4), (1, 16)])
+@pytest.mark.parametrize("G,hkv", [(7, 4), (1, 16), (16, 2), (24, 2), (32, 1)])
 @pytest.mark.parametrize("lengths", _PAGED_LENGTHS)
 def test_paged_decode_kernel_on_128_key_pages(dev, G, hkv, lengths):
     D, n_pages = 128, 16
@@ -441,7 +445,7 @@ def test_paged_decode_kernel_on_128_key_pages(dev, G, hkv, lengths):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("G,hkv", [(7, 4), (1, 16)])
+@pytest.mark.parametrize("G,hkv", [(7, 4), (1, 16), (16, 2)])
 @pytest.mark.parametrize("window", [100, 128, 129])
 def test_paged_decode_kernel_live_keys_in_last_split_only(dev, G, hkv, window):
     """A full 16-page table with a window: every live key lies in the last
@@ -459,7 +463,7 @@ def test_paged_decode_kernel_live_keys_in_last_split_only(dev, G, hkv, window):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("G,hkv", [(7, 4), (1, 16)])
+@pytest.mark.parametrize("G,hkv", [(7, 4), (1, 16), (16, 2), (24, 2), (32, 1)])
 @pytest.mark.parametrize("lengths", [[127, 128, 129, 1], [2048, 352, 1000, 2047], [352]])
 def test_dense_decode_kernel_split_over_keys(dev, G, hkv, lengths):
     """S = 2048 (16 key blocks of 128 slots): ragged per-row lengths at a
@@ -477,7 +481,7 @@ def test_dense_decode_kernel_split_over_keys(dev, G, hkv, lengths):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("G,hkv", [(7, 4), (1, 16)])
+@pytest.mark.parametrize("G,hkv", [(7, 4), (1, 16), (16, 2)])
 def test_decode_kernels_read_subnormal_values(dev, G, hkv):
     """Values of a few thousandths are e4m3 subnormals (below 2^-6); the
     kernels convert them to bf16 exactly, so the output, itself of that
@@ -494,6 +498,57 @@ def test_decode_kernels_read_subnormal_values(dev, G, hkv):
     got = QA.paged_quant_decode_attention(q, *pool, table, base, length)
     want = QA.paged_quant_decode_attention_plain(q, *pool, table, base, length)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=2e-2, atol=2e-5)
+
+
+def _over_nan(dev, *shapes):
+    """Free float32 blocks of these shapes that hold NaN, so that the
+    caching allocator hands them to the next outputs of those sizes: an
+    output element the kernel does not write stays NaN."""
+    bufs = [torch.full(s, float("nan"), device=dev) for s in shapes]
+    torch.cuda.synchronize()
+    del bufs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,hkv", [(16, 2), (24, 2), (32, 1)])
+@pytest.mark.parametrize("D", [64, 128])
+def test_decode_kernels_write_every_row_at_large_groups(dev, G, hkv, D):
+    """Groups of more than 8 query heads: both halves of a block's 16-row
+    tile, and (G > 16) several head tiles of one (row, KV head), each with
+    its own partials and combine counter.  Paged: an empty row, lengths at
+    a page edge and a full 16-page table, then windows and bases (the
+    logical page of column 0) that leave only a row's later pages live;
+    dense: the same lengths over 2048 slots.  Every output is allocated
+    over NaN and must match the plain version, except that a row with no
+    live key is zeros (the plain version's softmax over all-masked scores
+    averages the values there; no serving step reads such a row)."""
+    n_pages, B = 16, 4
+    pool, table = _paged_128(B, hkv, D, n_pages, G + D, dev)
+    trash = pool[0].shape[0] - 1
+    q = (torch.randn((B, hkv * G, D), device=dev) / math.sqrt(D)).bfloat16()
+    dense = _dense_cache(B, n_pages * 128, hkv, D, dev, G + D)
+    for lengths, bases, window in (([0, 127, 128, 2048], [0, 0, 0, 0], 0),
+                                   ([129, 1, 0, 2047], [0, 0, 0, 0], 0),
+                                   ([1000, 700, 2048, 300], [0, 0, 0, 0], 129),
+                                   ([1000, 700, 2300, 600], [2, 1, 3, 4], 300)):
+        t = table.copy()
+        for b, (L, bs) in enumerate(zip(lengths, bases)):
+            t[b, max(0, -(-L // 128) - bs):] = trash
+        t = torch.from_numpy(t).to(dev)
+        length = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        base = torch.tensor(bases, dtype=torch.int32, device=dev)
+        live = length > 0
+        _over_nan(dev, (B, hkv * G, D))
+        got = QA.paged_quant_decode_attention(q, *pool, t, base, length, window=window)
+        assert torch.isfinite(got).all() and not got[~live].any(), (lengths, bases, window)
+        _close(got[live], QA.paged_quant_decode_attention_plain(
+            q, *pool, t, base, length, window=window)[live], 2e-2)
+        if window or any(bases):
+            continue
+        _over_nan(dev, (B, hkv * G, D))
+        got = QA.quant_decode_attention(q, *dense, length)
+        assert torch.isfinite(got).all() and not got[~live].any(), lengths
+        _close(got[live], QA.quant_decode_attention_plain(q, *dense, length)[live], 2e-2)
 
 
 @pytest.mark.gpu

@@ -119,6 +119,8 @@ def _split_model(q, kq, ks, kz, v, table, base, length, window, splits):
     (128, 3, 7, [127, 128, 129, 1, 384], 0),
     # windowed: only the last split's keys live
     (16, 4, 3, [64, 60, 40, 17, 5], 10),
+    # glm4-9b's group: 16 query heads fill both halves of a block's tile
+    (128, 3, 16, [127, 128, 129, 1, 384], 0),
 ])
 def test_split_and_combine_match_the_plain_version(ps, n_pages, G, lengths, window):
     B, hkv, D = len(lengths), 2, 64

@@ -97,7 +97,16 @@ def _reference_layers(je, mode):
 def test_chunk_and_decode_per_layer_match_reference(engine_pairs, arch):
     """qwen2-7b (G=1 at @reduced, qkv bias), qwen2-1.5b (G=2) and llama3-8b
     (no bias, rope theta 5e5)."""
-    je, pe = engine_pairs(arch)
+    chunk_and_decode_match_reference(*engine_pairs(arch))
+
+
+def chunk_and_decode_match_reference(je, pe, decode_bitwise: bool = True):
+    """Every layer's output and the logits of a 32-token prompt chunk into
+    row 1 of a paged pool, then of one bucketed decode step (row 1 active,
+    row 0 an idle pad row), the port's engine ``pe`` against the
+    reference's ``je``: within one bf16 rounding, and more than 99% of each
+    layer's elements bit for bit (for the decode step only where
+    ``decode_bitwise``)."""
     loop_j = JE.EngineLoop(je, max_slots=4)
     loop_p = PE.EngineLoop(pe, max_slots=4)
     for loop in (loop_j, loop_p):
@@ -137,7 +146,7 @@ def test_chunk_and_decode_per_layer_match_reference(engine_pairs, arch):
         pe.params, pe.cfg, pe.embed(tok), cp, torch.from_numpy(slot_idx).long(),
         pe.dispatch, active=torch.tensor([True, False]), collect=collect)
     same = [_close(a[:1], b[:1]) for a, b in zip(outs_j, collect)]
-    assert min(same) > 0.99
+    assert min(same) > 0.99 or not decode_bitwise
     _close(logits_j[:1], logits_p[:1])
     assert cp["pos"].tolist() == [0, 33, 0, 0]
 

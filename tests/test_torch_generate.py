@@ -92,7 +92,14 @@ def _close(a, b):
 
 @pytest.mark.parametrize("arch", ["qwen2-7b@reduced", "moonshot-v1-16b-a3b@reduced"])
 def test_prefill_and_decode_step_per_layer_match_reference(arch, engine_pairs):
-    je, pe = engine_pairs(arch)
+    prefill_and_decode_step_match_reference(*engine_pairs(arch))
+
+
+def prefill_and_decode_step_match_reference(je, pe):
+    """Every layer's output, the logits and the dense cache bytes of a
+    whole-prompt prefill of two 12-token rows, then every layer's output and
+    the logits of one decode step, the port's engine ``pe`` against the
+    reference's ``je``."""
     cfg = je.cfg
     B, T = 2, 12
     ids = np.random.default_rng(1).integers(1, 500, size=(B, T))

@@ -160,7 +160,7 @@ def _table(lengths, trash, seed):
     return table
 
 
-@pytest.mark.parametrize("G", [1, 3])
+@pytest.mark.parametrize("G", [1, 3, 16, 24])
 @pytest.mark.parametrize("lengths", [[37, 5, 64], [16, 17, 1]])
 def test_decode_attention_plain_vs_reference_and_pallas(G, lengths):
     B, H = len(lengths), HKV * G
@@ -393,7 +393,7 @@ def _dense_cache(B, S, seed):
     return jc, pc
 
 
-@pytest.mark.parametrize("G", [1, 3])
+@pytest.mark.parametrize("G", [1, 3, 16, 24])
 @pytest.mark.parametrize("pos", [[37, 5, 64], 23])
 def test_dense_decode_attention_plain_vs_reference_and_pallas(G, pos):
     B, S, H = 3, 64, HKV * G

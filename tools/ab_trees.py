@@ -4,6 +4,7 @@ two commits are compared on the same machine (host speed varies between
 machines far more than device speed).
 
     python3 tools/ab_trees.py phases DIR [DIR ...]   # each tree's [kernels] and [moe] phases
+    python3 tools/ab_trees.py kernels DIR [DIR ...]  # each tree's [kernels] phase alone
     python3 tools/ab_trees.py moe DIR [DIR ...]      # each tree's MoE trace and decode step
     python3 tools/ab_trees.py qwen DIR [DIR ...]     # each tree's qwen2-7b serving paths
 
@@ -41,6 +42,18 @@ def run_phases(root: Path) -> dict:
     CS.phase_kernels(dev, results)
     CS.phase_new_kernels(dev, results)
     return {"kernels": results, "moe": CS.phase_moe(dev)}
+
+
+def run_kernels(root: Path) -> dict:
+    import torch
+    import chip_smoke as CS
+    from repro_torch.kernels import loader
+    loader.build(force=True)
+    dev = torch.device("cuda", 0)
+    results: dict = {}
+    CS.phase_kernels(dev, results)
+    CS.phase_new_kernels(dev, results)
+    return {"kernels": results}
 
 
 def run_moe(root: Path) -> dict:
@@ -130,10 +143,11 @@ def main(argv) -> int:
     if len(argv) >= 3 and argv[0] == "--one":
         mode, root = argv[1], Path(argv[2]).resolve()
         sys.path[:0] = [str(root / "src"), str(root)]
-        out = {"phases": run_phases, "moe": run_moe, "qwen": run_qwen}[mode](root)
+        out = {"phases": run_phases, "kernels": run_kernels, "moe": run_moe,
+               "qwen": run_qwen}[mode](root)
         print("AB " + json.dumps({"tree": argv[2], **out}, default=str), flush=True)
         return 0
-    if len(argv) < 2 or argv[0] not in ("phases", "moe", "qwen"):
+    if len(argv) < 2 or argv[0] not in ("phases", "kernels", "moe", "qwen"):
         print(__doc__, file=sys.stderr)
         return 2
     rc = 0
@@ -141,7 +155,8 @@ def main(argv) -> int:
         proc = subprocess.run([sys.executable, __file__, "--one", argv[0], tree],
                               capture_output=True, text=True)
         for line in proc.stdout.splitlines():
-            if line.startswith("AB ") or line.startswith("[kernels]   ") or \
+            shown = "[kernels]" if argv[0] == "kernels" else "[kernels]   "
+            if line.startswith("AB ") or line.startswith(shown) or \
                     line.startswith("[moe] 6") or line.startswith("[profile] "):
                 print(line, flush=True)
         if proc.returncode:
