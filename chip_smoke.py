@@ -101,6 +101,29 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    bytes, installs and wall time a step, one install's host-to-device rate,
    the time waited for Flash and the syncs of a decode step, and deletes
    its blobs.  The blobs are read back from the host's page cache.
+7. ``[gemma3]``, ``[qwen110b]``, ``[grok1]``, each engine released (and its
+   Flash embedding deleted) before the next is built.  ``[gemma3]`` first
+   holds kernels 2, 6 and 7 at gemma3-27b's windowed shapes against their
+   plain versions (ring views of 9 pages with negative and positive bases,
+   a full 1024-slot dense ring, a 1152-token prompt under window 1024),
+   each timed with its bound and SDPA, and times the windowed chunk
+   attention, which has no TPU kernel and runs as plain PyTorch on the
+   card.  Then full-width gemma3-27b (62 layers: 52 with a 1024-token
+   window in rings of 9 pages, 10 global; gelu FFN; ~10 GiB) serves 6
+   greedy requests, two of them past the window (1130 and 1480 tokens),
+   16 new tokens, eagerly (kernel 2 over ring views and over the global
+   pool, ring bases below and above 0, kernel 3 on the global layers
+   only, prefix sharing and decode bucketing off) and on its graphs; a
+   graph decode step profiled; a chunk and a decode step past the window
+   kernel vs plain; ``Engine.generate`` at 4 x 1152 tokens (kernel 6 over
+   wrapped rings).  ``[qwen110b]``: full-width qwen1.5-110b (80 layers,
+   ~52 GiB) with ``w4a8_matmul`` timed at its layer 0's gate/up (N =
+   49152) and down (K = 49152) weights, 4 requests eagerly and on graphs,
+   a profiled graph decode step, a chunk and a decode step kernel vs
+   plain.  ``[grok1]``: grok-1-314b at full width and 16 of its 64 layers
+   (the whole int4 model, ~157 GB, does not fit one card), printed as
+   ``reduced``, with ``grouped_matmul`` timed on its layer 0's expert
+   tables, then as ``[qwen110b]`` with both MoE branches checked.
 
 Launch counts are zeroed just before each serving path and read just after
 it (a graph replay adds the launches its capture recorded): every kernel of
@@ -1091,22 +1114,26 @@ def profile_loop_decode(eng, specs, steps: int = 4, cuda_graphs: bool = False,
 # kernel path against plain path at full width, layer by layer
 # ---------------------------------------------------------------------------
 
-def run_layers(engine, x, mode, positions, pos, table, caches, fed, lora=None):
-    """Every layer of the (single-stack) model on ``x``; with ``fed``
+def run_layers(engine, x, mode, positions, pos, table, cache, fed, lora=None, **kw):
+    """Every layer of the model on ``x``, stack by stack and pattern by
+    pattern, against the caches of ``cache["stacks"]``; with ``fed``
     (another run's per-layer outputs) layer i takes that run's output of
     layer i-1 instead of its own input, and the logits are taken on that
-    run's last hidden state.  ``lora``: the step's adapter tables and ids."""
+    run's last hidden state.  ``lora``: the step's adapter tables and ids;
+    ``kw``: a chunk's ``slot`` and ``valid_len`` (windowed layers)."""
     from repro_torch.core.precision import DEFAULT_POLICY
     from repro_torch.models import transformer as T
     cfg = engine.cfg
-    stack = engine.params["stacks"][0][0]
     outs = []
-    for li in range(cfg.num_layers):
-        inp = x if fed is None or li == 0 else fed[li - 1]
-        x, _ = T._apply_layer(inp, T.layer_slice(stack, li), cfg, cfg.period[0], mode,
-                              positions, caches.layer(li), pos, table, engine.dispatch,
-                              DEFAULT_POLICY, lora=lora)
-        outs.append(x)
+    for si, (patterns, count) in enumerate(cfg.layer_plan()):
+        for li in range(count):
+            for pi, pat in enumerate(patterns):
+                inp = x if fed is None or not outs else fed[len(outs) - 1]
+                x, _ = T._apply_layer(inp, T.layer_slice(engine.params["stacks"][si][pi], li),
+                                      cfg, pat, mode, positions,
+                                      cache["stacks"][si][pi].layer(li), pos, table,
+                                      engine.dispatch, DEFAULT_POLICY, lora=lora, **kw)
+                outs.append(x)
     last = outs[-1] if fed is None else fed[-1]
     return outs, T._logits(last[:, -1:], engine.params, cfg, engine.dispatch)[:, 0]
 
@@ -1124,15 +1151,15 @@ def chunk_then_decode(engine, prompt, nxt, feed=None, lora=None):
     loop.pool.alloc_row(0, 129)
     cache = loop.cache
     cache["table"] = torch.as_tensor(loop.pool.table, device=dev)
-    pool = cache["stacks"][0][0]
     ids = np.asarray(prompt[:128], np.int64)[None]
     chunk = run_layers(engine, engine.embed(ids), "prefill_paged",
-                       torch.arange(128, device=dev)[None], 0, cache["table"][0], pool,
+                       torch.arange(128, device=dev)[None], 0, cache["table"][0], cache,
                        None if feed is None else feed["chunk"][0], lora)
     pos = torch.tensor([128], dtype=torch.int32, device=dev)
     dec = run_layers(engine, engine.embed(np.asarray([[nxt]], np.int64)), "decode",
-                     pos[:, None], pos, cache["table"][:1], pool,
+                     pos[:, None], pos, cache["table"][:1], cache,
                      None if feed is None else feed["decode"][0], lora)
+    loop.close()
     return {"chunk": chunk, "decode": dec}
 
 
@@ -1144,7 +1171,7 @@ def prefill_then_decode(engine, prompt, nxt, feed=None):
     from repro_torch.models import transformer as T
     dev = engine.device
     T_ = len(prompt)
-    caches = T.init_cache(engine.cfg, 1, engine.max_seq, device=dev)["stacks"][0][0]
+    caches = T.init_cache(engine.cfg, 1, engine.max_seq, device=dev)
     pre = run_layers(engine, engine.embed(np.asarray(prompt, np.int64)[None]), "prefill",
                      torch.arange(T_, device=dev)[None], None, None, caches,
                      None if feed is None else feed["prefill"][0])
@@ -1260,11 +1287,11 @@ def phase_kernel_vs_plain(eng, specs, arrivals, reqs):
 # phase 4: Engine.generate at full width
 # ---------------------------------------------------------------------------
 
-def phase_generate(eng, tag: str = "generate") -> dict:
-    """Four greedy requests with equal-length prompts through the
-    slot-synchronous ``Engine.generate`` (it decodes the batch at request
-    0's position, so unequal prompts would decode at the wrong offsets);
-    ``tag`` heads its log lines."""
+def phase_generate(eng, tag: str = "generate", prompt_len: int = 320) -> dict:
+    """Four greedy requests with equal-length prompts of ``prompt_len``
+    tokens through the slot-synchronous ``Engine.generate`` (it decodes the
+    batch at request 0's position, so unequal prompts would decode at the
+    wrong offsets); ``tag`` heads its log lines."""
     import numpy as np
     import torch
     from repro_torch import kernels as K
@@ -1273,7 +1300,8 @@ def phase_generate(eng, tag: str = "generate") -> dict:
     from repro_torch.serving import sampling as SM
     cfg = eng.cfg
     rng = np.random.default_rng(1)
-    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, 320)] for _ in range(4)]
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, prompt_len)]
+               for _ in range(4)]
     reqs = [E.Request(uid=i, prompt_tokens=p, max_new_tokens=32)
             for i, p in enumerate(prompts)]
     eng.stats = E.EngineStats()
@@ -1290,11 +1318,11 @@ def phase_generate(eng, tag: str = "generate") -> dict:
                  "rmsnorm"):
         assert counts[name] > 0, f"{name} never launched on Engine.generate: {counts}"
     assert eng.dispatch.fallbacks == [], eng.dispatch.fallbacks
-    summary = {"wall_s": wall, "requests": 4, "prompt_tokens": 320, "new_tokens": 128,
+    summary = {"wall_s": wall, "requests": 4, "prompt_tokens": prompt_len, "new_tokens": 128,
                "prefill_s": s.prefill_s, "decode_s": s.decode_s,
                "prefill_tok_per_s": s.prefill_tps, "decode_tok_per_s": s.decode_tps,
                "decode_step_ms": s.decode_s / 31 * 1e3, "launches": counts}
-    log(f"[{tag}] Engine.generate: 4 requests x 320-token prompts, 128 new tokens in "
+    log(f"[{tag}] Engine.generate: 4 requests x {prompt_len}-token prompts, 128 new tokens in "
         f"{wall:.2f} s; "
         f"prefill {s.prefill_tps:.1f} tok/s ({s.prefill_s:.2f} s), decode "
         f"{s.decode_tps:.1f} tok/s ({summary['decode_step_ms']:.1f} ms a 4-row step)")
@@ -2370,6 +2398,616 @@ def phase_wstream(holder: list, label: str, ring_slots: int, lens, max_new: int,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 7: sliding-window attention and the gelu FFN (gemma3-27b), and the
+# largest dense and MoE configs (qwen1.5-110b, grok-1-314b)
+# ---------------------------------------------------------------------------
+
+GEMMA_NEW = 16
+GEMMA_GENERATE_PROMPT = 1152     # past the 1024-token window: the dense rings wrap
+BIG_NEW = 8
+GROK_LAYERS = 16                 # of 64: see phase_grok
+
+
+def free_engine(label: str, holder: list) -> None:
+    """Drop the last reference to an engine and give its memory back."""
+    import torch
+    holder.clear()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"[{label}] engine released: device memory allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, reserved "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB")
+
+
+def engine_line(label: str, cfg, t0: float, dev, extra: str = "") -> None:
+    import torch
+    torch.cuda.synchronize()
+    log(f"[{label}] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads, d_ff {cfg.d_ff} ({cfg.act}), vocab "
+        f"{cfg.padded_vocab_size}{extra}; weights + Flash embedding built in "
+        f"{time.perf_counter() - t0:.1f} s; device memory "
+        f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
+
+
+def loop_summary(label: str, loop, reqs, wall: float, eng, counts) -> dict:
+    s = eng.stats
+    new_tokens = sum(len(r.generated) for r in reqs)
+    out = {"wall_s": wall, "new_tokens": new_tokens, "prefill_tokens": s.prefill_tokens,
+           "prefill_chunks": s.prefill_chunks,
+           "ttft_p50_ms": s.ttft(50) * 1e3, "ttft_p95_ms": s.ttft(95) * 1e3,
+           "tpot_p50_ms": s.tpot(50) * 1e3, "decode_tok_per_s": s.decode_tps,
+           "prefill_tok_per_s": s.prefill_tps, "launches": counts,
+           "disabled_features": dict(loop.disabled_features)}
+    log(f"[{label}] {len(reqs)} requests, {new_tokens} new tokens in {wall:.2f} s; TTFT "
+        f"p50 {out['ttft_p50_ms']:.1f} ms p95 {out['ttft_p95_ms']:.1f} ms; TPOT p50 "
+        f"{out['tpot_p50_ms']:.2f} ms; decode {s.decode_tps:.1f} tok/s; prefill "
+        f"{s.prefill_tps:.1f} tok/s in {s.prefill_chunks} chunks")
+    return out
+
+
+class WindowSpies:
+    """While entered: the decode kernels' launches by what they read --
+    kernel 2 over windowed ring views and over the global pool's table,
+    kernel 6 over windowed rings (and how many of those calls found the ring
+    wrapped: more tokens than slots) and over full caches -- and the least
+    and greatest ring base met, kept on the device (no host wait) and read
+    by ``check``."""
+
+    def __init__(self):
+        self.paged = {"ring": 0, "global": 0}
+        self.dense = {"ring": 0, "full": 0}
+        self._wrapped = None
+        self._bases = None
+
+    def __enter__(self):
+        import torch
+        from repro_torch.kernels import quant_attention as QA
+        from repro_torch.runtime import dispatch as D
+        self._orig = orig = (D.Dispatcher.paged_decode_attention,
+                             D.Dispatcher.decode_attention)
+
+        def paged(disp, qh, pool, table, pos, policy, base=None):
+            before = QA.paged_quant_decode_attention.launches
+            out = orig[0](disp, qh, pool, table, pos, policy, base=base)
+            n = QA.paged_quant_decode_attention.launches - before
+            self.paged["ring" if pool.window else "global"] += n
+            if pool.window and n and not torch.cuda.is_current_stream_capturing():
+                mm = torch.stack([base.min(), base.max()]).to(torch.int64)
+                self._bases = mm if self._bases is None else torch.stack(
+                    [torch.minimum(self._bases[0], mm[0]), torch.maximum(self._bases[1], mm[1])])
+            return out
+
+        def dense(disp, qh, cache, pos, policy):
+            before = QA.quant_decode_attention.launches
+            out = orig[1](disp, qh, cache, pos, policy)
+            n = QA.quant_decode_attention.launches - before
+            self.dense["ring" if cache.window else "full"] += n
+            if cache.window and n and not torch.cuda.is_current_stream_capturing():
+                w = (torch.as_tensor(pos, device=qh.device).max() > cache.max_seq).to(torch.int64)
+                self._wrapped = w if self._wrapped is None else self._wrapped + w
+            return out
+
+        D.Dispatcher.paged_decode_attention = paged
+        D.Dispatcher.decode_attention = dense
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from repro_torch.runtime import dispatch as D
+        D.Dispatcher.paged_decode_attention, D.Dispatcher.decode_attention = self._orig
+
+    @property
+    def bases(self):
+        return None if self._bases is None else [int(b) for b in self._bases.tolist()]
+
+    @property
+    def wrapped(self) -> int:
+        return 0 if self._wrapped is None else int(self._wrapped)
+
+    def __str__(self) -> str:
+        return (f"paged decode kernel by pool {self.paged}, ring bases {self.bases}; dense "
+                f"decode kernel by cache {self.dense}, over a wrapped ring {self.wrapped}")
+
+
+def gemma_trace(vocab: int, seed: int = 8):
+    """Six prompts, two of them longer than the 1024-token window (so rings
+    recycle during chunked prefill and during decode), arriving over seven
+    steps: long prompts are still mid-prefill while earlier rows decode."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lens = [1480, 96, 1130, 300, 64, 700]
+    return ([[int(t) for t in rng.integers(1, vocab, n)] for n in lens],
+            [0, 0, 1, 2, 4, 7])
+
+
+def window_steps(eng, fill_to: int = 1152):
+    """``compare_paths``' steps for a windowed model past its window: row 0
+    of a 4-slot pool is filled to ``fill_to`` tokens once, through the
+    served chunk step on the kernel path, and its pools snapshotted; each
+    call restores them, then runs one 128-token chunk at [fill_to, fill_to
+    + 128) and the decode step after it layer by layer (every ring has
+    recycled pages by then)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import engine as E
+    dev = eng.device
+    loop = E.EngineLoop(eng, max_slots=4, prefill_chunk=128)
+    loop.pool.alloc_row(0, fill_to + 129)
+    cache = loop.cache
+    cache["table"] = torch.as_tensor(loop.pool.table, device=dev)
+    rng = np.random.default_rng(12)
+    ids = rng.integers(1, eng.cfg.vocab_size, fill_to + 129)
+    for p0 in range(0, fill_to, 128):
+        T.prefill_chunk_paged(eng.params, eng.cfg, eng.embed(ids[None, p0:p0 + 128]), cache,
+                              0, p0, 127, eng.dispatch)
+    tensors = [getattr(p, f) for st in cache["stacks"] for p in st
+               for f in ("k_q", "k_scale", "k_zero", "v")]
+    snap = [t.clone() for t in tensors]
+    loop.close()
+
+    def steps(engine, prompt, nxt, feed=None):
+        for t, s_ in zip(tensors, snap):
+            t.copy_(s_)
+        chunk = run_layers(engine, engine.embed(ids[None, fill_to:fill_to + 128]),
+                           "prefill_paged",
+                           torch.arange(fill_to, fill_to + 128, device=dev)[None], fill_to,
+                           cache["table"][0], cache,
+                           None if feed is None else feed["chunk"][0], slot=0,
+                           valid_len=128)
+        pos = torch.tensor([fill_to + 128], dtype=torch.int32, device=dev)
+        dec = run_layers(engine, engine.embed(ids[None, fill_to + 128:fill_to + 129].T),
+                         "decode", pos[:, None], pos, cache["table"][:1], cache,
+                         None if feed is None else feed["decode"][0])
+        return {"chunk": chunk, "decode": dec}
+    return steps
+
+
+def phase_window_kernels(dev, cfg, results: dict) -> dict:
+    """The decode and prefill attention kernels at gemma3-27b's windowed
+    shapes (H = 32 over 16 KV heads, D = 128, window 1024, pages of 128):
+    kernel 2 over 9-page ring views with negative and positive bases,
+    kernel 6 over a full 1024-slot dense ring, kernel 7 over a 1152-token
+    prompt with the window; each against its plain version, timed with its
+    bound and SDPA.  Then the windowed chunk attention, which has no TPU
+    kernel and runs as plain PyTorch on the card: its time a call, eager
+    and replayed in a CUDA graph, beside its bound and SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import kv_cache as KV
+    from repro_torch.core import kv_pool as KP
+    from repro_torch.core import quantization as Q
+    from repro_torch.kernels import flash_prefill as FP
+    from repro_torch.kernels import quant_attention as QA
+    gen = torch.Generator(device=dev).manual_seed(77)
+    W, H, Hkv, D, ps, B = 1024, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, 128, 4
+    G = H // Hkv
+    ppw = KP.pages_per_window(W, ps)
+    out = {}
+
+    def sdpa(q4, k, v, mask):
+        return library_time(lambda a, b, c, m: F.scaled_dot_product_attention(
+            a, b, c, attn_mask=m, scale=1.0),
+            [(q4, k.transpose(1, 2).repeat_interleave(G, dim=1),
+              v.transpose(1, 2).repeat_interleave(G, dim=1), mask)])
+
+    # kernel 2 over ring views: (B+1) rings of 9 pages, as the served pool
+    rows = []
+    for lengths in ([700, 300, 1000, 64], [1500, 1300, 1153, 2000]):
+        pools = [KP.PagedLayerKV(*make_pool((B + 1) * ppw, ps, Hkv, D, gen, dev), window=W,
+                                 ppw=ppw) for _ in range(4)]
+        length = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        table, base = KP.ring_view(pools[0], length, B)
+        q = (torch.randn((B, H, D), generator=gen, device=dev) / math.sqrt(D)).to(torch.bfloat16)
+        fields = lambda p: (p.k_q, p.k_scale, p.k_zero, p.v)
+        args = (q, *fields(pools[0]), table, base, length)
+        err = check_close("paged_quant_decode_attention",
+                          QA.paged_quant_decode_attention(*args, window=W),
+                          QA.paged_quant_decode_attention_plain(*args, window=W),
+                          f"ring view lengths={lengths} bases={base.tolist()}")
+        sets = [(q, *fields(p), table, base, length) for p in pools]
+        ms = time_ms(lambda *a: QA.paged_quant_decode_attention(*a, window=W), sets)
+        gms = graph_ms(lambda *a: QA.paged_quant_decode_attention(*a, window=W), sets)
+        plain_ms = time_ms(lambda *a: QA.paged_quant_decode_attention_plain(*a, window=W),
+                           [args], iters=5)
+        k, v = gather_dense(fields(pools[0]), table, torch.bfloat16)
+        kpos = base[:, None].long() * ps + torch.arange(ppw * ps, device=dev)[None]
+        live_mask = (kpos >= 0) & (kpos < length[:, None]) & (kpos >= length[:, None] - W)
+        lib_ms, lib_gms = sdpa(q[:, :, None], k, v, live_mask[:, None, None, :])
+        live = sum(min(n, W) for n in lengths)
+        b = bound(q.numel() * 2 + live * Hkv * (2 * D + 8) + B * H * D * 4 + 8 * B * (ppw + 1),
+                  4 * live * H * D, BF16_FLOPS_PER_S)
+        splits = QA.decode_splits(B, Hkv * QA.head_tiles(G), ppw)
+        row = dict(err=err, ms=ms, graph_ms=gms, plain_ms=plain_ms, library_ms=lib_ms,
+                   library_graph_ms=lib_gms, bound=b, splits=splits,
+                   head_tiles=QA.head_tiles(G), bases=base.tolist(),
+                   shape=f"B={B} H={H} Hkv={Hkv} D={D} page={ps} ring of {ppw} pages, "
+                         f"window {W}, lengths={lengths} (gemma3-27b local decode)")
+        rows.append(row)
+        results["paged_quant_decode_attention"]["all_shapes"].append(row)
+        results["paged_quant_decode_attention"]["err"] = max(
+            results["paged_quant_decode_attention"]["err"], err)
+        log(f"[kernels] paged_quant_decode_attention ring view G={G} lengths={lengths} "
+            f"bases {base.tolist()}: {splits} splits; {ms:.4f} ms a call, {f4(gms)} ms on "
+            f"the device, bound {b[0]:.5f} ms ({b[1]}); plain {plain_ms:.4f} ms; SDPA "
+            f"{f4(lib_ms)} ms a call, {f4(lib_gms)} ms on the device; max abs err {err:.3e}")
+        del pools, k, v
+    out["ring_decode"] = rows
+
+    # kernel 6 over a full dense ring (Engine.generate's local layers after a
+    # 1152-token prompt): min(pos, 1024) = 1024 live slots
+    caches = []
+    for _ in range(4):
+        k = torch.randn((B, W, Hkv, D), generator=gen, device=dev)
+        v = torch.randn((B, W, Hkv, D), generator=gen, device=dev)
+        kq, ks, kz = KV.quantize_keys(k.to(torch.bfloat16))
+        caches.append((kq, ks, kz, KV.cast_values(v, Q.FP8_DTYPE)))
+    q = (torch.randn((B, H, D), generator=gen, device=dev) / math.sqrt(D)).to(torch.bfloat16)
+    length = torch.tensor(min(GEMMA_GENERATE_PROMPT + 1, W), dtype=torch.int32, device=dev)
+    args = (q, *caches[0], length)
+    err = check_close("quant_decode_attention", QA.quant_decode_attention(*args),
+                      QA.quant_decode_attention_plain(*args), f"full ring of {W} slots")
+    sets = [(q, *c, length) for c in caches]
+    ms, gms = time_ms(QA.quant_decode_attention, sets), graph_ms(QA.quant_decode_attention, sets)
+    plain_ms = time_ms(QA.quant_decode_attention_plain, [args], iters=5)
+    kd = KV.dequantize_keys(*caches[0][:3])
+    lib_ms, lib_gms = sdpa(q[:, :, None], kd, caches[0][3].to(torch.bfloat16), None)
+    b = bound(q.numel() * 2 + B * W * Hkv * (2 * D + 8) + B * H * D * 4,
+              4 * B * W * H * D, BF16_FLOPS_PER_S)
+    row = dict(err=err, ms=ms, graph_ms=gms, plain_ms=plain_ms, library_ms=lib_ms,
+               library_graph_ms=lib_gms, bound=b,
+               splits=QA.decode_splits(B, Hkv * QA.head_tiles(G), W // QA.DENSE_BLOCK),
+               shape=f"B={B} H={H} Hkv={Hkv} D={D} ring S={W} full (length {W}; "
+                     "gemma3-27b Engine.generate local decode)")
+    results["quant_decode_attention"]["all_shapes"].append(row)
+    results["quant_decode_attention"]["err"] = max(results["quant_decode_attention"]["err"], err)
+    out["ring_dense_decode"] = row
+    log(f"[kernels] quant_decode_attention full ring S={W} G={G}: {ms:.4f} ms a call, "
+        f"{f4(gms)} ms on the device, bound {b[0]:.5f} ms ({b[1]}); plain {plain_ms:.4f} ms; "
+        f"SDPA {f4(lib_ms)} ms a call, {f4(lib_gms)} ms on the device; max abs err {err:.3e}")
+    del caches, kd
+
+    # kernel 7: a 1152-token prompt over its own round-tripped K/V, window 1024
+    T_ = GEMMA_GENERATE_PROMPT
+    q = (torch.randn((1, T_, H, D), generator=gen, device=dev) / math.sqrt(D)).to(torch.bfloat16)
+    k = torch.randn((1, T_, Hkv, D), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((1, T_, Hkv, D), generator=gen, device=dev).to(torch.bfloat16)
+    kw = dict(causal=True, window=W)
+    err = check_close("flash_prefill_attention", FP.flash_prefill_attention(q, k, v, **kw),
+                      FP.flash_prefill_attention_plain(q, k, v, **kw), f"T={T_} window={W}")
+    ms = time_ms(lambda *a: FP.flash_prefill_attention(*a, **kw), [(q, k, v)])
+    gms = graph_ms(lambda *a: FP.flash_prefill_attention(*a, **kw), [(q, k, v)])
+    plain_ms = time_ms(lambda *a: FP.flash_prefill_attention_plain(*a, **kw), [(q, k, v)],
+                       iters=3)
+    qpos = torch.arange(T_, device=dev)
+    mask = ((qpos[None] <= qpos[:, None]) & (qpos[:, None] - qpos[None] < W))[None, None]
+    lib_ms, lib_gms = sdpa(q.transpose(1, 2), k, v, mask)
+    pairs = sum(min(i + 1, W) for i in range(T_))
+    b = bound(q.numel() * 2 + 2 * T_ * Hkv * D * 2 + T_ * H * D * 4, 4 * H * D * pairs,
+              BF16_FLOPS_PER_S)
+    row = dict(err=err, ms=ms, graph_ms=gms, plain_ms=plain_ms, library_ms=lib_ms,
+               library_graph_ms=lib_gms, bound=b,
+               shape=f"B=1 T={T_} S={T_} H={H} Hkv={Hkv} D={D} causal, window {W} "
+                     "(gemma3-27b Engine.generate local prefill)")
+    results["flash_prefill_attention"].setdefault("all_shapes", []).append(row)
+    results["flash_prefill_attention"]["err"] = max(results["flash_prefill_attention"]["err"],
+                                                    err)
+    out["window_prefill"] = row
+    log(f"[kernels] flash_prefill_attention T={T_} window={W} G={G}: {ms:.4f} ms a call, "
+        f"{f4(gms)} ms on the device, bound {b[0]:.4f} ms ({b[1]}); plain {plain_ms:.4f} ms; "
+        f"SDPA {f4(lib_ms)} ms a call, {f4(lib_gms)} ms on the device; max abs err {err:.3e}")
+    del q, k, v, mask
+
+    # the windowed chunk (no TPU kernel; plain PyTorch on the card): a
+    # 128-token chunk at [1152, 1280) over row 0's ring, 16 logical pages
+    pool = KP.PagedLayerKV(*make_pool((B + 1) * ppw, ps, Hkv, D, gen, dev), window=W, ppw=ppw)
+    q = (torch.randn((1, 128, H, D), generator=gen, device=dev) / math.sqrt(D)).to(torch.bfloat16)
+    scal = [torch.tensor([x], dtype=torch.int32, device=dev) for x in (0, 1152, 128)]
+    fn = lambda *a: KP.paged_prefill_window_ref(*a, W, 16)
+    ms = time_ms(fn, [(q, pool, *scal)], iters=10)
+    gms = graph_ms(fn, [(q, pool, *scal)], iters=5)
+    pairs = sum(min(1152 + i + 1, W) for i in range(128))
+    b = bound(q.numel() * 2 + ppw * ps * Hkv * (2 * D + 8) + 128 * H * D * 2,
+              4 * H * D * pairs, BF16_FLOPS_PER_S)
+    out["window_chunk_plain"] = {"ms": ms, "graph_ms": gms, "bound_ms": b[0], "bound_by": b[1],
+                                 "calls_per_chunk": sum(
+                                     n for pats, n in cfg.layer_plan() for p in pats
+                                     if p.window),
+                                 "shape": f"C=128 pos0=1152 H={H} Hkv={Hkv} D={D} ring of "
+                                          f"{ppw} pages, window {W}, view of 16 pages"}
+    log(f"[kernels] windowed chunk attention (kv_pool.paged_prefill_window_ref, plain "
+        f"PyTorch: no TPU kernel) C=128 pos0=1152: {ms:.4f} ms a call, {f4(gms)} ms on the "
+        f"device (a CUDA graph), bound {b[0]:.4f} ms ({b[1]})")
+    del pool, q
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_gemma3(dev, results: dict):
+    """gemma3-27b at full width and depth (62 layers: ten periods of five
+    window-1024 layers and a global one, then two window layers; d_model
+    5376, 32/16 heads, gelu FFN of 21504, vocab 262144) from seed 0.  Its
+    windowed kernel shapes first; then a 6-request trace, two prompts past
+    the window, through ``EngineLoop`` eagerly and on its CUDA graphs
+    (prefix sharing and decode bucketing off, as in the reference), a graph
+    decode step profiled, one chunk and one decode step past the window
+    kernel vs plain, and ``Engine.generate`` at 4 x 1152 tokens (the dense
+    rings wrap).  Returns (engine holder, summary)."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_prefill as FP
+    from repro_torch.serving import engine as E
+
+    cfg = registry.get("gemma3-27b")
+    n_global = sum(n for pats, n in cfg.layer_plan() for p in pats if not p.window)
+    n_local = cfg.num_layers - n_global
+    summary = {"window_kernels": phase_window_kernels(dev, cfg, results)}
+    t0 = time.perf_counter()
+    eng = E.build_engine(cfg, seed=0, max_seq=2048, device=dev,
+                         flash_dir=str(ROOT / "build" / "flash-gemma3"))
+    engine_line("gemma3", cfg, t0, dev, f"; {n_local} window-{cfg.period[0].window} layers, "
+                f"{n_global} global")
+    specs, arrivals = gemma_trace(cfg.vocab_size)
+    log(f"[gemma3] trace: prompts {[len(p) for p in specs]}, arrivals {arrivals}; eager")
+    spy = WindowSpies()
+    with spy:
+        K.reset_launch_counts()
+        loop, reqs, wall = serve_trace(eng, specs, arrivals, max_new=GEMMA_NEW)
+        counts = K.launch_counts()
+    loop.close()
+    log(f"[gemma3] launches during the trace: {counts}; {spy}")
+    assert all(r.done and len(r.generated) == GEMMA_NEW for r in reqs), "unfinished requests"
+    for name in LOOP_KERNELS:
+        assert counts[name] > 0, f"{name} never launched on gemma3's EngineLoop: {counts}"
+    assert {"prefix_sharing", "decode_bucketing"} <= set(loop.disabled_features), \
+        loop.disabled_features
+    assert loop.prefill_chunk == 128 and loop.buckets == (4,), (loop.prefill_chunk, loop.buckets)
+    # kernel 3 on the global layers only; kernel 2 on both pool kinds, ring
+    # views with negative and positive bases
+    assert counts["paged_flash_prefill_attention"] == eng.stats.prefill_chunks * n_global, \
+        (counts, eng.stats.prefill_chunks)
+    assert spy.paged["ring"] == spy.paged["global"] * n_local // n_global > 0, spy.paged
+    assert spy.bases[0] < 0 < spy.bases[1], spy.bases
+    assert eng.dispatch.fallbacks == [], eng.dispatch.fallbacks
+    summary.update(loop_summary("gemma3", loop, reqs, wall, eng, counts))
+    summary["decode_kernel_by_pool"] = dict(spy.paged)
+    summary["ring_bases"] = spy.bases
+    summary["graphs"] = phase_graphs("gemma3-27b", eng, specs, arrivals, reqs, GEMMA_NEW,
+                                     LOOP_KERNELS)
+    summary["profile_graphs"] = profile_loop_decode(eng, specs, cuda_graphs=True)
+    summary["kernel_vs_plain"] = compare_paths("gemma3-27b EngineLoop past the window", eng,
+                                               window_steps(eng), None, None)
+    gspy = WindowSpies()
+    with gspy:
+        summary["generate"] = phase_generate(eng, tag="gemma3",
+                                             prompt_len=GEMMA_GENERATE_PROMPT)
+    log(f"[gemma3] Engine.generate: {gspy}")
+    assert gspy.dense["ring"] > 0 and gspy.wrapped == gspy.dense["ring"], str(gspy)
+    assert summary["generate"]["launches"]["flash_prefill_attention"] == 4 * cfg.num_layers, \
+        summary["generate"]["launches"]
+    summary["generate"]["dense_decode_by_cache"] = dict(gspy.dense)
+    return [eng], summary
+
+
+def matmul_rows(label: str, pl, Ms, what: str, results: dict) -> list:
+    """``w4a8_matmul`` on a served layer's own packed weight ``pl`` at the
+    row counts ``Ms``: against the plain version, timed with its bound and
+    ``torch._int_mm`` (the weight unpacked to int8, M padded to 32)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import quantization as Q
+    from repro_torch.kernels import w4a8_matmul as WM
+    dev = pl.data.device
+    gen = torch.Generator(device=dev).manual_seed(99)
+    K, N, bits = pl.k, pl.n, pl.bits
+    w8 = Q.unpack_int4(pl.data).contiguous() if bits == 4 else pl.data
+    rows = []
+    for M in Ms:
+        x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+        xq, sx = Q.quantize_activations(x)
+        args = (xq, sx, pl.data, pl.scale[0], pl.zero[0])
+        err = check_close("w4a8_matmul", WM.w4a8_matmul(*args, bits=bits),
+                          WM.w4a8_matmul_plain(*args, bits=bits), f"{label} {what} M={M}")
+        ms = time_ms(lambda *a: WM.w4a8_matmul(*a, bits=bits), [args])
+        gms = graph_ms(lambda *a: WM.w4a8_matmul(*a, bits=bits), [args])
+        plain_ms = time_ms(lambda *a: WM.w4a8_matmul_plain(*a, bits=bits), [args], iters=3,
+                           warmup=1)
+        xi = F.pad(xq, (0, 0, 0, 32 - M)) if M <= 16 else xq
+        xi = F.pad(xi, (0, w8.shape[0] - K)) if w8.shape[0] > K else xi
+        lib_ms, lib_gms = library_time(torch._int_mm, [(xi, w8)])
+        b = bound(xq.numel() + sx.numel() * 4 + pl.data.numel() + 2 * N * 4 + M * N * 4,
+                  2 * M * K * N, INT8_OPS_PER_S)
+        splits, trows = WM.matmul_splits(M, N, K), WM.tile_rows(M)
+        row = {"what": f"{label} {what}", "M": M, "K": K, "N": N, "bits": bits,
+               "splits": splits, "tile_rows": trows, "ms": ms, "graph_ms": gms,
+               "plain_ms": plain_ms, "max_abs_err": err, "bound_ms": b[0], "bound_by": b[1],
+               "library_ms": lib_ms, "library_graph_ms": lib_gms}
+        rows.append(row)
+        results["w4a8_matmul"]["all_shapes"].append(row)
+        results["w4a8_matmul"]["err"] = max(results["w4a8_matmul"]["err"], err)
+        log(f"[kernels] w4a8_matmul {label} {what} M={M:4d} K={K:5d} N={N:6d} int{bits} "
+            f"({trows}-row tile, {splits} splits, {-(-M // trows) * (-(-N // 128)) * splits} "
+            f"blocks): {ms:.4f} ms a call, {f4(gms)} ms on the device, bound {b[0]:.4f} ms "
+            f"({b[1]}); plain {plain_ms:.4f} ms; _int_mm {f4(lib_ms)} ms a call, "
+            f"{f4(lib_gms)} ms on the device; max abs err {err:.3e}")
+    del w8
+    return rows
+
+
+def phase_big_dense(dev, results: dict):
+    """qwen1.5-110b at full width and depth (80 layers, d_model 8192, 64/8
+    heads, d_ff 49152, qkv bias; about 54 GB of int4 weights) from seed 0:
+    ``w4a8_matmul`` at its layer 0's gate/up (N = 49152: 384 column tiles)
+    and down (K = 49152) projections, then a 4-request trace through
+    ``EngineLoop`` eagerly and on its graphs, a graph decode step profiled,
+    one chunk and one decode step kernel vs plain.  Returns (engine holder,
+    summary)."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import engine as E
+
+    cfg = registry.get("qwen1.5-110b")
+    t0 = time.perf_counter()
+    eng = E.build_engine(cfg, seed=0, max_seq=2048, device=dev,
+                         flash_dir=str(ROOT / "build" / "flash-qwen110b"))
+    engine_line("qwen110b", cfg, t0, dev)
+    ffn = T.layer_slice(eng.params["stacks"][0][0]["ffn"], 0)
+    summary = {"matmul": matmul_rows("qwen1.5-110b", ffn["w_gate"]["w"], (1, 4, 128),
+                                     "gate/up", results)
+               + matmul_rows("qwen1.5-110b", ffn["w_down"]["w"], (1, 4, 128), "down",
+                             results)}
+    specs, arrivals = make_trace(cfg.vocab_size, seed=9, requests=4)
+    log(f"[qwen110b] trace: prompts {[len(p) for p in specs]}, arrivals {arrivals}; eager")
+    K.reset_launch_counts()
+    loop, reqs, wall = serve_trace(eng, specs, arrivals, max_new=BIG_NEW)
+    counts = K.launch_counts()
+    loop.close()
+    log(f"[qwen110b] launches during the trace: {counts}")
+    assert all(r.done and len(r.generated) == BIG_NEW for r in reqs), "unfinished requests"
+    for name in LOOP_KERNELS:
+        assert counts[name] > 0, f"{name} never launched on qwen1.5-110b's EngineLoop: {counts}"
+    assert eng.dispatch.fallbacks == [], eng.dispatch.fallbacks
+    summary.update(loop_summary("qwen110b", loop, reqs, wall, eng, counts))
+    summary["graphs"] = phase_graphs("qwen1.5-110b", eng, specs, arrivals, reqs, BIG_NEW,
+                                     LOOP_KERNELS)
+    summary["profile_graphs"] = profile_loop_decode(eng, specs, cuda_graphs=True)
+    prompt = next(p for p in specs if len(p) > 128)
+    summary["kernel_vs_plain"] = compare_paths("qwen1.5-110b EngineLoop", eng,
+                                               chunk_then_decode, prompt, prompt[128])
+    return [eng], summary
+
+
+def grouped_rows(label: str, pel, results: dict) -> list:
+    """``grouped_matmul`` on a served layer's own expert table ``pel`` (E =
+    8): decode as 4 rows x top-2 = 8 one-row slabs named by id, and a
+    128-token chunk at full capacity with the live rows a top-2 routing
+    gives; against the plain version, timed with its bound and bf16 bmm."""
+    import torch
+    from repro_torch.core import quantization as Q
+    from repro_torch.kernels import grouped_matmul as GM
+    from repro_torch.runtime import plan as RP
+    dev = pel.data.device
+    gen = torch.Generator(device=dev).manual_seed(98)
+    E_ALL, K, N = pel.data.shape[0], pel.k, pel.n
+    Kp, Np = pel.kp, pel.np_pad
+    slab_bytes = pel.data[0].numel() + 2 * Np * 4
+    rows = []
+    for kind in ("decode", "prefill"):
+        if kind == "decode":
+            ids = torch.cat([torch.randperm(E_ALL, generator=gen, device=dev)[:2]
+                             for _ in range(4)]).to(torch.int32)
+            E, M, kw = ids.numel(), 1, {"ids": ids}
+            x = torch.randn((E, M, K), generator=gen, device=dev).to(torch.bfloat16)
+            live_rows, slabs = E, int(torch.unique(ids).numel())
+        else:
+            top = torch.randn((128, E_ALL), generator=gen, device=dev).topk(2, dim=-1).indices
+            counts = torch.bincount(top.reshape(-1), minlength=E_ALL)
+            E, M = E_ALL, 128
+            kw = {"rows": counts.to(torch.int32)[:, None].contiguous()}
+            x = torch.randn((E, M, K), generator=gen, device=dev)
+            x = (x * (torch.arange(M, device=dev)[None] < counts[:, None])[..., None]).to(
+                torch.bfloat16)
+            live_rows, slabs = int(counts.sum()), int((counts > 0).sum())
+        xq, sx = Q.quantize_activations(x)
+        args = (xq, sx, pel.data, pel.scale[:, 0], pel.zero[:, 0])
+        err = check_close("grouped_matmul", GM.grouped_matmul(*args, bits=pel.bits, **kw),
+                          GM.grouped_matmul_plain(*args, bits=pel.bits, **kw),
+                          f"{label} {kind} E={E} M={M} K={K} N={N}")
+        fn = lambda *a: GM.grouped_matmul(*a, bits=pel.bits, **kw)
+        ms, gms = time_ms(fn, [args]), graph_ms(fn, [args])
+        plain_ms = time_ms(lambda *a: GM.grouped_matmul_plain(*a, bits=pel.bits, **kw), [args],
+                           iters=3, warmup=1)
+        used = RP.take_experts(pel, kw["ids"]) if "ids" in kw else pel
+        wd = Q.dequantize(RP.unpack_expert_linear(used))
+        lib_ms, lib_gms = library_time(torch.bmm, [(x, wd)])
+        del wd, used
+        b = bound(live_rows * (Kp + 4) + slabs * slab_bytes + E * M * Np * 4
+                  + 4 * sum(t.numel() for t in kw.values()), 2 * live_rows * Kp * Np,
+                  INT8_OPS_PER_S)
+        row = {"what": f"{label} {kind}", "E": E, "M": M, "K": K, "N": N,
+               "live_rows": live_rows, "slabs_read": slabs, "ms": ms, "graph_ms": gms,
+               "plain_ms": plain_ms, "max_abs_err": err, "bound_ms": b[0], "bound_by": b[1],
+               "library_ms": lib_ms, "library_graph_ms": lib_gms}
+        rows.append(row)
+        results["grouped_matmul"]["all_shapes"].append(row)
+        results["grouped_matmul"]["err"] = max(results["grouped_matmul"]["err"], err)
+        log(f"[kernels] grouped_matmul {label} {kind} E={E} M={M} K={K} N={N} ({live_rows} "
+            f"live rows, {slabs} slabs, {sorted(kw)[0]}): {ms:.4f} ms a call, {f4(gms)} ms "
+            f"on the device, bound {b[0]:.4f} ms ({b[1]}); plain {plain_ms:.4f} ms; bf16 bmm "
+            f"{f4(lib_ms)} ms a call, {f4(lib_gms)} ms on the device; max abs err {err:.3e}")
+        del x, xq, sx
+    return rows
+
+
+def phase_grok(dev, results: dict):
+    """grok-1-314b at full width (d_model 6144, 48/8 heads, 8 experts top-2
+    of d_ff 32768 in every layer) and 16 of its 64 layers, from seed 0.
+    The depth is cut because the 64-layer int4 model (about 157 GB) does
+    not fit one card, and its weight-streamed step would wait minutes a
+    token on Flash.  ``grouped_matmul`` at its layer 0's expert tables
+    (gate/up N = 32768, down K = 32768), then a 4-request trace through
+    ``EngineLoop`` eagerly and on its graphs, both MoE dispatch branches
+    launching the grouped kernel (chunks by live-row counts, decode by
+    expert id), one chunk and one decode step kernel vs plain."""
+    import dataclasses
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import engine as E
+
+    full = registry.get("grok-1-314b")
+    cfg = dataclasses.replace(full, num_layers=GROK_LAYERS)
+    log(f"[grok1] reduced: depth {GROK_LAYERS} of {full.num_layers} layers (every width "
+        "kept): the 64-layer int4 model, about 157 GB, does not fit one 80 GB card")
+    t0 = time.perf_counter()
+    eng = E.build_engine(cfg, seed=0, max_seq=2048, device=dev,
+                         flash_dir=str(ROOT / "build" / "flash-grok1"))
+    engine_line("grok1", cfg, t0, dev, f"; {cfg.num_experts} experts top-"
+                f"{cfg.experts_per_tok}")
+    moe0 = T.layer_slice(eng.params["stacks"][0][0]["moe"], 0)
+    summary = {"reduced": {"num_layers": [full.num_layers, GROK_LAYERS]},
+               "grouped": grouped_rows("grok-1-314b gate/up", moe0["w_gate"]["w"], results)
+               + grouped_rows("grok-1-314b down", moe0["w_down"]["w"], results)}
+    del moe0
+    specs, arrivals = make_trace(cfg.vocab_size, seed=10, requests=4)
+    log(f"[grok1] trace: prompts {[len(p) for p in specs]}, arrivals {arrivals}; eager")
+    spy = MoeSpies()
+    with spy:
+        K.reset_launch_counts()
+        loop, reqs, wall = serve_trace(eng, specs, arrivals, max_new=BIG_NEW)
+        counts = K.launch_counts()
+    loop.close()
+    log(f"[grok1] launches during the trace: {counts}; {spy}")
+    assert all(r.done and len(r.generated) == BIG_NEW for r in reqs), "unfinished requests"
+    for name in MOE_KERNELS:
+        assert counts[name] > 0, f"{name} never launched on grok-1's EngineLoop: {counts}"
+    spy.check()
+    assert eng.dispatch.fallbacks == [], eng.dispatch.fallbacks
+    summary.update(loop_summary("grok1", loop, reqs, wall, eng, counts))
+    summary["grouped_matmul_by_branch"] = spy.by_branch
+    graph_spy = MoeSpies()
+    summary["graphs"] = phase_graphs("grok-1-314b", eng, specs, arrivals, reqs, BIG_NEW,
+                                     MOE_KERNELS, spies=graph_spy)
+    graph_spy.check()
+    summary["profile_graphs"] = profile_loop_decode(eng, specs, cuda_graphs=True)
+    prompt = next(p for p in specs if len(p) > 128)
+    summary["kernel_vs_plain"] = compare_paths("grok-1-314b EngineLoop", eng,
+                                               chunk_then_decode, prompt, prompt[128])
+    return [eng], summary
+
+
+def drop_flash(name: str) -> None:
+    """Delete a phase's Flash embedding (the card machine's disk is finite)."""
+    import shutil
+    shutil.rmtree(ROOT / "build" / name, ignore_errors=True)
+
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py runs from the root of a checkout of the repository "
@@ -2437,6 +3075,18 @@ def main() -> int:
         holder, "moonshot-v1-16b-a3b", WSTREAM_MOE_RING, [128, 48, 96, 77], 8, seed=6,
         spies=MoeSpies())
     log(f"[wstream] moonshot-v1-16b-a3b part took {time.perf_counter() - t_ws:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    big = {}
+    for label, phase, flash in (("gemma3", phase_gemma3, "flash-gemma3"),
+                                ("qwen110b", phase_big_dense, "flash-qwen110b"),
+                                ("grok1", phase_grok, "flash-grok1")):
+        t_p = time.perf_counter()
+        holder, big[label] = phase(dev, results)
+        free_engine(label, holder)
+        drop_flash(flash)
+        big[label]["phase_s"] = time.perf_counter() - t_p
+        log(f"[{label}] phase took {big[label]['phase_s']:.1f} s")
 
     # launches: the sum over the three serving paths, each counted from zero
     paths = {"EngineLoop qwen2-7b": summary["launches"],
@@ -2455,7 +3105,15 @@ def main() -> int:
              "EngineLoop moonshot-v1-16b-a3b": moe["launches"],
              "EngineLoop moonshot-v1-16b-a3b, CUDA graphs": moe["graphs"]["launches"],
              "EngineLoop moonshot-v1-16b-a3b, experts streamed":
-                 wstream["moonshot-v1-16b-a3b"]["launches"]}
+                 wstream["moonshot-v1-16b-a3b"]["launches"],
+             "EngineLoop gemma3-27b": big["gemma3"]["launches"],
+             "EngineLoop gemma3-27b, CUDA graphs": big["gemma3"]["graphs"]["launches"],
+             "Engine.generate gemma3-27b": big["gemma3"]["generate"]["launches"],
+             "EngineLoop qwen1.5-110b": big["qwen110b"]["launches"],
+             "EngineLoop qwen1.5-110b, CUDA graphs": big["qwen110b"]["graphs"]["launches"],
+             f"EngineLoop grok-1-314b ({GROK_LAYERS} of 64 layers)": big["grok1"]["launches"],
+             f"EngineLoop grok-1-314b ({GROK_LAYERS} of 64 layers), CUDA graphs":
+                 big["grok1"]["graphs"]["launches"]}
     kernels = []
     for name in KERNELS:
         r = results[name]
@@ -2473,9 +3131,12 @@ def main() -> int:
               "grouped_all_shapes": results["grouped_matmul"]["all_shapes"],
               "paged_decode_all_shapes": results["paged_quant_decode_attention"]["all_shapes"],
               "dense_decode_all_shapes": results["quant_decode_attention"]["all_shapes"],
+              "dense_prefill_all_shapes": results["flash_prefill_attention"]["all_shapes"],
               "main_path": summary, "kernel_vs_plain": checks,
               "generate_path": generate, "lora_path": lora, "gateway_path": gateway,
               "spill_path": spill, "glm4_path": glm4, "moe_path": moe,
+              "gemma3_path": big["gemma3"], "qwen1.5-110b_path": big["qwen110b"],
+              "grok1_path": big["grok1"],
               "wstream": wstream,
               "total_s": time.perf_counter() - t_start}
     (OUT / "chip_smoke.json").write_text(json.dumps(detail, indent=1))

@@ -1,20 +1,25 @@
 """Architecture registry: ``<arch>`` / ``<arch>@<variant>`` lookup.
 
 The port serves the paper's three dense decoders, glm4-9b (a dense decoder
-with 16 query heads per KV head) and two MoE decoders (moonshot-v1-16b-a3b,
-and dbrx-132b, whose ``@tiny-moe`` variant -- GQA with two key/value heads,
-8 experts at top-2 -- is the expert-streaming test model); the other
-reference configs are not ported yet.
+with 16 query heads per KV head), qwen1.5-110b (the largest dense config,
+with the qkv bias), gemma3-27b (five sliding-window layers to each global
+one, gelu FFN) and three MoE decoders (moonshot-v1-16b-a3b, grok-1-314b and
+dbrx-132b, whose ``@tiny-moe`` variant -- GQA with two key/value heads, 8
+experts at top-2 -- is the expert-streaming test model).  The reference's
+recurrent (rwkv6-7b, jamba-1.5-large-398b), encoder-decoder
+(seamless-m4t-large-v2) and M-RoPE (qwen2-vl-2b) configs are not ported
+yet (ROADMAP queue 1 items 14-15).
 ``reduced``, ``tiny`` and ``tiny_moe`` are copies of the reference
-transforms (only the branches a full-attention decoder reaches)."""
+transforms (only the branches these configs reach)."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict
 
-from repro_torch.configs import (dbrx_132b, glm4_9b, llama3_8b,
-                                 moonshot_v1_16b_a3b, qwen2_1_5b, qwen2_7b)
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs import (dbrx_132b, gemma3_27b, glm4_9b, grok_1_314b,
+                                 llama3_8b, moonshot_v1_16b_a3b, qwen1_5_110b,
+                                 qwen2_1_5b, qwen2_7b)
+from repro_torch.configs.base import ATTN, LayerPattern, ModelConfig
 
 PAPER_MODELS = {
     "qwen2-7b": qwen2_7b.CONFIG,
@@ -25,7 +30,10 @@ PAPER_MODELS = {
 ARCHS: Dict[str, ModelConfig] = {
     "moonshot-v1-16b-a3b": moonshot_v1_16b_a3b.CONFIG,
     "glm4-9b": glm4_9b.CONFIG,
-    "dbrx-132b": dbrx_132b.CONFIG, **PAPER_MODELS}
+    "dbrx-132b": dbrx_132b.CONFIG,
+    "grok-1-314b": grok_1_314b.CONFIG,
+    "qwen1.5-110b": qwen1_5_110b.CONFIG,
+    "gemma3-27b": gemma3_27b.CONFIG, **PAPER_MODELS}
 
 VARIANTS = ("reduced", "tiny", "tiny-moe")
 
@@ -50,14 +58,18 @@ def get(arch: str) -> ModelConfig:
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
     """Same-family smoke variant: 2 layers, d_model 256, head_dim 64,
-    d_ff 512, vocab 512."""
+    d_ff 512, vocab 512; gemma3 keeps one local layer (window 16) and one
+    global layer."""
     d_model = 256
     head_dim = 64
     num_heads = max(2, d_model // head_dim)
     num_kv = min(cfg.num_kv_heads, num_heads)
     if num_heads % num_kv:
         num_kv = 1
-    num_layers = min(len(cfg.period), 2) if len(cfg.period) > 1 else 2
+    period = cfg.period
+    if cfg.name.startswith("gemma3"):
+        period = (LayerPattern("attn", window=16), ATTN)   # one local + one global
+    num_layers = min(len(period), 2) if len(period) > 1 else 2
     return dataclasses.replace(
         cfg,
         name=cfg.name + "-reduced",
@@ -71,6 +83,7 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         vocab_size=512,
         num_experts=min(cfg.num_experts, 4),
         experts_per_tok=min(cfg.experts_per_tok, 2),
+        period=period,
         rwkv_head_dim=64,
     )
 

@@ -1,12 +1,12 @@
-"""Quantized KV cache (paper §4.2, Fig. 3) — port of ``repro.core.kv_cache``
-(full-attention caches; the sliding-window ring is not ported).
+"""Quantized KV cache (paper §4.2, Fig. 3) — port of ``repro.core.kv_cache``.
 
 Keys are asymmetric int8 per (token, head) over head_dim (the fixed
 reduction dim, so appends never disturb old scales); values are a
 saturating fp8 e4m3 cast.  ``LayerKVCache`` is the dense per-sequence
 cache of the slot-synchronous ``Engine.generate`` path, laid out
-[B, max_seq, H_kv, D] as the reference's; the paged pool
-(``core.kv_pool``) shares the quantization below."""
+[B, max_seq, H_kv, D] as the reference's; a sliding-window layer's cache
+is a ring of ``min(window, max_seq)`` slots, position p in slot p mod size.
+The paged pool (``core.kv_pool``) shares the quantization below."""
 from __future__ import annotations
 
 import dataclasses
@@ -58,7 +58,8 @@ class LayerKVCache:
 
     k_q int8 [B, S, H_kv, D] (key_bits=4: [.., D//2] nibble pairs);
     k_scale/k_zero float32 [B, S, H_kv]; v fp8 e4m3 [B, S, H_kv, D];
-    length int32 [] or [B]: tokens written so far."""
+    length int32 [] or [B]: tokens written so far; ``window`` > 0: the
+    cache is a ring of S = min(window, max_seq) slots."""
     k_q: torch.Tensor
     k_scale: torch.Tensor
     k_zero: torch.Tensor
@@ -83,10 +84,9 @@ def init_layer_cache(batch: int, max_seq: int, kv_heads: int, head_dim: int,
                      layers: int = 0,
                      device: torch.device = torch.device("cpu")) -> LayerKVCache:
     """Zero-initialized cache (scales start at 1, as in the reference);
-    ``per_row``: one length per row; ``layers``: a leading [layers] axis."""
-    if window:
-        raise NotImplementedError("windowed ring caches are not ported "
-                                  "(ROADMAP queue 1 item 13)")
+    ``window``: a ring of min(window, max_seq) slots; ``per_row``: one
+    length per row; ``layers``: a leading [layers] axis."""
+    max_seq = min(window, max_seq) if window else max_seq
     kd = head_dim // 2 if key_bits == 4 else head_dim
     lead = (layers,) if layers else ()
     vdt = q.FP8_DTYPE if value_fp8 else torch.bfloat16
@@ -101,7 +101,7 @@ def init_layer_cache(batch: int, max_seq: int, kv_heads: int, head_dim: int,
                       device=device),
         length=torch.zeros((*lead, *((batch,) if per_row else ())),
                            dtype=torch.int32, device=device),
-        window=0, key_bits=key_bits)
+        window=window, key_bits=key_bits)
 
 
 def roundtrip_kv(k: torch.Tensor, v: torch.Tensor, *, key_bits: int = 8,
@@ -119,17 +119,33 @@ def append(cache: LayerKVCache, k_new: torch.Tensor, v_new: torch.Tensor,
     positions [pos, pos + t), quantizing on the way in.  ``pos`` is a
     scalar (all rows aligned) or a [B] vector of per-row positions.
     Unlike the reference, the cache arrays are written in place; the
-    returned cache shares them and carries ``length = pos + t``."""
+    returned cache shares them and carries ``length = pos + t``.
+
+    A ring (``window``) takes position p in slot p mod S.  Where t > S the
+    reference's scatter meets duplicate slots, applied in order on the CPU
+    so that the last write wins, and undefined on CUDA; only the last S
+    positions are written here, so each slot holds the largest position
+    that maps to it, as in the reference on the CPU."""
     b, t = k_new.shape[:2]
     kq, ks, kz = quantize_keys(k_new, bits=cache.key_bits)
     v_cast = cast_values(v_new, cache.v.dtype)
     dev = k_new.device
     pos = torch.as_tensor(pos, dtype=torch.int32, device=dev)
-    steps = torch.arange(t, device=dev)
+    size = cache.max_seq
+    if cache.window and t > size:
+        kq, ks, kz, v_cast = (x[:, t - size:] for x in (kq, ks, kz, v_cast))
+        start, t_w = pos + (t - size), size
+    else:
+        start, t_w = pos, t
+    steps = torch.arange(t_w, device=dev)
     if pos.dim() == 1:
         rows = torch.arange(b, device=dev)[:, None]
-        slots = (pos[:, None] + steps[None]).long()              # [B, t]
+        slots = (start[:, None] + steps[None]).long()            # [B, t]
+        if cache.window:
+            slots = slots % size
         index = (rows, slots)
+    elif cache.window:
+        index = (slice(None), (start.long() + steps) % size)
     else:
         # the reference's dynamic_update_slice clamps the start so that the
         # whole update fits; the start stays on the device (no sync)
@@ -142,20 +158,34 @@ def append(cache: LayerKVCache, k_new: torch.Tensor, v_new: torch.Tensor,
     return dataclasses.replace(cache, length=pos + t)
 
 
+def live_slots(cache: LayerKVCache, pos) -> torch.Tensor:
+    """How many leading slots hold live tokens after ``pos`` tokens (a
+    scalar or [B]): pos, or for a ring min(pos, S) -- a full ring holds the
+    last S positions, the keys the reference's ``slot_positions >= 0``
+    mask admits."""
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=cache.k_q.device)
+    return torch.clamp(pos, max=cache.max_seq) if cache.window else pos
+
+
 def valid_mask(cache: LayerKVCache, pos) -> torch.Tensor:
     """Slots holding live tokens: pos scalar -> [S]; pos [B] -> [B, S]."""
-    pos = torch.as_tensor(pos, dtype=torch.int32, device=cache.k_q.device)
-    idx = torch.arange(cache.max_seq, device=pos.device)
-    if pos.dim() == 1:
-        pos = pos[:, None]
-    return idx < pos
+    n = live_slots(cache, pos)
+    idx = torch.arange(cache.max_seq, device=n.device)
+    if n.dim() == 1:
+        n = n[:, None]
+    return idx < n
 
 
 def slot_positions(cache: LayerKVCache, pos) -> torch.Tensor:
     """The absolute position stored in each slot, -1 where none: pos scalar
-    -> [S]; pos [B] -> [B, S]."""
+    -> [S]; pos [B] -> [B, S].  A ring's slot s holds the largest p < pos
+    with p = s mod S."""
     pos = torch.as_tensor(pos, dtype=torch.int32, device=cache.k_q.device)
-    idx = torch.arange(cache.max_seq, device=pos.device)
+    size = cache.max_seq
+    idx = torch.arange(size, device=pos.device)
     if pos.dim() == 1:
         pos = pos[:, None]
+    if cache.window:
+        p = idx + torch.div(pos - 1 - idx, size, rounding_mode="floor") * size
+        return torch.where((p >= 0) & (p < pos), p, torch.full_like(p, -1))
     return torch.where(idx < pos, idx, torch.full_like(idx, -1))

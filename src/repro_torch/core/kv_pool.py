@@ -1,5 +1,6 @@
 """Block-paged quantized KV pool — port of ``repro.core.kv_pool`` (the
-full-attention pool, its reference attention, and the host allocator).
+full-attention pool, the sliding-window rings, their reference attention,
+and the host allocator).
 
 * ``PagedLayerKV`` — the page pools of a stack of layers: ``k_q`` int8
   ``[L, P, page, H_kv, D]``, ``k_scale``/``k_zero`` float32
@@ -8,6 +9,14 @@ full-attention pool, its reference attention, and the host allocator).
   pages point at it); the reference's staging reserve sits past it.
   Unlike the reference's immutable arrays, appends write the pool in
   place — the pool is the largest device allocation and is never copied.
+* Sliding-window layers keep a fixed ring of ``ppw`` pages per row instead
+  (``pages_per_window``): position p lives in ring page ``(p // page) %
+  ppw`` of its row, so the oldest page is recycled by the index alone and
+  no table is needed.  A ring pool has one spare ring past the rows'
+  rings: the writes of rows outside a decode step and of a chunk's padded
+  tail land in its first page, the trash page (the reference rolls such
+  writes back instead, ``transformer.freeze_inactive_rows``; the bytes are
+  the same), and a warm-up chunk aimed at row ``batch`` writes only there.
 * ``KVPoolManager`` — the host-side allocator, with the reference's
   deterministic free list, page refcounts, SHA-256 token-hash prefix index
   and Flash residency machine (spill / stage / commit / unstage / restore,
@@ -82,6 +91,15 @@ class SpillPolicy:
 RES_DRAM, RES_FLASH, RES_INFLIGHT, RES_STAGED = range(4)
 
 
+def pages_per_window(window: int, page_size: int) -> int:
+    """Ring length (in pages) for a sliding-window layer.  One extra page
+    beyond ceil(window/page) keeps a key from being recycled while the
+    window mask can still reach it (the newest page is partially filled)."""
+    if window % page_size == 0:
+        return window // page_size + 1
+    return window // page_size + 2
+
+
 @dataclasses.dataclass
 class PagedLayerKV:
     """Page pools of one layer, or of a stack of layers (leading [L] axis);
@@ -93,6 +111,7 @@ class PagedLayerKV:
     window: int = 0
     key_bits: int = 8
     staging: int = 0
+    ppw: int = 0                      # pages per window ring (window > 0)
 
     @property
     def page_size(self) -> int:
@@ -102,23 +121,33 @@ class PagedLayerKV:
     def num_pages(self) -> int:
         return self.k_q.shape[-4]
 
+    @property
+    def ring_trash(self) -> int:
+        """A ring pool's trash page: the first of the spare ring past every
+        row's ring."""
+        return self.num_pages - self.ppw
+
+    def ring_pages(self, slot: int) -> List[int]:
+        """The physical pages of row ``slot``'s ring, in ring-lane order."""
+        return list(range(slot * self.ppw, (slot + 1) * self.ppw))
+
     def layer(self, i: int) -> "PagedLayerKV":
         return PagedLayerKV(self.k_q[i], self.k_scale[i], self.k_zero[i],
                             self.v[i], window=self.window,
-                            key_bits=self.key_bits, staging=self.staging)
+                            key_bits=self.key_bits, staging=self.staging,
+                            ppw=self.ppw)
 
 
 def init_paged_layer(geom: PoolGeometry, kv_heads: int, head_dim: int, *,
-                     layers: int = 0, window: int = 0, key_bits: int = 8,
-                     value_fp8: bool = True,
+                     layers: int = 0, batch: int = 0, window: int = 0,
+                     key_bits: int = 8, value_fp8: bool = True,
                      device: torch.device = torch.device("cpu")) -> PagedLayerKV:
-    """Zero-initialized full-attention pool of ``geom.total_device_pages``
-    pages (scales start at 1, as in the reference)."""
-    if window:
-        raise NotImplementedError(
-            "windowed ring pools are not ported yet (ROADMAP queue 1 item 13)")
-    pages = geom.total_device_pages
+    """Zero-initialized pool (scales start at 1, as in the reference):
+    ``geom.total_device_pages`` pages for full attention; for a window, a
+    ring of ``ppw`` pages for each of ``batch`` rows and the spare ring."""
     ps = geom.page_size
+    ppw = pages_per_window(window, ps) if window else 0
+    pages = (batch + 1) * ppw if window else geom.total_device_pages
     kd = head_dim // 2 if key_bits == 4 else head_dim
     lead = (layers,) if layers else ()
     vdt = q.FP8_DTYPE if value_fp8 else torch.bfloat16
@@ -131,7 +160,8 @@ def init_paged_layer(geom: PoolGeometry, kv_heads: int, head_dim: int, *,
                            device=device),
         v=torch.zeros((*lead, pages, ps, kv_heads, head_dim), dtype=vdt,
                       device=device),
-        window=0, key_bits=key_bits, staging=geom.staging_pages)
+        window=window, key_bits=key_bits, ppw=ppw,
+        staging=0 if window else geom.staging_pages)
 
 
 def _write(pool: PagedLayerKV, page, off, kq, ks, kz, v_cast) -> None:
@@ -142,10 +172,14 @@ def _write(pool: PagedLayerKV, page, off, kq, ks, kz, v_cast) -> None:
 
 
 def append_paged(pool: PagedLayerKV, k_new: torch.Tensor, v_new: torch.Tensor,
-                 pos: torch.Tensor, table: torch.Tensor) -> None:
+                 pos: torch.Tensor, table: Optional[torch.Tensor],
+                 active: Optional[torch.Tensor] = None) -> None:
     """Append one decode token per row (k_new/v_new [B, 1, Hkv, D]) at
-    per-row positions ``pos`` [B], through ``table`` [B, pages_per_row]
-    (rows masked to the trash page write there).  In place."""
+    per-row positions ``pos`` [B], in place.  Full-attention pools write
+    through ``table`` [B, pages_per_row] (rows masked to the trash page
+    write there); a ring pool writes row b's ring page of the position,
+    and the rows outside ``active`` [B] (None: every row) write its trash
+    page, so their rings keep the bytes the reference's rollback leaves."""
     b, t = k_new.shape[:2]
     if t != 1:
         raise ValueError("paged append is the decode hot path (one token per row)")
@@ -154,7 +188,12 @@ def append_paged(pool: PagedLayerKV, k_new: torch.Tensor, v_new: torch.Tensor,
     v_cast = kvc.cast_values(v_new, pool.v.dtype)
     pos = pos.long()
     rows = torch.arange(b, device=pos.device)
-    page = table[rows, pos // ps].long()
+    if pool.window:
+        page = rows * pool.ppw + (pos // ps) % pool.ppw
+        if active is not None:
+            page = torch.where(active, page, torch.full_like(page, pool.ring_trash))
+    else:
+        page = table[rows, pos // ps].long()
     off = pos % ps
     _write(pool, page, off, kq[:, 0], ks[:, 0], kz[:, 0], v_cast[:, 0])
 
@@ -168,22 +207,57 @@ def device_scalar(value, device: torch.device) -> torch.Tensor:
     return torch.full((1,), int(value), dtype=torch.int32, device=device)
 
 
+def ring_view(pool: PagedLayerKV, pos: torch.Tensor, batch: int):
+    """A windowed pool's per-row rings as (table int32 [B, ppw], base int32
+    [B]) in logical page order for rows holding ``pos`` [B] (or one scalar)
+    tokens: table column j is the ring page of logical page base + j.
+    ``base`` is negative while a row holds fewer than ppw pages; those
+    positions are masked."""
+    ppw, ps = pool.ppw, pool.page_size
+    pos = torch.as_tensor(pos, device=pool.k_q.device).to(torch.int32)
+    if pos.dim() == 0:
+        pos = pos.expand(batch)
+    cur = torch.clamp(pos - 1, min=0) // ps
+    base = cur - (ppw - 1)
+    rows = torch.arange(batch, device=pos.device, dtype=torch.int32)[:, None]
+    lanes = torch.arange(ppw, device=pos.device, dtype=torch.int32)[None]
+    table = rows * ppw + torch.remainder(base[:, None] + lanes, ppw)
+    return table.to(torch.int32).contiguous(), base.contiguous()
+
+
 def append_paged_prompt(pool: PagedLayerKV, k_new: torch.Tensor,
                         v_new: torch.Tensor, pos0,
-                        table_row: torch.Tensor) -> None:
+                        table_row: Optional[torch.Tensor] = None, slot=None,
+                        valid_len=None) -> None:
     """Append a C-token prompt chunk for ONE row (k_new/v_new [1, C, Hkv,
-    D]) at positions [pos0, pos0 + C) through ``table_row``
-    [pages_per_row]; positions past the table land in the trash page.
-    ``pos0`` an int or a one-element device tensor.  In place; quantization
-    matches the decode append bit for bit."""
+    D]) at positions [pos0, pos0 + C), in place; quantization matches the
+    decode append bit for bit.  ``pos0``, ``slot`` and ``valid_len`` are
+    ints or one-element device tensors.  Full-attention pools write
+    through ``table_row`` [pages_per_row] (positions past the table land
+    in the trash page).  A ring pool writes row ``slot``'s ring and keeps
+    only the first ``valid_len`` tokens of a padded chunk (a padded
+    position would wrap onto a ring page holding a live key): each ring
+    page receives the newest logical page that maps to it, tokens of an
+    older page on the same ring page (a chunk longer than the ring) and
+    the padded tail go to the trash page -- the reference's winner
+    selection, with distinct targets for every kept token."""
     b, C = k_new.shape[:2]
     if b != 1:
         raise ValueError("prompt chunks are per-row (B=1)")
     ps = pool.page_size
     kq, ks, kz = kvc.quantize_keys(k_new, bits=pool.key_bits)
     v_cast = kvc.cast_values(v_new, pool.v.dtype)
-    positions = (device_scalar(pos0, table_row.device).long()
-                 + torch.arange(C, device=table_row.device))
+    dev = k_new.device
+    positions = device_scalar(pos0, dev).long() + torch.arange(C, device=dev)
+    if pool.window:
+        vl = C if valid_len is None else device_scalar(valid_len, dev).long()
+        logical = positions // ps
+        cur = torch.clamp(positions[0] + vl - 1, min=0) // ps
+        keep = (torch.arange(C, device=dev) < vl) & (logical > cur - pool.ppw)
+        page = device_scalar(slot, dev).long() * pool.ppw + logical % pool.ppw
+        page = torch.where(keep, page, torch.full_like(page, pool.ring_trash))
+        _write(pool, page, positions % ps, kq[0], ks[0], kz[0], v_cast[0])
+        return
     logical = positions // ps
     n_p = table_row.shape[0]
     trash = pool.num_pages - 1 - pool.staging
@@ -262,6 +336,54 @@ def paged_prefill_attention_ref(qh: torch.Tensor, pool: PagedLayerKV,
         qh, pool.k_q, pool.k_scale, pool.k_zero, pool.v, table, pos0,
         key_bits=pool.key_bits, policy=policy)
     return out.to(policy.compute_dtype)
+
+
+def paged_prefill_window_ref(qh: torch.Tensor, pool: PagedLayerKV, slot, pos0,
+                             valid_len, window: int, n_pages: int,
+                             policy: PrecisionPolicy = DEFAULT_POLICY
+                             ) -> torch.Tensor:
+    """Chunk prefill attention over row ``slot``'s ring (the reference's
+    ``kv_pool.paged_prefill_window_ref``): qh [1, C, H, D] pre-scaled at
+    absolute positions [pos0, pos0 + C), the chunk's K/V already appended,
+    ``valid_len`` real tokens; ``n_pages`` the row's logical page capacity.
+
+    Each live ring page goes back to its logical place -- position p at
+    view index p, the dense layout -- in an [n_pages * page] view whose
+    other pages are zero, and the blockwise ``flash_attention`` runs over
+    it with the window and the chunk's query offset.  Every position a
+    chunk query can reach is still in the ring while chunks are at most
+    one page (``plan.prefill_chunk_schedule``); every other view position
+    is causally dead or out of the window, an exact no-op of the online
+    softmax.  ``slot``, ``pos0`` and ``valid_len`` may be one-element
+    device tensors: the view is built by device index arithmetic and every
+    K block runs under device masks, so the host never waits and a CUDA
+    graph can capture the call.  This path has no TPU kernel in the
+    reference (its paged kernel refuses windowed pools); it runs as plain
+    PyTorch on the card too.  Returns the compute dtype."""
+    ppw, ps = pool.ppw, pool.page_size
+    dev = qh.device
+    pos0 = device_scalar(pos0, dev)
+    lanes = torch.arange(ppw, device=dev)
+    ring = device_scalar(slot, dev).long() * ppw + lanes            # [ppw]
+    end = pos0.long() + device_scalar(valid_len, dev).long()
+    cur = torch.clamp(end - 1, min=0) // ps                          # newest page
+    group = cur - torch.remainder(cur - lanes, ppw)                  # lane -> page
+    # lanes whose page is not yet written (negative) go to a spare page
+    dst = torch.where(group >= 0, group, torch.full_like(group, n_pages))
+
+    def to_logical(x: torch.Tensor) -> torch.Tensor:
+        pages = _bytes_view(x).index_select(0, ring)                 # [ppw, ps, ...]
+        out = torch.zeros((n_pages + 1, *pages.shape[1:]), dtype=pages.dtype,
+                          device=dev)
+        out.index_copy_(0, dst, pages)
+        return out[:n_pages].reshape(1, n_pages * ps, *pages.shape[2:]).view(x.dtype)
+
+    k = kvc.dequantize_keys(to_logical(pool.k_q), to_logical(pool.k_scale),
+                            to_logical(pool.k_zero), policy.compute_dtype,
+                            bits=pool.key_bits)
+    v = to_logical(pool.v).to(policy.compute_dtype)
+    return FP.flash_attention(qh, k, v, causal=True, window=window, q_offset=pos0,
+                              policy=policy)
 
 
 def paged_decode_attention_ref(qh: torch.Tensor, pool: PagedLayerKV,

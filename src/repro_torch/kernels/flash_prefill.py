@@ -31,14 +31,17 @@ def _pad_to(x: torch.Tensor, mult: int, dim: int) -> torch.Tensor:
 
 
 def flash_attention(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor, *,
-                    causal: bool, window: int = 0, q_offset: int = 0,
+                    causal: bool, window: int = 0, q_offset=0,
                     bq: int = 512, bk: int = FLASH_BK,
                     policy: PrecisionPolicy = DEFAULT_POLICY) -> torch.Tensor:
     """Blockwise attention with online softmax in float32 — the reference
     ``models.attention.flash_attention`` op for op.  qh [B, T, H, D]
     pre-scaled, kh/vh [B, S, Hkv, D]; ``q_offset`` is the absolute position
-    of query 0.  K blocks that start past the block's last query are
-    skipped: in the reference they are exact no-ops (p == 0, corr == 1)."""
+    of query 0, an int or a one-element device tensor.  With an int, K
+    blocks that start past the block's last query are skipped: in the
+    reference they are exact no-ops (p == 0, corr == 1).  With a tensor
+    every block runs under device masks, as in the reference under jit, so
+    the host never reads the offset (a CUDA graph can capture the call)."""
     B, T, H, D = qh.shape
     S, Hkv = kh.shape[1], kh.shape[2]
     G = H // Hkv
@@ -55,7 +58,11 @@ def flash_attention(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor, *,
     vp = vp.reshape(B, nk, bk, Hkv, D)
     dev = qh.device
     valid = torch.arange(Sp, device=dev) < S
-    q_offset = int(q_offset)
+    on_host = not torch.is_tensor(q_offset)
+    if on_host:
+        q_offset = int(q_offset)
+    else:
+        q_offset = q_offset.reshape(1).long()
     outs = []
     for qi in range(nq):
         qblk = qp[:, qi].to(cd).float()                  # [B,bq,Hkv,G,D]
@@ -64,7 +71,7 @@ def flash_attention(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor, *,
         l = torch.zeros((B, Hkv, G, bq), dtype=torch.float32, device=dev)
         acc = torch.zeros((B, Hkv, G, bq, D), dtype=torch.float32, device=dev)
         for j in range(nk):
-            if causal and j * bk > q_offset + (qi + 1) * bq - 1:
+            if on_host and causal and j * bk > q_offset + (qi + 1) * bq - 1:
                 break
             kb = kp[:, j].to(cd).float()
             vb = vp[:, j].to(cd).float()

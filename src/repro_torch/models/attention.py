@@ -85,23 +85,28 @@ def attention_prefill(x: torch.Tensor, p: dict, cfg: ModelConfig,
     """Whole-prompt prefill of x [B, T, d] into the empty layer ``cache``
     (written in place): quantize and store K/V at [0, T), then attend over
     the quantization round trip of exactly the stored bytes, as every later
-    decode reads them.  The cache view is cut to whole 1024-key flash
-    blocks past the prompt: a wholly causal-masked block is an exact no-op
-    of the online softmax, so the cut changes no bit."""
-    if pat.window:
-        raise NotImplementedError("windowed layers prefill through their ring "
-                                  "(ROADMAP queue 1 item 13)")
+    decode reads them.  A full-attention layer reads the cache view cut to
+    whole 1024-key flash blocks past the prompt: a wholly causal-masked
+    block is an exact no-op of the online softmax, so the cut changes no
+    bit.  A windowed layer's ring cannot give back the prompt's overwritten
+    keys, so it attends over the round trip of the prompt's own K/V, within
+    the window."""
     B, T = x.shape[:2]
     qh, kh, vh = _project_qkv(x, p, cfg, dispatch, lora)
     qh = L.positional(qh, cfg, positions)
     kh = L.positional(kh, cfg, positions)
     cache = kvc.append(cache, kh, vh, 0)
     qh = _prescale(qh, cfg.resolved_head_dim, policy)
-    s_eff = min(cache.max_seq, -(-T // FLASH_BK) * FLASH_BK)
-    k_rt = kvc.dequantize_keys(cache.k_q[:, :s_eff], cache.k_scale[:, :s_eff],
-                               cache.k_zero[:, :s_eff], policy.compute_dtype,
-                               bits=cache.key_bits)
-    v_rt = cache.v[:, :s_eff].to(policy.compute_dtype)
+    if pat.window:
+        k_rt, v_rt = kvc.roundtrip_kv(kh, vh, key_bits=cache.key_bits,
+                                      v_dtype=cache.v.dtype,
+                                      dtype=policy.compute_dtype)
+    else:
+        s_eff = min(cache.max_seq, -(-T // FLASH_BK) * FLASH_BK)
+        k_rt = kvc.dequantize_keys(cache.k_q[:, :s_eff], cache.k_scale[:, :s_eff],
+                                   cache.k_zero[:, :s_eff], policy.compute_dtype,
+                                   bits=cache.key_bits)
+        v_rt = cache.v[:, :s_eff].to(policy.compute_dtype)
     out = dispatch.prefill_attention(qh, k_rt, v_rt, causal=True, window=pat.window,
                                      policy=policy)
     return L.apply_linear(out.reshape(B, T, -1), p["wo"], cfg.quant, dispatch), cache
@@ -115,7 +120,8 @@ def attention_decode(x: torch.Tensor, p: dict, cfg: ModelConfig,
                      ) -> Tuple[torch.Tensor, kvc.LayerKVCache]:
     """One decode step against a dense cache: append the new token's
     quantized K/V at ``pos`` (a scalar, or [B] per row; in place), then
-    attend over the first ``pos + 1`` slots."""
+    attend over the first ``pos + 1`` slots (a windowed ring: its live
+    slots)."""
     B, T = x.shape[:2]
     qh, kh, vh = _project_qkv(x, p, cfg, dispatch, lora)
     qh = L.positional(qh, cfg, positions)
@@ -131,22 +137,32 @@ def attention_prefill_paged(x: torch.Tensor, p: dict, cfg: ModelConfig,
                             table_row: torch.Tensor, positions: torch.Tensor,
                             pos0, dispatch: D.Dispatcher,
                             policy: PrecisionPolicy = DEFAULT_POLICY,
-                            lora: Optional[dict] = None) -> torch.Tensor:
+                            lora: Optional[dict] = None, slot=None,
+                            valid_len=None) -> torch.Tensor:
     """One prompt chunk of one row straight into the paged pool: quantize and
-    append the chunk's K/V into the row's pages (in place), then attend the
-    chunk's queries (absolute positions ``pos0 + arange(C)``; ``pos0`` an
-    int or a one-element device tensor) over the row's stored pages through
-    ``table_row`` [pages_per_row]."""
-    if pat.window:
-        raise NotImplementedError("windowed layers prefill through their ring "
-                                  "(ROADMAP queue 1 item 13)")
+    append the chunk's K/V (in place), then attend the chunk's queries
+    (absolute positions ``pos0 + arange(C)``; ``pos0``, ``slot`` and
+    ``valid_len`` ints or one-element device tensors).  A full-attention
+    layer appends into the row's pages through ``table_row``
+    [pages_per_row] and attends over them through the dispatcher's paged
+    prefill kernel.  A windowed layer appends into row ``slot``'s ring,
+    clamped to the ``valid_len`` real tokens of a padded chunk, and attends
+    over the ring through ``kv_pool.paged_prefill_window_ref``, called
+    directly as the reference does: the reference has no TPU kernel for
+    this path, and it runs as plain PyTorch on every device."""
     B, C = x.shape[:2]
     qh, kh, vh = _project_qkv(x, p, cfg, dispatch, lora)
     qh = L.positional(qh, cfg, positions)
     kh = L.positional(kh, cfg, positions)
-    KP.append_paged_prompt(pool, kh, vh, pos0, table_row)
     qh = _prescale(qh, cfg.resolved_head_dim, policy)
-    out = dispatch.paged_prefill_attention(qh, pool, table_row[None], pos0, policy)
+    if pool.window:
+        vl = C if valid_len is None else valid_len
+        KP.append_paged_prompt(pool, kh, vh, pos0, slot=slot, valid_len=vl)
+        out = KP.paged_prefill_window_ref(qh, pool, slot, pos0, vl, pat.window,
+                                          table_row.shape[0], policy)
+    else:
+        KP.append_paged_prompt(pool, kh, vh, pos0, table_row)
+        out = dispatch.paged_prefill_attention(qh, pool, table_row[None], pos0, policy)
     return L.apply_linear(out.reshape(B, C, -1), p["wo"], cfg.quant, dispatch)
 
 
@@ -155,18 +171,23 @@ def attention_decode_paged(x: torch.Tensor, p: dict, cfg: ModelConfig,
                            table: torch.Tensor, pos: torch.Tensor,
                            positions: torch.Tensor, dispatch: D.Dispatcher,
                            policy: PrecisionPolicy = DEFAULT_POLICY,
-                           lora: Optional[dict] = None) -> torch.Tensor:
+                           lora: Optional[dict] = None,
+                           active: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One decode step per row against the pool: append the new token's
-    quantized K/V into its page through ``table`` [B, pages_per_row] (in
-    place), then attend over the row's pages up to ``pos + 1``."""
-    if pat.window:
-        raise NotImplementedError("windowed decode reads a ring view "
-                                  "(ROADMAP queue 1 item 13)")
+    quantized K/V (in place), then attend over the row's keys up to
+    ``pos + 1``.  Full-attention layers go through ``table`` [B,
+    pages_per_row]; a windowed layer appends into each row's ring (rows
+    outside ``active`` [B] into the ring pool's trash page) and attends
+    over its ring view, table and base, within the window."""
     B, T = x.shape[:2]
     qh, kh, vh = _project_qkv(x, p, cfg, dispatch, lora)
     qh = L.positional(qh, cfg, positions)
     kh = L.positional(kh, cfg, positions)
-    KP.append_paged(pool, kh, vh, pos, table)
+    KP.append_paged(pool, kh, vh, pos, table, active=active)
     qh = _prescale(qh, cfg.resolved_head_dim, policy)
-    out = dispatch.paged_decode_attention(qh, pool, table, pos + T, policy)
+    if pool.window:
+        tbl, base = KP.ring_view(pool, pos + T, B)
+    else:
+        tbl, base = table, None
+    out = dispatch.paged_decode_attention(qh, pool, tbl, pos + T, policy, base=base)
     return L.apply_linear(out.reshape(B, T, -1), p["wo"], cfg.quant, dispatch)

@@ -1,6 +1,6 @@
 """Shared layers and the parameter builder — port of ``repro.models.layers``
-(the decoder parts: linear, RMSNorm, RoPE, SwiGLU FFN; the MoE FFN is
-``models.moe``).
+(the decoder parts: linear, RMSNorm, RoPE, the SwiGLU and gelu FFNs; the
+MoE FFN is ``models.moe``).
 
 Hot ops (every linear matmul and every RMSNorm) route through the
 ``runtime.dispatch.Dispatcher``: Hopper kernels for CUDA tensors, their
@@ -149,19 +149,67 @@ def swiglu(x: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
     return (g * torch.sigmoid(g)).to(x.dtype) * x
 
 
+# Eigen's rational tanh, which XLA emits on the CPU: odd numerator and even
+# denominator polynomials in x^2, Horner steps fused into FMAs, the input
+# clamped to where the ratio reaches +-1, tanh(x) = x below 4e-4
+_TANH_CLAMP = 7.99881172180175781
+_TANH_NUM = (-2.76076847742355e-16, 2.00018790482477e-13, -8.60467152213735e-11,
+             5.12229709037114e-08, 1.48572235717979e-05, 6.37261928875436e-04,
+             4.89352455891786e-03)
+_TANH_DEN = (1.19825839466702e-06, 1.18534705686654e-04, 2.26843463243900e-03,
+             4.89352518554385e-03)
+_SQRT_2_OVER_PI = float(np.float32(np.sqrt(2 / np.pi)))
+
+
+def _horner(x2: torch.Tensor, coeffs) -> torch.Tensor:
+    acc = torch.full_like(x2, coeffs[0])
+    for c in coeffs[1:]:
+        acc = torch.addcmul(torch.full_like(x2, c), x2, acc)   # c + x2*acc, one FMA
+    return acc
+
+
+def tanh_xla(x: torch.Tensor) -> torch.Tensor:
+    """float32 tanh, bit for bit the one XLA computes on the CPU: torch's
+    own tanh rounds differently in a third of the inputs, which the int8
+    re-quantization of the next linear turns into whole code steps."""
+    xc = x.clamp(-_TANH_CLAMP, _TANH_CLAMP)
+    x2 = xc * xc
+    ratio = (xc * _horner(x2, _TANH_NUM)) / _horner(x2, _TANH_DEN)
+    return torch.where(x.abs() < 0.0004, x, ratio)
+
+
+def gelu(u: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (its tanh approximation) in float32, cast to u's
+    dtype: 0.5 x (1 + tanh(sqrt(2/pi) (x + 0.044715 x^3))) with XLA's op
+    order -- x^3 as x*x*x, the inner sum one FMA, XLA's tanh."""
+    x = u.float()
+    inner = _SQRT_2_OVER_PI * torch.addcmul(x, x * x * x, torch.full_like(x, 0.044715))
+    return (x * (0.5 * (1.0 + tanh_xla(inner)))).to(u.dtype)
+
+
+def _check_act(cfg: ModelConfig) -> None:
+    if cfg.act not in ("swiglu", "gelu"):
+        raise NotImplementedError(f"act={cfg.act!r}: the port runs swiglu and gelu FFNs, "
+                                  "the reference configs' two")
+
+
 def ffn_params(b: ParamBuilder, cfg: ModelConfig, lead: tuple = ()) -> dict:
+    """swiglu: w_gate, w_up, w_down; gelu: w_up, w_down."""
+    _check_act(cfg)
     d, f = cfg.d_model, cfg.d_ff
-    if cfg.act != "swiglu":
-        raise NotImplementedError(f"act={cfg.act!r}: only swiglu is ported")
-    return {"w_gate": b.linear(d, f, lead=lead),
-            "w_up": b.linear(d, f, lead=lead),
-            "w_down": b.linear(f, d, lead=lead)}
+    p = {"w_gate": b.linear(d, f, lead=lead)} if cfg.act == "swiglu" else {}
+    p["w_up"] = b.linear(d, f, lead=lead)
+    p["w_down"] = b.linear(f, d, lead=lead)
+    return p
 
 
 def apply_ffn(x: torch.Tensor, p: dict, cfg: ModelConfig,
               dispatch: D.Dispatcher) -> torch.Tensor:
-    if cfg.act != "swiglu":
-        raise NotImplementedError(f"act={cfg.act!r}: only swiglu is ported")
-    g = apply_linear(x, p["w_gate"], cfg.quant, dispatch)
-    u = apply_linear(x, p["w_up"], cfg.quant, dispatch)
-    return apply_linear(swiglu(u, g), p["w_down"], cfg.quant, dispatch)
+    _check_act(cfg)
+    if cfg.act == "swiglu":
+        g = apply_linear(x, p["w_gate"], cfg.quant, dispatch)
+        u = apply_linear(x, p["w_up"], cfg.quant, dispatch)
+        h = swiglu(u, g)
+    else:
+        h = gelu(apply_linear(x, p["w_up"], cfg.quant, dispatch))
+    return apply_linear(h, p["w_down"], cfg.quant, dispatch)

@@ -40,10 +40,11 @@ from repro_torch.runtime import plan as RP
 def _check_supported(cfg: ModelConfig) -> None:
     for patterns, _count in cfg.layer_plan():
         for pat in patterns:
-            if pat.kind != "attn" or pat.window:
+            if pat.kind != "attn":
                 raise NotImplementedError(
-                    f"{cfg.name}: layer {pat} is not ported (the port serves "
-                    "full-attention decoders; ROADMAP queue 1 items 13-14)")
+                    f"{cfg.name}: {pat.kind} layers are not ported (the port "
+                    "serves attention decoders, full or windowed; ROADMAP "
+                    "queue 1 item 14)")
     if cfg.is_encdec:
         raise NotImplementedError(f"{cfg.name}: encoder-decoder models are not "
                                   "ported (ROADMAP queue 1 item 15)")
@@ -94,16 +95,17 @@ def layer_slice(tree, i: int):
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
                device: torch.device = torch.device("cpu")) -> dict:
     """Dense decode state: one stacked ``LayerKVCache`` per attention
-    pattern and ``pos``, one scalar position for every row (the
-    slot-synchronous path)."""
+    pattern (a windowed pattern's a ring of min(window, max_seq) slots) and
+    ``pos``, one scalar position for every row (the slot-synchronous
+    path)."""
     _check_supported(cfg)
     stacks = tuple(
         tuple(kvc.init_layer_cache(batch, max_seq, cfg.num_kv_heads,
-                                   cfg.resolved_head_dim,
+                                   cfg.resolved_head_dim, window=pat.window,
                                    key_bits=cfg.quant.kv_key_bits,
                                    value_fp8=cfg.quant.kv_value_fp8,
                                    layers=count, device=device)
-              for _ in patterns)
+              for pat in patterns)
         for patterns, count in cfg.layer_plan())
     return {"stacks": stacks,
             "pos": torch.zeros((), dtype=torch.int32, device=device)}
@@ -111,16 +113,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
 
 def init_paged_cache(cfg: ModelConfig, batch: int, geom: KP.PoolGeometry,
                      device: torch.device) -> dict:
-    """Paged decode state: one stacked page pool per attention pattern, the
-    per-row positions ``pos`` [batch] and the shared page table
-    [batch, pages_per_row], all-trash until the host allocator hands out
-    pages."""
+    """Paged decode state: one stacked page pool per attention pattern (a
+    windowed pattern's holds a ring per row), the per-row positions ``pos``
+    [batch] and the page table [batch, pages_per_row] that the
+    full-attention pools share, all-trash until the host allocator hands
+    out pages."""
     _check_supported(cfg)
     stacks = tuple(
         tuple(KP.init_paged_layer(geom, cfg.num_kv_heads, cfg.resolved_head_dim,
-                                  layers=count, key_bits=cfg.quant.kv_key_bits,
+                                  layers=count, batch=batch, window=pat.window,
+                                  key_bits=cfg.quant.kv_key_bits,
                                   value_fp8=cfg.quant.kv_value_fp8, device=device)
-              for _ in patterns)
+              for pat in patterns)
         for patterns, count in cfg.layer_plan())
     return {"stacks": stacks,
             "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
@@ -144,21 +148,25 @@ def free_slots(cache: dict, rows) -> dict:
 def _apply_layer(x: torch.Tensor, pp: dict, cfg: ModelConfig, pat: LayerPattern,
                  mode: str, positions: torch.Tensor, cache, pos, table,
                  dispatch: D.Dispatcher, policy: PrecisionPolicy,
-                 collect: Optional[dict] = None, lora: Optional[dict] = None):
+                 collect: Optional[dict] = None, lora: Optional[dict] = None,
+                 slot=None, valid_len=None, active=None):
     """One layer.  ``cache`` is this layer's ``PagedLayerKV`` (modes
     "prefill_paged" and "decode") or ``LayerKVCache`` ("prefill" and
     "decode").  ``collect``: an MoE layer's router ids (``apply_moe``).
-    Returns (x, the layer's cache after the step)."""
+    ``slot`` and ``valid_len``: a prompt chunk's row and real tokens, and
+    ``active`` [B]: a paged decode step's live rows (windowed layers'
+    rings).  Returns (x, the layer's cache after the step)."""
     h = L.rms_norm(x, pp["ln1"], cfg.rms_eps, dispatch)
     if mode == "prefill_paged":
         att = A.attention_prefill_paged(h, pp["attn"], cfg, pat, cache, table,
-                                        positions, pos, dispatch, policy, lora)
+                                        positions, pos, dispatch, policy, lora,
+                                        slot=slot, valid_len=valid_len)
     elif mode == "prefill":
         att, cache = A.attention_prefill(h, pp["attn"], cfg, pat, positions, cache,
                                          dispatch, policy, lora)
     elif isinstance(cache, KP.PagedLayerKV):
         att = A.attention_decode_paged(h, pp["attn"], cfg, pat, cache, table, pos,
-                                       positions, dispatch, policy, lora)
+                                       positions, dispatch, policy, lora, active)
     else:
         att, cache = A.attention_decode(h, pp["attn"], cfg, pat, cache, pos,
                                         positions, dispatch, policy, lora)
@@ -177,12 +185,15 @@ def _run_stacks(x: torch.Tensor, params: dict, cfg: ModelConfig, mode: str,
                 positions: torch.Tensor, cache: dict, pos, table,
                 dispatch: D.Dispatcher, policy: PrecisionPolicy = DEFAULT_POLICY,
                 collect: Optional[list] = None,
-                lora: Optional[dict] = None) -> torch.Tensor:
+                lora: Optional[dict] = None, slot=None, valid_len=None,
+                active=None) -> torch.Tensor:
     """Every layer in order.  ``mode`` "prefill_paged": ``pos`` is the
-    chunk's first position and ``table`` the row's [pages_per_row] table;
+    chunk's first position, ``table`` the row's [pages_per_row] table,
+    ``slot`` the row and ``valid_len`` the chunk's real tokens;
     "prefill": the dense caches are empty and fill from position 0;
     "decode": ``pos`` the per-row positions [B] (or, on dense caches, one
-    scalar) and ``table`` [B, pages_per_row] (None for dense caches).
+    scalar), ``table`` [B, pages_per_row] (None for dense caches) and
+    ``active`` [B] the live rows (None: all).
     Caches are written in place; dense caches get their per-layer lengths
     stacked back.  ``collect``: if a list, each layer's output hidden
     state is appended (parity tests)."""
@@ -194,7 +205,8 @@ def _run_stacks(x: torch.Tensor, params: dict, cfg: ModelConfig, mode: str,
             for pi, pat in enumerate(patterns):
                 x, new = _apply_layer(x, layer_slice(sp[pi], li), cfg, pat, mode,
                                       positions, cache["stacks"][si][pi].layer(li),
-                                      pos, table, dispatch, policy, lora=lora)
+                                      pos, table, dispatch, policy, lora=lora,
+                                      slot=slot, valid_len=valid_len, active=active)
                 if isinstance(new, kvc.LayerKVCache):
                     lengths[pi].append(new.length)
                 if collect is not None:
@@ -253,7 +265,9 @@ def prefill_chunk_paged(params: dict, cfg: ModelConfig, embeds: torch.Tensor,
     page.  Returns the logits [1, V] of chunk-local index ``last_idx``.
     ``slot``, ``pos0`` and ``last_idx`` are ints or one-element int32 device
     tensors: read from the device, they never make the host wait and a CUDA
-    graph replays the step for any values.  The caller advances
+    graph replays the step for any values.  The chunk's real tokens are
+    ``last_idx + 1`` (the padded tail of a final chunk never reaches a
+    windowed layer's ring).  The caller advances
     ``cache["pos"]`` once the whole prompt is in.  ``run_stacks(x, mode,
     positions, pos, table, lora)`` replaces the resident stacks' run
     (streamed weights).  ``lora["ids"]`` holds the row's one adapter id."""
@@ -263,12 +277,16 @@ def prefill_chunk_paged(params: dict, cfg: ModelConfig, embeds: torch.Tensor,
         raise ValueError("prompt chunks are per-row")
     slot, pos0, last_idx = (KP.device_scalar(v, x.device) for v in (slot, pos0, last_idx))
     positions = (pos0 + torch.arange(C, device=x.device, dtype=torch.int32))[None]
-    table_row = cache["table"].index_select(0, slot.long())[0]
+    # a warm-up chunk aims at the spare ring past the last row (slot ==
+    # batch), reading the last table row, which warm-up sets all-trash
+    table = cache["table"]
+    table_row = table.index_select(0, slot.long().clamp(max=table.shape[0] - 1))[0]
     if run_stacks is not None:
         x = run_stacks(x, "prefill_paged", positions, pos0, table_row, lora)
     else:
         x = _run_stacks(x, params, cfg, "prefill_paged", positions, cache, pos0,
-                        table_row, dispatch, policy, collect, lora)
+                        table_row, dispatch, policy, collect, lora, slot=slot,
+                        valid_len=last_idx + 1)
     last = x.index_select(1, last_idx.long())
     return _logits(last, params, cfg, dispatch)[:, 0]
 
@@ -286,6 +304,9 @@ def decode_step_bucketed(params: dict, cfg: ModelConfig, embeds: torch.Tensor,
     rows are distinct idle slots, masked by ``active`` [b] and routed to the
     trash page by their all-trash table rows).  Only ``pos`` and the table
     are gathered — the pool is physical-page addressed and never moves.
+    Windowed layers' rings are addressed by bucket row, so a model with
+    them decodes every slot in order (the loop turns bucketing off), and
+    the inactive rows' ring writes go to the ring pool's trash page.
     ``run_stacks`` as in ``prefill_chunk_paged``; ``lora["ids"]`` [b] in
     bucket order.  Returns (logits [b, V] in
     bucket order, cache with ``pos`` advanced for the active rows)."""
@@ -298,7 +319,8 @@ def decode_step_bucketed(params: dict, cfg: ModelConfig, embeds: torch.Tensor,
         x = run_stacks(x, "decode", positions, pos, cache["table"][idx], lora)
     else:
         x = _run_stacks(x, params, cfg, "decode", positions, cache, pos,
-                        cache["table"][idx], dispatch, policy, collect, lora)
+                        cache["table"][idx], dispatch, policy, collect, lora,
+                        active=active)
     stepped = pos + T if active is None else torch.where(active, pos + T, pos)
     cache["pos"][idx] = stepped
     return _logits(x, params, cfg, dispatch)[:, -1], cache
@@ -331,11 +353,11 @@ def decode_step(params: dict, cfg: ModelConfig, embeds: torch.Tensor, cache: dic
                 lora: Optional[dict] = None) -> Tuple[torch.Tensor, dict]:
     """One decode step of every row: embeds [B, 1, d] against dense caches
     (``pos`` a scalar or [B]) or the paged pool (``pos`` [B], ``table``).
-    ``active`` [B] keeps inactive rows' positions; their KV bytes need no
-    rollback (the reference's ``freeze_inactive_rows`` passes full-attention
-    pools and dense caches through): a paged row outside the step has an
-    all-trash table row, and a dense row rewrites the same slot next step.
-    Returns (logits [B, V], cache with ``pos`` advanced)."""
+    ``active`` [B] keeps inactive rows' positions, and their KV bytes stay
+    as the reference's ``freeze_inactive_rows`` leaves them: a paged row
+    outside the step has an all-trash table row, its windowed layers write
+    the ring pool's trash page, and a dense row rewrites the same slot next
+    step.  Returns (logits [B, V], cache with ``pos`` advanced)."""
     x = embeds.to(torch.bfloat16)
     B, T = x.shape[:2]
     pos = cache["pos"]
@@ -345,6 +367,7 @@ def decode_step(params: dict, cfg: ModelConfig, embeds: torch.Tensor, cache: dic
         else:
             positions = pos.expand(B, T)
     x = _run_stacks(x, params, cfg, "decode", positions, cache, pos,
-                    cache.get("table"), dispatch, policy, collect, lora)
+                    cache.get("table"), dispatch, policy, collect, lora,
+                    active=active)
     cache["pos"] = pos + T if active is None else torch.where(active, pos + T, pos)
     return _logits(x, params, cfg, dispatch)[:, -1], cache

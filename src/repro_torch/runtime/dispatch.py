@@ -7,9 +7,12 @@ Each op calls its kernel's wrapper (``repro_torch.kernels``), which picks
 by the tensors' device: the plain PyTorch version for CPU tensors, the
 Hopper kernel for CUDA tensors — or it raises.  Unlike the reference, the
 dispatcher never falls back: a configuration the kernels do not take on
-the card (int4 keys, windowed pools, group-wise weight scales, A16) raises
+the card (int4 keys, group-wise weight scales, A16) raises
 ``NotImplementedError`` there, so a run that finishes went through the
 kernels.  ``fallbacks`` stays empty by construction; callers assert it.
+Where the reference's dense decode kernel refuses a windowed ring and
+falls back, the port runs its kernel over the ring's live slots (see
+``decode_attention``).
 
 ``backend="reference"`` runs the plain versions on any device — the only
 use is holding the kernel path against the plain path on the card.
@@ -20,6 +23,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from repro_torch.core import kv_cache as kvc
 from repro_torch.core import kv_pool as KP
 from repro_torch.core import quantization as q
 from repro_torch.core.precision import PrecisionPolicy
@@ -116,13 +120,14 @@ class Dispatcher:
     def decode_attention(self, qh: torch.Tensor, cache, pos,
                          policy: PrecisionPolicy) -> torch.Tensor:
         """Decode over a dense ``LayerKVCache``: qh [B, 1, H, D] pre-scaled,
-        ``pos`` the live length, a scalar or [B]."""
+        ``pos`` the tokens written so far, a scalar or [B].  A windowed ring
+        attends over its first min(pos, S) slots: a full ring holds exactly
+        the last S positions, the keys the reference's mask admits, and the
+        softmax does not depend on the order of its keys."""
         B, T = qh.shape[:2]
         if T != 1:
             raise ValueError("decode attends one query token per row")
-        if cache.window:
-            raise NotImplementedError("windowed dense caches are not ported "
-                                      "(ROADMAP queue 1 item 13)")
+        pos = kvc.live_slots(cache, pos)
         args = (qh[:, 0], cache.k_q, cache.k_scale, cache.k_zero, cache.v)
         if self._plain:
             out = QA.quant_decode_attention_plain(
@@ -133,14 +138,17 @@ class Dispatcher:
         return out[:, None].to(policy.compute_dtype)
 
     def paged_decode_attention(self, qh: torch.Tensor, pool, table: torch.Tensor,
-                               pos: torch.Tensor,
-                               policy: PrecisionPolicy) -> torch.Tensor:
+                               pos: torch.Tensor, policy: PrecisionPolicy,
+                               base: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Decode over the paged pool: qh [B, 1, H, D] pre-scaled, ``pos``
-        [B] live lengths, ``table`` [B, pages_per_row]."""
+        [B] live lengths, ``table`` [B, n_pages] and ``base`` [B] the
+        logical page of its column 0 (None: 0; a ring view's may be
+        negative); a windowed pool masks to its window."""
         B, T = qh.shape[:2]
         if T != 1:
             raise ValueError("decode attends one query token per row")
-        base = torch.zeros((B,), dtype=torch.int32, device=qh.device)
+        if base is None:
+            base = torch.zeros((B,), dtype=torch.int32, device=qh.device)
         args = (qh[:, 0], pool.k_q, pool.k_scale, pool.k_zero, pool.v, table,
                 base, pos.to(torch.int32))
         if self._plain:
@@ -172,8 +180,10 @@ class Dispatcher:
         ``pos0`` an int or a one-element device tensor (the kernel reads
         it from device memory)."""
         if pool.window:
-            raise NotImplementedError("windowed pools prefill chunk-locally "
-                                      "(ROADMAP queue 1 item 13)")
+            raise NotImplementedError(
+                "windowed pools prefill through kv_pool.paged_prefill_window_ref, "
+                "as in the reference, whose paged kernel refuses them; a kernel "
+                "for that path is ROADMAP queue 2 item D")
         pos0_arr = KP.device_scalar(pos0, qh.device).expand(qh.shape[0]).contiguous()
         args = (qh, pool.k_q, pool.k_scale, pool.k_zero, pool.v, table, pos0_arr)
         if self._plain:

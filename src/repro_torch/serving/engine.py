@@ -14,7 +14,9 @@
     pool's token-hash index.
 
 MoE models decode every slot each step, unbucketed, as the reference loop
-does (``disabled_features["decode_bucketing"]`` says why).
+does (``disabled_features["decode_bucketing"]`` says why); so do models
+with sliding-window layers, whose per-row rings also turn prefix sharing
+off and cap prompt chunks at one page, as in the reference.
 
 The KV pool has the reference's Flash tier (C2): cold prompt pages of
 running rows spill to Flash under page pressure and are gathered back into
@@ -642,6 +644,17 @@ class EngineLoop:
         self.cfg = cfg
         self.device = engine.device
         self.max_slots = max_slots
+        # prefix sharing adopts whole KV pages by token hash: only where
+        # every layer keeps full attention (a windowed layer's ring recycles
+        # its pages, so an adopted page would not reproduce the row's ring)
+        self._full_attn = all(pat.window == 0 for pats, _ in cfg.layer_plan()
+                              for pat in pats)
+        if not self._full_attn and engine.weight_policy.active:
+            raise NotImplementedError(
+                "weight streaming on a model with sliding-window layers: the "
+                "split step does not carry the chunk's row and real length or "
+                "the decode rows' activity to the rings (ROADMAP queue 1 "
+                "item 13a)")
         # the reference's geometry, staging reserve included, so that page
         # ids, pool shapes and allocation match it step for step
         self.proactive = proactive_spill
@@ -656,7 +669,7 @@ class EngineLoop:
                                      if prefill_token_budget is not None
                                      else max(prefill_chunk, 64))
         self.pool = KP.KVPoolManager(self.geom, max_slots,
-                                     prefix_sharing=prefix_sharing)
+                                     prefix_sharing=prefix_sharing and self._full_attn)
         # KV pages spill beside the Flash embedding, with their own byte counts
         self.spill = HS.PageSpillStore(HS.FlashStore(engine.embedding.flash.root))
         self.scheduler = ContinuousScheduler(
@@ -700,9 +713,10 @@ class EngineLoop:
         self.rejected = 0
         # batch-size bucketing gathers the active slots into the smallest
         # covering bucket; MoE stacks decode every slot (expert capacity
-        # couples the batch's tokens in the reference, which gates them off)
+        # couples the batch's tokens in the reference, which gates them
+        # off), and so do windowed ones (a ring is addressed by batch row)
         no_moe = not any(pat.moe for pats, _ in cfg.layer_plan() for pat in pats)
-        self._bucketed = no_moe and max_slots > 1
+        self._bucketed = no_moe and self._full_attn and max_slots > 1
         # weight streaming: the split step runs every streamed stack group by
         # group out of its ring at max_slots shape, as the reference's does.
         # An expert ring installs the experts its router history predicts:
@@ -739,10 +753,17 @@ class EngineLoop:
             self._prefetch_sg(*seq[0])
         self.buckets = engine.plan.decode_buckets(max_slots, uniform=self._bucketed)
         self.disabled_features: Dict[str, str] = {}
+        if prefix_sharing and not self._full_attn:
+            self.disabled_features["prefix_sharing"] = (
+                "windowed/recurrent stacks: an adopted KV page cannot "
+                "reproduce ring contents or recurrent state")
         if not self._bucketed:
             self.disabled_features["decode_bucketing"] = (
                 "weight streaming: the split step runs at max_slots shape only"
                 if self.wpolicy.active
+                else "windowed/recurrent stacks: a gathered row order would "
+                "read the wrong batch-addressed ring/recurrent state"
+                if not self._full_attn
                 else "MoE: expert capacity couples tokens across the batch"
                 if not no_moe else "max_slots == 1: nothing to bucket")
         if self.wpolicy.active and self.cuda_graphs:
@@ -753,19 +774,33 @@ class EngineLoop:
         engine.stats.disabled_features = dict(self.disabled_features)
 
     # --- row snapshot / restore (preemption to Flash) ----------------------
-    def _pooled_groups(self):
-        """(group name, stacked pool) of every full-attention page pool: the
-        layer groups that carry per-page bytes."""
+    def _state_groups(self):
+        """(group name, stacked pool) of every attention pattern, in layer
+        order: the layer groups of a row's decode state."""
         for si, (patterns, _count) in enumerate(self.cfg.layer_plan()):
             for pi, _pat in enumerate(patterns):
                 yield f"s{si}p{pi}", self.cache["stacks"][si][pi]
 
-    def _row_groups(self, phys: Sequence[int]):
-        """(group name, host arrays) of a row's decode state: the bytes of
-        its DRAM pages ``phys`` in every pooled group (the port's stacks are
-        all full-attention pools)."""
-        for group, pool in self._pooled_groups():
-            yield group, KP.read_pages(pool, phys)
+    def _pooled_groups(self):
+        """(group name, stacked pool) of every full-attention page pool: the
+        layer groups that carry per-page bytes (windowed rings are per
+        row, never per page)."""
+        for group, pool in self._state_groups():
+            if not pool.window:
+                yield group, pool
+
+    @staticmethod
+    def _row_pages(pool: KP.PagedLayerKV, slot: int, phys: Sequence[int]):
+        """A row's pages in one group: its DRAM pages ``phys`` of a
+        full-attention pool, its whole ring of a windowed one."""
+        return pool.ring_pages(slot) if pool.window else phys
+
+    def _row_groups(self, slot: int, phys: Sequence[int]):
+        """(group name, host arrays) of row ``slot``'s decode state: the
+        bytes of its DRAM pages ``phys`` in every full-attention pool and of
+        its ring in every windowed one."""
+        for group, pool in self._state_groups():
+            yield group, KP.read_pages(pool, self._row_pages(pool, slot, phys))
 
     def _spill_row(self, slot: int, req: Request, pending: bool) -> None:
         """Move a preempted row's DRAM pages to Flash and free them; pages
@@ -780,7 +815,7 @@ class EngineLoop:
         flash_idxs = [i for i in range(n_pages) if held[i] < 0]
         groups = []
         for gi, (group, arrays) in enumerate(
-                self._row_groups([held[i] for i in dram_idxs])):
+                self._row_groups(slot, [held[i] for i in dram_idxs])):
             self.spill.put(req.uid, group, arrays,
                            pages=len(dram_idxs) if gi == 0 else 0)
             groups.append(group)
@@ -818,10 +853,11 @@ class EngineLoop:
         phys = [self.pool.row_pages[slot][i] for i in rec["dram_idxs"]]
         groups = rec["groups"]
         self.spill.prefetch_async(req.uid, groups[0])
-        for gi, (group, pool) in enumerate(self._pooled_groups()):
+        for gi, (group, pool) in enumerate(self._state_groups()):
             if gi + 1 < len(groups):
                 self.spill.prefetch_async(req.uid, groups[gi + 1])
-            KP.write_pages(pool, phys, self.spill.fetch(req.uid, group))
+            KP.write_pages(pool, self._row_pages(pool, slot, phys),
+                           self.spill.fetch(req.uid, group))
         self.spill.drop_groups(req.uid, groups)
         self.eng.stats.restored_pages += len(rec["dram_idxs"])
         if pf is not None:
@@ -1037,7 +1073,7 @@ class EngineLoop:
         dram_idxs = list(range(n_pages))
         groups = []
         for gi, (group, arrays) in enumerate(
-                self._row_groups([held[i] for i in dram_idxs])):
+                self._row_groups(vslot, [held[i] for i in dram_idxs])):
             self.spill.put(victim.uid, group, arrays,
                            pages=n_pages if gi == 0 else 0)
             groups.append(group)
@@ -1282,7 +1318,10 @@ class EngineLoop:
             ins = {"emb": torch.zeros((n, 1, d), dtype=torch.bfloat16, device=dev),
                    "rows": rows}
         else:
+            # slot max_slots: windowed layers' spare ring, so a warm run
+            # writes no live row's ring
             scal = torch.zeros((3,), dtype=torch.int32, device=dev)
+            scal[0] = self.max_slots
             scal[2] = n - 1
             ins = {"emb": torch.zeros((1, n, d), dtype=torch.bfloat16, device=dev),
                    "scal": scal}

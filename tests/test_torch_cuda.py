@@ -1072,3 +1072,97 @@ def test_expert_ring_rerun_equals_resident(dev, tmp_path):
     for loop in loops:
         loop.close()
     st.close()
+
+
+# ---------------------------------------------------------------------------
+# sliding-window attention (gemma3-27b's local layers)
+# ---------------------------------------------------------------------------
+
+def _ring_pool(B, hkv, D, window, ps, seed, dev):
+    """A windowed pool of ``B`` rows' rings and the spare ring, its pages
+    filled with quantized random keys and values."""
+    ppw = KP.pages_per_window(window, ps)
+    rng = np.random.default_rng(seed)
+    P = (B + 1) * ppw
+    k = torch.from_numpy(rng.normal(size=(P, ps, hkv, D)).astype(np.float32))
+    v = torch.from_numpy(rng.normal(size=(P, ps, hkv, D)).astype(np.float32))
+    kq, ks, kz = KV.quantize_keys(k.bfloat16())
+    return KP.PagedLayerKV(*(t.contiguous().to(dev) for t in
+                             (kq, ks, kz, KV.cast_values(v, Q.FP8_DTYPE))),
+                           window=window, ppw=ppw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,hkv", [(2, 16), (7, 4), (16, 2)])
+@pytest.mark.parametrize("window,ps,lengths", [
+    (1024, 128, [700, 1, 1025, 64]),          # negative bases: the ring not yet full
+    (1024, 128, [1500, 1152, 1153, 2047]),    # positive bases: the ring wrapped
+    (100, 16, [5, 99, 100, 101]),             # a window that is not a whole page
+    (16, 16, [16, 17, 33, 300])])
+def test_paged_decode_kernel_over_ring_views(dev, G, hkv, window, ps, lengths):
+    """Kernel 2 over ``kv_pool.ring_view``'s table and base, window-masked,
+    against its plain version; the output is allocated over NaN through the
+    launch, so a row the kernel leaves unwritten fails."""
+    B, D = len(lengths), 128
+    pool = _ring_pool(B, hkv, D, window, ps, G + window + lengths[0], dev)
+    length = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    table, base = KP.ring_view(pool, length, B)
+    q = (torch.randn((B, hkv * G, D), device=dev) / math.sqrt(D)).bfloat16()
+    args = (q, pool.k_q, pool.k_scale, pool.k_zero, pool.v, table, base, length)
+    got = QA.paged_quant_decode_attention(*args, window=window)
+    assert torch.isfinite(got).all()
+    _close(got, QA.paged_quant_decode_attention_plain(*args, window=window), 2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,hkv", [(2, 16), (7, 4)])
+@pytest.mark.parametrize("window,pos", [(1024, [1153, 2000, 1024, 300]), (16, [40, 17, 16, 3])])
+def test_dense_decode_kernel_over_a_wrapped_ring(dev, G, hkv, window, pos):
+    """Kernel 6 through the dispatcher over a dense ring that has wrapped
+    (``pos`` past the ring's slots for most rows): it attends over the
+    ring's min(pos, S) live slots, and equals the plain ring path -- the
+    reference's ``slot_positions >= 0`` mask over the same slots."""
+    from repro_torch.core.precision import DEFAULT_POLICY
+    from repro_torch.runtime import dispatch as RD
+    B, D = len(pos), 128
+    cache = KV.init_layer_cache(B, 2048, hkv, D, window=window, per_row=True, device=dev)
+    src = _dense_cache(B, window, hkv, D, dev, window + G)
+    for f, t in zip(("k_q", "k_scale", "k_zero", "v"), src):
+        getattr(cache, f).copy_(t)
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    q = (torch.randn((B, 1, hkv * G, D), device=dev) / math.sqrt(D)).bfloat16()
+    before = QA.quant_decode_attention.launches
+    got = RD.Dispatcher().decode_attention(q, cache, p, DEFAULT_POLICY)
+    assert QA.quant_decode_attention.launches == before + 1
+    live = KV.slot_positions(cache, p) >= 0
+    assert torch.equal(live.sum(-1), torch.clamp(p, max=window))
+    want = RD.Dispatcher("reference").decode_attention(q, cache, p, DEFAULT_POLICY)
+    _close(got, want, 2e-2)
+
+
+@pytest.mark.gpu
+def test_windowed_chunk_is_captured_in_a_cuda_graph(dev):
+    """``kv_pool.paged_prefill_window_ref`` (plain PyTorch by design: the
+    reference has no TPU kernel for it) with its row, offset and length as
+    device scalars: captured in a CUDA graph and replayed for new values
+    filled in place, it equals the same chunk run eagerly, bit for bit."""
+    hkv, G, D, window, ps = 16, 2, 128, 1024, 128
+    pool = _ring_pool(4, hkv, D, window, ps, 3, dev)
+    q = (torch.randn((1, 128, hkv * G, D), device=dev) / math.sqrt(D)).bfloat16()
+    slot, pos0, vl = (torch.zeros((1,), dtype=torch.int32, device=dev) for _ in range(3))
+    fn = lambda: KP.paged_prefill_window_ref(q, pool, slot, pos0, vl, window, 16)
+    for t, v in zip((slot, pos0, vl), (1, 256, 128)):
+        t.fill_(v)
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    for s_, p_, v_ in ((1, 256, 128), (2, 1152, 128), (0, 1900, 37), (3, 0, 8)):
+        for t, v in zip((slot, pos0, vl), (s_, p_, v_)):
+            t.fill_(v)
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = KP.paged_prefill_window_ref(q, pool, s_, p_, v_, window, 16)
+        assert torch.equal(out[:, :v_], eager[:, :v_]), (s_, p_, v_)
+    del graph

@@ -529,3 +529,28 @@ def test_moe_oversubscribed_waves_match_reference(engine_pairs, loops):
     assert not lp._bucketed
     _, ps = _serve(je, pe, lj, lp, _prompts(23, 4, 30), [20] * 4)
     assert max(lp.waves) >= 2 and ps.cold_spilled_pages > 0
+
+
+@pytest.mark.parametrize("how", ["waves", "page_pressure"])
+def test_windowed_stack_spill_tier_matches_reference(engine_pairs, loops, how):
+    """gemma3-27b@reduced: its window-16 layer keeps per-row rings beside
+    the global layer's pool.  Cold pages of the global pool spill and are
+    staged back in waves, the rows outside a wave leaving their rings
+    untouched; under page pressure a preempted row's ring goes to Flash
+    with its pages and comes back bit for bit, into whatever slot it is
+    restored to.  Prompts of 30 and 8 tokens with 20 and 30 new ones: the
+    rings wrap."""
+    je, pe = engine_pairs("gemma3-27b@reduced")
+    if how == "waves":
+        lj, lp = loops(je, pe, 6, max_slots=4)
+        prompts, new = _prompts(23, 4, 30), [20] * 4
+    else:
+        lj, lp = loops(je, pe, 4, max_slots=2, proactive_spill=False)
+        prompts, new = _prompts(12, 2, 8), [30] * 2
+    assert "prefix_sharing" in lp.disabled_features
+    _, ps = _serve(je, pe, lj, lp, prompts, new)
+    if how == "waves":
+        assert max(lp.waves) >= 2 and ps.cold_spilled_pages > 0
+    else:
+        assert ps.preemptions >= 1 and ps.restored_pages > 0
+
