@@ -124,6 +124,25 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    (the whole int4 model, ~157 GB, does not fit one card), printed as
    ``reduced``, with ``grouped_matmul`` timed on its layer 0's expert
    tables, then as ``[qwen110b]`` with both MoE branches checked.
+8. ``[rwkv6]`` and ``[jamba]``, recurrent stacks, each engine released
+   before the next.  rwkv6-7b at full width and depth (32 attention-free
+   layers, d_model 4096, 64 wkv heads, d_ff 14336) and jamba-1.5-large-398b
+   at full width and 16 of its 72 layers (two periods of one attention
+   layer and seven mamba layers, d_inner 16384, 16 experts top-2 on every
+   other layer; ``reduced`` printed: the int4 model, ~199 GB, does not fit
+   one card).  Each times its scan, which has no TPU kernel and runs as
+   plain PyTorch on the card (mamba's ``selective_scan``, rwkv6's
+   ``wkv_scan``), at a 128-token chunk and a 4-row decode step, beside its
+   bound; serves 6 (jamba: 4) requests through ``EngineLoop`` eagerly and
+   on its graphs (tokens equal, no capture after warmup, prefix sharing
+   and bucketing off, 1 sync a graph decode step; rows 1 and 4 launched,
+   jamba also rows 2, 3 and 5 on both MoE branches); holds a chunk and a
+   decode step kernel vs plain; runs ``Engine.generate`` at 4 x 320
+   (jamba: rows 6 and 7).  ``[jamba]`` then evicts a row mid-prefill and
+   preempts a decoding one under a 4-page pool (their state to Flash and
+   back): every request's tokens equal the unpressured run's.  The
+   windowed chunk of ``[gemma3]`` is also timed against SDPA over the
+   dequantized ring with a window mask.
 
 Launch counts are zeroed just before each serving path and read just after
 it (a graph replay adds the launches its capture recorded): every kernel of
@@ -1131,7 +1150,7 @@ def run_layers(engine, x, mode, positions, pos, table, cache, fed, lora=None, **
                 inp = x if fed is None or not outs else fed[len(outs) - 1]
                 x, _ = T._apply_layer(inp, T.layer_slice(engine.params["stacks"][si][pi], li),
                                       cfg, pat, mode, positions,
-                                      cache["stacks"][si][pi].layer(li), pos, table,
+                                      T.layer_entry(cache["stacks"][si][pi], li), pos, table,
                                       engine.dispatch, DEFAULT_POLICY, lora=lora, **kw)
                 outs.append(x)
     last = outs[-1] if fed is None else fed[-1]
@@ -1139,10 +1158,10 @@ def run_layers(engine, x, mode, positions, pos, table, cache, fed, lora=None, **
 
 
 def chunk_then_decode(engine, prompt, nxt, feed=None, lora=None):
-    """One 128-token prompt chunk into a fresh paged pool and the decode step
-    of token ``nxt`` after it (``lora``: the adapter tables and the row's id,
-    carried by both).  Returns the per-layer hidden states and the logits of
-    both."""
+    """One 128-token prompt chunk into a fresh paged pool (row 0, whose
+    recurrent state starts at zero) and the decode step of token ``nxt``
+    after it (``lora``: the adapter tables and the row's id, carried by
+    both).  Returns the per-layer hidden states and the logits of both."""
     import numpy as np
     import torch
     from repro_torch.serving import engine as E
@@ -1154,7 +1173,9 @@ def chunk_then_decode(engine, prompt, nxt, feed=None, lora=None):
     ids = np.asarray(prompt[:128], np.int64)[None]
     chunk = run_layers(engine, engine.embed(ids), "prefill_paged",
                        torch.arange(128, device=dev)[None], 0, cache["table"][0], cache,
-                       None if feed is None else feed["chunk"][0], lora)
+                       None if feed is None else feed["chunk"][0], lora,
+                       slot=torch.zeros((1,), dtype=torch.int32, device=dev),
+                       valid_len=torch.full((1,), 128, dtype=torch.int32, device=dev))
     pos = torch.tensor([128], dtype=torch.int32, device=dev)
     dec = run_layers(engine, engine.embed(np.asarray([[nxt]], np.int64)), "decode",
                      pos[:, None], pos, cache["table"][:1], cache,
@@ -1215,13 +1236,20 @@ def compare_paths(label: str, eng, steps_fn, prompt, nxt) -> dict:
     counted, bounded by MAX_ROUTE_FLIPS, and left out of that layer's error."""
     import torch
     from repro_torch.serving import engine as E
+    gc.collect()
+    torch.cuda.empty_cache()     # the plain path's transients want whole free blocks
     plain = E.Engine(eng.cfg, eng.params, eng.embedding, max_seq=eng.max_seq,
                      device=eng.device, backend="reference")
     V = eng.cfg.vocab_size
     ref, ref_ids = routed(steps_fn, plain, prompt, nxt)
     free = steps_fn(eng, prompt, nxt)
     forced, forced_ids = routed(steps_fn, eng, prompt, nxt, feed=ref)
-    per_step = len(ref_ids) // max(1, len(ref))        # MoE layers per step
+    # which layers route (jamba: every other one); the router ids come one
+    # list entry per MoE layer and step, in layer order
+    moe_of = [pat.moe for patterns, count in eng.cfg.layer_plan() for _ in range(count)
+              for pat in patterns]
+    per_step = sum(moe_of)                             # MoE layers per step
+    assert len(ref_ids) == per_step * len(ref), (len(ref_ids), per_step)
     out = {}
     for si, what in enumerate(ref):
         (ref_h, ref_l), (free_h, free_l), (forced_h, forced_l) = (
@@ -1232,8 +1260,9 @@ def compare_paths(label: str, eng, steps_fn, prompt, nxt) -> dict:
         per_layer, flipped, tokens = [], 0, 0
         for li, (a, b) in enumerate(zip(forced_h, ref_h)):
             keep = torch.ones(a.shape[1], dtype=torch.bool, device=a.device)
-            if per_step:
-                ra, rb = forced_ids[si * per_step + li], ref_ids[si * per_step + li]
+            if moe_of[li]:
+                mi = si * per_step + sum(moe_of[:li])
+                ra, rb = forced_ids[mi], ref_ids[mi]
                 keep = (ra == rb).all(dim=-1)
                 flipped += int((~keep).sum())
                 tokens += keep.numel()
@@ -1287,11 +1316,17 @@ def phase_kernel_vs_plain(eng, specs, arrivals, reqs):
 # phase 4: Engine.generate at full width
 # ---------------------------------------------------------------------------
 
-def phase_generate(eng, tag: str = "generate", prompt_len: int = 320) -> dict:
+GENERATE_KERNELS = ("quant_decode_attention", "flash_prefill_attention", "w4a8_matmul",
+                    "rmsnorm")
+
+
+def phase_generate(eng, tag: str = "generate", prompt_len: int = 320,
+                   kernels=GENERATE_KERNELS) -> dict:
     """Four greedy requests with equal-length prompts of ``prompt_len``
     tokens through the slot-synchronous ``Engine.generate`` (it decodes the
     batch at request 0's position, so unequal prompts would decode at the
-    wrong offsets); ``tag`` heads its log lines."""
+    wrong offsets); ``tag`` heads its log lines, and every kernel of
+    ``kernels`` must launch."""
     import numpy as np
     import torch
     from repro_torch import kernels as K
@@ -1314,8 +1349,7 @@ def phase_generate(eng, tag: str = "generate", prompt_len: int = 320) -> dict:
     s = eng.stats
     log(f"[{tag}] Engine.generate launches: {counts}")
     assert all(r.done and len(r.generated) == 32 for r in reqs), "unfinished requests"
-    for name in ("quant_decode_attention", "flash_prefill_attention", "w4a8_matmul",
-                 "rmsnorm"):
+    for name in kernels:
         assert counts[name] > 0, f"{name} never launched on Engine.generate: {counts}"
     assert eng.dispatch.fallbacks == [], eng.dispatch.fallbacks
     summary = {"wall_s": wall, "requests": 4, "prompt_tokens": prompt_len, "new_tokens": 128,
@@ -2710,7 +2744,17 @@ def phase_window_kernels(dev, cfg, results: dict) -> dict:
     pairs = sum(min(1152 + i + 1, W) for i in range(128))
     b = bound(q.numel() * 2 + ppw * ps * Hkv * (2 * D + 8) + 128 * H * D * 2,
               4 * H * D * pairs, BF16_FLOPS_PER_S)
+    # the yardstick: SDPA over the row's ring dequantized in logical order
+    # (positions 128-1279), the window and causal mask on each query
+    table, base = KP.ring_view(pool, torch.tensor([1280], dtype=torch.int32, device=dev), 1)
+    k, v = gather_dense((pool.k_q, pool.k_scale, pool.k_zero, pool.v), table, torch.bfloat16)
+    kpos = base.long() * ps + torch.arange(ppw * ps, device=dev)
+    qpos = 1152 + torch.arange(128, device=dev)
+    mask = (kpos[None] <= qpos[:, None]) & (qpos[:, None] - kpos[None] < W)
+    lib_ms, lib_gms = sdpa(q.transpose(1, 2), k, v, mask[None, None])
+    del k, v, mask
     out["window_chunk_plain"] = {"ms": ms, "graph_ms": gms, "bound_ms": b[0], "bound_by": b[1],
+                                 "library_ms": lib_ms, "library_graph_ms": lib_gms,
                                  "calls_per_chunk": sum(
                                      n for pats, n in cfg.layer_plan() for p in pats
                                      if p.window),
@@ -2718,7 +2762,8 @@ def phase_window_kernels(dev, cfg, results: dict) -> dict:
                                           f"{ppw} pages, window {W}, view of 16 pages"}
     log(f"[kernels] windowed chunk attention (kv_pool.paged_prefill_window_ref, plain "
         f"PyTorch: no TPU kernel) C=128 pos0=1152: {ms:.4f} ms a call, {f4(gms)} ms on the "
-        f"device (a CUDA graph), bound {b[0]:.4f} ms ({b[1]})")
+        f"device (a CUDA graph), bound {b[0]:.4f} ms ({b[1]}); SDPA over the dequantized "
+        f"ring with a window mask {f4(lib_ms)} ms a call, {f4(lib_gms)} ms on the device")
     del pool, q
     torch.cuda.synchronize()
     return out
@@ -3001,6 +3046,238 @@ def phase_grok(dev, results: dict):
     return [eng], summary
 
 
+# ---------------------------------------------------------------------------
+# phase 8: recurrent stacks (rwkv6-7b, jamba-1.5-large-398b)
+# ---------------------------------------------------------------------------
+
+RWKV_NEW = 16
+JAMBA_NEW = 8
+JAMBA_LAYERS = 16                # of 72: see phase_jamba
+RWKV_KERNELS = ("w4a8_matmul", "rmsnorm")
+PRESSURE_MAX_SEQ = 512           # pages of 128 tokens, 4 a row: a 4-page pool is one row
+
+
+def recurrent_trace(vocab: int, lens, arrivals, seed: int):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [[int(t) for t in rng.integers(1, vocab, n)] for n in lens], list(arrivals)
+
+
+def scan_rows(label: str, cfg, dev) -> dict:
+    """The recurrent scan of ``cfg``'s layers, which has no TPU kernel (the
+    reference computes it in XLA) and runs as plain PyTorch on the card by
+    design: mamba's ``ssm.selective_scan`` (a [B, T, d_inner, d_state]
+    block, T padded to the 8-token scan block) or rwkv6's ``ssm.wkv_scan``,
+    at a 128-token chunk and a 4-row decode step at full width; its time a
+    call and on the device (the calls replayed in a CUDA graph), beside its
+    bound (f32 operations at the CUDA cores' rate).  No single PyTorch call
+    computes either scan: no library time."""
+    import torch
+    from repro_torch.models import ssm as S
+    gen = torch.Generator(device=dev).manual_seed(55)
+    rows = {}
+    mamba = any(p.kind == "mamba" for pats, _ in cfg.layer_plan() for p in pats)
+    for what, B, T in (("chunk", 1, 128), ("decode", 4, 1)):
+        if mamba:
+            d, _, st = S.mamba_dims(cfg)
+            Tp = -(-T // S.SCAN_BLOCK) * S.SCAN_BLOCK
+            a = torch.rand((B, Tp, d, st), generator=gen, device=dev) * 0.5 + 0.5
+            bx = torch.randn((B, Tp, d, st), generator=gen, device=dev)
+            h0 = torch.randn((B, d, st), generator=gen, device=dev)
+            fn, args, name = S.selective_scan, (a, bx, h0), "mamba selective_scan"
+            # a and bx read, every h written, the entry state read
+            nbytes, ops = 4 * (3 * a.numel() + h0.numel()), 3 * a.numel()
+            shape = f"B={B} T={T} (scan block {Tp}) d_inner={d} d_state={st}"
+        else:
+            H, dh = S.rwkv_dims(cfg)
+            r, k, v = (torch.randn((B, T, H, dh), generator=gen, device=dev) for _ in range(3))
+            w = torch.rand((B, T, H, dh), generator=gen, device=dev) * 0.5 + 0.5
+            u = torch.randn((H, dh), generator=gen, device=dev)
+            s0 = torch.randn((B, H, dh, dh), generator=gen, device=dev) * 0.1
+            fn, args, name = S.wkv_scan, (r, k, v, w, u, s0), "rwkv6 wkv_scan"
+            # r, k, v, w read, y written, the state read and written; per token
+            # and head: k v^T, u k v^T, S + u k v^T, r (.) (2 dh^2), w S + k v^T
+            nbytes = 4 * (5 * r.numel() + u.numel() + 2 * s0.numel())
+            ops = 7 * B * T * H * dh * dh
+            shape = f"B={B} T={T} H={H} dh={dh}"
+        ms = time_ms(fn, [args], iters=10)
+        gms = graph_ms(fn, [args], iters=5)
+        b = bound(nbytes, ops, F32_FLOPS_PER_S)
+        rows[what] = {"function": name, "shape": shape, "ms": ms, "graph_ms": gms,
+                      "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
+        log(f"[{label}] {name} (no TPU kernel: plain PyTorch on the card) {what} {shape}: "
+            f"{ms:.4f} ms a call, {f4(gms)} ms on the device (a CUDA graph), bound "
+            f"{b[0]:.5f} ms ({b[1]}); no library call computes it")
+        del args
+    torch.cuda.synchronize()
+    return rows
+
+
+def recurrent_pressure(eng) -> dict:
+    """The KV Flash tier with recurrent state, at full width: an engine on
+    the same weights at ``max_seq`` 512 (pages of 128 tokens), 2 slots, a
+    4-page pool, proactive spill off, queue patience 3, and three requests
+    of 100, 230 and 160 tokens.  The 230-token one is evicted once its first
+    chunk is in (its pages and its rows of every recurrent state to Flash)
+    and resumes from that chunk boundary; the waiting third request makes
+    the loop preempt a decoding row (pages and state to Flash) and restore
+    it.  Every request's greedy tokens must equal the same requests served
+    without the budget, eagerly both."""
+    import numpy as np
+    import torch
+    from repro_torch.runtime import plan as RP
+    from repro_torch.serving import engine as E
+    from repro_torch.serving import sampling as SM
+    cfg = eng.cfg
+    small = E.Engine(cfg, eng.params, eng.embedding, max_seq=PRESSURE_MAX_SEQ,
+                     device=eng.device)
+    pb = RP.kv_page_bytes(cfg, RP.kv_page_size(PRESSURE_MAX_SEQ))
+    rng = np.random.default_rng(14)
+    spec = [([int(t) for t in rng.integers(1, cfg.vocab_size, n)], m)
+            for n, m in ((100, 8), (230, 4), (160, 5))]
+    sp = SM.SamplingParams(temperature=0.0)
+
+    def run(pressure: bool):
+        small.stats = E.EngineStats()
+        kw = dict(max_slots=2, prefill_chunk=128, prefill_token_budget=128, cuda_graphs=False)
+        if pressure:
+            kw.update(dram_budget_bytes=4 * pb, proactive_spill=False, preempt_patience=3)
+        loop = E.EngineLoop(small, **kw)
+        reqs = [E.Request(uid=i, prompt_tokens=p, max_new_tokens=m, sampling=sp)
+                for i, (p, m) in enumerate(spec)]
+        for r in reqs:
+            loop.submit(r)
+        if pressure:
+            assert loop.geom.num_pages == 4, loop.geom
+            victim = reqs[1]
+            for _ in range(50):
+                loop.step()
+                st = next((s for s in loop._prefilling.values() if s["req"] is victim), None)
+                if st is not None and st["next"] > 0:
+                    break
+            else:
+                raise AssertionError("the victim never reached a chunk boundary")
+            loop._spill_prefilling_row(victim)
+        while loop.has_work():
+            loop.step()
+        torch.cuda.synchronize()
+        on_flash = loop.spill.pages_on_flash
+        loop.close()
+        return reqs, small.stats, on_flash
+
+    t0 = time.perf_counter()
+    free, _, _ = run(False)
+    pressed, stats, on_flash = run(True)
+    wall = time.perf_counter() - t0
+    pre = [r.preemptions for r in pressed]
+    differ = [r.uid for r, f in zip(pressed, free) if r.generated != f.generated]
+    out = {"preemptions": pre, "spilled_pages": stats.spilled_pages,
+           "restored_pages": stats.restored_pages, "prefill_chunks": stats.prefill_chunks,
+           "tokens_equal_unpressured": not differ, "wall_s": wall}
+    log(f"[jamba] Flash tier with recurrent state (max_seq {PRESSURE_MAX_SEQ}, a 4-page "
+        f"pool, patience 3): preemptions by request {pre}, pages spilled "
+        f"{stats.spilled_pages}, restored {stats.restored_pages}, {stats.prefill_chunks} "
+        f"chunks; greedy tokens equal to the unpressured run: {not differ}; {wall:.1f} s")
+    assert all(r.done for r in pressed) and not differ, f"tokens differ for {differ}"
+    assert pre[1] >= 1 and sum(pre) >= 2 and stats.restored_pages > 0, out
+    assert on_flash == 0 and small.dispatch.fallbacks == []
+    return out
+
+
+def phase_recurrent(dev, label: str, cfg, specs, arrivals, max_new: int, loop_kernels,
+                    generate_kernels, extra: str = "", moe: bool = False):
+    """A recurrent model from seed 0 at full width: its scan's "—" rows,
+    then the trace through ``EngineLoop`` eagerly (prefix sharing and decode
+    bucketing off, every kernel of ``loop_kernels`` launched, on an MoE model
+    both grouped branches) and on its CUDA graphs (tokens equal eager, no
+    capture after warmup), a graph decode step profiled (1 sync), one chunk
+    and one decode step kernel vs plain layer by layer, and
+    ``Engine.generate`` at 4 x 320 (``generate_kernels`` launched).
+    Returns (engine holder, summary)."""
+    import contextlib
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.serving import engine as E
+
+    t0 = time.perf_counter()
+    eng = E.build_engine(cfg, seed=0, max_seq=2048, device=dev,
+                         flash_dir=str(ROOT / "build" / f"flash-{label}"))
+    engine_line(label, cfg, t0, dev, extra)
+    summary = {"scan": scan_rows(label, cfg, dev)}
+    log(f"[{label}] trace: prompts {[len(p) for p in specs]}, arrivals {arrivals}; eager")
+    spy = MoeSpies() if moe else None
+    with spy if moe else contextlib.nullcontext():
+        K.reset_launch_counts()
+        loop, reqs, wall = serve_trace(eng, specs, arrivals, max_new=max_new)
+        counts = K.launch_counts()
+    loop.close()
+    log(f"[{label}] launches during the trace: {counts}" + (f"; {spy}" if moe else ""))
+    assert all(r.done and len(r.generated) == max_new for r in reqs), "unfinished requests"
+    for name in loop_kernels:
+        assert counts[name] > 0, f"{name} never launched on {cfg.name}'s EngineLoop: {counts}"
+    if moe:
+        spy.check()
+        summary["grouped_matmul_by_branch"] = spy.by_branch
+    assert set(loop.disabled_features) == {"prefix_sharing", "decode_bucketing"}, \
+        loop.disabled_features
+    assert eng.dispatch.fallbacks == [], eng.dispatch.fallbacks
+    summary.update(loop_summary(label, loop, reqs, wall, eng, counts))
+    graph_spy = MoeSpies() if moe else None
+    summary["graphs"] = phase_graphs(cfg.name, eng, specs, arrivals, reqs, max_new,
+                                     loop_kernels, spies=graph_spy)
+    if moe:
+        graph_spy.check()
+    summary["profile_graphs"] = profile_loop_decode(eng, specs, cuda_graphs=True)
+    assert summary["profile_graphs"]["syncs_per_step"] == 1, summary["profile_graphs"]
+    prompt = next(p for p in specs if len(p) > 128)
+    summary["kernel_vs_plain"] = compare_paths(f"{cfg.name} EngineLoop", eng, chunk_then_decode,
+                                               prompt, prompt[128])
+    summary["generate"] = phase_generate(eng, tag=label, kernels=generate_kernels)
+    torch.cuda.synchronize()
+    return [eng], summary
+
+
+def phase_rwkv6(dev, results: dict):
+    """rwkv6-7b at full width and depth (32 layers, d_model 4096, 64 wkv
+    heads of 64, d_ff 14336, vocab 65536; ~3.5 GB of int4 weights and an
+    int8 ``lm_head``), attention-free: 6 requests of 64-700 tokens (two not
+    multiples of 8), 16 new, as ``phase_recurrent`` sets out; the kernels
+    on its path are ``w4a8_matmul`` and ``rmsnorm``."""
+    from repro_torch.configs import registry
+    cfg = registry.get("rwkv6-7b")
+    specs, arrivals = recurrent_trace(cfg.vocab_size, [700, 64, 301, 128, 451, 200],
+                                      [0, 0, 1, 2, 4, 7], seed=11)
+    return phase_recurrent(dev, "rwkv6", cfg, specs, arrivals, RWKV_NEW, RWKV_KERNELS,
+                           RWKV_KERNELS, extra=f"; {cfg.num_layers} rwkv6 layers")
+
+
+def phase_jamba(dev, results: dict):
+    """jamba-1.5-large-398b at full width (d_model 8192, 64/8 heads, mamba
+    d_inner 16384 with d_state 16 and dt_rank 512, 16 experts top-2 of d_ff
+    24576 on every other layer) and 16 of its 72 layers, from seed 0: two
+    periods of one attention layer and seven mamba layers.  The depth is
+    cut because the 72-layer int4 model (about 199 GB) does not fit one
+    card.  4 requests of 200-680 tokens, 8 new, as ``phase_recurrent`` sets
+    out, with rows 1-5 on the path (kernel 2 and 3 on the two attention
+    layers, both grouped branches) and rows 6 and 7 in ``Engine.generate``;
+    then ``recurrent_pressure``."""
+    import dataclasses
+    from repro_torch.configs import registry
+    full = registry.get("jamba-1.5-large-398b")
+    cfg = dataclasses.replace(full, num_layers=JAMBA_LAYERS)
+    log(f"[jamba] reduced: depth {JAMBA_LAYERS} of {full.num_layers} layers (every width "
+        "kept): the 72-layer int4 model, about 199 GB, does not fit one 80 GB card")
+    specs, arrivals = recurrent_trace(cfg.vocab_size, [680, 200, 413, 333], [0, 0, 1, 3],
+                                      seed=12)
+    holder, summary = phase_recurrent(
+        dev, "jamba", cfg, specs, arrivals, JAMBA_NEW, MOE_KERNELS,
+        GENERATE_KERNELS + ("grouped_matmul",),
+        extra=f"; {cfg.num_experts} experts top-{cfg.experts_per_tok} on odd layers", moe=True)
+    summary["reduced"] = {"num_layers": [full.num_layers, JAMBA_LAYERS]}
+    summary["pressure"] = recurrent_pressure(holder[0])
+    return holder, summary
+
+
 def drop_flash(name: str) -> None:
     """Delete a phase's Flash embedding (the card machine's disk is finite)."""
     import shutil
@@ -3080,7 +3357,9 @@ def main() -> int:
     big = {}
     for label, phase, flash in (("gemma3", phase_gemma3, "flash-gemma3"),
                                 ("qwen110b", phase_big_dense, "flash-qwen110b"),
-                                ("grok1", phase_grok, "flash-grok1")):
+                                ("grok1", phase_grok, "flash-grok1"),
+                                ("rwkv6", phase_rwkv6, "flash-rwkv6"),
+                                ("jamba", phase_jamba, "flash-jamba")):
         t_p = time.perf_counter()
         holder, big[label] = phase(dev, results)
         free_engine(label, holder)
@@ -3113,7 +3392,16 @@ def main() -> int:
              "EngineLoop qwen1.5-110b, CUDA graphs": big["qwen110b"]["graphs"]["launches"],
              f"EngineLoop grok-1-314b ({GROK_LAYERS} of 64 layers)": big["grok1"]["launches"],
              f"EngineLoop grok-1-314b ({GROK_LAYERS} of 64 layers), CUDA graphs":
-                 big["grok1"]["graphs"]["launches"]}
+                 big["grok1"]["graphs"]["launches"],
+             "EngineLoop rwkv6-7b": big["rwkv6"]["launches"],
+             "EngineLoop rwkv6-7b, CUDA graphs": big["rwkv6"]["graphs"]["launches"],
+             "Engine.generate rwkv6-7b": big["rwkv6"]["generate"]["launches"],
+             f"EngineLoop jamba-1.5-large-398b ({JAMBA_LAYERS} of 72 layers)":
+                 big["jamba"]["launches"],
+             f"EngineLoop jamba-1.5-large-398b ({JAMBA_LAYERS} of 72 layers), CUDA graphs":
+                 big["jamba"]["graphs"]["launches"],
+             f"Engine.generate jamba-1.5-large-398b ({JAMBA_LAYERS} of 72 layers)":
+                 big["jamba"]["generate"]["launches"]}
     kernels = []
     for name in KERNELS:
         r = results[name]
@@ -3136,7 +3424,8 @@ def main() -> int:
               "generate_path": generate, "lora_path": lora, "gateway_path": gateway,
               "spill_path": spill, "glm4_path": glm4, "moe_path": moe,
               "gemma3_path": big["gemma3"], "qwen1.5-110b_path": big["qwen110b"],
-              "grok1_path": big["grok1"],
+              "grok1_path": big["grok1"], "rwkv6_path": big["rwkv6"],
+              "jamba_path": big["jamba"],
               "wstream": wstream,
               "total_s": time.perf_counter() - t_start}
     (OUT / "chip_smoke.json").write_text(json.dumps(detail, indent=1))

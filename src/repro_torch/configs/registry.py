@@ -3,12 +3,13 @@
 The port serves the paper's three dense decoders, glm4-9b (a dense decoder
 with 16 query heads per KV head), qwen1.5-110b (the largest dense config,
 with the qkv bias), gemma3-27b (five sliding-window layers to each global
-one, gelu FFN) and three MoE decoders (moonshot-v1-16b-a3b, grok-1-314b and
+one, gelu FFN), three MoE decoders (moonshot-v1-16b-a3b, grok-1-314b and
 dbrx-132b, whose ``@tiny-moe`` variant -- GQA with two key/value heads, 8
-experts at top-2 -- is the expert-streaming test model).  The reference's
-recurrent (rwkv6-7b, jamba-1.5-large-398b), encoder-decoder
-(seamless-m4t-large-v2) and M-RoPE (qwen2-vl-2b) configs are not ported
-yet (ROADMAP queue 1 items 14-15).
+experts at top-2 -- is the expert-streaming test model) and two recurrent
+stacks: rwkv6-7b (attention-free) and jamba-1.5-large-398b (one attention
+layer to seven mamba layers, MoE on every other layer).  The reference's
+encoder-decoder (seamless-m4t-large-v2) and M-RoPE (qwen2-vl-2b) configs
+are not ported yet (ROADMAP queue 1 item 15).
 ``reduced``, ``tiny`` and ``tiny_moe`` are copies of the reference
 transforms (only the branches these configs reach)."""
 from __future__ import annotations
@@ -17,8 +18,9 @@ import dataclasses
 from typing import Dict
 
 from repro_torch.configs import (dbrx_132b, gemma3_27b, glm4_9b, grok_1_314b,
-                                 llama3_8b, moonshot_v1_16b_a3b, qwen1_5_110b,
-                                 qwen2_1_5b, qwen2_7b)
+                                 jamba_1_5_large_398b, llama3_8b,
+                                 moonshot_v1_16b_a3b, qwen1_5_110b, qwen2_1_5b,
+                                 qwen2_7b, rwkv6_7b)
 from repro_torch.configs.base import ATTN, LayerPattern, ModelConfig
 
 PAPER_MODELS = {
@@ -30,9 +32,11 @@ PAPER_MODELS = {
 ARCHS: Dict[str, ModelConfig] = {
     "moonshot-v1-16b-a3b": moonshot_v1_16b_a3b.CONFIG,
     "glm4-9b": glm4_9b.CONFIG,
+    "rwkv6-7b": rwkv6_7b.CONFIG,
     "dbrx-132b": dbrx_132b.CONFIG,
     "grok-1-314b": grok_1_314b.CONFIG,
     "qwen1.5-110b": qwen1_5_110b.CONFIG,
+    "jamba-1.5-large-398b": jamba_1_5_large_398b.CONFIG,
     "gemma3-27b": gemma3_27b.CONFIG, **PAPER_MODELS}
 
 VARIANTS = ("reduced", "tiny", "tiny-moe")
@@ -57,10 +61,10 @@ def get(arch: str) -> ModelConfig:
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
-    """Same-family smoke variant: 2 layers, d_model 256, head_dim 64,
-    d_ff 512, vocab 512; gemma3 keeps one local layer (window 16) and one
-    global layer."""
-    d_model = 256
+    """Same-family smoke variant: 2 layers, d_model 256 (rwkv: 128), head_dim
+    64, d_ff 512, vocab 512; gemma3 keeps one local layer (window 16) and
+    one global layer, jamba one attention layer and one mamba+MoE layer."""
+    d_model = 128 if cfg.period[0].kind == "rwkv" else 256
     head_dim = 64
     num_heads = max(2, d_model // head_dim)
     num_kv = min(cfg.num_kv_heads, num_heads)
@@ -69,6 +73,8 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
     period = cfg.period
     if cfg.name.startswith("gemma3"):
         period = (LayerPattern("attn", window=16), ATTN)   # one local + one global
+    if cfg.name.startswith("jamba"):
+        period = (LayerPattern("attn"), LayerPattern("mamba", moe=True))
     num_layers = min(len(period), 2) if len(period) > 1 else 2
     return dataclasses.replace(
         cfg,
@@ -89,11 +95,21 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
 
 
 def tiny(cfg: ModelConfig) -> ModelConfig:
-    """Scaled-down variant that keeps >= 6 layer groups and GQA."""
+    """Scaled-down variant that keeps >= 6 layer groups and GQA.  jamba: 3
+    periods and a 2-layer tail (attention, mamba+MoE); rwkv6: the period
+    doubled over 7 layers -- two stacks, both recurrent, either way."""
+    num_layers = max(6, 3 * len(cfg.period))
+    period = cfg.period
+    if cfg.name.startswith("jamba"):
+        num_layers = 3 * len(cfg.period) + 2
+    if cfg.name.startswith("rwkv6"):
+        period = cfg.period * 2
+        num_layers = 7
     return dataclasses.replace(
         cfg,
         name=cfg.name + "-tiny",
-        num_layers=max(6, 3 * len(cfg.period)),
+        period=period,
+        num_layers=num_layers,
         encoder_layers=2 if cfg.encoder_layers else 0,
         d_model=256,
         num_heads=4,

@@ -44,7 +44,9 @@ def grouped_matmul_plain(xq: torch.Tensor, sx: torch.Tensor, w: torch.Tensor,
     wq = q.unpack_int4(w) if bits == 4 else w
     if xq.shape[-1] < wq.shape[-2]:
         xq = F.pad(xq, (0, wq.shape[-2] - xq.shape[-1]))
-    acc = q.int_dot(xq, wq)
+    # one expert's float64 table at a time (the dot is exact either way):
+    # jamba's whole [16, 24576, 8192] table would take 24 GiB
+    acc = torch.stack([q.int_dot(xq[e], wq[e]) for e in range(wq.shape[0])])
     rowsum = xq.to(torch.int32).sum(dim=-1, keepdim=True)
     y = w_scale[:, None, :] * q.zero_correction(acc, w_zero[:, None, :], rowsum)
     return y * sx

@@ -8,6 +8,10 @@ repro.launch.serve``.
       --requests 8 --max-new 32 --slots 4 --max-seq 2048
   PYTHONPATH=src python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b \\
       --max-seq 1024 --max-prompt 400
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
+      --max-seq 2048 --max-prompt 700 --prefill-chunk 128
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch jamba-1.5-large-398b@tiny --device cpu --max-seq 64
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b@reduced \\
       --device cpu --http 8090
   curl -N http://127.0.0.1:8090/v1/completions -d \\
@@ -16,7 +20,8 @@ repro.launch.serve``.
 ``--arch`` takes ``<arch>`` or ``<arch>@reduced`` / ``@tiny`` / ``@tiny-moe``
 (MoE architectures); weights are random, drawn from ``--seed``.  With
 ``--weight-dram-budget BYTES`` the stacks that overflow the budget stream
-from Flash through a ring of device slots (``EngineLoop`` only).  It runs on
+from Flash through a ring of device slots (``EngineLoop`` only; attention
+decoders only: a model with mamba or rwkv6 layers refuses it).  It runs on
 ``cuda``; ``--device cpu`` runs the plain PyTorch path instead.  With
 ``--warmup`` (the default) the loop captures every step graph before
 serving and prints the reference's warmup line (with ``--http``, the

@@ -41,11 +41,18 @@ class ParamBuilder:
     def bias(self, dim: int, lead: tuple = ()) -> torch.Tensor:
         return torch.zeros((*lead, dim), dtype=torch.bfloat16, device=self.device)
 
-    def param(self, shape: tuple, *, scale: float = 0.02,
+    def param(self, shape: tuple, *, lead: tuple = (), scale: float = 0.02,
               dtype=torch.bfloat16) -> torch.Tensor:
-        """A plain (never-quantized) parameter, N(0, scale) drawn in float32
-        and cast to ``dtype`` (the reference's builder default, bf16)."""
-        return (torch.randn(shape, generator=self.gen, device=self.device,
+        """A plain (never-quantized) parameter [*lead, *shape], N(0, scale)
+        drawn in float32 and cast to ``dtype`` (the reference's builder
+        default, bf16); as in the reference, ``scale`` 0 gives zeros and
+        ``scale`` 1 ones for a vector."""
+        full = (*lead, *shape)
+        if scale == 0.0:
+            return torch.zeros(full, dtype=dtype, device=self.device)
+        if scale == 1.0 and len(shape) <= 1:
+            return torch.ones(full, dtype=dtype, device=self.device)
+        return (torch.randn(full, generator=self.gen, device=self.device,
                             dtype=torch.float32) * scale).to(dtype)
 
     def linear(self, in_dim: int, out_dim: int, *, bits: Optional[int] = None,
@@ -54,35 +61,39 @@ class ParamBuilder:
         """{"w": PackedLinear} with data [*lead, Kp, Np/2 | Np] — a
         ``PackedExpertLinear`` for expert tables (``experts``, lead
         ``(count, E)``).  Each index of the first leading axis (one layer) is
-        drawn, quantized and packed separately and copied into carriers
-        allocated once, so the float32 transient is one layer's
-        [*lead[1:], in_dim, out_dim] and nothing is stacked."""
+        drawn separately, then quantized and packed one [in_dim, out_dim]
+        slab (an expert) at a time into carriers allocated once (the scales
+        are per column, so slab by slab is the whole table's quantization):
+        the float32 transient is one layer's draw and nothing is stacked.
+        ``bits`` 16 (the reference's unquantized linear): {"w": a bf16
+        tensor [*lead, in_dim, out_dim]}."""
         bits = self.qcfg.weight_bits if bits is None else bits
         if bits >= 16:
-            raise NotImplementedError("unquantized (bits=16) linears have no "
-                                      "kernel on the serving path")
+            return {"w": self.param((in_dim, out_dim), lead=lead, scale=scale)}
         cls = RP.PackedExpertLinear if experts else RP.PackedLinear
         gs = self.qcfg.group_size
         carriers = None
         for i in range(lead[0] if lead else 1):
             wf = torch.randn((*lead[1:], in_dim, out_dim), generator=self.gen,
-                             device=self.device, dtype=torch.float32) * scale
-            p = RP.pack_linear(q.quantize(wf, bits, group_size=gs))
+                             device=self.device, dtype=torch.float32).mul_(scale)
+            for j, slab in enumerate(wf.reshape(-1, in_dim, out_dim)):
+                p = RP.pack_linear(q.quantize(slab, bits, group_size=gs))
+                if not lead:
+                    return {"w": cls(p.data, p.scale, p.zero, bits, p.k, p.n)}
+                if carriers is None:
+                    carriers = [torch.empty((*lead, *t.shape), dtype=t.dtype,
+                                            device=self.device)
+                                for t in (p.data, p.scale, p.zero)]
+                for dst, src in zip(carriers, (p.data, p.scale, p.zero)):
+                    dst[i].reshape(-1, *src.shape)[j] = src
             del wf
-            if not lead:
-                return {"w": cls(p.data, p.scale, p.zero, bits, p.k, p.n)}
-            if carriers is None:
-                carriers = [torch.empty((lead[0], *t.shape), dtype=t.dtype,
-                                        device=self.device)
-                            for t in (p.data, p.scale, p.zero)]
-            for dst, src in zip(carriers, (p.data, p.scale, p.zero)):
-                dst[i] = src
         return {"w": cls(*carriers, bits, p.k, p.n)}
 
 
 def apply_linear(x: torch.Tensor, p: dict, qcfg: q.QuantConfig,
                  dispatch: D.Dispatcher, out_dtype=torch.bfloat16) -> torch.Tensor:
-    """y = x @ w (+b) through the dispatcher."""
+    """y = x @ w (+b) through the dispatcher (``w`` packed, or a bf16
+    tensor for the unquantized linear)."""
     y = dispatch.linear(x, p["w"], qcfg, out_dtype=out_dtype)
     if "b" in p:
         y = y + p["b"].to(y.dtype)

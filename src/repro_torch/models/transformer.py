@@ -1,9 +1,17 @@
 """Model assembly for serving — port of the serving paths of
-``repro.models.transformer``: parameters (dense or MoE FFN), the two decode
-states — dense per-sequence caches (``init_cache``, ``prefill``,
-``decode_step``: the slot-synchronous ``Engine.generate``) and the paged
-pool (``init_paged_cache``, ``prefill_chunk_paged``, ``decode_step`` /
-``decode_step_bucketed``: the ``EngineLoop``).
+``repro.models.transformer``: parameters (attention, mamba or rwkv6 layers;
+dense or MoE FFN), the two decode states — dense per-sequence caches
+(``init_cache``, ``prefill``, ``decode_step``: the slot-synchronous
+``Engine.generate``) and the paged pool (``init_paged_cache``,
+``prefill_chunk_paged``, ``decode_step`` / ``decode_step_bucketed``: the
+``EngineLoop``).
+
+A recurrent layer's entry in either cache is its state, a dict of leaves
+[count, B, ...] (``models.ssm``); the paged cache holds one spare row past
+the slots, which warm-up chunks write.  Every step updates the rows it runs
+in place: a prompt chunk its row (``index_copy_`` at the chunk's device
+``slot``), a decode step its active rows, leaving the others' state as the
+reference's ``freeze_inactive_rows`` does.
 
 Parameters keep the reference's tree: ``{"stacks": (stack, ...),
 "final_norm", "lm_head"}`` where each stack is a tuple with one dict per
@@ -33,6 +41,7 @@ from repro_torch.core.precision import DEFAULT_POLICY, PrecisionPolicy
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import ssm as S
 from repro_torch.runtime import dispatch as D
 from repro_torch.runtime import plan as RP
 
@@ -40,11 +49,8 @@ from repro_torch.runtime import plan as RP
 def _check_supported(cfg: ModelConfig) -> None:
     for patterns, _count in cfg.layer_plan():
         for pat in patterns:
-            if pat.kind != "attn":
-                raise NotImplementedError(
-                    f"{cfg.name}: {pat.kind} layers are not ported (the port "
-                    "serves attention decoders, full or windowed; ROADMAP "
-                    "queue 1 item 14)")
+            if pat.kind not in ("attn", "mamba", "rwkv"):
+                raise ValueError(f"{cfg.name}: unknown layer kind {pat.kind!r}")
     if cfg.is_encdec:
         raise NotImplementedError(f"{cfg.name}: encoder-decoder models are not "
                                   "ported (ROADMAP queue 1 item 15)")
@@ -53,9 +59,17 @@ def _check_supported(cfg: ModelConfig) -> None:
 def _pattern_params(b: L.ParamBuilder, cfg: ModelConfig, pat: LayerPattern,
                     count: int) -> dict:
     lead = (count,)
-    p = {"ln1": b.norm(cfg.d_model, lead),
-         "attn": A.attn_params(b, cfg, lead),
-         "ln2": b.norm(cfg.d_model, lead)}
+    p = {"ln1": b.norm(cfg.d_model, lead)}
+    if pat.kind == "rwkv":
+        # rwkv_params holds its own channel mix, which ln2 norms
+        p["tm"] = S.rwkv_params(b, cfg, lead)
+        p["ln2"] = b.norm(cfg.d_model, lead)
+        return p
+    if pat.kind == "mamba":
+        p["mamba"] = S.mamba_params(b, cfg, lead)
+    else:
+        p["attn"] = A.attn_params(b, cfg, lead)
+    p["ln2"] = b.norm(cfg.d_model, lead)
     if pat.moe:
         p["moe"] = M.moe_params(b, cfg, lead)
     else:
@@ -92,12 +106,18 @@ def layer_slice(tree, i: int):
 # Decode state
 # ===========================================================================
 
+def _recurrent_state(cfg: ModelConfig, pat: LayerPattern, batch: int, count: int,
+                     device: torch.device) -> dict:
+    init = S.init_mamba_state if pat.kind == "mamba" else S.init_rwkv_state
+    return init(batch, cfg, lead=(count,), device=device)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
                device: torch.device = torch.device("cpu")) -> dict:
     """Dense decode state: one stacked ``LayerKVCache`` per attention
-    pattern (a windowed pattern's a ring of min(window, max_seq) slots) and
-    ``pos``, one scalar position for every row (the slot-synchronous
-    path)."""
+    pattern (a windowed pattern's a ring of min(window, max_seq) slots), a
+    zero state per recurrent pattern and ``pos``, one scalar position for
+    every row (the slot-synchronous path)."""
     _check_supported(cfg)
     stacks = tuple(
         tuple(kvc.init_layer_cache(batch, max_seq, cfg.num_kv_heads,
@@ -105,6 +125,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
                                    key_bits=cfg.quant.kv_key_bits,
                                    value_fp8=cfg.quant.kv_value_fp8,
                                    layers=count, device=device)
+              if pat.kind == "attn" else
+              _recurrent_state(cfg, pat, batch, count, device)
               for pat in patterns)
         for patterns, count in cfg.layer_plan())
     return {"stacks": stacks,
@@ -114,8 +136,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
 def init_paged_cache(cfg: ModelConfig, batch: int, geom: KP.PoolGeometry,
                      device: torch.device) -> dict:
     """Paged decode state: one stacked page pool per attention pattern (a
-    windowed pattern's holds a ring per row), the per-row positions ``pos``
-    [batch] and the page table [batch, pages_per_row] that the
+    windowed pattern's holds a ring per row), a zero state of batch + 1 rows
+    per recurrent pattern (the last one spare), the per-row positions
+    ``pos`` [batch] and the page table [batch, pages_per_row] that the
     full-attention pools share, all-trash until the host allocator hands
     out pages."""
     _check_supported(cfg)
@@ -124,6 +147,8 @@ def init_paged_cache(cfg: ModelConfig, batch: int, geom: KP.PoolGeometry,
                                   layers=count, batch=batch, window=pat.window,
                                   key_bits=cfg.quant.kv_key_bits,
                                   value_fp8=cfg.quant.kv_value_fp8, device=device)
+              if pat.kind == "attn" else
+              _recurrent_state(cfg, pat, batch + 1, count, device)
               for pat in patterns)
         for patterns, count in cfg.layer_plan())
     return {"stacks": stacks,
@@ -141,6 +166,56 @@ def free_slots(cache: dict, rows) -> dict:
     return cache
 
 
+def reset_row_recurrent(cache: dict, cfg: ModelConfig, slot: int) -> dict:
+    """Zero row ``slot`` of every recurrent state, in place (one fill a
+    leaf, no host wait): a fresh prompt's first chunk enters from the
+    initial state, not the previous occupant's exit state."""
+    for si, (patterns, _count) in enumerate(cfg.layer_plan()):
+        for pi, pat in enumerate(patterns):
+            if pat.kind != "attn":
+                for leaf in cache["stacks"][si][pi].values():
+                    leaf[:, int(slot)].zero_()
+    return cache
+
+
+def layer_entry(entry, li: int):
+    """Layer ``li`` of a stacked cache entry: a pool's or cache's ``layer``,
+    a recurrent state's leaves at ``li`` (views)."""
+    if isinstance(entry, dict):
+        return {k: v[li] for k, v in entry.items()}
+    return entry.layer(li)
+
+
+def _state_rows(state: dict, mode: str, slot, rows, batch: int) -> dict:
+    """The rows of a layer's recurrent state ([B, ...] leaves) that a step
+    runs: a prompt chunk's one row at ``slot``, a decode step's gathered
+    ``rows`` (None: the first ``batch``)."""
+    if mode == "prefill_paged":
+        idx = slot.reshape(1).long()
+        return {k: v.index_select(0, idx) for k, v in state.items()}
+    if rows is not None:
+        return {k: v.index_select(0, rows) for k, v in state.items()}
+    return {k: v[:batch] for k, v in state.items()}
+
+
+def _put_state_rows(state: dict, new: dict, mode: str, slot, rows, batch: int,
+                    active) -> None:
+    """Write a step's exit state back in place; rows outside ``active`` keep
+    theirs (``torch.where``, the reference's ``freeze_inactive_rows``)."""
+    for k, v in state.items():
+        val = new[k].to(v.dtype)
+        if mode == "prefill_paged":
+            v.index_copy_(0, slot.reshape(1).long(), val)
+            continue
+        if active is not None:
+            old = v.index_select(0, rows) if rows is not None else v[:batch]
+            val = torch.where(active.reshape((-1,) + (1,) * (val.dim() - 1)), val, old)
+        if rows is not None:
+            v.index_copy_(0, rows, val)
+        else:
+            v[:batch].copy_(val)
+
+
 # ===========================================================================
 # Forward passes
 # ===========================================================================
@@ -149,15 +224,31 @@ def _apply_layer(x: torch.Tensor, pp: dict, cfg: ModelConfig, pat: LayerPattern,
                  mode: str, positions: torch.Tensor, cache, pos, table,
                  dispatch: D.Dispatcher, policy: PrecisionPolicy,
                  collect: Optional[dict] = None, lora: Optional[dict] = None,
-                 slot=None, valid_len=None, active=None):
+                 slot=None, valid_len=None, active=None, rows=None):
     """One layer.  ``cache`` is this layer's ``PagedLayerKV`` (modes
     "prefill_paged" and "decode") or ``LayerKVCache`` ("prefill" and
-    "decode").  ``collect``: an MoE layer's router ids (``apply_moe``).
-    ``slot`` and ``valid_len``: a prompt chunk's row and real tokens, and
-    ``active`` [B]: a paged decode step's live rows (windowed layers'
-    rings).  Returns (x, the layer's cache after the step)."""
+    "decode"), or a recurrent layer's state ([B, ...] leaves, written in
+    place).  ``collect``: an MoE layer's router ids (``apply_moe``).
+    ``slot`` and ``valid_len``: a prompt chunk's row and real tokens;
+    ``active`` [B]: a decode step's live rows (windowed layers' rings,
+    recurrent states); ``rows`` [B]: a decode step's slots in a recurrent
+    state (None: the first B).  Returns (x, the layer's cache after the
+    step)."""
     h = L.rms_norm(x, pp["ln1"], cfg.rms_eps, dispatch)
-    if mode == "prefill_paged":
+    if pat.kind != "attn":
+        # the chunk's real tokens reach the state; a decode step's are all real
+        batch, vl = x.shape[0], valid_len if mode == "prefill_paged" else None
+        st = _state_rows(cache, mode, slot, rows, batch)
+        if pat.kind == "rwkv":
+            y, st = S.rwkv_time_mix(h, pp["tm"], cfg, st, dispatch, valid_len=vl)
+            x = x + y
+            h2 = L.rms_norm(x, pp["ln2"], cfg.rms_eps, dispatch)
+            y2, st = S.rwkv_channel_mix(h2, pp["tm"], cfg, st, dispatch, valid_len=vl)
+            _put_state_rows(cache, st, mode, slot, rows, batch, active)
+            return x + y2, cache
+        att, st = S.mamba_forward(h, pp["mamba"], cfg, st, dispatch, valid_len=vl)
+        _put_state_rows(cache, st, mode, slot, rows, batch, active)
+    elif mode == "prefill_paged":
         att = A.attention_prefill_paged(h, pp["attn"], cfg, pat, cache, table,
                                         positions, pos, dispatch, policy, lora,
                                         slot=slot, valid_len=valid_len)
@@ -186,14 +277,15 @@ def _run_stacks(x: torch.Tensor, params: dict, cfg: ModelConfig, mode: str,
                 dispatch: D.Dispatcher, policy: PrecisionPolicy = DEFAULT_POLICY,
                 collect: Optional[list] = None,
                 lora: Optional[dict] = None, slot=None, valid_len=None,
-                active=None) -> torch.Tensor:
+                active=None, rows=None) -> torch.Tensor:
     """Every layer in order.  ``mode`` "prefill_paged": ``pos`` is the
     chunk's first position, ``table`` the row's [pages_per_row] table,
     ``slot`` the row and ``valid_len`` the chunk's real tokens;
     "prefill": the dense caches are empty and fill from position 0;
     "decode": ``pos`` the per-row positions [B] (or, on dense caches, one
-    scalar), ``table`` [B, pages_per_row] (None for dense caches) and
-    ``active`` [B] the live rows (None: all).
+    scalar), ``table`` [B, pages_per_row] (None for dense caches),
+    ``active`` [B] the live rows (None: all) and ``rows`` [B] their slots
+    in the recurrent states (None: the first B).
     Caches are written in place; dense caches get their per-layer lengths
     stacked back.  ``collect``: if a list, each layer's output hidden
     state is appended (parity tests)."""
@@ -204,9 +296,10 @@ def _run_stacks(x: torch.Tensor, params: dict, cfg: ModelConfig, mode: str,
         for li in range(count):
             for pi, pat in enumerate(patterns):
                 x, new = _apply_layer(x, layer_slice(sp[pi], li), cfg, pat, mode,
-                                      positions, cache["stacks"][si][pi].layer(li),
+                                      positions, layer_entry(cache["stacks"][si][pi], li),
                                       pos, table, dispatch, policy, lora=lora,
-                                      slot=slot, valid_len=valid_len, active=active)
+                                      slot=slot, valid_len=valid_len, active=active,
+                                      rows=rows)
                 if isinstance(new, kvc.LayerKVCache):
                     lengths[pi].append(new.length)
                 if collect is not None:
@@ -236,8 +329,8 @@ def run_stack_group(gp: tuple, cfg: ModelConfig, stack_idx: int, mode: str,
     for pi, pat in enumerate(patterns):
         sub = None if collect is None else {}
         x, _ = _apply_layer(x, gp[pi], cfg, pat, mode, positions,
-                            cache["stacks"][stack_idx][pi].layer(group), pos, table,
-                            dispatch, policy, sub, lora)
+                            layer_entry(cache["stacks"][stack_idx][pi], group), pos,
+                            table, dispatch, policy, sub, lora)
         if sub:
             ids.append(sub["moe_ids"])
     if collect is not None and ids:
@@ -304,9 +397,10 @@ def decode_step_bucketed(params: dict, cfg: ModelConfig, embeds: torch.Tensor,
     rows are distinct idle slots, masked by ``active`` [b] and routed to the
     trash page by their all-trash table rows).  Only ``pos`` and the table
     are gathered — the pool is physical-page addressed and never moves.
-    Windowed layers' rings are addressed by bucket row, so a model with
-    them decodes every slot in order (the loop turns bucketing off), and
-    the inactive rows' ring writes go to the ring pool's trash page.
+    Windowed layers' rings and recurrent states are addressed by bucket
+    row, so a model with them decodes every slot in order (the loop turns
+    bucketing off); the inactive rows' ring writes go to the ring pool's
+    trash page, and their recurrent state is left as it was.
     ``run_stacks`` as in ``prefill_chunk_paged``; ``lora["ids"]`` [b] in
     bucket order.  Returns (logits [b, V] in
     bucket order, cache with ``pos`` advanced for the active rows)."""
@@ -320,7 +414,7 @@ def decode_step_bucketed(params: dict, cfg: ModelConfig, embeds: torch.Tensor,
     else:
         x = _run_stacks(x, params, cfg, "decode", positions, cache, pos,
                         cache["table"][idx], dispatch, policy, collect, lora,
-                        active=active)
+                        active=active, rows=idx)
     stepped = pos + T if active is None else torch.where(active, pos + T, pos)
     cache["pos"][idx] = stepped
     return _logits(x, params, cfg, dispatch)[:, -1], cache
@@ -353,11 +447,12 @@ def decode_step(params: dict, cfg: ModelConfig, embeds: torch.Tensor, cache: dic
                 lora: Optional[dict] = None) -> Tuple[torch.Tensor, dict]:
     """One decode step of every row: embeds [B, 1, d] against dense caches
     (``pos`` a scalar or [B]) or the paged pool (``pos`` [B], ``table``).
-    ``active`` [B] keeps inactive rows' positions, and their KV bytes stay
-    as the reference's ``freeze_inactive_rows`` leaves them: a paged row
-    outside the step has an all-trash table row, its windowed layers write
-    the ring pool's trash page, and a dense row rewrites the same slot next
-    step.  Returns (logits [B, V], cache with ``pos`` advanced)."""
+    ``active`` [B] keeps inactive rows' positions, and their KV bytes and
+    recurrent state stay as the reference's ``freeze_inactive_rows`` leaves
+    them: a paged row outside the step has an all-trash table row, its
+    windowed layers write the ring pool's trash page, a dense row rewrites
+    the same slot next step, and a recurrent state keeps the row's value.
+    Returns (logits [B, V], cache with ``pos`` advanced)."""
     x = embeds.to(torch.bfloat16)
     B, T = x.shape[:2]
     pos = cache["pos"]

@@ -16,6 +16,12 @@ falls back, the port runs its kernel over the ring's live slots (see
 
 ``backend="reference"`` runs the plain versions on any device — the only
 use is holding the kernel path against the plain path on the card.
+
+One linear has no kernel by design: the reference's unquantized (bf16)
+weight, rwkv6's low-rank decay path, which the reference multiplies in XLA
+(``_matmul_reference``), never in a Pallas kernel.  ``linear`` computes it
+in float32 from the bf16 operands with ``torch.matmul`` on every device; it
+is no fallback and is not recorded in ``fallbacks``.
 """
 from __future__ import annotations
 
@@ -53,7 +59,17 @@ class Dispatcher:
 
     def linear(self, x: torch.Tensor, w, qcfg: q.QuantConfig,
                out_dtype=torch.bfloat16) -> torch.Tensor:
-        """y = x @ w for a ``PackedLinear`` weight."""
+        """y = x @ w for a ``PackedLinear`` weight, or for a bf16 weight
+        [K, N]: bf16 operands, float32 products and sums (TF32 stays off),
+        cast to ``out_dtype`` -- the reference's ``preferred_element_type``
+        float32 dot."""
+        if torch.is_tensor(w):
+            if w.dim() != 2:
+                raise ValueError("stacked weights: slice one layer first")
+            if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+                raise RuntimeError("TF32 matmuls are on: the bf16 linear sums in float32")
+            y = torch.matmul(x.to(torch.bfloat16).float(), w.to(torch.bfloat16).float())
+            return y.to(out_dtype)
         if w.data.dim() != 2:
             raise ValueError("stacked weights: slice one layer first")
         eligible = (qcfg.act_bits == 8 and w.scale.shape[-2] == 1

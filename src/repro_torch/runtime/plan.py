@@ -34,6 +34,9 @@ from repro_torch.core import quantization as q
 LANE = 128            # K alignment
 N_ALIGN = 2 * LANE    # output-channel alignment (nibble pairs stay aligned)
 M_ALIGN = 8
+# prompt chunks are multiples of this: the mamba scan's fixed block
+# (models/ssm.py SCAN_BLOCK, which asserts the two equal)
+CHUNK_ALIGN = 8
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -320,13 +323,14 @@ def kv_page_size(max_seq: int) -> int:
 
 
 def prefill_chunk_schedule(cfg, prefill_chunk: int, page_size: int) -> int:
-    """The engine's prefill chunk cap: a multiple of 8; windowed stacks
-    round down to the largest power of two <= min(cap, page_size)."""
-    cap = max(8, (int(prefill_chunk) // 8) * 8)
+    """The engine's prefill chunk cap: a multiple of ``CHUNK_ALIGN``;
+    windowed stacks round down to the largest power of two <= min(cap,
+    page_size)."""
+    cap = max(CHUNK_ALIGN, (int(prefill_chunk) // CHUNK_ALIGN) * CHUNK_ALIGN)
     windowed = any(pat.kind == "attn" and pat.window > 0
                    for pats, _count in cfg.layer_plan() for pat in pats)
     if windowed:
-        b = 8
+        b = CHUNK_ALIGN
         while b * 2 <= min(cap, page_size):
             b *= 2
         cap = b

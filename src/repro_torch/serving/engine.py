@@ -16,7 +16,11 @@
 MoE models decode every slot each step, unbucketed, as the reference loop
 does (``disabled_features["decode_bucketing"]`` says why); so do models
 with sliding-window layers, whose per-row rings also turn prefix sharing
-off and cap prompt chunks at one page, as in the reference.
+off and cap prompt chunks at one page, as in the reference, and models with
+recurrent (mamba, rwkv6) layers, whose per-row state turns prefix sharing
+off too.  A recurrent row's state is zeroed at admission, carried from
+chunk to chunk, frozen while the row sits out a decode step, and goes to
+Flash with the row's pages when it is preempted.
 
 The KV pool has the reference's Flash tier (C2): cold prompt pages of
 running rows spill to Flash under page pressure and are gathered back into
@@ -62,6 +66,7 @@ from repro_torch.core import hybrid_storage as HS
 from repro_torch.core import kv_pool as KP
 from repro_torch.core import lora as LR
 from repro_torch.kernels import loader
+from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
 from repro_torch.runtime import dispatch as D
 from repro_torch.runtime import plan as RP
@@ -429,6 +434,12 @@ class Engine:
         # stack -> (group skeleton: meta tensors, per-leaf expert flags)
         self._stream_skel: Dict[int, tuple] = {}
         if self.weight_policy.active:
+            if any(pat.kind != "attn" for pats, _ in cfg.layer_plan() for pat in pats):
+                raise NotImplementedError(
+                    "weight streaming on a model with recurrent layers: the "
+                    "split step does not carry the chunk's row and real length "
+                    "or the decode rows' activity to the recurrent state "
+                    "(ROADMAP queue 1 item 14a)")
             self._export_streamed_stacks()
         self.stats.dram_weight_bytes = self.weight_policy.resident_bytes
 
@@ -572,12 +583,15 @@ def _concat_caches(caches: List[dict]) -> dict:
             return parts[0]
         return torch.cat(parts, dim=1)
 
-    stacks = tuple(
-        tuple(dataclasses.replace(
+    def merge(entries):
+        if isinstance(entries[0], dict):          # a recurrent state
+            return {k: cat([e[k] for e in entries]) for k in entries[0]}
+        return dataclasses.replace(
             entries[0], **{f: cat([getattr(e, f) for e in entries])
                            for f in ("k_q", "k_scale", "k_zero", "v", "length")})
-              for entries in zip(*per_stack))
-        for per_stack in zip(*[c["stacks"] for c in caches]))
+
+    stacks = tuple(tuple(merge(entries) for entries in zip(*per_stack))
+                   for per_stack in zip(*[c["stacks"] for c in caches]))
     return {"stacks": stacks, "pos": caches[0]["pos"]}
 
 
@@ -646,9 +660,10 @@ class EngineLoop:
         self.max_slots = max_slots
         # prefix sharing adopts whole KV pages by token hash: only where
         # every layer keeps full attention (a windowed layer's ring recycles
-        # its pages, so an adopted page would not reproduce the row's ring)
-        self._full_attn = all(pat.window == 0 for pats, _ in cfg.layer_plan()
-                              for pat in pats)
+        # its pages and a recurrent layer carries state outside the pool, so
+        # an adopted page would not reproduce the row's ring or state)
+        self._full_attn = all(pat.kind == "attn" and pat.window == 0
+                              for pats, _ in cfg.layer_plan() for pat in pats)
         if not self._full_attn and engine.weight_policy.active:
             raise NotImplementedError(
                 "weight streaming on a model with sliding-window layers: the "
@@ -775,18 +790,18 @@ class EngineLoop:
 
     # --- row snapshot / restore (preemption to Flash) ----------------------
     def _state_groups(self):
-        """(group name, stacked pool) of every attention pattern, in layer
-        order: the layer groups of a row's decode state."""
+        """(group name, stacked pool or recurrent state) of every pattern, in
+        layer order: the layer groups of a row's decode state."""
         for si, (patterns, _count) in enumerate(self.cfg.layer_plan()):
             for pi, _pat in enumerate(patterns):
                 yield f"s{si}p{pi}", self.cache["stacks"][si][pi]
 
     def _pooled_groups(self):
         """(group name, stacked pool) of every full-attention page pool: the
-        layer groups that carry per-page bytes (windowed rings are per
-        row, never per page)."""
+        layer groups that carry per-page bytes (windowed rings and recurrent
+        states are per row, never per page)."""
         for group, pool in self._state_groups():
-            if not pool.window:
+            if isinstance(pool, KP.PagedLayerKV) and not pool.window:
                 yield group, pool
 
     @staticmethod
@@ -797,10 +812,20 @@ class EngineLoop:
 
     def _row_groups(self, slot: int, phys: Sequence[int]):
         """(group name, host arrays) of row ``slot``'s decode state: the
-        bytes of its DRAM pages ``phys`` in every full-attention pool and of
-        its ring in every windowed one."""
-        for group, pool in self._state_groups():
-            yield group, KP.read_pages(pool, self._row_pages(pool, slot, phys))
+        bytes of its DRAM pages ``phys`` in every full-attention pool, of its
+        ring in every windowed one and of its row in every recurrent state."""
+        for group, entry in self._state_groups():
+            if isinstance(entry, dict):
+                yield group, S.read_state_row(entry, slot)
+            else:
+                yield group, KP.read_pages(entry, self._row_pages(entry, slot, phys))
+
+    def _write_row_group(self, entry, slot: int, phys: Sequence[int], arrays) -> None:
+        """``_row_groups``' arrays of one group back into row ``slot``."""
+        if isinstance(entry, dict):
+            S.write_state_row(entry, slot, arrays)
+        else:
+            KP.write_pages(entry, self._row_pages(entry, slot, phys), arrays)
 
     def _spill_row(self, slot: int, req: Request, pending: bool) -> None:
         """Move a preempted row's DRAM pages to Flash and free them; pages
@@ -853,11 +878,10 @@ class EngineLoop:
         phys = [self.pool.row_pages[slot][i] for i in rec["dram_idxs"]]
         groups = rec["groups"]
         self.spill.prefetch_async(req.uid, groups[0])
-        for gi, (group, pool) in enumerate(self._state_groups()):
+        for gi, (group, entry) in enumerate(self._state_groups()):
             if gi + 1 < len(groups):
                 self.spill.prefetch_async(req.uid, groups[gi + 1])
-            KP.write_pages(pool, self._row_pages(pool, slot, phys),
-                           self.spill.fetch(req.uid, group))
+            self._write_row_group(entry, slot, phys, self.spill.fetch(req.uid, group))
         self.spill.drop_groups(req.uid, groups)
         self.eng.stats.restored_pages += len(rec["dram_idxs"])
         if pf is not None:
@@ -1046,6 +1070,9 @@ class EngineLoop:
         if not ok:
             raise RuntimeError("admission checked that the pages were free "
                                "or spillable")
+        # chunk 0 reads the row's recurrent state: a fresh prompt starts
+        # from zeros, not from the previous occupant's exit state
+        T.reset_row_recurrent(self.cache, self.cfg, slot)
         shared = int(self.pool.row_shared[slot])
         self.eng.stats.shared_prompt_tokens += shared
         self._prefilling[slot] = {"req": req, "tokens": toks, "t": t,
@@ -1318,8 +1345,8 @@ class EngineLoop:
             ins = {"emb": torch.zeros((n, 1, d), dtype=torch.bfloat16, device=dev),
                    "rows": rows}
         else:
-            # slot max_slots: windowed layers' spare ring, so a warm run
-            # writes no live row's ring
+            # slot max_slots: windowed layers' spare ring and recurrent
+            # states' spare row, so a warm run writes no live row's
             scal = torch.zeros((3,), dtype=torch.int32, device=dev)
             scal[0] = self.max_slots
             scal[2] = n - 1
