@@ -143,6 +143,23 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    back): every request's tokens equal the unpressured run's.  The
    windowed chunk of ``[gemma3]`` is also timed against SDPA over the
    dequantized ring with a window mask.
+9. ``[seamless]`` and ``[qwen2vl]``, each engine released before the next.
+   seamless-m4t-large-v2 at full width and depth (24 encoder and 24
+   decoder layers, d_model 1024, 16 heads of 64, gelu FFN of 8192, vocab
+   256206): kernels 7 and 6 at its shapes first (the encoder non-causal
+   over 256 frames; a 64-token prompt's cross attention folded into the
+   head axis, G' = 64; cross attention at decode), each timed with its
+   bound and SDPA; then 4 greedy requests of 64-token prompts over 256
+   source frames each (N(0, 0.02) from the seed), 32 new tokens through
+   ``Engine.generate``: kernel 7 non-causal 24 times a request, kernel 6
+   folded 24 times a request, a profiled decode step, the encoder, the
+   decoder prefill and a decode step kernel vs plain layer by layer.
+   qwen2-vl-2b at full width and depth (28 layers, 12/2 heads of 128,
+   M-RoPE sections (16, 24, 24)) serves 6 requests through ``EngineLoop``
+   eagerly and on its graphs (text positions; tokens equal, no capture
+   after warmup, 1 sync a graph decode step), runs ``Engine.generate`` at
+   4 x 320, and holds a prefill and a decode step with three-axis
+   positions (text, a 16 x 16-patch image block, text) kernel vs plain.
 
 Launch counts are zeroed just before each serving path and read just after
 it (a graph replay adds the launches its capture recorded): every kernel of
@@ -1139,10 +1156,12 @@ def run_layers(engine, x, mode, positions, pos, table, cache, fed, lora=None, **
     (another run's per-layer outputs) layer i takes that run's output of
     layer i-1 instead of its own input, and the logits are taken on that
     run's last hidden state.  ``lora``: the step's adapter tables and ids;
-    ``kw``: a chunk's ``slot`` and ``valid_len`` (windowed layers)."""
+    ``kw``: a chunk's ``slot`` and ``valid_len`` (windowed layers).  An
+    encoder-decoder's layers read their cross caches, ``cache["cross"]``."""
     from repro_torch.core.precision import DEFAULT_POLICY
     from repro_torch.models import transformer as T
     cfg = engine.cfg
+    cross = cache.get("cross")
     outs = []
     for si, (patterns, count) in enumerate(cfg.layer_plan()):
         for li in range(count):
@@ -1151,7 +1170,9 @@ def run_layers(engine, x, mode, positions, pos, table, cache, fed, lora=None, **
                 x, _ = T._apply_layer(inp, T.layer_slice(engine.params["stacks"][si][pi], li),
                                       cfg, pat, mode, positions,
                                       T.layer_entry(cache["stacks"][si][pi], li), pos, table,
-                                      engine.dispatch, DEFAULT_POLICY, lora=lora, **kw)
+                                      engine.dispatch, DEFAULT_POLICY, lora=lora,
+                                      cross=None if cross is None else
+                                      T.layer_entry(cross[si][pi], li), **kw)
                 outs.append(x)
     last = outs[-1] if fed is None else fed[-1]
     return outs, T._logits(last[:, -1:], engine.params, cfg, engine.dispatch)[:, 0]
@@ -1184,22 +1205,27 @@ def chunk_then_decode(engine, prompt, nxt, feed=None, lora=None):
     return {"chunk": chunk, "decode": dec}
 
 
-def prefill_then_decode(engine, prompt, nxt, feed=None):
+def prefill_then_decode(engine, prompt, nxt, feed=None, caches=None, positions=None,
+                        dec_positions=None):
     """``Engine.generate``'s steps: the whole prompt into a fresh dense cache
-    of ``max_seq`` slots, then the decode step of token ``nxt``."""
+    of ``max_seq`` slots (``caches``: one the caller made, an
+    encoder-decoder's with its cross caches), then the decode step of token
+    ``nxt``; ``positions`` [1, T] or [1, T, 3] and ``dec_positions`` default
+    to the token positions."""
     import numpy as np
     import torch
     from repro_torch.models import transformer as T
     dev = engine.device
     T_ = len(prompt)
-    caches = T.init_cache(engine.cfg, 1, engine.max_seq, device=dev)
-    pre = run_layers(engine, engine.embed(np.asarray(prompt, np.int64)[None]), "prefill",
-                     torch.arange(T_, device=dev)[None], None, None, caches,
-                     None if feed is None else feed["prefill"][0])
+    if caches is None:
+        caches = T.init_cache(engine.cfg, 1, engine.max_seq, device=dev)
     pos = torch.tensor(T_, dtype=torch.int32, device=dev)
+    pre = run_layers(engine, engine.embed(np.asarray(prompt, np.int64)[None]), "prefill",
+                     torch.arange(T_, device=dev)[None] if positions is None else positions,
+                     None, None, caches, None if feed is None else feed["prefill"][0])
     dec = run_layers(engine, engine.embed(np.asarray([[nxt]], np.int64)), "decode",
-                     pos.expand(1, 1), pos, None, caches,
-                     None if feed is None else feed["decode"][0])
+                     pos.expand(1, 1) if dec_positions is None else dec_positions, pos, None,
+                     caches, None if feed is None else feed["decode"][0])
     return {"prefill": pre, "decode": dec}
 
 
@@ -1233,7 +1259,9 @@ def compare_paths(label: str, eng, steps_fn, prompt, nxt) -> dict:
     head, to the tolerance on the same input.  On an MoE model a token whose
     router picks another expert set in the two runs (a near tie decided by
     float noise) is a discrete change, not a kernel error: such tokens are
-    counted, bounded by MAX_ROUTE_FLIPS, and left out of that layer's error."""
+    counted, bounded by MAX_ROUTE_FLIPS, and left out of that layer's error.
+    A step with no logits (an encoder's, whose last entry is its final
+    norm) is held layer by layer only."""
     import torch
     from repro_torch.serving import engine as E
     gc.collect()
@@ -1254,19 +1282,26 @@ def compare_paths(label: str, eng, steps_fn, prompt, nxt) -> dict:
     for si, what in enumerate(ref):
         (ref_h, ref_l), (free_h, free_l), (forced_h, forced_l) = (
             ref[what], free[what], forced[what])
-        for t in (ref_l, free_l, forced_l):
+        for t in (*ref_h, *forced_h, *(() if ref_l is None else (ref_l, free_l, forced_l))):
             assert torch.isfinite(t).all(), what
         drift = [rel_l2(a, b) for a, b in zip(free_h, ref_h)]
         per_layer, flipped, tokens = [], 0, 0
         for li, (a, b) in enumerate(zip(forced_h, ref_h)):
             keep = torch.ones(a.shape[1], dtype=torch.bool, device=a.device)
-            if moe_of[li]:
+            if per_step and moe_of[li]:
                 mi = si * per_step + sum(moe_of[:li])
                 ra, rb = forced_ids[mi], ref_ids[mi]
                 keep = (ra == rb).all(dim=-1)
                 flipped += int((~keep).sum())
                 tokens += keep.numel()
             per_layer.append(rel_l2(a[:, keep], b[:, keep]) if keep.any() else 0.0)
+        if ref_l is None:
+            out[what] = {"per_layer_rel_l2": per_layer, "free_running_rel_l2_by_layer": drift}
+            log(f"[check] {label} {what}: kernel vs plain on the same input: max over "
+                f"{len(per_layer)} layers rel L2 {max(per_layer):.3e} (tolerance "
+                f"{LAYER_REL_L2}); free running: last {drift[-1]:.3e} (printed, not asserted)")
+            assert max(per_layer) <= LAYER_REL_L2, f"{label} {what}: a layer disagrees {per_layer}"
+            continue
         head = rel_l2(forced_l[:, :V], ref_l[:, :V])
         free_logits = rel_l2(free_l[:, :V], ref_l[:, :V])
         out[what] = {"per_layer_rel_l2": per_layer, "head_rel_l2": head,
@@ -1321,12 +1356,14 @@ GENERATE_KERNELS = ("quant_decode_attention", "flash_prefill_attention", "w4a8_m
 
 
 def phase_generate(eng, tag: str = "generate", prompt_len: int = 320,
-                   kernels=GENERATE_KERNELS) -> dict:
+                   kernels=GENERATE_KERNELS, steps=None) -> dict:
     """Four greedy requests with equal-length prompts of ``prompt_len``
     tokens through the slot-synchronous ``Engine.generate`` (it decodes the
     batch at request 0's position, so unequal prompts would decode at the
     wrong offsets); ``tag`` heads its log lines, and every kernel of
-    ``kernels`` must launch."""
+    ``kernels`` must launch.  Then request 0's prefill and a decode step
+    kernel vs plain through ``steps`` (``compare_paths``' steps function;
+    by default ``prefill_then_decode`` on token positions)."""
     import numpy as np
     import torch
     from repro_torch import kernels as K
@@ -1371,7 +1408,8 @@ def phase_generate(eng, tag: str = "generate", prompt_len: int = 320,
     summary["profile"] = profile_steps(f"{cfg.name} Engine.generate decode step, 4 rows",
                                        step)
     summary["kernel_vs_plain"] = compare_paths(f"{cfg.name} Engine.generate", eng,
-                                               prefill_then_decode, prompts[0], prompts[1][0])
+                                               steps or prefill_then_decode, prompts[0],
+                                               prompts[1][0])
     return summary
 
 
@@ -3278,6 +3316,345 @@ def phase_jamba(dev, results: dict):
     return holder, summary
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the encoder-decoder and M-RoPE at full width
+# ---------------------------------------------------------------------------
+
+SEAMLESS_PROMPT = 64
+SEAMLESS_SRC = 256               # source frames a request
+SEAMLESS_NEW = 32
+QWEN2VL_NEW = 16
+
+
+class EncDecSpies:
+    """While entered: the dense attention kernels' launches by what they
+    ran -- kernel 7 causal and non-causal (the encoder), kernel 6 with one
+    query token a row and with T > 1 tokens folded into the head axis
+    (cross attention at prefill)."""
+
+    def __init__(self):
+        self.prefill = {"causal": 0, "non_causal": 0}
+        self.decode = {"one_token": 0, "folded": 0}
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_prefill as FP
+        from repro_torch.kernels import quant_attention as QA
+        from repro_torch.runtime import dispatch as D
+        self._orig = orig = (D.Dispatcher.prefill_attention, D.Dispatcher.decode_attention)
+
+        def prefill(disp, qh, kh, vh, *, causal, window, policy):
+            before = FP.flash_prefill_attention.launches
+            out = orig[0](disp, qh, kh, vh, causal=causal, window=window, policy=policy)
+            self.prefill["causal" if causal else "non_causal"] += (
+                FP.flash_prefill_attention.launches - before)
+            return out
+
+        def decode(disp, qh, cache, pos, policy, causal=True):
+            before = QA.quant_decode_attention.launches
+            out = orig[1](disp, qh, cache, pos, policy, causal=causal)
+            self.decode["folded" if qh.shape[1] > 1 else "one_token"] += (
+                QA.quant_decode_attention.launches - before)
+            return out
+
+        D.Dispatcher.prefill_attention = prefill
+        D.Dispatcher.decode_attention = decode
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from repro_torch.runtime import dispatch as D
+        D.Dispatcher.prefill_attention, D.Dispatcher.decode_attention = self._orig
+
+    def __str__(self) -> str:
+        return f"dense prefill kernel {self.prefill}; dense decode kernel {self.decode}"
+
+
+def dense_caches(B: int, S: int, hkv: int, d: int, gen, dev, copies: int = 4):
+    """``copies`` dense caches [B, S, hkv, d] quantized from random keys and
+    values, as a cross cache is written."""
+    import torch
+    from repro_torch.core import kv_cache as KV
+    from repro_torch.core import quantization as Q
+    out = []
+    for _ in range(copies):
+        k = torch.randn((B, S, hkv, d), generator=gen, device=dev)
+        v = torch.randn((B, S, hkv, d), generator=gen, device=dev)
+        kq, ks, kz = KV.quantize_keys(k.to(torch.bfloat16))
+        out.append((kq, ks, kz, KV.cast_values(v, Q.FP8_DTYPE)))
+    return out
+
+
+def phase_encdec_kernels(dev, cfg, results: dict) -> dict:
+    """Kernels 6 and 7 at seamless-m4t-large-v2's shapes (16 heads of 64 over
+    16 KV heads), each against its plain version, timed a call and on the
+    device beside its bound and SDPA: kernel 7 non-causal over a 256-frame
+    source (the encoder, row 7c); kernel 6 with a 64-token prompt's queries
+    folded into the head axis over a 256-slot cross cache (cross attention
+    at prefill, G' = 64, row 6d); kernel 6 at a 4-row decode step over the
+    same caches (cross attention at decode, row 6e)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import kv_cache as KV
+    from repro_torch.kernels import flash_prefill as FP
+    from repro_torch.kernels import quant_attention as QA
+    gen = torch.Generator(device=dev).manual_seed(78)
+    H, Hkv, D, S = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, SEAMLESS_SRC
+    out = {}
+
+    def record(name: str, key: str, row: dict, label: str) -> None:
+        results[name]["all_shapes"].append(row)
+        results[name]["err"] = max(results[name]["err"], row["err"])
+        out[key] = row
+        b = row["bound"]
+        log(f"[kernels] {name} {label}: {row['ms']:.4f} ms a call, {f4(row['graph_ms'])} ms "
+            f"on the device, bound {b[0]:.5f} ms ({b[1]}); plain {row['plain_ms']:.4f} ms; "
+            f"SDPA {f4(row['library_ms'])} ms a call, {f4(row['library_graph_ms'])} ms on "
+            f"the device; max abs err {row['err']:.3e}")
+
+    # row 7c: the encoder, every frame over every frame
+    q = (torch.randn((1, S, H, D), generator=gen, device=dev) / math.sqrt(D)).to(torch.bfloat16)
+    k = torch.randn((1, S, Hkv, D), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((1, S, Hkv, D), generator=gen, device=dev).to(torch.bfloat16)
+    fn = lambda *a: FP.flash_prefill_attention(*a, causal=False)  # noqa: E731
+    plain = lambda *a: FP.flash_prefill_attention_plain(*a, causal=False)  # noqa: E731
+    err = check_close("flash_prefill_attention", fn(q, k, v), plain(q, k, v),
+                      f"non-causal T=S={S} D={D}")
+    lib_ms, lib_gms = library_time(lambda a, b, c: F.scaled_dot_product_attention(
+        a, b, c, scale=1.0), [(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))])
+    record("flash_prefill_attention", "encoder_prefill", dict(
+        err=err, ms=time_ms(fn, [(q, k, v)]), graph_ms=graph_ms(fn, [(q, k, v)]),
+        plain_ms=time_ms(plain, [(q, k, v)], iters=3), library_ms=lib_ms,
+        library_graph_ms=lib_gms,
+        bound=bound(q.numel() * 2 + 2 * S * Hkv * D * 2 + S * H * D * 4, 4 * H * D * S * S,
+                    BF16_FLOPS_PER_S),
+        shape=f"B=1 T={S} S={S} H={H} Hkv={Hkv} D={D} non-causal (seamless-m4t encoder)"),
+        f"non-causal T=S={S} H={H} D={D}")
+    del q, k, v
+
+    caches = dense_caches(4, S, Hkv, D, gen, dev)
+    length = torch.tensor(S, dtype=torch.int32, device=dev)
+    for key, B, Gq, label in (("cross_prefill", 1, SEAMLESS_PROMPT, "folded"),
+                              ("cross_decode", 4, 1, "cross decode")):
+        q = (torch.randn((B, Hkv * Gq, D), generator=gen, device=dev)
+             / math.sqrt(D)).to(torch.bfloat16)
+        sets = [(q, *(t[:B] for t in c), length) for c in caches]
+        err = check_close("quant_decode_attention", QA.quant_decode_attention(*sets[0]),
+                          QA.quant_decode_attention_plain(*sets[0]),
+                          f"{label} B={B} G'={Gq} S={S}")
+        kd = KV.dequantize_keys(*(t[:B] for t in caches[0][:3]))
+        vd = caches[0][3][:B].to(torch.bfloat16)
+        lib_ms, lib_gms = library_time(lambda a, b, c: F.scaled_dot_product_attention(
+            a, b, c, scale=1.0), [(q.reshape(B, Hkv, Gq, D), kd.transpose(1, 2),
+                                   vd.transpose(1, 2))])
+        splits = QA.decode_splits(B, Hkv * QA.head_tiles(Gq), -(-S // QA.DENSE_BLOCK))
+        record("quant_decode_attention", key, dict(
+            err=err, ms=time_ms(QA.quant_decode_attention, sets),
+            graph_ms=graph_ms(QA.quant_decode_attention, sets),
+            plain_ms=time_ms(QA.quant_decode_attention_plain, sets[:1], iters=5),
+            library_ms=lib_ms, library_graph_ms=lib_gms, splits=splits,
+            head_tiles=QA.head_tiles(Gq),
+            bound=bound(q.numel() * 2 + B * S * Hkv * (2 * D + 8) + q.numel() * 4,
+                        4 * B * S * Hkv * Gq * D, BF16_FLOPS_PER_S),
+            shape=f"B={B} Hkv={Hkv} G'={Gq} D={D} S={S} full (seamless-m4t cross "
+                  + ("attention at prefill: a 64-token prompt folded into the head axis)"
+                     if Gq > 1 else "attention at decode)")),
+            f"{label} B={B} Hkv={Hkv} G'={Gq} S={S} ({splits} splits, "
+            f"{QA.head_tiles(Gq)} head tiles)")
+        del kd, vd
+    del caches
+    torch.cuda.synchronize()
+    return out
+
+
+def encdec_steps(src):
+    """``compare_paths``' steps for an encoder-decoder on source frames
+    ``src`` (numpy [1, S, d]): every encoder layer and the final norm, then
+    ``prefill_then_decode`` over cross caches built from the encoder's
+    output.  Fed, the encoder layers take the other run's outputs and the
+    cross caches are built from its encoder output, so each decoder layer
+    meets the same keys and values in both runs."""
+    def steps(engine, prompt, nxt, feed=None):
+        import torch
+        from repro_torch.core.precision import DEFAULT_POLICY
+        from repro_torch.models import layers as L
+        from repro_torch.models import transformer as T
+        cfg, dev = engine.cfg, engine.device
+        x = torch.from_numpy(src).to(dev).to(torch.bfloat16)
+        positions = torch.arange(x.shape[1], device=dev)[None]
+        fed = None if feed is None else feed["encoder"][0]
+        outs = []
+        for li in range(cfg.encoder_layers):
+            inp = x if fed is None or not outs else fed[li - 1]
+            x = T._encoder_layer(inp, T.layer_slice(engine.params["encoder"], li), cfg,
+                                 positions, engine.dispatch, DEFAULT_POLICY)
+            outs.append(x)
+        last = outs[-1] if fed is None else fed[cfg.encoder_layers - 1]
+        outs.append(L.rms_norm(last, engine.params["enc_norm"], cfg.rms_eps, engine.dispatch))
+        enc_out = outs[-1] if fed is None else fed[-1]
+        caches = T.init_cache(cfg, 1, engine.max_seq, cross_len=src.shape[1], device=dev)
+        caches["cross"] = T.build_cross_caches(engine.params, cfg, enc_out, caches["cross"],
+                                               engine.dispatch)
+        return {"encoder": (outs, None),
+                **prefill_then_decode(engine, prompt, nxt, feed, caches=caches)}
+    return steps
+
+
+def phase_seamless(dev, results: dict):
+    """seamless-m4t-large-v2 at full width and depth (24 encoder and 24
+    decoder layers, d_model 1024, 16 heads of 64 over 16 KV heads, gelu FFN
+    of 8192, vocab 256206 padded to 256256) from seed 0: kernels 6 and 7 at
+    its shapes first; then 4 greedy requests of 64-token prompts, each with
+    256 source frames drawn N(0, 0.02) from the seed, 32 new tokens through
+    ``Engine.generate`` (rows 1, 4, 6 and 7 launched; kernel 7 non-causal 24
+    times a request, the encoder; kernel 6 folded 24 times a request, cross
+    attention at prefill); a profiled decode step; the encoder, the decoder
+    prefill and one decode step kernel vs plain, layer by layer.  The
+    continuous loop refuses the model, as the reference's does.  Returns
+    (engine holder, summary)."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import engine as E
+    from repro_torch.serving import sampling as SM
+
+    cfg = registry.get("seamless-m4t-large-v2")
+    summary = {"kernels": phase_encdec_kernels(dev, cfg, results)}
+    t0 = time.perf_counter()
+    eng = E.build_engine(cfg, seed=0, max_seq=1024, device=dev,
+                         flash_dir=str(ROOT / "build" / "flash-seamless"))
+    engine_line("seamless", cfg, t0, dev, f"; {cfg.encoder_layers} encoder layers")
+    try:
+        E.EngineLoop(eng)
+        raise AssertionError("EngineLoop took an encoder-decoder")
+    except ValueError as e:
+        log(f"[seamless] EngineLoop refuses it: {e}")
+    rng = np.random.default_rng(0)
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, SEAMLESS_PROMPT)]
+               for _ in range(4)]
+    src = np.asarray(rng.normal(size=(4, SEAMLESS_SRC, cfg.d_model)) * 0.02, np.float32)
+    reqs = [E.Request(uid=i, prompt_tokens=p, max_new_tokens=SEAMLESS_NEW)
+            for i, p in enumerate(prompts)]
+    spy = EncDecSpies()
+    eng.stats = E.EngineStats()
+    with spy:
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        eng.generate(reqs, SM.SamplingParams(temperature=0.0, max_new_tokens=SEAMLESS_NEW),
+                     src_embeds=src)
+        wall = time.perf_counter() - t1
+        counts = K.launch_counts()
+    s = eng.stats
+    log(f"[seamless] Engine.generate launches: {counts}; {spy}")
+    assert all(r.done and len(r.generated) == SEAMLESS_NEW for r in reqs), "unfinished requests"
+    for name in GENERATE_KERNELS:
+        assert counts[name] > 0, f"{name} never launched on seamless's Engine.generate: {counts}"
+    L_ = cfg.num_layers
+    assert spy.prefill == {"causal": 4 * L_, "non_causal": 4 * cfg.encoder_layers}, spy.prefill
+    assert spy.decode == {"folded": 4 * L_, "one_token": 2 * L_ * (SEAMLESS_NEW - 1)}, \
+        spy.decode
+    assert eng.dispatch.fallbacks == [], eng.dispatch.fallbacks
+    summary.update({
+        "wall_s": wall, "requests": 4, "prompt_tokens": SEAMLESS_PROMPT,
+        "source_frames": SEAMLESS_SRC, "new_tokens": 4 * SEAMLESS_NEW,
+        "prefill_s": s.prefill_s, "decode_s": s.decode_s,
+        "prefill_tok_per_s": s.prefill_tps, "decode_tok_per_s": s.decode_tps,
+        "decode_step_ms": s.decode_s / (SEAMLESS_NEW - 1) * 1e3, "launches": counts,
+        "dense_prefill_kernel": dict(spy.prefill), "dense_decode_kernel": dict(spy.decode),
+        "tokens": [r.generated for r in reqs]})
+    log(f"[seamless] Engine.generate: 4 requests x {SEAMLESS_PROMPT}-token prompts over "
+        f"{SEAMLESS_SRC} source frames, {4 * SEAMLESS_NEW} new tokens in {wall:.2f} s; "
+        f"prefill (encoder included) {s.prefill_s:.2f} s, decode {s.decode_tps:.1f} tok/s "
+        f"({summary['decode_step_ms']:.1f} ms a 4-row step)")
+    caches = [T.prefill(eng.params, cfg, eng.embed(np.asarray(p)[None]), eng.max_seq,
+                        eng.dispatch,
+                        src_embeds=torch.from_numpy(src[i:i + 1]).to(dev).to(torch.bfloat16))[1]
+              for i, p in enumerate(prompts)]
+    state = {"cache": E._concat_caches(caches)}
+    del caches
+    embeds = eng.embed(np.asarray([[p[-1]] for p in prompts]))
+
+    def step():
+        _, state["cache"] = T.decode_step(eng.params, cfg, embeds, state["cache"], eng.dispatch)
+    summary["profile"] = profile_steps(f"{cfg.name} Engine.generate decode step, 4 rows "
+                                       "(self and cross attention)", step)
+    del state
+    summary["kernel_vs_plain"] = compare_paths(f"{cfg.name} Engine.generate", eng,
+                                               encdec_steps(src[:1]), prompts[0],
+                                               prompts[1][0])
+    return [eng], summary
+
+
+def vision_positions(n_text: int, side: int, n_tail: int):
+    """Qwen2-VL's (t, h, w) ids for text, a side x side image block and more
+    text: text ids count up on all three axes; the block keeps t at the
+    next id while h and w step over its rows and columns; the tail resumes
+    one past the block's largest id.  -> int64 [n_text + side**2 + n_tail, 3]."""
+    import numpy as np
+    text = np.repeat(np.arange(n_text)[:, None], 3, axis=1)
+    hh, ww = np.divmod(np.arange(side * side), side)
+    block = np.stack([np.full(side * side, n_text), n_text + hh, n_text + ww], axis=1)
+    tail = np.repeat((n_text + side + np.arange(n_tail))[:, None], 3, axis=1)
+    return np.concatenate([text, block, tail]).astype(np.int64)
+
+
+def phase_qwen2vl(dev, results: dict):
+    """qwen2-vl-2b at full width and depth (28 layers, d_model 1536, 12
+    heads over 2 KV heads of 128, qkv bias, d_ff 8960, M-RoPE sections (16,
+    24, 24), vocab 151936) from seed 0: 6 requests of the qwen2-7b trace's
+    kind (16 new tokens) through ``EngineLoop`` eagerly and on its CUDA
+    graphs (text positions: the same id on all three axes; tokens equal
+    eager, no capture after warmup, 1 sync a graph decode step, rows 1-4
+    launched), a decode step profiled eager and on its graph, and
+    ``Engine.generate`` at 4 x 320 (rows 6 and 7), whose prefill and decode
+    step are held kernel vs plain, layer by layer, with three-axis
+    positions (32 text tokens, a 16 x 16-patch image block, 32 more text
+    tokens).  Returns (engine holder, summary)."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.configs import registry
+    from repro_torch.serving import engine as E
+
+    cfg = registry.get("qwen2-vl-2b")
+    t0 = time.perf_counter()
+    eng = E.build_engine(cfg, seed=0, max_seq=2048, device=dev,
+                         flash_dir=str(ROOT / "build" / "flash-qwen2vl"))
+    engine_line("qwen2vl", cfg, t0, dev, f"; M-RoPE sections {cfg.mrope_sections}")
+    specs, arrivals = make_trace(cfg.vocab_size, requests=6)
+    log(f"[qwen2vl] trace: prompts {[len(p) for p in specs]}, arrivals {arrivals}; eager")
+    K.reset_launch_counts()
+    loop, reqs, wall = serve_trace(eng, specs, arrivals, max_new=QWEN2VL_NEW)
+    counts = K.launch_counts()
+    loop.close()
+    log(f"[qwen2vl] launches during the trace: {counts}")
+    assert all(r.done and len(r.generated) == QWEN2VL_NEW for r in reqs), "unfinished requests"
+    for name in LOOP_KERNELS:
+        assert counts[name] > 0, f"{name} never launched on qwen2-vl's EngineLoop: {counts}"
+    assert eng.dispatch.fallbacks == [], eng.dispatch.fallbacks
+    summary = loop_summary("qwen2vl", loop, reqs, wall, eng, counts)
+    summary["prefix_hits_pages"] = loop.pool.prefix_hits
+    summary["graphs"] = phase_graphs("qwen2-vl-2b", eng, specs, arrivals, reqs, QWEN2VL_NEW,
+                                     LOOP_KERNELS)
+    summary["profile"] = profile_loop_decode(eng, specs)
+    summary["profile_graphs"] = profile_loop_decode(eng, specs, cuda_graphs=True)
+    assert summary["profile_graphs"]["syncs_per_step"] == 1, summary["profile_graphs"]
+    pos3 = vision_positions(32, 16, 32)
+    nxt = int(pos3[-1, 0]) + 1
+    log(f"[qwen2vl] three-axis positions for the kernel-vs-plain steps: {len(pos3)} tokens, "
+        f"t/h/w ids up to {pos3.max(axis=0).tolist()}, the decode step at id {nxt} on every "
+        "axis")
+
+    def mrope_steps(engine, prompt, tok, feed=None):
+        return prefill_then_decode(
+            engine, prompt, tok, feed,
+            positions=torch.from_numpy(pos3).to(engine.device)[None],
+            dec_positions=torch.full((1, 1, 3), nxt, dtype=torch.int64, device=engine.device))
+    summary["generate"] = phase_generate(eng, tag="qwen2vl", prompt_len=len(pos3),
+                                         steps=mrope_steps)
+    return [eng], summary
+
+
 def drop_flash(name: str) -> None:
     """Delete a phase's Flash embedding (the card machine's disk is finite)."""
     import shutil
@@ -3359,7 +3736,9 @@ def main() -> int:
                                 ("qwen110b", phase_big_dense, "flash-qwen110b"),
                                 ("grok1", phase_grok, "flash-grok1"),
                                 ("rwkv6", phase_rwkv6, "flash-rwkv6"),
-                                ("jamba", phase_jamba, "flash-jamba")):
+                                ("jamba", phase_jamba, "flash-jamba"),
+                                ("seamless", phase_seamless, "flash-seamless"),
+                                ("qwen2vl", phase_qwen2vl, "flash-qwen2vl")):
         t_p = time.perf_counter()
         holder, big[label] = phase(dev, results)
         free_engine(label, holder)
@@ -3401,7 +3780,11 @@ def main() -> int:
              f"EngineLoop jamba-1.5-large-398b ({JAMBA_LAYERS} of 72 layers), CUDA graphs":
                  big["jamba"]["graphs"]["launches"],
              f"Engine.generate jamba-1.5-large-398b ({JAMBA_LAYERS} of 72 layers)":
-                 big["jamba"]["generate"]["launches"]}
+                 big["jamba"]["generate"]["launches"],
+             "Engine.generate seamless-m4t-large-v2": big["seamless"]["launches"],
+             "EngineLoop qwen2-vl-2b": big["qwen2vl"]["launches"],
+             "EngineLoop qwen2-vl-2b, CUDA graphs": big["qwen2vl"]["graphs"]["launches"],
+             "Engine.generate qwen2-vl-2b": big["qwen2vl"]["generate"]["launches"]}
     kernels = []
     for name in KERNELS:
         r = results[name]
@@ -3425,7 +3808,8 @@ def main() -> int:
               "spill_path": spill, "glm4_path": glm4, "moe_path": moe,
               "gemma3_path": big["gemma3"], "qwen1.5-110b_path": big["qwen110b"],
               "grok1_path": big["grok1"], "rwkv6_path": big["rwkv6"],
-              "jamba_path": big["jamba"],
+              "jamba_path": big["jamba"], "seamless_path": big["seamless"],
+              "qwen2vl_path": big["qwen2vl"],
               "wstream": wstream,
               "total_s": time.perf_counter() - t_start}
     (OUT / "chip_smoke.json").write_text(json.dumps(detail, indent=1))

@@ -7,9 +7,11 @@ one, gelu FFN), three MoE decoders (moonshot-v1-16b-a3b, grok-1-314b and
 dbrx-132b, whose ``@tiny-moe`` variant -- GQA with two key/value heads, 8
 experts at top-2 -- is the expert-streaming test model) and two recurrent
 stacks: rwkv6-7b (attention-free) and jamba-1.5-large-398b (one attention
-layer to seven mamba layers, MoE on every other layer).  The reference's
-encoder-decoder (seamless-m4t-large-v2) and M-RoPE (qwen2-vl-2b) configs
-are not ported yet (ROADMAP queue 1 item 15).
+layer to seven mamba layers, MoE on every other layer), the
+encoder-decoder seamless-m4t-large-v2 (24 bidirectional encoder layers over
+precomputed frame embeddings, 24 decoder layers with cross attention) and
+qwen2-vl-2b (M-RoPE: three-axis position ids over per-axis rotary
+sections).
 ``reduced``, ``tiny`` and ``tiny_moe`` are copies of the reference
 transforms (only the branches these configs reach)."""
 from __future__ import annotations
@@ -20,7 +22,8 @@ from typing import Dict
 from repro_torch.configs import (dbrx_132b, gemma3_27b, glm4_9b, grok_1_314b,
                                  jamba_1_5_large_398b, llama3_8b,
                                  moonshot_v1_16b_a3b, qwen1_5_110b, qwen2_1_5b,
-                                 qwen2_7b, rwkv6_7b)
+                                 qwen2_7b, qwen2_vl_2b, rwkv6_7b,
+                                 seamless_m4t_large_v2)
 from repro_torch.configs.base import ATTN, LayerPattern, ModelConfig
 
 PAPER_MODELS = {
@@ -30,6 +33,7 @@ PAPER_MODELS = {
 }
 
 ARCHS: Dict[str, ModelConfig] = {
+    "seamless-m4t-large-v2": seamless_m4t_large_v2.CONFIG,
     "moonshot-v1-16b-a3b": moonshot_v1_16b_a3b.CONFIG,
     "glm4-9b": glm4_9b.CONFIG,
     "rwkv6-7b": rwkv6_7b.CONFIG,
@@ -37,7 +41,8 @@ ARCHS: Dict[str, ModelConfig] = {
     "grok-1-314b": grok_1_314b.CONFIG,
     "qwen1.5-110b": qwen1_5_110b.CONFIG,
     "jamba-1.5-large-398b": jamba_1_5_large_398b.CONFIG,
-    "gemma3-27b": gemma3_27b.CONFIG, **PAPER_MODELS}
+    "gemma3-27b": gemma3_27b.CONFIG,
+    "qwen2-vl-2b": qwen2_vl_2b.CONFIG, **PAPER_MODELS}
 
 VARIANTS = ("reduced", "tiny", "tiny-moe")
 
@@ -63,7 +68,9 @@ def get(arch: str) -> ModelConfig:
 def reduced(cfg: ModelConfig) -> ModelConfig:
     """Same-family smoke variant: 2 layers, d_model 256 (rwkv: 128), head_dim
     64, d_ff 512, vocab 512; gemma3 keeps one local layer (window 16) and
-    one global layer, jamba one attention layer and one mamba+MoE layer."""
+    one global layer, jamba one attention layer and one mamba+MoE layer; an
+    encoder-decoder keeps 2 encoder layers, M-RoPE the sections (8, 12, 12)
+    of head_dim 64."""
     d_model = 128 if cfg.period[0].kind == "rwkv" else 256
     head_dim = 64
     num_heads = max(2, d_model // head_dim)
@@ -76,6 +83,7 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
     if cfg.name.startswith("jamba"):
         period = (LayerPattern("attn"), LayerPattern("mamba", moe=True))
     num_layers = min(len(period), 2) if len(period) > 1 else 2
+    sections = (8, 12, 12) if cfg.rope_kind == "mrope" else cfg.mrope_sections
     return dataclasses.replace(
         cfg,
         name=cfg.name + "-reduced",
@@ -90,6 +98,7 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         num_experts=min(cfg.num_experts, 4),
         experts_per_tok=min(cfg.experts_per_tok, 2),
         period=period,
+        mrope_sections=sections,
         rwkv_head_dim=64,
     )
 
@@ -97,7 +106,9 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
 def tiny(cfg: ModelConfig) -> ModelConfig:
     """Scaled-down variant that keeps >= 6 layer groups and GQA.  jamba: 3
     periods and a 2-layer tail (attention, mamba+MoE); rwkv6: the period
-    doubled over 7 layers -- two stacks, both recurrent, either way."""
+    doubled over 7 layers -- two stacks, both recurrent, either way.  M-RoPE
+    keeps the sections (8, 12, 12) of head_dim 64."""
+    sections = (8, 12, 12) if cfg.rope_kind == "mrope" else cfg.mrope_sections
     num_layers = max(6, 3 * len(cfg.period))
     period = cfg.period
     if cfg.name.startswith("jamba"):
@@ -119,6 +130,7 @@ def tiny(cfg: ModelConfig) -> ModelConfig:
         vocab_size=512,
         num_experts=min(cfg.num_experts, 4),
         experts_per_tok=min(cfg.experts_per_tok, 2),
+        mrope_sections=sections,
         rwkv_head_dim=64,
     )
 

@@ -62,9 +62,10 @@ def _is_quantized(x) -> bool:
 
 
 def params_from_reference(tree, device=torch.device("cpu")):
-    """The reference's parameter tree -> the port's (same keys and nesting;
-    packed linears become ``runtime.plan.PackedLinear`` or
-    ``PackedExpertLinear``)."""
+    """The reference's parameter tree -> the port's (same keys and nesting,
+    an encoder-decoder's ``encoder``, ``enc_norm``, ``ln_cross`` and
+    ``cross`` leaves included; packed linears become
+    ``runtime.plan.PackedLinear`` or ``PackedExpertLinear``)."""
     if isinstance(tree, dict):
         return {k: params_from_reference(v, device) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):

@@ -12,6 +12,8 @@ repro.launch.serve``.
       --max-seq 2048 --max-prompt 700 --prefill-chunk 128
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch jamba-1.5-large-398b@tiny --device cpu --max-seq 64
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch seamless-m4t-large-v2@reduced --device cpu --no-continuous
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b@reduced \\
       --device cpu --http 8090
   curl -N http://127.0.0.1:8090/v1/completions -d \\
@@ -28,7 +30,10 @@ serving and prints the reference's warmup line (with ``--http``, the
 gateway's ``/healthz`` answers 503 until it is done).  Prints every
 request's tokens and the serving stats.  ``Engine.generate`` decodes
 the whole batch at request 0's position, so ``--no-continuous`` draws every
-prompt at one length (``--max-prompt``).
+prompt at one length (``--max-prompt``).  An encoder-decoder
+(seamless-m4t-large-v2) serves only through ``--no-continuous``, each
+request with 16 frames of source embeddings drawn N(0, 0.02) from the seed,
+as the reference's launcher draws them.
 """
 from __future__ import annotations
 
@@ -90,6 +95,9 @@ def main(argv: Optional[List[str]] = None) -> List[E.Request]:
     args = ap.parse_args(argv)
 
     cfg = registry.get(args.arch)
+    if cfg.is_encdec and (args.http is not None or args.continuous):
+        ap.error(f"{cfg.name} is an encoder-decoder: it serves only through "
+                 "Engine.generate (--no-continuous), not EngineLoop or the gateway")
     t0 = time.perf_counter()
     eng = E.build_engine(cfg, seed=args.seed, max_seq=args.max_seq,
                          flash_dir=args.flash_dir, device=args.device,
@@ -152,8 +160,12 @@ def main(argv: Optional[List[str]] = None) -> List[E.Request]:
         out = loop.run(reqs)
         how = f"on {args.slots} slots"
     else:
+        src = None
+        if cfg.is_encdec:
+            src = np.asarray(rng.normal(size=(len(reqs), 16, cfg.d_model)) * 0.02,
+                             np.float32)
         out = eng.generate(reqs, sp, torch.Generator(device=eng.device)
-                           .manual_seed(args.seed))
+                           .manual_seed(args.seed), src_embeds=src)
         how = "slot-synchronous"
     wall = time.perf_counter() - t0
     s = eng.stats

@@ -3,7 +3,9 @@
 pre-scale of the paper's mixed-precision policy, and the two cache layouts'
 entry points — whole-prompt prefill into a dense ``LayerKVCache`` and
 one-token decode against it (``Engine.generate``), chunked prefill and
-one-token decode against the paged pool (``EngineLoop``).  Every entry
+one-token decode against the paged pool (``EngineLoop``) — and an
+encoder-decoder's cross attention over the encoder's quantized K/V
+(``build_cross_cache``, ``cross_attention``).  Every self-attention entry
 point takes ``lora``, the per-row multi-LoRA bypass on the q and v
 projections (C7; ``core.lora``).
 
@@ -28,13 +30,16 @@ from repro_torch.models import layers as L
 from repro_torch.runtime import dispatch as D
 
 
-def attn_params(b: L.ParamBuilder, cfg: ModelConfig, lead: tuple = ()) -> dict:
+def attn_params(b: L.ParamBuilder, cfg: ModelConfig, lead: tuple = (),
+                cross: bool = False) -> dict:
+    """wq, wk, wv, wo and, with ``cfg.qkv_bias``, the q/k/v biases; cross
+    attention's projections (``cross``) carry no bias, as in the reference."""
     d = cfg.d_model
     hd = cfg.resolved_head_dim
     qo, kv = cfg.num_heads * hd, cfg.num_kv_heads * hd
     p = {"wq": b.linear(d, qo, lead=lead), "wk": b.linear(d, kv, lead=lead),
          "wv": b.linear(d, kv, lead=lead), "wo": b.linear(qo, d, lead=lead)}
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         p["bq"] = b.bias(qo, lead)
         p["bk"] = b.bias(kv, lead)
         p["bv"] = b.bias(kv, lead)
@@ -44,8 +49,9 @@ def attn_params(b: L.ParamBuilder, cfg: ModelConfig, lead: tuple = ()) -> dict:
 def _project_qkv(x: torch.Tensor, p: dict, cfg: ModelConfig,
                  dispatch: D.Dispatcher, lora: Optional[dict] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """q/k/v projections of x (the port has no cross attention: k and v
-    read x too).  ``lora``: the adapter tables ("wq_a", "wq_b", "wv_a",
+    """q/k/v projections of x, k and v reading x too (cross attention
+    projects its k and v from the encoder output in ``build_cross_cache``).
+    ``lora``: the adapter tables ("wq_a", "wq_b", "wv_a",
     "wv_b") and each row's adapter id ("ids" [B]); the bypass is computed
     in float32 from the bf16 input, cast to the projection's dtype and
     added before the bias, as in the reference."""
@@ -190,4 +196,34 @@ def attention_decode_paged(x: torch.Tensor, p: dict, cfg: ModelConfig,
     else:
         tbl, base = table, None
     out = dispatch.paged_decode_attention(qh, pool, tbl, pos + T, policy, base=base)
+    return L.apply_linear(out.reshape(B, T, -1), p["wo"], cfg.quant, dispatch)
+
+
+def build_cross_cache(enc_out: torch.Tensor, p: dict, cfg: ModelConfig,
+                      cache: kvc.LayerKVCache, dispatch: D.Dispatcher) -> kvc.LayerKVCache:
+    """One decoder layer's cross-attention cache: k/v projected from the
+    encoder output enc_out [B, S, d] (no bias) and quantized into ``cache``,
+    a dense cache of S slots written in place from slot 0 (the reference's
+    ``init_layer_cache`` + ``append``).  Returns it with ``length`` S."""
+    B, S = enc_out.shape[:2]
+    hd = cfg.resolved_head_dim
+    kp = L.apply_linear(enc_out, p["wk"], cfg.quant, dispatch).reshape(B, S, cfg.num_kv_heads, hd)
+    vp = L.apply_linear(enc_out, p["wv"], cfg.quant, dispatch).reshape(B, S, cfg.num_kv_heads, hd)
+    return kvc.append(cache, kp, vp, 0)
+
+
+def cross_attention(x: torch.Tensor, p: dict, cfg: ModelConfig,
+                    cross_cache: kvc.LayerKVCache, dispatch: D.Dispatcher,
+                    policy: PrecisionPolicy = DEFAULT_POLICY) -> torch.Tensor:
+    """Decoder cross attention of x [B, T, d] over the encoder's quantized
+    K/V: the q projection, the pre-scale, then every query token over the
+    cache's ``length`` slots with no causal mask (the dispatcher's
+    ``decode_attention``: one launch of the dense decode kernel, T tokens
+    folded into the query-head axis where T > 1), then the o projection."""
+    B, T = x.shape[:2]
+    hd = cfg.resolved_head_dim
+    qh = L.apply_linear(x, p["wq"], cfg.quant, dispatch).reshape(B, T, cfg.num_heads, hd)
+    qh = _prescale(qh, hd, policy)
+    out = dispatch.decode_attention(qh, cross_cache, cross_cache.length, policy,
+                                    causal=False)
     return L.apply_linear(out.reshape(B, T, -1), p["wo"], cfg.quant, dispatch)

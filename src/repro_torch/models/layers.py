@@ -1,6 +1,6 @@
 """Shared layers and the parameter builder — port of ``repro.models.layers``
-(the decoder parts: linear, RMSNorm, RoPE, the SwiGLU and gelu FFNs; the
-MoE FFN is ``models.moe``).
+(the serving parts: linear, RMSNorm, RoPE and M-RoPE, the SwiGLU and gelu
+FFNs; the MoE FFN is ``models.moe``).
 
 Hot ops (every linear matmul and every RMSNorm) route through the
 ``runtime.dispatch.Dispatcher``: Hopper kernels for CUDA tensors, their
@@ -106,7 +106,7 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
 
 
 # ---------------------------------------------------------------------------
-# RoPE
+# RoPE / M-RoPE
 # ---------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
@@ -144,12 +144,57 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
+_MROPE_AXES: Dict[Tuple[Tuple[int, ...], torch.device], torch.Tensor] = {}
+
+
+def mrope_axes(sections, device: torch.device) -> torch.Tensor:
+    """Which position axis (0 = t, 1 = h, 2 = w) drives each of the D/2
+    rotary frequencies: ``sections[a]`` consecutive frequencies per axis, an
+    int64 index [sum(sections)] on ``device``, built once per (sections,
+    device) from numpy, as ``rope_table`` is (a host copy: the first call
+    must come outside any CUDA graph capture)."""
+    key = (tuple(int(s) for s in sections), torch.device(device))
+    axes = _MROPE_AXES.get(key)
+    if axes is None:
+        axes = torch.tensor(np.repeat(np.arange(3), np.asarray(key[0])),
+                            dtype=torch.int64, device=device)
+        _MROPE_AXES[key] = axes
+    return axes
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections) -> torch.Tensor:
+    """Qwen2-VL's multimodal RoPE: x [B, T, H, D]; positions3 [B, T, 3] int
+    (t, h, w) ids; the D/2 rotary frequencies split into per-axis
+    ``sections`` (sum(sections) == D/2), frequency i turning by its axis's
+    id.  float32 math in the reference's op order, as ``apply_rope``: with
+    the same id on all three axes it is ``apply_rope`` bit for bit."""
+    d = x.shape[-1]
+    if sum(sections) != d // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not cover D/2 = {d // 2}")
+    freqs = rope_table(d, theta, x.device)
+    pos = positions3.float().index_select(-1, mrope_axes(sections, x.device))  # [B,T,D/2]
+    ang = pos * freqs
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
 def positional(qk: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor) -> torch.Tensor:
+    """The config's rotary embedding of qk [B, T, H, D] at ``positions``
+    [B, T] or, three-axis, [B, T, 3]: an M-RoPE model given [B, T] ids
+    (text only) uses them on all three axes; a RoPE model given three-axis
+    ids takes the t axis, as the reference does."""
     if cfg.rope_kind == "none":
         return qk
-    if cfg.rope_kind != "rope":
-        raise NotImplementedError(f"rope_kind={cfg.rope_kind!r} is not ported "
-                                  "(ROADMAP queue 1 item 15)")
+    if cfg.rope_kind == "mrope":
+        if positions.dim() == 2:
+            positions = positions[..., None].expand(*positions.shape, 3)
+        return apply_mrope(qk, positions, cfg.rope_theta, cfg.mrope_sections)
+    if positions.dim() == 3:
+        positions = positions[..., 0]
     return apply_rope(qk, positions, cfg.rope_theta)
 
 

@@ -4,7 +4,11 @@ dense or MoE FFN), the two decode states — dense per-sequence caches
 (``init_cache``, ``prefill``, ``decode_step``: the slot-synchronous
 ``Engine.generate``) and the paged pool (``init_paged_cache``,
 ``prefill_chunk_paged``, ``decode_step`` / ``decode_step_bucketed``: the
-``EngineLoop``).
+``EngineLoop``).  An encoder-decoder (seamless-m4t) also has its
+bidirectional encoder (``encode``) and one cross-attention cache per
+decoder layer over the encoder's output (``build_cross_caches``), which the
+dense path's ``prefill`` builds and every later decode step reads; the
+paged ``EngineLoop`` serves decoder-only models, as the reference's does.
 
 A recurrent layer's entry in either cache is its state, a dict of leaves
 [count, B, ...] (``models.ssm``); the paged cache holds one spare row past
@@ -14,8 +18,11 @@ in place: a prompt chunk its row (``index_copy_`` at the chunk's device
 reference's ``freeze_inactive_rows`` does.
 
 Parameters keep the reference's tree: ``{"stacks": (stack, ...),
-"final_norm", "lm_head"}`` where each stack is a tuple with one dict per
-period pattern whose leaves are stacked on a leading [count] axis.  Layers
+"final_norm", "lm_head"}`` (an encoder-decoder adds ``"encoder"``, one
+attention layer's dict stacked [encoder_layers], and ``"enc_norm"``; its
+decoder layers add ``"ln_cross"`` and ``"cross"``) where each stack is a
+tuple with one dict per period pattern whose leaves are stacked on a
+leading [count] axis.  Layers
 run as a Python loop over that axis (the reference scans it).  Caches and
 page pools are updated in place.
 
@@ -51,13 +58,13 @@ def _check_supported(cfg: ModelConfig) -> None:
         for pat in patterns:
             if pat.kind not in ("attn", "mamba", "rwkv"):
                 raise ValueError(f"{cfg.name}: unknown layer kind {pat.kind!r}")
-    if cfg.is_encdec:
-        raise NotImplementedError(f"{cfg.name}: encoder-decoder models are not "
-                                  "ported (ROADMAP queue 1 item 15)")
 
 
 def _pattern_params(b: L.ParamBuilder, cfg: ModelConfig, pat: LayerPattern,
-                    count: int) -> dict:
+                    count: int, cross: bool = False) -> dict:
+    """One period pattern's layers stacked [count]; ``cross`` (an
+    encoder-decoder's decoder) adds ``ln_cross`` and the bias-free ``cross``
+    projections, after the FFN as in the reference's tree."""
     lead = (count,)
     p = {"ln1": b.norm(cfg.d_model, lead)}
     if pat.kind == "rwkv":
@@ -74,6 +81,9 @@ def _pattern_params(b: L.ParamBuilder, cfg: ModelConfig, pat: LayerPattern,
         p["moe"] = M.moe_params(b, cfg, lead)
     else:
         p["ffn"] = L.ffn_params(b, cfg, lead)
+    if cross:
+        p["ln_cross"] = b.norm(cfg.d_model, lead)
+        p["cross"] = A.attn_params(b, cfg, lead, cross=True)
     return p
 
 
@@ -81,16 +91,22 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: torch.device) -> dict:
     """Quantized serving parameters built directly on ``device`` in the
     packed kernel-native layout (the reference's ``init_params(...,
-    quantized=True, pack=True)``).  The embedding is not part of the tree:
-    it lives on Flash (``serving.engine.build_engine``)."""
+    quantized=True, pack=True)``), with its keys and nesting.  The embedding
+    is not part of the tree: it lives on Flash
+    (``serving.engine.build_engine``)."""
     _check_supported(cfg)
     b = L.ParamBuilder(generator, device, cfg.quant)
-    stacks = tuple(tuple(_pattern_params(b, cfg, pat, count) for pat in patterns)
-                   for patterns, count in cfg.layer_plan())
-    return {"stacks": stacks,
-            "final_norm": b.norm(cfg.d_model),
-            "lm_head": b.linear(cfg.d_model, cfg.padded_vocab_size,
-                                bits=cfg.quant.lm_head_bits)}
+    params = {}
+    if cfg.is_encdec:
+        params["encoder"] = _pattern_params(b, cfg, LayerPattern("attn"), cfg.encoder_layers)
+        params["enc_norm"] = b.norm(cfg.d_model)
+    params["stacks"] = tuple(
+        tuple(_pattern_params(b, cfg, pat, count, cross=cfg.is_encdec) for pat in patterns)
+        for patterns, count in cfg.layer_plan())
+    params["final_norm"] = b.norm(cfg.d_model)
+    params["lm_head"] = b.linear(cfg.d_model, cfg.padded_vocab_size,
+                                 bits=cfg.quant.lm_head_bits)
+    return params
 
 
 def layer_slice(tree, i: int):
@@ -112,12 +128,15 @@ def _recurrent_state(cfg: ModelConfig, pat: LayerPattern, batch: int, count: int
     return init(batch, cfg, lead=(count,), device=device)
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *, cross_len: int = 0,
                device: torch.device = torch.device("cpu")) -> dict:
     """Dense decode state: one stacked ``LayerKVCache`` per attention
     pattern (a windowed pattern's a ring of min(window, max_seq) slots), a
     zero state per recurrent pattern and ``pos``, one scalar position for
-    every row (the slot-synchronous path)."""
+    every row (the slot-synchronous path).  An encoder-decoder with
+    ``cross_len`` adds ``cross``: per stack and pattern, an empty stacked
+    cache of ``cross_len`` slots a decoder layer (``build_cross_caches``
+    fills them)."""
     _check_supported(cfg)
     stacks = tuple(
         tuple(kvc.init_layer_cache(batch, max_seq, cfg.num_kv_heads,
@@ -129,8 +148,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
               _recurrent_state(cfg, pat, batch, count, device)
               for pat in patterns)
         for patterns, count in cfg.layer_plan())
-    return {"stacks": stacks,
-            "pos": torch.zeros((), dtype=torch.int32, device=device)}
+    cache = {"stacks": stacks, "pos": torch.zeros((), dtype=torch.int32, device=device)}
+    if cfg.is_encdec and cross_len:
+        cache["cross"] = tuple(
+            tuple(kvc.init_layer_cache(batch, cross_len, cfg.num_kv_heads,
+                                       cfg.resolved_head_dim,
+                                       key_bits=cfg.quant.kv_key_bits,
+                                       value_fp8=cfg.quant.kv_value_fp8,
+                                       layers=count, device=device)
+                  for _pat in patterns)
+            for patterns, count in cfg.layer_plan())
+    return cache
 
 
 def init_paged_cache(cfg: ModelConfig, batch: int, geom: KP.PoolGeometry,
@@ -224,29 +252,30 @@ def _apply_layer(x: torch.Tensor, pp: dict, cfg: ModelConfig, pat: LayerPattern,
                  mode: str, positions: torch.Tensor, cache, pos, table,
                  dispatch: D.Dispatcher, policy: PrecisionPolicy,
                  collect: Optional[dict] = None, lora: Optional[dict] = None,
-                 slot=None, valid_len=None, active=None, rows=None):
+                 slot=None, valid_len=None, active=None, rows=None, cross=None):
     """One layer.  ``cache`` is this layer's ``PagedLayerKV`` (modes
     "prefill_paged" and "decode") or ``LayerKVCache`` ("prefill" and
     "decode"), or a recurrent layer's state ([B, ...] leaves, written in
     place).  ``collect``: an MoE layer's router ids (``apply_moe``).
-    ``slot`` and ``valid_len``: a prompt chunk's row and real tokens;
-    ``active`` [B]: a decode step's live rows (windowed layers' rings,
-    recurrent states); ``rows`` [B]: a decode step's slots in a recurrent
-    state (None: the first B).  Returns (x, the layer's cache after the
-    step)."""
+    ``slot`` and ``valid_len``: a prompt chunk's row and real tokens (a
+    padded dense prefill's real tokens); ``active`` [B]: a decode step's
+    live rows (windowed layers' rings, recurrent states); ``rows`` [B]: a
+    decode step's slots in a recurrent state (None: the first B).
+    ``cross``: an encoder-decoder layer's cross-attention cache, attended
+    after self attention.  Returns (x, the layer's cache after the step)."""
     h = L.rms_norm(x, pp["ln1"], cfg.rms_eps, dispatch)
     if pat.kind != "attn":
-        # the chunk's real tokens reach the state; a decode step's are all real
-        batch, vl = x.shape[0], valid_len if mode == "prefill_paged" else None
+        # a prompt's real tokens reach the state; a decode step's are all real
+        batch = x.shape[0]
         st = _state_rows(cache, mode, slot, rows, batch)
         if pat.kind == "rwkv":
-            y, st = S.rwkv_time_mix(h, pp["tm"], cfg, st, dispatch, valid_len=vl)
+            y, st = S.rwkv_time_mix(h, pp["tm"], cfg, st, dispatch, valid_len=valid_len)
             x = x + y
             h2 = L.rms_norm(x, pp["ln2"], cfg.rms_eps, dispatch)
-            y2, st = S.rwkv_channel_mix(h2, pp["tm"], cfg, st, dispatch, valid_len=vl)
+            y2, st = S.rwkv_channel_mix(h2, pp["tm"], cfg, st, dispatch, valid_len=valid_len)
             _put_state_rows(cache, st, mode, slot, rows, batch, active)
             return x + y2, cache
-        att, st = S.mamba_forward(h, pp["mamba"], cfg, st, dispatch, valid_len=vl)
+        att, st = S.mamba_forward(h, pp["mamba"], cfg, st, dispatch, valid_len=valid_len)
         _put_state_rows(cache, st, mode, slot, rows, batch, active)
     elif mode == "prefill_paged":
         att = A.attention_prefill_paged(h, pp["attn"], cfg, pat, cache, table,
@@ -262,6 +291,9 @@ def _apply_layer(x: torch.Tensor, pp: dict, cfg: ModelConfig, pat: LayerPattern,
         att, cache = A.attention_decode(h, pp["attn"], cfg, pat, cache, pos,
                                         positions, dispatch, policy, lora)
     x = x + att
+    if cross is not None:
+        hc = L.rms_norm(x, pp["ln_cross"], cfg.rms_eps, dispatch)
+        x = x + A.cross_attention(hc, pp["cross"], cfg, cross, dispatch, policy)
     h2 = L.rms_norm(x, pp["ln2"], cfg.rms_eps, dispatch)
     if pat.moe:
         # serving sizes expert capacity to the worst case: no token drops
@@ -281,15 +313,18 @@ def _run_stacks(x: torch.Tensor, params: dict, cfg: ModelConfig, mode: str,
     """Every layer in order.  ``mode`` "prefill_paged": ``pos`` is the
     chunk's first position, ``table`` the row's [pages_per_row] table,
     ``slot`` the row and ``valid_len`` the chunk's real tokens;
-    "prefill": the dense caches are empty and fill from position 0;
+    "prefill": the dense caches are empty and fill from position 0
+    (``valid_len``: a padded prompt's real tokens, for recurrent states);
     "decode": ``pos`` the per-row positions [B] (or, on dense caches, one
     scalar), ``table`` [B, pages_per_row] (None for dense caches),
     ``active`` [B] the live rows (None: all) and ``rows`` [B] their slots
-    in the recurrent states (None: the first B).
+    in the recurrent states (None: the first B).  ``cache["cross"]``, where
+    present, gives each layer its cross-attention cache.
     Caches are written in place; dense caches get their per-layer lengths
     stacked back.  ``collect``: if a list, each layer's output hidden
     state is appended (parity tests)."""
     stacks = []
+    cross = cache.get("cross")
     for si, (patterns, count) in enumerate(cfg.layer_plan()):
         sp = params["stacks"][si]
         lengths = [[] for _ in patterns]
@@ -299,7 +334,9 @@ def _run_stacks(x: torch.Tensor, params: dict, cfg: ModelConfig, mode: str,
                                       positions, layer_entry(cache["stacks"][si][pi], li),
                                       pos, table, dispatch, policy, lora=lora,
                                       slot=slot, valid_len=valid_len, active=active,
-                                      rows=rows)
+                                      rows=rows,
+                                      cross=None if cross is None else
+                                      layer_entry(cross[si][pi], li))
                 if isinstance(new, kvc.LayerKVCache):
                     lengths[pi].append(new.length)
                 if collect is not None:
@@ -420,23 +457,99 @@ def decode_step_bucketed(params: dict, cfg: ModelConfig, embeds: torch.Tensor,
     return _logits(x, params, cfg, dispatch)[:, -1], cache
 
 
+def _encoder_layer(x: torch.Tensor, pp: dict, cfg: ModelConfig, positions: torch.Tensor,
+                   dispatch: D.Dispatcher, policy: PrecisionPolicy) -> torch.Tensor:
+    """One bidirectional encoder layer: self attention over the unquantized
+    K/V of the whole source (rope at the source positions, no causal mask:
+    the dense prefill kernel, non-causal), then the FFN."""
+    h = L.rms_norm(x, pp["ln1"], cfg.rms_eps, dispatch)
+    qh, kh, vh = A._project_qkv(h, pp["attn"], cfg, dispatch)
+    qh = L.positional(qh, cfg, positions)
+    kh = L.positional(kh, cfg, positions)
+    qh = A._prescale(qh, cfg.resolved_head_dim, policy)
+    att = dispatch.prefill_attention(qh, kh, vh, causal=False, window=0, policy=policy)
+    x = x + L.apply_linear(att.reshape(*x.shape[:2], -1), pp["attn"]["wo"], cfg.quant,
+                           dispatch)
+    h2 = L.rms_norm(x, pp["ln2"], cfg.rms_eps, dispatch)
+    return x + L.apply_ffn(h2, pp["ffn"], cfg, dispatch)
+
+
+def encode(params: dict, cfg: ModelConfig, src_embeds: torch.Tensor,
+           dispatch: D.Dispatcher, policy: PrecisionPolicy = DEFAULT_POLICY,
+           collect: Optional[list] = None) -> torch.Tensor:
+    """The encoder-decoder's bidirectional encoder over src_embeds [B, S, d]
+    (source positions 0..S-1), then ``enc_norm``.  ``collect``: if a list,
+    each encoder layer's output is appended."""
+    x = src_embeds.to(torch.bfloat16)
+    B, S = x.shape[:2]
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    for li in range(cfg.encoder_layers):
+        x = _encoder_layer(x, layer_slice(params["encoder"], li), cfg, positions,
+                           dispatch, policy)
+        if collect is not None:
+            collect.append(x)
+    return L.rms_norm(x, params["enc_norm"], cfg.rms_eps, dispatch)
+
+
+def build_cross_caches(params: dict, cfg: ModelConfig, enc_out: torch.Tensor,
+                       cross: tuple, dispatch: D.Dispatcher) -> tuple:
+    """Every decoder layer's cross-attention K/V, projected from enc_out
+    [B, S, d] and quantized into ``cross`` (``init_cache(cross_len=S)``'s,
+    written in place); returns it with the per-layer lengths (S)."""
+    stacks = []
+    for si, (patterns, count) in enumerate(cfg.layer_plan()):
+        per = []
+        for pi in range(len(patterns)):
+            c = cross[si][pi]
+            lens = [A.build_cross_cache(enc_out,
+                                        layer_slice(params["stacks"][si][pi]["cross"], li),
+                                        cfg, c.layer(li), dispatch).length
+                    for li in range(count)]
+            per.append(dataclasses.replace(c, length=torch.stack(lens)))
+        stacks.append(tuple(per))
+    return tuple(stacks)
+
+
 def prefill(params: dict, cfg: ModelConfig, embeds: torch.Tensor, max_seq: int,
             dispatch: D.Dispatcher, positions: Optional[torch.Tensor] = None,
             policy: PrecisionPolicy = DEFAULT_POLICY,
             collect: Optional[list] = None,
-            lora: Optional[dict] = None) -> Tuple[torch.Tensor, dict]:
+            lora: Optional[dict] = None,
+            src_embeds: Optional[torch.Tensor] = None,
+            valid_len=None) -> Tuple[torch.Tensor, dict]:
     """Whole-prompt prefill of embeds [B, T, d] into fresh dense caches of
-    ``max_seq`` slots.  Returns (logits [B, V] of the last token, cache
-    with ``pos`` = T)."""
+    ``max_seq`` slots (``positions`` [B, T], or [B, T, 3] on an M-RoPE
+    model; default 0..T-1).  An encoder-decoder encodes ``src_embeds`` [B,
+    S, d] first and builds its cross caches.  Returns (logits [B, V] of the
+    last token, cache with ``pos`` = T).
+
+    ``valid_len`` (an int or a one-element device tensor): the real tokens
+    of a prompt padded to a bucket -- logits are taken at valid_len - 1,
+    ``pos`` is valid_len (the padded tail's keys stay masked and are
+    overwritten), and recurrent states stop at valid_len.  A windowed
+    layer's dense ring still needs an exact-length prompt: its padded tail
+    would wrap over real keys, as in the reference."""
     x = embeds.to(torch.bfloat16)
     B, T = x.shape[:2]
     if positions is None:
         positions = torch.arange(T, device=x.device)[None].expand(B, T)
-    cache = init_cache(cfg, B, max_seq, device=x.device)
+    if cfg.is_encdec and src_embeds is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: prefill needs src_embeds")
+    cross_len = src_embeds.shape[1] if cfg.is_encdec else 0
+    cache = init_cache(cfg, B, max_seq, cross_len=cross_len, device=x.device)
+    if cross_len:
+        enc_out = encode(params, cfg, src_embeds, dispatch, policy)
+        cache["cross"] = build_cross_caches(params, cfg, enc_out, cache["cross"], dispatch)
     x = _run_stacks(x, params, cfg, "prefill", positions, cache, None, None,
-                    dispatch, policy, collect, lora)
-    cache["pos"] = torch.tensor(T, dtype=torch.int32, device=x.device)
-    return _logits(x[:, -1:], params, cfg, dispatch)[:, 0], cache
+                    dispatch, policy, collect, lora, valid_len=valid_len)
+    if valid_len is None:
+        cache["pos"] = torch.tensor(T, dtype=torch.int32, device=x.device)
+        last = x[:, -1:]
+    else:
+        vl = KP.device_scalar(valid_len, x.device)
+        cache["pos"] = vl.reshape(())
+        last = x.index_select(1, (vl - 1).long())
+    return _logits(last, params, cfg, dispatch)[:, 0], cache
 
 
 def decode_step(params: dict, cfg: ModelConfig, embeds: torch.Tensor, cache: dict,

@@ -12,7 +12,11 @@ the card (int4 keys, group-wise weight scales, A16) raises
 kernels.  ``fallbacks`` stays empty by construction; callers assert it.
 Where the reference's dense decode kernel refuses a windowed ring and
 falls back, the port runs its kernel over the ring's live slots (see
-``decode_attention``).
+``decode_attention``).  Where it refuses T > 1 query tokens a row and
+falls back (an encoder-decoder's cross attention at prefill: every prompt
+token over the encoder's K/V, no causal mask), the port folds the T tokens
+into the query-head axis and runs the same kernel once, G' = T * G query
+heads a KV head.
 
 ``backend="reference"`` runs the plain versions on any device — the only
 use is holding the kernel path against the plain path on the card.
@@ -134,24 +138,42 @@ class Dispatcher:
         return fn(x, weight, eps)
 
     def decode_attention(self, qh: torch.Tensor, cache, pos,
-                         policy: PrecisionPolicy) -> torch.Tensor:
-        """Decode over a dense ``LayerKVCache``: qh [B, 1, H, D] pre-scaled,
+                         policy: PrecisionPolicy, causal: bool = True) -> torch.Tensor:
+        """Decode over a dense ``LayerKVCache``: qh [B, T, H, D] pre-scaled,
         ``pos`` the tokens written so far, a scalar or [B].  A windowed ring
         attends over its first min(pos, S) slots: a full ring holds exactly
         the last S positions, the keys the reference's mask admits, and the
-        softmax does not depend on the order of its keys."""
-        B, T = qh.shape[:2]
-        if T != 1:
-            raise ValueError("decode attends one query token per row")
+        softmax does not depend on the order of its keys.
+
+        T > 1 needs ``causal=False`` (cross attention at prefill, on a
+        dense cache only; a self-attention step of T > 1 tokens would need
+        a causal mask among them and raises): all T
+        query tokens attend over the same first ``pos`` slots, as the
+        reference's ``decode_attention_ref`` computes them (it masks dead
+        slots only), so qh [B, T, Hkv, G, D] is folded to [B, Hkv * T * G,
+        D] -- query head (t, g) of KV head k becomes head t * G + g of a
+        group of T * G -- and runs as one call; the output unfolds to [B,
+        T, H, D] (at T = 1 both are views).  The fold is chosen from shapes
+        and the window alone: reading ``pos`` would make the host wait."""
+        B, T, H, D = qh.shape
+        if T != 1 and causal:
+            raise ValueError("decode attends one query token per row; T > 1 tokens need "
+                             "causal=False (cross attention: no mask among them)")
+        if T != 1 and cache.window:
+            raise ValueError("a windowed ring attends one query token per row")
+        Hkv = cache.k_q.shape[-2]
+        G = H // Hkv
         pos = kvc.live_slots(cache, pos)
-        args = (qh[:, 0], cache.k_q, cache.k_scale, cache.k_zero, cache.v)
+        q = qh.reshape(B, T, Hkv, G, D).transpose(1, 2).reshape(B, Hkv * T * G, D)
+        args = (q, cache.k_q, cache.k_scale, cache.k_zero, cache.v)
         if self._plain:
             out = QA.quant_decode_attention_plain(
                 *args, pos, key_bits=cache.key_bits,
                 compute_dtype=policy.compute_dtype)
         else:
             out = QA.quant_decode_attention(*args, pos, key_bits=cache.key_bits)
-        return out[:, None].to(policy.compute_dtype)
+        out = out.reshape(B, Hkv, T, G, D).transpose(1, 2).reshape(B, T, H, D)
+        return out.to(policy.compute_dtype)
 
     def paged_decode_attention(self, qh: torch.Tensor, pool, table: torch.Tensor,
                                pos: torch.Tensor, policy: PrecisionPolicy,

@@ -44,6 +44,12 @@ every step of either path adds the per-row bypass of each row's adapter
 (slot 0, the zero adapter, for rows without one).  Until the first adapter
 is loaded the steps carry no bypass at all, as the reference's do.
 
+``Engine.generate`` also serves an encoder-decoder (seamless-m4t): each
+request's source embeddings are encoded with its prompt into cross caches
+that every decode step reads.  ``EngineLoop`` serves decoder-only models,
+as the reference's does; an M-RoPE model (qwen2-vl) runs there on text
+positions, the same id on its three axes.
+
 ``EngineLoop.warmup`` is the reference's: where the reference pre-compiles
 one step graph per decode bucket and per prompt-chunk size, the port
 captures one CUDA graph each, replayed by ``step()``.
@@ -522,25 +528,35 @@ class Engine:
         return rows
 
     def generate(self, requests: Sequence[Request], sampling: SM.SamplingParams,
-                 generator: Optional[torch.Generator] = None) -> List[Request]:
+                 generator: Optional[torch.Generator] = None,
+                 src_embeds: Optional[np.ndarray] = None) -> List[Request]:
         """The slot-synchronous two-phase path: prefill each request into its
         own dense cache, concatenate the caches on the batch axis, then
         decode the batch until every request is done.  As in the reference,
         the batch decodes at request 0's position (one scalar ``pos``), so
         requests must have prompts of equal length to decode correctly.
         Each request's adapter rides along (its prompt alone, then its row
-        of the batch)."""
+        of the batch).  An encoder-decoder takes ``src_embeds``, numpy [B,
+        S, d]: row i is request i's source, encoded with its prompt."""
         if self.weight_policy.active:
             raise RuntimeError("weight streaming requires the EngineLoop step path")
         cfg = self.cfg
+        if cfg.is_encdec and (src_embeds is None or len(src_embeds) < len(requests)):
+            raise ValueError(f"{cfg.name} is an encoder-decoder: generate needs "
+                             "src_embeds [B, S, d], one row a request")
         gen = generator or torch.Generator(device=self.device).manual_seed(0)
         caches, last_logits = [], []
         t0 = time.perf_counter()
         for ri, req in enumerate(requests):
             toks = np.asarray(req.prompt_tokens)[None, :]
+            src = None
+            if cfg.is_encdec:
+                src = torch.from_numpy(np.asarray(src_embeds[ri:ri + 1], np.float32)).to(
+                    self.device).to(torch.bfloat16)
             logits, cache = T.prefill(self.params, cfg, self.embed(toks),
                                       self.max_seq, self.dispatch,
-                                      lora=self._lora_for(requests, rows=[ri]))
+                                      lora=self._lora_for(requests, rows=[ri]),
+                                      src_embeds=src)
             caches.append(cache)
             last_logits.append(logits)
             self.stats.prefill_tokens += toks.size
@@ -573,8 +589,9 @@ class Engine:
 
 def _concat_caches(caches: List[dict]) -> dict:
     """Per-request dense caches -> one batch: fields with a batch axis
-    ([L, B, ...]) are concatenated on it; per-layer lengths and ``pos``
-    are taken from request 0, as the reference does."""
+    ([L, B, ...]) are concatenated on it, the cross-attention caches'
+    too; per-layer lengths and ``pos`` are taken from request 0, as the
+    reference does."""
     if len(caches) == 1:
         return caches[0]
 
@@ -590,9 +607,14 @@ def _concat_caches(caches: List[dict]) -> dict:
             entries[0], **{f: cat([getattr(e, f) for e in entries])
                            for f in ("k_q", "k_scale", "k_zero", "v", "length")})
 
-    stacks = tuple(tuple(merge(entries) for entries in zip(*per_stack))
-                   for per_stack in zip(*[c["stacks"] for c in caches]))
-    return {"stacks": stacks, "pos": caches[0]["pos"]}
+    def merge_stacks(key):
+        return tuple(tuple(merge(entries) for entries in zip(*per_stack))
+                     for per_stack in zip(*[c[key] for c in caches]))
+
+    out = {"stacks": merge_stacks("stacks"), "pos": caches[0]["pos"]}
+    if "cross" in caches[0]:
+        out["cross"] = merge_stacks("cross")
+    return out
 
 
 class EngineLoop:
@@ -654,6 +676,9 @@ class EngineLoop:
                  on_token: Optional[Callable[[Request, int, bool], None]] = None,
                  seed: int = 0, cuda_graphs: bool = True):
         cfg = engine.cfg
+        if cfg.is_encdec:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: continuous batching "
+                             "serves decoder-only models (use Engine.generate)")
         self.eng = engine
         self.cfg = cfg
         self.device = engine.device

@@ -51,7 +51,13 @@ Tolerances are the JAX package's own kernel-vs-reference ones: matmul
 and RMSNorm 2e-2 (the attention kernels round keys and probabilities to
 bf16 where the plain versions do but sum in another order, and the decode
 kernels round probabilities before normalising, against an output the
-plain versions round to bf16)."""
+plain versions round to bf16).
+
+The encoder-decoder's shapes: the dense prefill kernel non-causal at
+D = 64 over a whole source (the encoder), and the dense decode kernel with
+T query tokens folded into the query-head axis (cross attention at
+prefill, G' = T * G = 64 and 320: 4 and 20 head tiles a KV head).  M-RoPE's
+axis index is built outside a CUDA graph capture and read inside it."""
 import math
 
 import numpy as np
@@ -70,7 +76,10 @@ from repro_torch.kernels import w4a8_matmul as WM  # noqa: E402
 from repro_torch.configs import registry as PR  # noqa: E402
 from repro_torch.core import hybrid_storage as HS  # noqa: E402
 from repro_torch.core import kv_pool as KP  # noqa: E402
+from repro_torch.core.precision import DEFAULT_POLICY  # noqa: E402
+from repro_torch.models import layers as PL  # noqa: E402
 from repro_torch.models import transformer as PT  # noqa: E402
+from repro_torch.runtime import dispatch as PD  # noqa: E402
 from repro_torch.runtime import plan as RP  # noqa: E402
 from repro_torch.serving import engine as PE  # noqa: E402
 from repro_torch.serving import sampling as PSM  # noqa: E402
@@ -583,6 +592,65 @@ def test_decode_kernels_replay_in_a_cuda_graph(dev):
     again = calls()                    # eager once more, after the replays
     for (pe, de), (pa, da) in zip(eager, again):
         assert torch.equal(pe, pa) and torch.equal(de, da)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,S", [(256, 256), (16, 16), (100, 100)])
+def test_encoder_prefill_kernel_non_causal_at_d64(dev, T, S):
+    """seamless-m4t's encoder: 16 heads of 64 over 16 KV heads, every query
+    over every key of the source."""
+    g = torch.Generator().manual_seed(T)
+    q = (torch.randn((2, T, 16, 64), generator=g) / 8).bfloat16().to(dev)
+    k = torch.randn((2, S, 16, 64), generator=g).bfloat16().to(dev)
+    v = torch.randn((2, S, 16, 64), generator=g).bfloat16().to(dev)
+    got = FP.flash_prefill_attention(q, k, v, causal=False)
+    _close(got, FP.flash_prefill_attention_plain(q, k, v, causal=False), 2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,hkv,G", [(64, 16, 1), (320, 16, 1), (24, 2, 4)])
+def test_folded_decode_attention_matches_plain(dev, T, hkv, G):
+    """Cross attention at prefill: T query tokens a row over a 256-slot
+    dense cache (200 live in row 1), folded to G' = T * G heads a KV head
+    in one kernel launch, against the plain fold and T one-token launches."""
+    B, S, d = 2, 256, 64
+    cache = KV.LayerKVCache(*_dense_cache(B, S, hkv, d, dev, T),
+                            length=torch.tensor(S, dtype=torch.int32, device=dev))
+    g = torch.Generator().manual_seed(T * G)
+    qh = (torch.randn((B, T, hkv * G, d), generator=g) / 8).bfloat16().to(dev)
+    length = torch.tensor([S, 200], dtype=torch.int32, device=dev)
+    before = QA.quant_decode_attention.launches
+    got = PD.Dispatcher("kernel").decode_attention(qh, cache, length, DEFAULT_POLICY,
+                                                   causal=False)
+    assert QA.quant_decode_attention.launches == before + 1
+    want = PD.Dispatcher("reference").decode_attention(qh, cache, length, DEFAULT_POLICY,
+                                                       causal=False)
+    assert got.shape == (B, T, hkv * G, d)
+    _close(got, want, 2e-2)
+    single = torch.cat([PD.Dispatcher("kernel").decode_attention(
+        qh[:, t:t + 1].contiguous(), cache, length, DEFAULT_POLICY)
+        for t in range(0, T, 7)], dim=1)
+    _close(got[:, ::7], single, 2e-2)
+
+
+@pytest.mark.gpu
+def test_mrope_axis_index_cached_before_a_capture(dev):
+    """qwen2-vl's rotation on text positions: the eager call builds the
+    axis index (a host copy); a CUDA graph captured after it reads the
+    cached index and its replay equals the eager result."""
+    cfg = PR.get("qwen2-vl-2b")
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((4, 1, 12, 128), generator=g).bfloat16().to(dev)
+    pos = torch.tensor([[3], [70], [500], [1999]], device=dev)
+    want = PL.positional(x, cfg, pos)
+    axes = PL.mrope_axes(cfg.mrope_sections, dev)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = PL.positional(x, cfg, pos)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    assert PL.mrope_axes(cfg.mrope_sections, dev) is axes
 
 
 @pytest.mark.gpu

@@ -41,7 +41,8 @@ def _same(a, b):
 
 @pytest.mark.parametrize("arch", ["qwen2-7b", "qwen2-1.5b", "llama3-8b",
                                   "moonshot-v1-16b-a3b", "dbrx-132b", "glm4-9b",
-                                  "qwen1.5-110b", "grok-1-314b", "gemma3-27b"])
+                                  "qwen1.5-110b", "grok-1-314b", "gemma3-27b",
+                                  "seamless-m4t-large-v2", "qwen2-vl-2b"])
 @pytest.mark.parametrize("variant", ["", "@reduced", "@tiny", "@tiny-moe"])
 def test_config_equal_field_by_field(arch, variant):
     if variant == "@tiny-moe" and not JR.get(arch).num_experts:
