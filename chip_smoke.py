@@ -161,15 +161,31 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    4 x 320, and holds a prefill and a decode step with three-axis
    positions (text, a 16 x 16-patch image block, text) kernel vs plain.
 
-Launch counts are zeroed just before each serving path and read just after
-it (a graph replay adds the launches its capture recorded): every kernel of
-the path must have launched, and nothing fell back.
+10. ``[train]``: qwen2-1.5b's float tree at full width and depth (28
+   layers, d_model 1536, 12/2 heads of 128, d_ff 8960; ~1.78 B parameters,
+   bf16, from seed 0) on batches of 4 x 512 tokens from the port's
+   pipeline: kernels 4 and 7 at the training shapes against their plain
+   versions; one step's loss and every gradient leaf on the kernel route
+   against the plain route; 20 AdamW steps under remat with kernels 4 and
+   7 launched in every step through their ``autograd.Function``s (forward
+   and recompute), a held-out batch's loss falling and the gradient norm
+   finite; a step's wall time, tokens/s, peak device memory and the two
+   kernels' device time; one Adafactor step moving every parameter.
+
+Launch counts are zeroed just before each serving path (and the training
+steps) and read just after it (a graph replay adds the launches its
+capture recorded): every kernel of the path must have launched, and
+nothing fell back.  Each phase ends with a ``[timing]`` line: its seconds
+split by what they were spent on (``spent_on`` sections).
 The last three lines of standard output are the card (``nvidia-smi`` name,
 power limit), one JSON object with every kernel's numbers, and
 ``{"ok": true, "device": {...}}``.  Details go to ``chiprun_out/``.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
+import functools
 import gc
 import json
 import math
@@ -247,12 +263,81 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+# --- where each phase's seconds go ------------------------------------------
+# Every second of the host's wall clock is charged to the innermost open
+# section ("build" of weights and engines, "flash" writes, "warmup" with its
+# graph captures, "traces" the kernel route serves, "kernel_vs_plain", the
+# "timing" loops, "profile"s, "train_steps"), its path through the open
+# sections joined by "/"; time outside any section is "other".  A phase's
+# split is logged on its [timing] line and cleared.
+_SECTIONS: list = []
+_SPENT: dict = collections.defaultdict(float)
+_SINCE = [time.perf_counter()]
+
+
+def _charge() -> None:
+    now = time.perf_counter()
+    path = [c for i, c in enumerate(_SECTIONS) if i == 0 or _SECTIONS[i - 1] != c]
+    _SPENT["/".join(path) or "other"] += now - _SINCE[0]
+    _SINCE[0] = now
+
+
+@contextlib.contextmanager
+def spent_on(category: str):
+    _charge()
+    _SECTIONS.append(category)
+    try:
+        yield
+    finally:
+        _charge()
+        _SECTIONS.pop()
+
+
+def timed(category: str):
+    """Decorator: the function's seconds are ``category``'s."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            with spent_on(category):
+                return fn(*args, **kwargs)
+        return run
+    return wrap
+
+
+def timing_split(phase: str) -> dict:
+    """Log and return the seconds spent since the last split, by section."""
+    _charge()
+    split = dict(sorted(_SPENT.items(), key=lambda kv: -kv[1]))
+    _SPENT.clear()
+    total = sum(split.values())
+    log(f"[timing] {phase}: {total:.1f} s = " + ", ".join(
+        f"{k} {v:.1f}" for k, v in split.items()))
+    return {"total_s": total, "split_s": split}
+
+
+def instrument() -> None:
+    """Charge the port's engine construction, Flash writes, warmups and
+    ``Engine.generate`` to their sections (the script's own helpers carry
+    ``timed``)."""
+    from repro_torch.core import hybrid_storage as HS
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import engine as E
+    E.build_engine = timed("build")(E.build_engine)
+    E.Engine.__init__ = timed("build")(E.Engine.__init__)
+    T.init_params = timed("build")(T.init_params)
+    E.EngineLoop.warmup = timed("warmup")(E.EngineLoop.warmup)
+    E.Engine.generate = timed("traces")(E.Engine.generate)
+    HS.EmbeddingStore.create = classmethod(timed("flash")(HS.EmbeddingStore.create.__func__))
+    HS.WeightGroupStore._put = timed("flash")(HS.WeightGroupStore._put)
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
 
 
+@timed("timing")
 def time_ms(fn, arg_sets, iters: int = 20, warmup: int = 3) -> float:
     """Mean time over ``iters`` launches between two CUDA events,
     rotating over ``arg_sets`` (enough copies that the weights do not stay
@@ -283,6 +368,7 @@ def alternating_ms(cases, iters: int = 200, batches: int = 7):
     return [statistics.median(m) for m in means]
 
 
+@timed("timing")
 def graph_ms(fn, arg_sets, iters: int = 20, replays: int = 5):
     """Device time per launch: ``iters`` calls captured in one CUDA graph and
     replayed, so the host's time per call (Python checks, allocation, the
@@ -862,6 +948,7 @@ def make_loop(engine, cuda_graphs: bool = False, prefill_token_budget: int = 256
                         cuda_graphs=cuda_graphs)
 
 
+@timed("traces")
 def serve_trace(engine, specs, arrivals, max_new: int = 32, loop=None, adapters=None):
     """Drive ``EngineLoop`` (``loop``, by default a new eager one) through
     submit/step, request i under adapter ``adapters[i]`` if given; returns
@@ -942,7 +1029,9 @@ def phase_graphs(label: str, eng, specs, arrivals, eager_reqs, max_new: int,
     for token, no graph is captured after warmup, each kernel of ``kernels``
     launched (a replay adds what its capture recorded) and nothing fell
     back.  ``spies`` (a context manager) wraps the warmup, whose eager runs
-    and captures are the only Python calls the graphs' steps make."""
+    and captures are the only Python calls the graphs' steps make.  Then a
+    4-row decode step on the same graphs is profiled
+    (``profile_loop_decode``).  Returns (summary, profile)."""
     import contextlib
     import statistics
     import torch
@@ -1010,8 +1099,12 @@ def phase_graphs(label: str, eng, specs, arrivals, eager_reqs, max_new: int,
         f"p95 {summary['ttft_p95_ms']:.1f} ms; TPOT p50 {summary['tpot_p50_ms']:.2f} ms; "
         f"decode {s.decode_tps:.1f} tok/s; prefill {s.prefill_tps:.1f} tok/s; "
         f"{s.recompiles_after_warmup} captures after warmup")
+    # a graph decode step profiled on this loop: its graphs are already
+    # captured, so the profile needs no second warmup
+    profile = profile_loop_decode(eng, specs, loop=loop)
+    assert eng.stats.recompiles_after_warmup == 0, "the profile captured a graph"
     loop.close()
-    return summary
+    return summary, profile
 
 
 def count_syncs(step) -> dict:
@@ -1039,6 +1132,7 @@ def count_syncs(step) -> dict:
     return {"syncs_per_step": sum(where.values()), "sync_sites": dict(where.most_common())}
 
 
+@timed("profile")
 def profile_steps(label: str, step, steps: int = 4) -> dict:
     """Where a decode step's time goes: wall time per ``step()``, the
     host-device synchronizations of one step, and the device's busy share
@@ -1119,19 +1213,27 @@ def profile_steps(label: str, step, steps: int = 4) -> dict:
     return out
 
 
+@timed("profile")
 def profile_loop_decode(eng, specs, steps: int = 4, cuda_graphs: bool = False,
-                        adapters=(None,) * 4) -> dict:
+                        adapters=(None,) * 4, loop=None) -> dict:
     """A full-batch ``EngineLoop`` step with four rows decoding (row i under
     adapter ``adapters[i]``), eager or (``cuda_graphs``, after ``warmup()``)
-    replaying its CUDA graph."""
+    replaying its CUDA graph; ``loop``: an idle loop already warmed (its
+    graphs are replayed, and it is left open).  Each request asks for the
+    tokens the profile's steps need and a margin (``profile_steps`` runs 2
+    + 2 * ``steps``), so draining the loop afterwards costs a few steps."""
     from repro_torch.serving import engine as E
     from repro_torch.serving import sampling as SM
-    loop = make_loop(eng, cuda_graphs=cuda_graphs, prefill_token_budget=512)
-    if cuda_graphs:
-        loop.warmup()
-    sp = SM.SamplingParams(temperature=0.0, max_new_tokens=64)
+    own = loop is None
+    if own:
+        loop = make_loop(eng, cuda_graphs=cuda_graphs, prefill_token_budget=512)
+        if cuda_graphs:
+            loop.warmup()
+    cuda_graphs = loop.cuda_graphs
+    new = 2 * steps + 8
+    sp = SM.SamplingParams(temperature=0.0, max_new_tokens=new)
     for i, p in enumerate(specs[:4]):
-        loop.submit(E.Request(uid=100 + i, prompt_tokens=p[:128], max_new_tokens=64,
+        loop.submit(E.Request(uid=100 + i, prompt_tokens=p[:128], max_new_tokens=new,
                               sampling=sp, adapter=adapters[i]))
     while loop._prefilling or sum(r is not None for r in loop.scheduler.running) < 4:
         loop.step()
@@ -1139,10 +1241,12 @@ def profile_loop_decode(eng, specs, steps: int = 4, cuda_graphs: bool = False,
         f", adapters {list(adapters)}" if any(adapters) else "")
     out = profile_steps(f"{eng.cfg.name} EngineLoop decode step, 4 rows, {how}",
                         loop.step, steps)
+    assert sum(r is not None for r in loop.scheduler.running) == 4, "a row finished early"
     out["rows"] = 4
     while loop.has_work():
         loop.step()
-    loop.close()
+    if own:
+        loop.close()
     return out
 
 
@@ -1251,6 +1355,7 @@ def routed(steps_fn, engine, prompt, nxt, feed=None):
         M._route = route
 
 
+@timed("kernel_vs_plain")
 def compare_paths(label: str, eng, steps_fn, prompt, nxt) -> dict:
     """Kernel path against plain path at full width and depth.  Free running,
     the int8 re-quantization of every linear's input turns last-bit
@@ -1324,6 +1429,7 @@ def compare_paths(label: str, eng, steps_fn, prompt, nxt) -> dict:
     return out
 
 
+@timed("kernel_vs_plain")
 def phase_kernel_vs_plain(eng, specs, arrivals, reqs):
     """The continuous path's layer check, plus the greedy agreement of the
     whole trace on the plain path (printed, not asserted)."""
@@ -1793,6 +1899,7 @@ def spill_step_kind(before: dict, after: dict) -> str:
     return "plain"
 
 
+@timed("traces")
 def drive_spill(loop, specs, per_step: bool = False):
     """All requests submitted at step 0 (greedy, ``SPILL_NEW`` tokens), then
     ``step()`` until idle.  With ``per_step`` each step is timed to the
@@ -2044,9 +2151,8 @@ def phase_glm4(dev):
     log(f"[glm4] {len(reqs)} requests, {new_tokens} new tokens in {wall:.2f} s; TTFT p50 "
         f"{summary['ttft_p50_ms']:.1f} ms p95 {summary['ttft_p95_ms']:.1f} ms; TPOT p50 "
         f"{summary['tpot_p50_ms']:.2f} ms; prefix pages adopted {loop.pool.prefix_hits}")
-    summary["graphs"] = phase_graphs("glm4-9b", eng, specs, arrivals, reqs, GLM4_NEW,
-                                     LOOP_KERNELS)
-    summary["profile_graphs"] = profile_loop_decode(eng, specs, cuda_graphs=True)
+    summary["graphs"], summary["profile_graphs"] = phase_graphs(
+        "glm4-9b", eng, specs, arrivals, reqs, GLM4_NEW, LOOP_KERNELS)
     prompt = next(p for p in specs if len(p) > 128)
     summary["kernel_vs_plain"] = compare_paths("glm4-9b EngineLoop", eng, chunk_then_decode,
                                                prompt, prompt[128])
@@ -2198,8 +2304,8 @@ def phase_moe(dev) -> dict:
     # graph's grouped launches there: chunks with live-row counts, decode
     # by expert id; every graph of each kind then holds grouped launches
     graph_spy = MoeSpies()
-    summary["graphs"] = phase_graphs("moonshot-v1-16b-a3b", eng, specs, arrivals, reqs, 16,
-                                     MOE_KERNELS, spies=graph_spy)
+    summary["graphs"], summary["profile_graphs"] = phase_graphs(
+        "moonshot-v1-16b-a3b", eng, specs, arrivals, reqs, 16, MOE_KERNELS, spies=graph_spy)
     log(f"[graphs] moonshot-v1-16b-a3b: at warmup {graph_spy}")
     graph_spy.check()
     per_graph = summary["graphs"]["graph_launches"]
@@ -2207,7 +2313,6 @@ def phase_moe(dev) -> dict:
     summary["graphs"]["grouped_matmul_by_branch_at_warmup"] = graph_spy.by_branch
     summary["graphs"]["grouped_matmul_by_table_at_warmup"] = graph_spy.tables
     summary["profile"] = profile_loop_decode(eng, specs)
-    summary["profile_graphs"] = profile_loop_decode(eng, specs, cuda_graphs=True)
     prompt = specs[3]
     summary["kernel_vs_plain"] = compare_paths("MoE EngineLoop", eng, chunk_then_decode,
                                                prompt, prompt[128])
@@ -2234,6 +2339,7 @@ def wstream_trace(vocab: int, lens, seed: int):
             for i, n in enumerate(lens)]
 
 
+@timed("traces")
 def drive_wstream(loop, specs, max_new: int) -> dict:
     """Every request at step 0 (greedy), then ``step()`` until idle, each
     step timed to the device's end and classed (a step that ran a prompt
@@ -2857,9 +2963,8 @@ def phase_gemma3(dev, results: dict):
     summary.update(loop_summary("gemma3", loop, reqs, wall, eng, counts))
     summary["decode_kernel_by_pool"] = dict(spy.paged)
     summary["ring_bases"] = spy.bases
-    summary["graphs"] = phase_graphs("gemma3-27b", eng, specs, arrivals, reqs, GEMMA_NEW,
-                                     LOOP_KERNELS)
-    summary["profile_graphs"] = profile_loop_decode(eng, specs, cuda_graphs=True)
+    summary["graphs"], summary["profile_graphs"] = phase_graphs(
+        "gemma3-27b", eng, specs, arrivals, reqs, GEMMA_NEW, LOOP_KERNELS)
     summary["kernel_vs_plain"] = compare_paths("gemma3-27b EngineLoop past the window", eng,
                                                window_steps(eng), None, None)
     gspy = WindowSpies()
@@ -2955,9 +3060,8 @@ def phase_big_dense(dev, results: dict):
         assert counts[name] > 0, f"{name} never launched on qwen1.5-110b's EngineLoop: {counts}"
     assert eng.dispatch.fallbacks == [], eng.dispatch.fallbacks
     summary.update(loop_summary("qwen110b", loop, reqs, wall, eng, counts))
-    summary["graphs"] = phase_graphs("qwen1.5-110b", eng, specs, arrivals, reqs, BIG_NEW,
-                                     LOOP_KERNELS)
-    summary["profile_graphs"] = profile_loop_decode(eng, specs, cuda_graphs=True)
+    summary["graphs"], summary["profile_graphs"] = phase_graphs(
+        "qwen1.5-110b", eng, specs, arrivals, reqs, BIG_NEW, LOOP_KERNELS)
     prompt = next(p for p in specs if len(p) > 128)
     summary["kernel_vs_plain"] = compare_paths("qwen1.5-110b EngineLoop", eng,
                                                chunk_then_decode, prompt, prompt[128])
@@ -3074,10 +3178,9 @@ def phase_grok(dev, results: dict):
     summary.update(loop_summary("grok1", loop, reqs, wall, eng, counts))
     summary["grouped_matmul_by_branch"] = spy.by_branch
     graph_spy = MoeSpies()
-    summary["graphs"] = phase_graphs("grok-1-314b", eng, specs, arrivals, reqs, BIG_NEW,
-                                     MOE_KERNELS, spies=graph_spy)
+    summary["graphs"], summary["profile_graphs"] = phase_graphs(
+        "grok-1-314b", eng, specs, arrivals, reqs, BIG_NEW, MOE_KERNELS, spies=graph_spy)
     graph_spy.check()
-    summary["profile_graphs"] = profile_loop_decode(eng, specs, cuda_graphs=True)
     prompt = next(p for p in specs if len(p) > 128)
     summary["kernel_vs_plain"] = compare_paths("grok-1-314b EngineLoop", eng,
                                                chunk_then_decode, prompt, prompt[128])
@@ -3261,11 +3364,10 @@ def phase_recurrent(dev, label: str, cfg, specs, arrivals, max_new: int, loop_ke
     assert eng.dispatch.fallbacks == [], eng.dispatch.fallbacks
     summary.update(loop_summary(label, loop, reqs, wall, eng, counts))
     graph_spy = MoeSpies() if moe else None
-    summary["graphs"] = phase_graphs(cfg.name, eng, specs, arrivals, reqs, max_new,
-                                     loop_kernels, spies=graph_spy)
+    summary["graphs"], summary["profile_graphs"] = phase_graphs(
+        cfg.name, eng, specs, arrivals, reqs, max_new, loop_kernels, spies=graph_spy)
     if moe:
         graph_spy.check()
-    summary["profile_graphs"] = profile_loop_decode(eng, specs, cuda_graphs=True)
     assert summary["profile_graphs"]["syncs_per_step"] == 1, summary["profile_graphs"]
     prompt = next(p for p in specs if len(p) > 128)
     summary["kernel_vs_plain"] = compare_paths(f"{cfg.name} EngineLoop", eng, chunk_then_decode,
@@ -3634,10 +3736,9 @@ def phase_qwen2vl(dev, results: dict):
     assert eng.dispatch.fallbacks == [], eng.dispatch.fallbacks
     summary = loop_summary("qwen2vl", loop, reqs, wall, eng, counts)
     summary["prefix_hits_pages"] = loop.pool.prefix_hits
-    summary["graphs"] = phase_graphs("qwen2-vl-2b", eng, specs, arrivals, reqs, QWEN2VL_NEW,
-                                     LOOP_KERNELS)
+    summary["graphs"], summary["profile_graphs"] = phase_graphs(
+        "qwen2-vl-2b", eng, specs, arrivals, reqs, QWEN2VL_NEW, LOOP_KERNELS)
     summary["profile"] = profile_loop_decode(eng, specs)
-    summary["profile_graphs"] = profile_loop_decode(eng, specs, cuda_graphs=True)
     assert summary["profile_graphs"]["syncs_per_step"] == 1, summary["profile_graphs"]
     pos3 = vision_positions(32, 16, 32)
     nxt = int(pos3[-1, 0]) + 1
@@ -3653,6 +3754,258 @@ def phase_qwen2vl(dev, results: dict):
     summary["generate"] = phase_generate(eng, tag="qwen2vl", prompt_len=len(pos3),
                                          steps=mrope_steps)
     return [eng], summary
+
+
+# ---------------------------------------------------------------------------
+# phase 10: training at full width
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "qwen2-1.5b"
+TRAIN_BATCH, TRAIN_SEQ = 4, 512
+TRAIN_STEPS = 20
+TRAIN_WARMUP = 5                         # steps of warmup; the cosine ends at step 20
+TRAIN_KERNELS = ("rmsnorm", "flash_prefill_attention")
+# kernel route vs plain route, one step on the same parameters and batch:
+# the loss, and each gradient leaf's relative L2 error.  Both routes sum in
+# float32 and round to bf16 at the same places; the kernels sum in another
+# order (kernel 7's tensor-core products and bf16 probabilities against the
+# plain blockwise softmax), and each layer's backward carries the later
+# layers' differences, so early leaves read the most.
+TRAIN_LOSS_REL = 1e-3
+TRAIN_GRAD_REL_L2 = 2e-2
+# the loss of a held-out batch (the pipeline's next) after the AdamW steps
+# below its loss before them by this much: a batch's training loss moves
+# with its mix of documents, the held-out one measures what was learnt
+# (synthetic data: skewed unigrams a random model learns first)
+TRAIN_LOSS_DROP = 1.0
+
+
+def _tree_rel_l2(a_tree, b_tree):
+    """(worst relative L2 error over the leaves, its leaf index, the
+    errors) of b against a, in float32 on the device."""
+    from torch.linalg import vector_norm
+    from repro_torch.training import optimizer as O
+    errs = [float(vector_norm(a.float() - b.float()) / vector_norm(a.float()).clamp(min=1e-30))
+            for a, b in zip(O.leaves(a_tree), O.leaves(b_tree))]
+    worst = max(range(len(errs)), key=errs.__getitem__)
+    return errs[worst], worst, errs
+
+
+@timed("timing")
+def train_kernel_rows(dev, cfg, results: dict) -> None:
+    """Kernels 4 and 7 at the training forward's shapes (one RMSNorm over
+    the B*T rows; causal GQA over T = S = 512), each against its plain
+    version, timed with its bound and library call; the rows join the
+    kernels' ``all_shapes``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_prefill as FP
+    from repro_torch.kernels import rmsnorm as RN
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rows, D = TRAIN_BATCH * TRAIN_SEQ, cfg.d_model
+    x = torch.randn((rows, D), generator=gen, device=dev).to(torch.bfloat16)
+    w = 1.0 + 0.1 * torch.randn((D,), generator=gen, device=dev)
+    err = check_close("rmsnorm", RN.rmsnorm(x, w, cfg.rms_eps), RN.rmsnorm_plain(x, w, cfg.rms_eps),
+                      f"rows={rows} D={D} (training)")
+    lib = (lambda a, b: F.rms_norm(a, (D,), b, cfg.rms_eps), [(x, w.to(torch.bfloat16))])
+    b = bound(rows * D * 2 * 2 + D * 4, 4 * rows * D, F32_FLOPS_PER_S)
+    row = {"rows": rows, "D": D, "what": "training forward", "max_abs_err": err,
+           "ms": time_ms(RN.rmsnorm, [(x, w, cfg.rms_eps)]),
+           "graph_ms": graph_ms(RN.rmsnorm, [(x, w, cfg.rms_eps)]),
+           "plain_ms": time_ms(RN.rmsnorm_plain, [(x, w, cfg.rms_eps)]),
+           "library_ms": time_ms(*lib), "library_graph_ms": graph_ms(*lib),
+           "bound_ms": b[0], "bound_by": b[1]}
+    results["rmsnorm"]["all_shapes"].append(row)
+    log(f"[train] rmsnorm rows={rows} D={D}: {row['ms']:.4f} ms a call, "
+        f"{f4(row['graph_ms'])} ms on the device; plain {row['plain_ms']:.4f}; F.rms_norm "
+        f"{row['library_ms']:.4f} / {f4(row['library_graph_ms'])}; bound {b[0]:.5f} ms "
+        f"({b[1]}); max abs err {err:.3e}")
+    B, T, H, Hkv, hd = TRAIN_BATCH, TRAIN_SEQ, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q = (torch.randn((B, T, H, hd), generator=gen, device=dev) / math.sqrt(hd)).to(torch.bfloat16)
+    k = torch.randn((B, T, Hkv, hd), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((B, T, Hkv, hd), generator=gen, device=dev).to(torch.bfloat16)
+    err = check_close("flash_prefill_attention", FP.flash_prefill_attention(q, k, v),
+                      FP.flash_prefill_attention_plain(q, k, v),
+                      f"B={B} T=S={T} H={H} Hkv={Hkv} (training)")
+    G = H // Hkv
+    sdpa = (lambda a, b_, c: F.scaled_dot_product_attention(a, b_, c, is_causal=True, scale=1.0),
+            [(q.transpose(1, 2), k.transpose(1, 2).repeat_interleave(G, dim=1),
+              v.transpose(1, 2).repeat_interleave(G, dim=1))])
+    pairs = T * (T + 1) // 2
+    b = bound(q.numel() * 2 + 2 * k.numel() * 2 + B * T * H * hd * 4,
+              4 * B * H * hd * pairs, BF16_FLOPS_PER_S)
+    row = {"B": B, "T": T, "S": T, "H": H, "Hkv": Hkv, "D": hd, "what": "training forward",
+           "max_abs_err": err, "ms": time_ms(FP.flash_prefill_attention, [(q, k, v)]),
+           "graph_ms": graph_ms(FP.flash_prefill_attention, [(q, k, v)]),
+           "plain_ms": time_ms(FP.flash_prefill_attention_plain, [(q, k, v)], iters=5),
+           "library_ms": time_ms(*sdpa), "library_graph_ms": graph_ms(*sdpa),
+           "bound_ms": b[0], "bound_by": b[1]}
+    results["flash_prefill_attention"]["all_shapes"].append(row)
+    log(f"[train] flash_prefill_attention B={B} T=S={T} {H}/{Hkv} heads of {hd}, causal: "
+        f"{row['ms']:.4f} ms a call, {f4(row['graph_ms'])} ms on the device; plain "
+        f"{row['plain_ms']:.4f}; SDPA {row['library_ms']:.4f} / {f4(row['library_graph_ms'])}; "
+        f"bound {b[0]:.5f} ms ({b[1]}); max abs err {err:.3e}")
+
+
+def phase_train(dev, results: dict, card: str):
+    """qwen2-1.5b's float tree at full width and depth (28 layers, d_model
+    1536, 12/2 heads of 128, d_ff 8960, vocab 151936; ~1.78 B parameters,
+    bf16, from ``torch.Generator`` seed 0) takes AdamW steps
+    (``default_opt_for``: lr 3e-4, here after 5 warmup steps and a cosine
+    over 20) under remat on batches of 4 x 512 tokens from the port's
+    pipeline: (a) one step's loss and every gradient leaf on the kernel
+    route against ``Dispatcher(backend="reference")`` on the same
+    parameters and batch; (b) kernels 4 and 7 launched in every step (the
+    forward and remat's recompute, through their ``autograd.Function``s),
+    nothing fallen back; (c) over 20 steps the loss of a held-out batch
+    falls and the gradient norm stays finite; (d) one Adafactor step moves every parameter
+    and stays finite.  Prints a step's wall time, tokens/s, peak device
+    memory and the two kernels' device time in a step.  Returns (holder,
+    summary)."""
+    import dataclasses
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import kernels as K
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import dispatch as D
+    from repro_torch.runtime import plan as RP
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import train_loop as TL
+
+    cfg = registry.get(TRAIN_ARCH)
+    train_kernel_rows(dev, cfg, results)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in O.leaves(params))
+    log(f"[train] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.resolved_head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.padded_vocab_size}; float tree of {n_params:,} "
+        f"parameters ({sum(t.numel() * t.element_size() for t in O.leaves(params)) / 2**30:.2f} "
+        f"GiB) built in {time.perf_counter() - t0:.1f} s")
+    data = Pipeline(DataConfig(batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                               vocab_size=cfg.vocab_size, seed=0))
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+               for b in data.batches(TRAIN_STEPS + 1)]
+    held_out = batches.pop()
+
+    def held_out_loss(p) -> float:
+        with torch.no_grad():
+            return float(TL.loss_fn(p, cfg, held_out, T.StepCtx(cfg))[1]["loss"])
+    summary = {"arch": cfg.name, "parameters": n_params, "batch": TRAIN_BATCH,
+               "seq": TRAIN_SEQ, "card": card}
+
+    # (a) one step's loss and gradients, kernel route vs plain route
+    kern = T.StepCtx(cfg, remat=True)
+    with spent_on("kernel_vs_plain"):
+        K.reset_launch_counts()
+        (ktot, km), kgrads = TL.value_and_grad(params, cfg, batches[0], kern)
+        once = {n: K.launch_counts()[n] for n in TRAIN_KERNELS}
+        (ptot, pm), pgrads = TL.value_and_grad(
+            params, cfg, batches[0], T.StepCtx(cfg, remat=True, dispatch=D.Dispatcher("reference")))
+        loss_rel = abs(float(km["loss"]) - float(pm["loss"])) / abs(float(pm["loss"]))
+        worst, at, errs = _tree_rel_l2(pgrads, kgrads)
+        del kgrads, pgrads
+    names = ["/".join(map(str, k)) for k, _ in RP.tree_leaves_with_path(params)]
+    log(f"[train] kernel vs plain, one step: loss {float(km['loss']):.6f} vs "
+        f"{float(pm['loss']):.6f} (rel {loss_rel:.2e}, tolerance {TRAIN_LOSS_REL}); "
+        f"{len(errs)} gradient leaves, worst rel L2 {worst:.2e} at {names[at]} (tolerance "
+        f"{TRAIN_GRAD_REL_L2}), median {sorted(errs)[len(errs) // 2]:.2e}; launches {once}")
+    assert loss_rel < TRAIN_LOSS_REL, (float(km["loss"]), float(pm["loss"]))
+    assert worst < TRAIN_GRAD_REL_L2, (names[at], worst)
+    summary["kernel_vs_plain"] = {"loss": float(km["loss"]), "plain_loss": float(pm["loss"]),
+                                  "loss_rel": loss_rel, "grad_rel_l2_worst": worst,
+                                  "grad_rel_l2_worst_leaf": names[at],
+                                  "grad_rel_l2": dict(zip(names, errs)),
+                                  "launches_one_step": once}
+
+    # (b), (c): AdamW steps on the kernel route
+    opt = dataclasses.replace(TL.default_opt_for(cfg), warmup_steps=TRAIN_WARMUP,
+                              decay_steps=TRAIN_STEPS)
+    eval_before = held_out_loss(params)
+    assert opt.kind == "adamw", opt
+    disp = D.Dispatcher()
+    step = TL.make_train_step(cfg, opt, remat=True, dispatch=disp)
+    state = O.init_state(opt, params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    K.reset_launch_counts()
+    losses, norms, walls, per_step = [], [], [], []
+    with spent_on("train_steps"):
+        for b in batches:
+            before = K.launch_counts()
+            t1 = time.perf_counter()
+            params, state, m = step(params, state, b)
+            losses.append(float(m["loss"]))      # waits for the step
+            walls.append(time.perf_counter() - t1)
+            norms.append(float(m["grad_norm"]))
+            after = K.launch_counts()
+            per_step.append({n: after[n] - before[n] for n in K.wrappers()})
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    assert disp.fallbacks == [], disp.fallbacks
+    for i, c in enumerate(per_step):
+        for name in TRAIN_KERNELS:
+            assert c[name] > 0, f"step {i}: {name} never launched: {c}"
+        assert c == per_step[0], (i, c, per_step[0])
+    assert all(math.isfinite(x) for x in losses + norms), (losses, norms)
+    eval_after = held_out_loss(params)
+    log(f"[train] {TRAIN_STEPS} AdamW steps (lr {opt.lr}, warmup {opt.warmup_steps}, remat): "
+        f"loss {' '.join(f'{x:.3f}' for x in losses)}; grad norm {norms[0]:.3f} -> "
+        f"{norms[-1]:.3f}; held-out batch {eval_before:.4f} -> {eval_after:.4f} (must fall "
+        f"by {TRAIN_LOSS_DROP})")
+    assert eval_after < eval_before - TRAIN_LOSS_DROP, (eval_before, eval_after)
+    wall = sorted(walls[1:])[len(walls[1:]) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"[train] launches a step: {per_step[0]} (rmsnorm: 2 a layer + the final norm, "
+        f"and 2 a layer again in remat's recompute; attention 1 a layer and again); "
+        f"fallbacks {disp.fallbacks}")
+    log(f"[train] {card}: a step {wall * 1e3:.1f} ms wall (median of steps 2-{TRAIN_STEPS}; "
+        f"step 1 {walls[0] * 1e3:.1f} ms), {tokens / wall:.0f} tokens/s; peak device memory "
+        f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)")
+    summary.update(losses=losses, grad_norms=norms, held_out_loss=[eval_before, eval_after], step_wall_ms=[w * 1e3 for w in walls],
+                   step_ms=wall * 1e3, tokens_per_s=tokens / wall, peak_memory_gib=peak / 2**30,
+                   launches=counts, launches_per_step=per_step[0], optimizer=opt.kind)
+
+    # the kernels' device time in one step
+    with spent_on("profile"):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            params, state, m = step(params, state, batches[-1])
+            torch.cuda.synchronize()
+    dev_ms = {sym: 0.0 for sym in ("rmsnorm_kernel", "flash_prefill_kernel")}
+    total_us = 0.0
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        us = getattr(e, "self_cuda_time_total", 0) if us is None else us
+        total_us += us
+        for sym in dev_ms:
+            if sym in e.key:
+                dev_ms[sym] += us / 1e3
+    summary["device_ms_per_step"] = total_us / 1e3
+    summary["kernel_device_ms_per_step"] = dev_ms
+    log(f"[train] {card}: device time in a step {total_us / 1e3:.1f} ms"
+        + ("" if total_us else " (the profiler saw none: not measured)") + "; "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in dev_ms.items()))
+
+    # (d) one Adafactor step on the same tree
+    del state, step
+    gc.collect()
+    ada = dataclasses.replace(opt, kind="adafactor")
+    astep = TL.make_train_step(cfg, ada, remat=True)
+    new, _astate, am = astep(params, O.init_state(ada, params), batches[0])
+    moved = [not torch.equal(a, b) for a, b in zip(O.leaves(new), O.leaves(params))]
+    finite = all(bool(torch.isfinite(t).all()) for t in O.leaves(new))
+    log(f"[train] one Adafactor step: loss {float(am['loss']):.4f}, grad norm "
+        f"{float(am['grad_norm']):.3f}; {sum(moved)}/{len(moved)} parameter leaves moved, "
+        f"all finite: {finite}")
+    assert all(moved) and finite and math.isfinite(float(am["loss"]))
+    summary["adafactor"] = {"loss": float(am["loss"]), "grad_norm": float(am["grad_norm"]),
+                            "leaves_moved": sum(moved), "leaves": len(moved)}
+    return [params, new], summary
 
 
 def drop_flash(name: str) -> None:
@@ -3674,6 +4027,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import loader
 
+    instrument()
+    timings = {}
     t_start = time.perf_counter()
     OUT.mkdir(exist_ok=True)
     dev = torch.device("cuda", 0)
@@ -3687,24 +4042,30 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             log(f"[build]   {line.strip()}")
 
+    timings["build"] = timing_split("build")
     results: dict = {}
     phase_kernels(dev, results)
     phase_new_kernels(dev, results)
+    timings["kernels"] = timing_split("kernels")
     eng, specs, arrivals, reqs, summary = phase_main_path(dev)
-    summary["graphs"] = phase_graphs("qwen2-7b", eng, specs, arrivals, reqs, 32,
-                                     LOOP_KERNELS)
+    summary["graphs"], summary["profile_graphs"] = phase_graphs(
+        "qwen2-7b", eng, specs, arrivals, reqs, 32, LOOP_KERNELS)
     summary["profile"] = profile_loop_decode(eng, specs)
-    summary["profile_graphs"] = profile_loop_decode(eng, specs, cuda_graphs=True)
     checks = phase_kernel_vs_plain(eng, specs, arrivals, reqs)
+    timings["main"] = timing_split("main")
     generate = phase_generate(eng)
+    timings["generate"] = timing_split("generate")
     lora = phase_lora(eng, card)
     log(f"[lora] phase took {lora['phase_s']:.1f} s")
+    timings["lora"] = timing_split("lora")
     gateway = phase_gateway(eng, card)
     log(f"[gateway] phase took {gateway['phase_s']:.1f} s")
+    timings["gateway"] = timing_split("gateway")
     t_spill = time.perf_counter()
     spill = phase_spill(eng)
     spill["phase_s"] = time.perf_counter() - t_spill
     log(f"[spill] phase took {spill['phase_s']:.1f} s")
+    timings["spill"] = timing_split("spill")
     t_ws = time.perf_counter()
     holder = [eng]
     del eng
@@ -3713,6 +4074,7 @@ def main() -> int:
     log(f"[wstream] qwen2-7b part took {time.perf_counter() - t_ws:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
+    timings["wstream qwen2-7b"] = timing_split("wstream qwen2-7b")
     t_glm = time.perf_counter()
     eng_glm, glm4 = phase_glm4(dev)
     del eng_glm
@@ -3720,8 +4082,10 @@ def main() -> int:
     log(f"[glm4] phase took {glm4['phase_s']:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()            # the MoE engine needs the room
+    timings["glm4"] = timing_split("glm4")
     torch.cuda.reset_peak_memory_stats(dev)
     eng_moe, moe = phase_moe(dev)
+    timings["moe"] = timing_split("moe")
     t_ws = time.perf_counter()
     holder = [eng_moe]
     del eng_moe
@@ -3731,6 +4095,7 @@ def main() -> int:
     log(f"[wstream] moonshot-v1-16b-a3b part took {time.perf_counter() - t_ws:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
+    timings["wstream moonshot"] = timing_split("wstream moonshot")
     big = {}
     for label, phase, flash in (("gemma3", phase_gemma3, "flash-gemma3"),
                                 ("qwen110b", phase_big_dense, "flash-qwen110b"),
@@ -3745,6 +4110,13 @@ def main() -> int:
         drop_flash(flash)
         big[label]["phase_s"] = time.perf_counter() - t_p
         log(f"[{label}] phase took {big[label]['phase_s']:.1f} s")
+        timings[label] = timing_split(label)
+    t_p = time.perf_counter()
+    holder, train = phase_train(dev, results, card)
+    free_engine("train", holder)
+    train["phase_s"] = time.perf_counter() - t_p
+    log(f"[train] phase took {train['phase_s']:.1f} s")
+    timings["train"] = timing_split("train")
 
     # launches: the sum over the three serving paths, each counted from zero
     paths = {"EngineLoop qwen2-7b": summary["launches"],
@@ -3784,7 +4156,8 @@ def main() -> int:
              "Engine.generate seamless-m4t-large-v2": big["seamless"]["launches"],
              "EngineLoop qwen2-vl-2b": big["qwen2vl"]["launches"],
              "EngineLoop qwen2-vl-2b, CUDA graphs": big["qwen2vl"]["graphs"]["launches"],
-             "Engine.generate qwen2-vl-2b": big["qwen2vl"]["generate"]["launches"]}
+             "Engine.generate qwen2-vl-2b": big["qwen2vl"]["generate"]["launches"],
+             f"training {TRAIN_ARCH}, {TRAIN_STEPS} AdamW steps": train["launches"]}
     kernels = []
     for name in KERNELS:
         r = results[name]
@@ -3809,8 +4182,8 @@ def main() -> int:
               "gemma3_path": big["gemma3"], "qwen1.5-110b_path": big["qwen110b"],
               "grok1_path": big["grok1"], "rwkv6_path": big["rwkv6"],
               "jamba_path": big["jamba"], "seamless_path": big["seamless"],
-              "qwen2vl_path": big["qwen2vl"],
-              "wstream": wstream,
+              "qwen2vl_path": big["qwen2vl"], "train_path": train,
+              "wstream": wstream, "timing_split": timings,
               "total_s": time.perf_counter() - t_start}
     (OUT / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
     log(f"[done] {detail['total_s']:.1f} s")

@@ -80,3 +80,41 @@ class ModelConfig:
         if tail:
             plan.append((self.period[:tail], 1))
         return tuple(plan)
+
+    def param_count(self) -> dict:
+        """Analytic parameter counts (the reference's Table-1 breakdown,
+        term for term: ``training.train_loop.default_opt_for`` picks the
+        optimizer from its total)."""
+        d, f, v = self.d_model, self.d_ff, self.vocab_size
+        hd = self.resolved_head_dim
+        qo = self.num_heads * hd
+        kv = self.num_kv_heads * hd
+        per_attn = d * qo + 2 * d * kv + qo * d   # q, k, v, o
+        if self.qkv_bias:
+            per_attn += qo + 2 * kv
+        n_ff_mats = 3 if self.act == "swiglu" else 2
+        per_dense_ffn = n_ff_mats * d * f
+        per_moe_ffn = self.num_experts * n_ff_mats * d * f + d * self.num_experts
+        d_inner = self.mamba_expand * d
+        per_mamba = (2 * d * d_inner + d_inner * self.mamba_d_conv
+                     + d_inner * (2 * self.mamba_d_state + 1) + d_inner * d)
+        per_rwkv = 6 * d * d + 2 * d * 64
+        layers = 0
+        for patterns, count in self.layer_plan():
+            for pat in patterns:
+                if pat.kind == "attn":
+                    layers += count * (per_attn + 2 * d)
+                elif pat.kind == "mamba":
+                    layers += count * (per_mamba + d)
+                elif pat.kind == "rwkv":
+                    layers += count * (per_rwkv + per_dense_ffn + 2 * d)
+                if pat.kind != "rwkv":
+                    layers += count * (per_moe_ffn if pat.moe else per_dense_ffn)
+        embedding = v * d
+        lm_head = 0 if self.tie_embeddings else v * d
+        enc = 0
+        if self.encoder_layers:
+            enc = self.encoder_layers * (per_attn + per_dense_ffn + 2 * d)
+            layers += self.num_layers * (d * qo + 2 * d * kv + qo * d)   # cross attention
+        return {"embedding": embedding, "layers": layers + enc,
+                "lm_head": lm_head, "total": embedding + lm_head + layers + enc}

@@ -11,6 +11,8 @@ scale/zero and norms, bf16 biases and MoE routers (by their bit patterns,
 so no numpy bf16 type is needed).  ``embedding_from_reference`` exports the
 reference engine's float32 embedding table to the port's bf16 Flash store
 (the reference casts the rows it gathers to bf16 the same way).
+``float_params_from_reference`` converts the reference's float training
+tree the same way.
 """
 from __future__ import annotations
 
@@ -82,6 +84,22 @@ def params_from_reference(tree, device=torch.device("cpu")):
                                  scale=to_tensor(tree.scale, device),
                                  zero=to_tensor(tree.zero, device),
                                  bits=int(tree.bits), shape=tuple(tree.shape))
+    return to_tensor(tree, device)
+
+
+def float_params_from_reference(tree, device=torch.device("cpu")):
+    """The reference's float (training) tree (``init_params(...,
+    quantized=False)``) -> the port's: the same keys and nesting, every leaf
+    copied exactly (bf16 linears, embedding and router by their bit
+    patterns, float32 norms as they are).  A quantized leaf raises: serving
+    trees convert through ``params_from_reference``."""
+    if isinstance(tree, dict):
+        return {k: float_params_from_reference(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(float_params_from_reference(v, device) for v in tree)
+    if _is_packed(tree) or _is_quantized(tree):
+        raise ValueError("a quantized leaf in a float tree: convert serving "
+                         "trees with params_from_reference")
     return to_tensor(tree, device)
 
 

@@ -1,2 +1,2 @@
-"""Data utilities: the byte-level tokenizer the gateway uses for string
-prompts."""
+"""Data utilities: the byte-level tokenizer (the gateway's string prompts)
+and the synthetic training pipeline."""

@@ -3,7 +3,9 @@
 Each module holds its kernels' wrappers and their plain PyTorch versions.
 A wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel (built from ``repro_torch/csrc`` by
-``loader``) or raises.  Every wrapper counts its launches in
+``loader``) or raises -- also where an input requires grad, since the
+launch would carry no gradient (the training forward runs kernels 4 and 7
+through their ``autograd.Function``s).  Every wrapper counts its launches in
 ``<wrapper>.launches``; a caller that replays a CUDA graph adds the
 launches its capture recorded (``add_launch_counts``).
 """

@@ -4,7 +4,9 @@
 Ports of ``repro/kernels/flash_prefill.py``: ``flash_prefill_attention``
 (unquantized K/V; CUDA kernel ``csrc/flash_prefill_attention.cu``) and
 ``paged_flash_prefill_attention`` (a prompt chunk over the quantized pool;
-``csrc/paged_prefill_attention.cu``).
+``csrc/paged_prefill_attention.cu``).  ``FlashPrefillFunction`` runs the
+dense kernel in a training forward, with autograd of its plain version as
+the backward.
 """
 from __future__ import annotations
 
@@ -135,6 +137,7 @@ def flash_prefill_attention(q_: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_prefill_attention_plain(q_, k, v, causal=causal, window=window)
     if dev.type != "cuda":
         raise NotImplementedError(f"no prefill-attention kernel for {dev}")
+    loader.refuse_grad("flash_prefill_attention", q_, k, v)
     if D not in HEAD_DIMS:
         raise NotImplementedError(f"D={D}: the kernel takes D in {HEAD_DIMS}")
     if {q_.dtype, k.dtype, v.dtype} != {torch.bfloat16}:
@@ -159,6 +162,30 @@ def flash_prefill_attention(q_: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_prefill_attention.launches = 0
+
+
+class FlashPrefillFunction(torch.autograd.Function):
+    """``flash_prefill_attention`` under autograd (the training forward's
+    causal GQA over bf16 K/V): the forward launches the kernel through the
+    wrapper and saves q, k and v; the backward is autograd of
+    ``flash_prefill_attention_plain`` recomputed from them
+    (``loader.plain_vjp``), the reference's blockwise ``flash_attention``,
+    which XLA differentiates.  ``apply(q, k, v, causal, window)`` -> f32
+    [B, T, H, D]."""
+
+    @staticmethod
+    def forward(ctx, q_, k, v, causal, window):
+        ctx.save_for_backward(q_, k, v)
+        ctx.causal, ctx.window = causal, window
+        return flash_prefill_attention(q_, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grads = loader.plain_vjp(
+            lambda a, b, c: flash_prefill_attention_plain(a, b, c, causal=ctx.causal,
+                                                          window=ctx.window),
+            ctx.saved_tensors, ctx.needs_input_grad[:3], grad)
+        return (*grads, None, None)
 
 
 def paged_flash_prefill_attention_plain(
@@ -206,6 +233,7 @@ def paged_flash_prefill_attention(
             q_, k_q, k_scale, k_zero, v, table, pos0, key_bits=key_bits)
     if dev.type != "cuda":
         raise NotImplementedError(f"no prefill-attention kernel for {dev}")
+    loader.refuse_grad("paged_flash_prefill_attention", q_, k_scale, k_zero, v)
     if key_bits != 8 or k_q.shape[-1] != D:
         raise NotImplementedError("int4 keys: no CUDA prefill kernel yet")
     if v.dtype != q.FP8_DTYPE:

@@ -106,6 +106,7 @@ def grouped_matmul(xq: torch.Tensor, sx: torch.Tensor, w: torch.Tensor,
                                     rows=rows, ids=ids)
     if dev.type != "cuda":
         raise NotImplementedError(f"no grouped_matmul kernel for {dev}")
+    loader.refuse_grad("grouped_matmul", sx, w_scale, w_zero)
     if Kp % 64 or N % 128:
         raise NotImplementedError(f"K={Kp} must be a multiple of 64 and N={N} "
                                   "of 128 (the PackedExpertLinear layout)")

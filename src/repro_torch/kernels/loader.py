@@ -9,7 +9,10 @@ linked.  Every C entry point returns ``cudaGetLastError()``; ``check``
 turns a non-zero code into an exception.  ``stream_ptr`` and ``scratch``
 serve every wrapper: the current stream as a raw pointer, and the cached
 scratch buffers of the kernels that combine partial results across blocks
-(``capture`` scopes them to one CUDA graph).
+(``capture`` scopes them to one CUDA graph).  ``refuse_grad`` guards every
+wrapper's launch against autograd, which cannot see through it;
+``plain_vjp`` is the backward of the kernels that train under an
+``autograd.Function``.
 """
 from __future__ import annotations
 
@@ -146,6 +149,34 @@ def build(force: bool = False) -> KernelLibrary:
 def check(code: int, name: str) -> None:
     if code != 0:
         raise RuntimeError(f"{name}: CUDA error {code} at launch")
+
+
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise where a launch would cut the autograd chain: a kernel writes
+    its output through ``ctypes``, so the output has no ``grad_fn`` and
+    every input's gradient would be lost without an error.  Grad mode is
+    off inside an ``autograd.Function``'s forward, so the Functions of
+    ``rmsnorm`` and ``flash_prefill_attention`` (the training forward's
+    kernels) pass; any other call on tensors that require grad must come
+    under ``torch.no_grad()``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad and the kernel's output would carry "
+            "no gradient; call it through its autograd Function or under "
+            "torch.no_grad()")
+
+
+def plain_vjp(fn, inputs, needs, grad_out: torch.Tensor) -> tuple:
+    """The backward of a kernel's ``autograd.Function``: ``fn`` (the
+    kernel's plain version) recomputed on detached ``inputs`` under grad
+    mode, and ``torch.autograd.grad`` of it against ``grad_out`` for each
+    input whose ``needs`` flag is set (None for the others) -- the JAX
+    package has no backward kernel, and XLA differentiates the plain op."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(bool(n)) for t, n in zip(inputs, needs)]
+        wanted = [t for t in leaves if t.requires_grad]
+        grads = iter(torch.autograd.grad(fn(*leaves), wanted, grad_out) if wanted else ())
+    return tuple(next(grads) if n else None for n in needs)
 
 
 def stream_ptr(device: torch.device) -> int:

@@ -135,6 +135,7 @@ def quant_decode_attention(
                                             key_bits=key_bits)
     if dev.type != "cuda":
         raise NotImplementedError(f"no decode-attention kernel for {dev}")
+    loader.refuse_grad("quant_decode_attention", q_, k_scale, k_zero, v)
     _check_decode_kernel_operands(q_, k_q, k_scale, k_zero, v, key_bits)
     operands = (q_, k_q, k_scale, k_zero, v)
     if not all(t.is_contiguous() for t in operands):
@@ -218,6 +219,7 @@ def paged_quant_decode_attention(
             key_bits=key_bits)
     if dev.type != "cuda":
         raise NotImplementedError(f"no decode-attention kernel for {dev}")
+    loader.refuse_grad("paged_quant_decode_attention", q_, k_scale, k_zero, v)
     _check_decode_kernel_operands(q_, k_q, k_scale, k_zero, v, key_bits)
     if {table.dtype, base.dtype, length.dtype} != {torch.int32}:
         raise TypeError("table/base/length must be int32")

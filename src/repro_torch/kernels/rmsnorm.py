@@ -1,7 +1,8 @@
 """Fused RMSNorm: wrapper + plain version.
 
 Port of ``repro/kernels/rmsnorm.py::rmsnorm``; the CUDA kernel is
-``csrc/rmsnorm.cu``.
+``csrc/rmsnorm.cu``.  ``RMSNormFunction`` runs the kernel in a training
+forward, with autograd of the plain version as its backward.
 """
 from __future__ import annotations
 
@@ -36,6 +37,7 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.T
         if x.device.type == "cpu":
             return rmsnorm_plain(x, weight, eps)
         raise NotImplementedError(f"no rmsnorm kernel for {x.device}")
+    loader.refuse_grad("rmsnorm", x, weight)
     if not weight.is_cuda or weight.get_device() != x.get_device():
         raise ValueError(f"x on {x.device}, weight on {weight.device}")
     if weight.dtype != torch.float32:
@@ -55,3 +57,23 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.T
 
 
 rmsnorm.launches = 0
+
+
+class RMSNormFunction(torch.autograd.Function):
+    """``rmsnorm`` under autograd: the forward launches the kernel (through
+    the wrapper, so a CPU tensor takes the plain version) and saves its
+    inputs; the backward is autograd of ``rmsnorm_plain`` recomputed from
+    them (``loader.plain_vjp``).  ``apply(x, weight, eps)``."""
+
+    @staticmethod
+    def forward(ctx, x, weight, eps):
+        ctx.save_for_backward(x, weight)
+        ctx.eps = eps
+        return rmsnorm(x, weight, eps)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        gx, gw = loader.plain_vjp(lambda a, w: rmsnorm_plain(a, w, ctx.eps), (x, weight),
+                                  ctx.needs_input_grad[:2], grad)
+        return gx, gw, None

@@ -112,6 +112,7 @@ def w4a8_matmul(xq: torch.Tensor, sx: torch.Tensor, w: torch.Tensor,
         if xq.device.type == "cpu":
             return w4a8_matmul_plain(xq, sx, w, w_scale, w_zero, bits=bits)
         raise NotImplementedError(f"no w4a8_matmul kernel for {xq.device}")
+    loader.refuse_grad("w4a8_matmul", sx, w_scale, w_zero)
     idx = xq.get_device()
     if sx.get_device() != idx or w.get_device() != idx or w_scale.get_device() != idx \
             or w_zero.get_device() != idx:

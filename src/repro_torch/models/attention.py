@@ -1,7 +1,7 @@
 """Attention for serving — port of the serving parts of
 ``repro.models.attention``: GQA projections with the qwen2 bias, the query
-pre-scale of the paper's mixed-precision policy, and the two cache layouts'
-entry points — whole-prompt prefill into a dense ``LayerKVCache`` and
+pre-scale of the paper's mixed-precision policy, the training forward
+(``attention_train``), and the two cache layouts' entry points — whole-prompt prefill into a dense ``LayerKVCache`` and
 one-token decode against it (``Engine.generate``), chunked prefill and
 one-token decode against the paged pool (``EngineLoop``) — and an
 encoder-decoder's cross attention over the encoder's quantized K/V
@@ -80,6 +80,23 @@ def _prescale(qh: torch.Tensor, hd: int, policy: PrecisionPolicy) -> torch.Tenso
     if policy.prescale_query:
         return (qh.float() * (1.0 / float(hd) ** 0.5)).to(policy.compute_dtype)
     return qh
+
+
+def attention_train(x: torch.Tensor, p: dict, cfg: ModelConfig, pat: LayerPattern,
+                    positions: torch.Tensor, dispatch: D.Dispatcher,
+                    policy: PrecisionPolicy = DEFAULT_POLICY) -> torch.Tensor:
+    """The training forward of x [B, T, d] (no cache): the projections,
+    RoPE at ``positions``, the pre-scale, then causal attention over the
+    unquantized K/V through the dispatcher's ``prefill_attention`` (kernel
+    7 under its ``autograd.Function`` on the card), then the o projection."""
+    B, T = x.shape[:2]
+    qh, kh, vh = _project_qkv(x, p, cfg, dispatch)
+    qh = L.positional(qh, cfg, positions)
+    kh = L.positional(kh, cfg, positions)
+    qh = _prescale(qh, cfg.resolved_head_dim, policy)
+    out = dispatch.prefill_attention(qh, kh, vh, causal=True, window=pat.window,
+                                     policy=policy)
+    return L.apply_linear(out.reshape(B, T, -1), p["wo"], cfg.quant, dispatch)
 
 
 def attention_prefill(x: torch.Tensor, p: dict, cfg: ModelConfig,

@@ -21,19 +21,23 @@ from repro_torch.runtime import plan as RP
 
 
 class ParamBuilder:
-    """Builds a model's serving parameters on ``device`` from a
-    ``torch.Generator``: quantized linears in the packed kernel-native
-    layout (``runtime.plan.PackedLinear``), bf16 biases (zero-initialized,
-    as in the reference) and float32 norms (ones).  Random weights are
-    N(0, 0.02) in float32 before quantization, the reference's recipe;
-    torch cannot reproduce JAX's random bits, so parity tests convert the
-    reference's own parameters instead (``repro_torch.convert``)."""
+    """Builds a model's parameters on ``device`` from a ``torch.Generator``:
+    serving (``quantized``) linears in the packed kernel-native layout
+    (``runtime.plan.PackedLinear``), training (``quantized=False``, the
+    reference's float mode) every linear a bf16 tensor [*lead, in, out],
+    expert tables included; bf16 biases (zero-initialized, as in the
+    reference) and float32 norms (ones) either way.  Random weights are
+    N(0, 0.02) in float32 before quantization or the bf16 cast, the
+    reference's recipe; torch cannot reproduce JAX's random bits, so parity
+    tests convert the reference's own parameters instead
+    (``repro_torch.convert``)."""
 
     def __init__(self, generator: torch.Generator, device: torch.device,
-                 qcfg: Optional[q.QuantConfig] = None):
+                 qcfg: Optional[q.QuantConfig] = None, quantized: bool = True):
         self.gen = generator
         self.device = torch.device(device)
         self.qcfg = qcfg or q.QuantConfig()
+        self.quantized = quantized
 
     def norm(self, dim: int, lead: tuple = ()) -> torch.Tensor:
         return torch.ones((*lead, dim), dtype=torch.float32, device=self.device)
@@ -65,10 +69,10 @@ class ParamBuilder:
         slab (an expert) at a time into carriers allocated once (the scales
         are per column, so slab by slab is the whole table's quantization):
         the float32 transient is one layer's draw and nothing is stacked.
-        ``bits`` 16 (the reference's unquantized linear): {"w": a bf16
-        tensor [*lead, in_dim, out_dim]}."""
+        ``bits`` 16 (the reference's unquantized linear) or a float builder:
+        {"w": a bf16 tensor [*lead, in_dim, out_dim]}."""
         bits = self.qcfg.weight_bits if bits is None else bits
-        if bits >= 16:
+        if bits >= 16 or not self.quantized:
             return {"w": self.param((in_dim, out_dim), lead=lead, scale=scale)}
         cls = RP.PackedExpertLinear if experts else RP.PackedLinear
         gs = self.qcfg.group_size

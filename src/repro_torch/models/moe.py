@@ -63,8 +63,16 @@ def _route(x: torch.Tensor, router: torch.Tensor, K: int):
 def _expert_matmul(xe: torch.Tensor, wp: dict, qcfg: q.QuantConfig,
                    dispatch: D.Dispatcher, **tables) -> torch.Tensor:
     """xe [G, E, C, in] @ w [E, in, out] -> [G, E, C, out] (bf16) through
-    the ``grouped_matmul`` op (``tables``: its ``rows`` / ``ids``)."""
-    return dispatch.grouped_matmul(xe, wp["w"], qcfg, **tables)
+    the ``grouped_matmul`` op (``tables``: its ``rows`` / ``ids``).  A float
+    table (a bf16 tensor: the training tree) is the reference's float32
+    ``einsum`` cast to bf16, which it computes outside any kernel (with
+    ``ids``, over the slabs they select)."""
+    w = wp["w"]
+    if torch.is_tensor(w):
+        if tables.get("ids") is not None:
+            w = w.index_select(0, tables["ids"].long())
+        return torch.einsum("geci,eio->geco", xe.float(), w.float()).to(torch.bfloat16)
+    return dispatch.grouped_matmul(xe, w, qcfg, **tables)
 
 
 def _dispatch_moe(xg: torch.Tensor, p: dict, cfg: ModelConfig,

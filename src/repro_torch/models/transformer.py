@@ -1,6 +1,8 @@
-"""Model assembly for serving — port of the serving paths of
-``repro.models.transformer``: parameters (attention, mamba or rwkv6 layers;
-dense or MoE FFN), the two decode states — dense per-sequence caches
+"""Model assembly — port of ``repro.models.transformer``: parameters
+(attention, mamba or rwkv6 layers; dense or MoE FFN; the quantized serving
+tree or the float training tree), the training forward (``forward_hidden``,
+``forward_train``: attention layers with dense or MoE FFNs, each layer under
+``torch.utils.checkpoint`` when ``StepCtx.remat``), the two decode states — dense per-sequence caches
 (``init_cache``, ``prefill``, ``decode_step``: the slot-synchronous
 ``Engine.generate``) and the paged pool (``init_paged_cache``,
 ``prefill_chunk_paged``, ``decode_step`` / ``decode_step_bucketed``: the
@@ -88,15 +90,23 @@ def _pattern_params(b: L.ParamBuilder, cfg: ModelConfig, pat: LayerPattern,
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device: torch.device) -> dict:
-    """Quantized serving parameters built directly on ``device`` in the
+                device: torch.device, *, quantized: bool = False,
+                include_embedding: Optional[bool] = None) -> dict:
+    """The model's parameters built directly on ``device``, with the
+    reference's keys and nesting.  ``quantized`` (serving): linears in the
     packed kernel-native layout (the reference's ``init_params(...,
-    quantized=True, pack=True)``), with its keys and nesting.  The embedding
-    is not part of the tree: it lives on Flash
-    (``serving.engine.build_engine``)."""
+    quantized=True, pack=True)``); otherwise (training) every linear a bf16
+    tensor, ``lm_head`` a separate bf16 linear even where the config ties
+    embeddings, as in the reference.  ``include_embedding`` (default: not
+    ``quantized``) adds the bf16 ``embedding`` [padded_vocab, d]; a serving
+    engine keeps it on Flash instead (``serving.engine.build_engine``)."""
     _check_supported(cfg)
-    b = L.ParamBuilder(generator, device, cfg.quant)
+    if include_embedding is None:
+        include_embedding = not quantized
+    b = L.ParamBuilder(generator, device, cfg.quant, quantized=quantized)
     params = {}
+    if include_embedding:
+        params["embedding"] = b.param((cfg.padded_vocab_size, cfg.d_model))
     if cfg.is_encdec:
         params["encoder"] = _pattern_params(b, cfg, LayerPattern("attn"), cfg.encoder_layers)
         params["enc_norm"] = b.norm(cfg.d_model)
@@ -380,6 +390,115 @@ def _logits(x: torch.Tensor, params: dict, cfg: ModelConfig,
     h = L.rms_norm(x, params["final_norm"], cfg.rms_eps, dispatch)
     return L.apply_linear(h, params["lm_head"], cfg.quant, dispatch,
                           out_dtype=torch.float32)
+
+
+# ===========================================================================
+# Training forward
+# ===========================================================================
+
+@dataclasses.dataclass
+class StepCtx:
+    """A training step's context (the reference's ``StepCtx``, less its
+    mesh fields): ``remat`` runs each layer under
+    ``torch.utils.checkpoint`` (the reference's per-scan-body
+    ``jax.checkpoint`` with ``nothing_saveable``: only the layer's input
+    is kept, its forward is recomputed in the backward); ``dispatch`` None
+    is a kernel ``Dispatcher`` (the plain versions on the CPU, the kernels
+    on the card)."""
+    cfg: ModelConfig
+    policy: PrecisionPolicy = DEFAULT_POLICY
+    remat: bool = False
+    dispatch: Optional[D.Dispatcher] = None
+
+    def __post_init__(self):
+        if self.dispatch is None:
+            self.dispatch = D.Dispatcher()
+
+
+def embed_tokens(params: dict, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """The bf16 embedding rows of ``tokens`` [B, T] -> [B, T, d]."""
+    return torch.nn.functional.embedding(tokens.long(), params["embedding"].to(torch.bfloat16))
+
+
+def _train_layer(x: torch.Tensor, pp: dict, cfg: ModelConfig, pat: LayerPattern,
+                 positions: torch.Tensor, ctx: StepCtx) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One layer in train mode (the reference ``_apply_pattern``'s "train"
+    branch): an attention layer with its dense FFN, or its MoE FFN at the
+    training capacity (``cfg.moe_capacity_factor``: tokens past it drop).
+    Returns (x, the layer's MoE aux [2]: load-balance loss, router
+    z-loss; zeros for a dense FFN)."""
+    dsp = ctx.dispatch
+    h = L.rms_norm(x, pp["ln1"], cfg.rms_eps, dsp)
+    x = x + A.attention_train(h, pp["attn"], cfg, pat, positions, dsp, ctx.policy)
+    h2 = L.rms_norm(x, pp["ln2"], cfg.rms_eps, dsp)
+    if pat.moe:
+        y, aux = M.apply_moe(h2, pp["moe"], cfg, dispatch=dsp, full_capacity=False)
+    else:
+        y = L.apply_ffn(h2, pp["ffn"], cfg, dsp)
+        aux = torch.zeros((2,), dtype=torch.float32, device=x.device)
+    return x + y, aux
+
+
+def _check_trainable(cfg: ModelConfig) -> None:
+    if cfg.is_encdec or cfg.frontend != "none":
+        raise NotImplementedError(
+            f"{cfg.name}: training an encoder-decoder or a model with a "
+            f"{cfg.frontend!r} frontend is ROADMAP queue 1 item 18a")
+    for patterns, _count in cfg.layer_plan():
+        for pat in patterns:
+            if pat.kind != "attn" or pat.window:
+                raise NotImplementedError(
+                    f"{cfg.name}: training {pat.kind} layers"
+                    + (f" with a {pat.window}-token window" if pat.window else "")
+                    + " is ROADMAP queue 1 item 18a; the port trains full-attention "
+                    "layers with dense or MoE FFNs")
+
+
+def forward_hidden(params: dict, cfg: ModelConfig, batch: dict,
+                   ctx: Optional[StepCtx] = None,
+                   collect: Optional[list] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training forward up to the final norm: batch {"tokens" [B, T]
+    (or "embeds" [B, T, d]), "positions"? [B, T]} -> (hidden [B, T, d]
+    bf16, MoE aux [2] summed over the layers in layer order).  The loss
+    takes it with a chunked lm_head and cross entropy
+    (``training.train_loop.chunked_cross_entropy``), so [B, T, V] logits
+    never exist whole.  ``collect``: if a list, each layer's output is
+    appended (parity tests)."""
+    _check_trainable(cfg)
+    ctx = ctx or StepCtx(cfg)
+    if "tokens" in batch:
+        x = embed_tokens(params, cfg, batch["tokens"])
+    else:
+        x = batch["embeds"].to(torch.bfloat16)
+    B, T = x.shape[:2]
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(T, device=x.device)[None].expand(B, T)
+    aux = torch.zeros((2,), dtype=torch.float32, device=x.device)
+    for si, (patterns, count) in enumerate(cfg.layer_plan()):
+        sp = params["stacks"][si]
+        for li in range(count):
+            for pi, pat in enumerate(patterns):
+                args = (x, layer_slice(sp[pi], li), cfg, pat, positions, ctx)
+                if ctx.remat:
+                    x, a = torch.utils.checkpoint.checkpoint(_train_layer, *args,
+                                                             use_reentrant=False)
+                else:
+                    x, a = _train_layer(*args)
+                aux = aux + a
+                if collect is not None:
+                    collect.append(x)
+    return L.rms_norm(x, params["final_norm"], cfg.rms_eps, ctx.dispatch), aux
+
+
+def forward_train(params: dict, cfg: ModelConfig, batch: dict,
+                  ctx: Optional[StepCtx] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training forward to the logits: (float32 [B, T, V], MoE aux
+    [2])."""
+    ctx = ctx or StepCtx(cfg)
+    hidden, aux = forward_hidden(params, cfg, batch, ctx)
+    return L.apply_linear(hidden, params["lm_head"], cfg.quant, ctx.dispatch,
+                          out_dtype=torch.float32), aux
 
 
 def prefill_chunk_paged(params: dict, cfg: ModelConfig, embeds: torch.Tensor,

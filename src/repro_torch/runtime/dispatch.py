@@ -21,6 +21,14 @@ heads a KV head.
 ``backend="reference"`` runs the plain versions on any device — the only
 use is holding the kernel path against the plain path on the card.
 
+Training: a kernel's output carries no gradient (every wrapper refuses a
+launch on tensors that require grad, ``kernels.loader.refuse_grad``), so
+under grad mode on the card ``rmsnorm`` and ``prefill_attention`` -- the
+two kernels of the training forward -- run through their
+``autograd.Function`` (the kernel forward, autograd of the plain version
+backward; the JAX package has no backward kernel).  On the CPU their plain
+versions are differentiable as they stand.
+
 One linear has no kernel by design: the reference's unquantized (bf16)
 weight, rwkv6's low-rank decay path, which the reference multiplies in XLA
 (``_matmul_reference``), never in a Pallas kernel.  ``linear`` computes it
@@ -45,6 +53,10 @@ from repro_torch.kernels import w4a8_matmul as WM
 from repro_torch.runtime import plan as planlib
 
 BACKENDS = ("kernel", "reference")
+
+
+def _wants_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 class Dispatcher:
@@ -134,8 +146,11 @@ class Dispatcher:
 
     def rmsnorm(self, x: torch.Tensor, weight: torch.Tensor,
                 eps: float = 1e-5) -> torch.Tensor:
-        fn = RN.rmsnorm_plain if self._plain else RN.rmsnorm
-        return fn(x, weight, eps)
+        if self._plain:
+            return RN.rmsnorm_plain(x, weight, eps)
+        if x.is_cuda and _wants_grad(x, weight):
+            return RN.RMSNormFunction.apply(x, weight, eps)
+        return RN.rmsnorm(x, weight, eps)
 
     def decode_attention(self, qh: torch.Tensor, cache, pos,
                          policy: PrecisionPolicy, causal: bool = True) -> torch.Tensor:
@@ -206,6 +221,8 @@ class Dispatcher:
         if self._plain:
             out = FP.flash_prefill_attention_plain(qh, kh, vh, causal=causal,
                                                    window=window, policy=policy)
+        elif qh.is_cuda and _wants_grad(qh, kh, vh):
+            out = FP.FlashPrefillFunction.apply(qh, kh, vh, causal, window)
         else:
             out = FP.flash_prefill_attention(qh, kh, vh, causal=causal,
                                              window=window)

@@ -1735,7 +1735,7 @@ def build_engine(cfg: ModelConfig, seed: int = 0, max_seq: int = 256,
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     if params is None:
-        params = T.init_params(cfg, gen, dev)
+        params = T.init_params(cfg, gen, dev, quantized=True)
     if embedding is None:
         flash = HS.FlashStore(str(flash_dir or DEFAULT_FLASH_DIR))
         d = cfg.d_model

@@ -57,7 +57,13 @@ The encoder-decoder's shapes: the dense prefill kernel non-causal at
 D = 64 over a whole source (the encoder), and the dense decode kernel with
 T query tokens folded into the query-head axis (cross attention at
 prefill, G' = T * G = 64 and 320: 4 and 20 head tiles a KV head).  M-RoPE's
-axis index is built outside a CUDA graph capture and read inside it."""
+axis index is built outside a CUDA graph capture and read inside it.
+
+Training: the two kernels of the training forward under their
+``autograd.Function``s at qwen2-1.5b's shapes (forward within the kernel
+tolerance, every input gradient equal to autograd of the plain version);
+a wrapper called on an input that requires grad raises; one qwen2-7b@tiny
+step's loss and gradients on the kernel route against the plain route."""
 import math
 
 import numpy as np
@@ -1078,7 +1084,8 @@ def _same_weights(arch, tmp_path, dev, budget_of):
     """A resident engine and a streamed one on the same weights (seed 0)."""
     cfg = PR.get(arch)
     res = PE.build_engine(cfg, seed=0, max_seq=64, device=dev, flash_dir=str(tmp_path))
-    params = PT.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    params = PT.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev,
+                            quantized=True)
     pol = RP.weight_stream_policy(cfg, params)
     st = PE.Engine(cfg, params, res.embedding, max_seq=64, device=dev,
                    weight_dram_budget_bytes=budget_of(pol.head_bytes,
@@ -1234,3 +1241,86 @@ def test_windowed_chunk_is_captured_in_a_cuda_graph(dev):
         eager = KP.paged_prefill_window_ref(q, pool, s_, p_, v_, window, 16)
         assert torch.equal(out[:, :v_], eager[:, :v_]), (s_, p_, v_)
     del graph
+
+
+@pytest.mark.gpu
+def test_training_functions_at_qwen2_1_5b_shapes(dev):
+    """The two kernels of the training forward under their
+    ``autograd.Function``s at qwen2-1.5b's training shapes (4 x 512 tokens,
+    d_model 1536; 12 query heads over 2 KV heads of 128, causal): the
+    forward launches the kernel and equals the plain version within the
+    kernel tolerance; every input gradient equals autograd of the plain
+    version on the same inputs (the backward recomputes exactly that)."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((4, 512, 1536), generator=g, device=dev).bfloat16()
+    w = 1 + 0.1 * torch.randn((1536,), generator=g, device=dev)
+    q = (torch.randn((4, 512, 12, 128), generator=g, device=dev) / math.sqrt(128)).bfloat16()
+    k = torch.randn((4, 512, 2, 128), generator=g, device=dev).bfloat16()
+    v = torch.randn((4, 512, 2, 128), generator=g, device=dev).bfloat16()
+    cases = [("rmsnorm", RN.RMSNormFunction.apply, (1e-6,),
+              lambda a, b: RN.rmsnorm_plain(a, b, 1e-6), (x, w)),
+             ("flash_prefill_attention", FP.FlashPrefillFunction.apply, (True, 0),
+              lambda a, b, c: FP.flash_prefill_attention_plain(a, b, c, causal=True), (q, k, v))]
+    for name, fn, extra, plain, inputs in cases:
+        a = [t.clone().requires_grad_(True) for t in inputs]
+        b = [t.clone().requires_grad_(True) for t in inputs]
+        before = K.launch_counts()[name]
+        ya = fn(*a, *extra)
+        assert K.launch_counts()[name] == before + 1 and ya.grad_fn is not None
+        yb = plain(*b)
+        _close(ya.detach(), yb.detach(), 2e-2)
+        grad = torch.randn(ya.shape, generator=g, device=dev).to(ya.dtype)
+        ya.backward(grad)
+        yb.backward(grad)
+        for ta, tb in zip(a, b):
+            _close(ta.grad, tb.grad, 1e-5)
+
+
+@pytest.mark.gpu
+def test_kernel_wrappers_refuse_inputs_that_require_grad(dev):
+    """A wrapper's output carries no gradient, so on the card a call with
+    an input that requires grad under grad mode raises; under no_grad it
+    launches, and the dispatcher routes training calls through the
+    Functions (an output with a ``grad_fn``)."""
+    x = torch.randn((8, 256), device=dev).bfloat16().requires_grad_(True)
+    w = torch.ones((256,), device=dev)
+    with pytest.raises(RuntimeError, match="autograd Function"):
+        RN.rmsnorm(x, w, 1e-6)
+    q = torch.randn((1, 16, 4, 64), device=dev).bfloat16().requires_grad_(True)
+    kv = torch.randn((1, 16, 2, 64), device=dev).bfloat16()
+    with pytest.raises(RuntimeError, match="autograd Function"):
+        FP.flash_prefill_attention(q, kv, kv)
+    with torch.no_grad():
+        RN.rmsnorm(x, w, 1e-6)
+        FP.flash_prefill_attention(q, kv, kv)
+    disp = PD.Dispatcher()
+    assert disp.rmsnorm(x, w, 1e-6).grad_fn is not None
+    assert disp.prefill_attention(q, kv, kv, causal=True, window=0,
+                                  policy=DEFAULT_POLICY).grad_fn is not None
+
+
+@pytest.mark.gpu
+def test_train_step_kernel_route_matches_plain_route(dev):
+    """One training step of qwen2-7b@tiny on the card: the kernel route's
+    loss and gradients against ``Dispatcher(backend="reference")`` on the
+    same parameters and batch (the chip script's tolerances), kernels 4 and
+    7 launched in the forward and in remat's recompute."""
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import train_loop as TL
+    cfg = PR.get("qwen2-7b@tiny")
+    params = PT.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 64), generator=g, device=dev),
+             "labels": torch.randint(0, cfg.vocab_size, (2, 64), generator=g, device=dev)}
+    K.reset_launch_counts()
+    (kt, _), kg = TL.value_and_grad(params, cfg, batch, PT.StepCtx(cfg, remat=True))
+    counts = K.launch_counts()
+    assert counts["rmsnorm"] == 4 * cfg.num_layers + 1, counts
+    assert counts["flash_prefill_attention"] == 2 * cfg.num_layers, counts
+    (pt, _), pg = TL.value_and_grad(params, cfg, batch, PT.StepCtx(
+        cfg, remat=True, dispatch=PD.Dispatcher("reference")))
+    assert abs(float(kt) - float(pt)) < 1e-3 * abs(float(pt))
+    for a, b in zip(O.leaves(pg), O.leaves(kg)):
+        rel = float(torch.linalg.vector_norm(a.float() - b.float())
+                    / torch.linalg.vector_norm(a.float()))
+        assert rel < 2e-2, rel

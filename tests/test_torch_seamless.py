@@ -127,7 +127,8 @@ def test_parameter_tree_matches_reference(engines):
     """The port's own init_params builds the reference's tree: the same key
     paths, shapes and bit widths as the converted reference parameters."""
     je, pe = engines
-    own = PT.init_params(pe.cfg, torch.Generator().manual_seed(0), torch.device("cpu"))
+    own = PT.init_params(pe.cfg, torch.Generator().manual_seed(0), torch.device("cpu"),
+                         quantized=True)
     assert _tree_shapes(own) == _tree_shapes(pe.params)
     assert set(own) == {"encoder", "enc_norm", "stacks", "final_norm", "lm_head"}
     layer = own["stacks"][0][0]

@@ -362,7 +362,8 @@ def test_serve_cli_streams_weights_on_cpu(capsys, tmp_path):
     """``launch/serve.py --weight-dram-budget`` on the plain path prints the
     reference's streaming line and serves every request."""
     cfg = PR.get(DENSE)
-    params = PT.init_params(cfg, torch.Generator().manual_seed(0), torch.device("cpu"))
+    params = PT.init_params(cfg, torch.Generator().manual_seed(0), torch.device("cpu"),
+                            quantized=True)
     head, stacks = _head_and_stacks(params)
     out = PSV.main(["--arch", DENSE, "--device", "cpu", "--max-seq", "64",
                     "--requests", "3", "--max-new", "4", "--no-warmup",

@@ -7,6 +7,7 @@ machines far more than device speed).
     python3 tools/ab_trees.py kernels DIR [DIR ...]  # each tree's [kernels] phase alone
     python3 tools/ab_trees.py moe DIR [DIR ...]      # each tree's MoE trace and decode step
     python3 tools/ab_trees.py qwen DIR [DIR ...]     # each tree's qwen2-7b serving paths
+    python3 tools/ab_trees.py profiles DIR [DIR ...] # each tree's qwen2-7b and MoE phases, timed
 
 DIR is the root of a checkout (e.g. the parent unpacked with ``git
 archive`` into ``build/parent``).  Each tree runs in a process of its own,
@@ -21,8 +22,11 @@ qwen2-7b (random weights, seed 0) through ``EngineLoop`` on the trace of
 profiles 8 four-row ``EngineLoop`` decode steps.  In a tree whose loop
 captures CUDA graphs, ``moe`` and ``qwen`` then serve the loop's trace and
 profile its decode step again on the graphs (``graph_*`` keys), so eager
-and graph runs alternate with the trees.  Each run prints one line
-``AB {json}``.  Needs one CUDA card.
+and graph runs alternate with the trees.  ``profiles`` runs a tree's
+qwen2-7b part of ``chip_smoke.py``'s main path as its ``main()`` does (the
+eager trace, the graphs, the eager and graph decode-step profiles) and its
+``phase_moe``, and gives each part's wall seconds.  Each run prints one
+line ``AB {json}``.  Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -139,15 +143,41 @@ def run_qwen(root: Path) -> dict:
     return {**out, **run_graphs(CS, eng, specs, arrivals, 32)}
 
 
+def run_profiles(root: Path) -> dict:
+    import time
+    import torch
+    import chip_smoke as CS
+    from repro_torch.kernels import loader
+    loader.build(force=True)
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    eng, specs, arrivals, reqs, _ = CS.phase_main_path(dev)
+    t1 = time.perf_counter()
+    graphs = CS.phase_graphs("qwen2-7b", eng, specs, arrivals, reqs, 32, CS.LOOP_KERNELS)
+    if not isinstance(graphs, tuple):     # a tree that profiles on a loop of its own
+        graphs = (graphs, CS.profile_loop_decode(eng, specs, cuda_graphs=True))
+    eager = CS.profile_loop_decode(eng, specs)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del eng
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    CS.phase_moe(dev)
+    torch.cuda.synchronize()
+    return {"qwen_trace_s": t1 - t0, "qwen_graphs_and_profiles_s": t2 - t1,
+            "moe_phase_s": time.perf_counter() - t3,
+            "graph_step_ms": graphs[1]["decode_step_ms"], "eager_step_ms": eager["decode_step_ms"]}
+
+
 def main(argv) -> int:
     if len(argv) >= 3 and argv[0] == "--one":
         mode, root = argv[1], Path(argv[2]).resolve()
         sys.path[:0] = [str(root / "src"), str(root)]
         out = {"phases": run_phases, "kernels": run_kernels, "moe": run_moe,
-               "qwen": run_qwen}[mode](root)
+               "qwen": run_qwen, "profiles": run_profiles}[mode](root)
         print("AB " + json.dumps({"tree": argv[2], **out}, default=str), flush=True)
         return 0
-    if len(argv) < 2 or argv[0] not in ("phases", "kernels", "moe", "qwen"):
+    if len(argv) < 2 or argv[0] not in ("phases", "kernels", "moe", "qwen", "profiles"):
         print(__doc__, file=sys.stderr)
         return 2
     rc = 0
