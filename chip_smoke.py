@@ -172,6 +172,33 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    finite; a step's wall time, tokens/s, peak device memory and the two
    kernels' device time; one Adafactor step moving every parameter.
 
+11. The paper's models and its quantization variants.  ``[kernels]`` first
+   holds kernels 2, 3 and 6 at the shapes of rows 2, 3 and 6 once with
+   int4 keys and fp8 values and once with int8 keys and bf16 values, each
+   timed with its bound (the variant's bytes) and SDPA.  ``[paper]``:
+   llama3-8b (32 layers, 32/8 heads, d_ff 14336, vocab 128256) and
+   qwen2-1.5b (28 layers, 12/2 heads: G = 6, d_model 1536) at full width
+   and depth under the default quantization, each serving a 6-request
+   trace (16 new tokens) through ``EngineLoop`` eagerly and on its graphs
+   (tokens equal, no capture after warmup, a graph decode step profiled,
+   kernels 1-4 launched), a chunk and a decode step kernel vs plain, and
+   ``Engine.generate`` at 4 x 320 (kernels 6 and 7), with no eager
+   profile.  ``[quantvar]``: qwen2-1.5b at full width and depth under
+   ``QuantConfig(kv_key_bits=4, kv_value_fp8=False, act_bits=16,
+   group_size=128)``, the same checks with kernels 2, 3 and 4 launched,
+   kernel 1 never, every linear on the dispatcher's float path (its count
+   positive here and zero in every other path: each reset of the counts
+   checks it) and every attention launch over int4 keys and bf16 values.
+   ``[dbrx]``: dbrx-132b at full width and 16 of its 40 layers (~24 GiB
+   of int4 experts; ``reduced`` printed), ``grouped_matmul`` timed at its
+   layer 0's tables (16 experts, top-4), 4 requests eagerly and on graphs
+   with both MoE branches through the grouped kernel, a chunk and a
+   decode step kernel vs plain.
+
+Every profile records CUDA activity only: the device's kernels and the
+host's CUDA runtime calls, which Kineto's CUDA activity carries, without
+the PyTorch operator events an eager step makes by the thousand.
+
 Launch counts are zeroed just before each serving path (and the training
 steps) and read just after it (a graph replay adds the launches its
 capture recorded): every kernel of the path must have launched, and
@@ -331,6 +358,26 @@ def instrument() -> None:
     HS.WeightGroupStore._put = timed("flash")(HS.WeightGroupStore._put)
 
 
+# whether the dispatcher's float path (A16, group-wise scales) may run: only
+# in [quantvar]; every reset of the counts checks the calls since the last
+FLOAT_PATH = {"allowed": False}
+
+
+def guard_float_path() -> None:
+    """Make every ``K.reset_launch_counts()`` (one before each path) assert
+    that no linear took the float path since the previous reset, unless
+    ``FLOAT_PATH["allowed"]``: the float path's count is positive only in
+    [quantvar]."""
+    from repro_torch import kernels as K
+    reset = K.reset_launch_counts
+
+    def checked_reset() -> None:
+        n = K.counts()["float_matmul"]
+        assert n == 0 or FLOAT_PATH["allowed"], f"{n} linears took the float path"
+        reset()
+    K.reset_launch_counts = checked_reset
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -435,16 +482,19 @@ def check_close(name: str, got, want, what: str) -> float:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def make_pool(n_pages: int, ps: int, hkv: int, d: int, gen, dev):
-    """A pool whose bytes come from quantizing random keys/values, as the
-    serving path writes them."""
+def make_pool(n_pages: int, ps: int, hkv: int, d: int, gen, dev, key_bits: int = 8,
+              bf16_values: bool = False):
+    """A pool (or, with ``n_pages`` and ``ps`` read as B and S, a dense
+    cache) whose bytes come from quantizing random keys/values, as the
+    serving path writes them: int8 or int4 keys, fp8 or bf16 values."""
     import torch
     from repro_torch.core import kv_cache as KV
     from repro_torch.core import quantization as Q
     k = torch.randn((n_pages, ps, hkv, d), generator=gen, device=dev)
     v = torch.randn((n_pages, ps, hkv, d), generator=gen, device=dev)
-    kq, ks, kz = KV.quantize_keys(k.to(torch.bfloat16))
-    return kq.contiguous(), ks.contiguous(), kz.contiguous(), KV.cast_values(v, Q.FP8_DTYPE)
+    kq, ks, kz = KV.quantize_keys(k.to(torch.bfloat16), bits=key_bits)
+    vv = KV.cast_values(v, torch.bfloat16 if bf16_values else Q.FP8_DTYPE)
+    return kq.contiguous(), ks.contiguous(), kz.contiguous(), vv
 
 
 def make_table(lengths, ps: int, n_cols: int, n_pages: int, trash: int, gen, dev):
@@ -457,13 +507,13 @@ def make_table(lengths, ps: int, n_cols: int, n_pages: int, trash: int, gen, dev
     return table.to(dev)
 
 
-def gather_dense(pool, table, dtype):
+def gather_dense(pool, table, dtype, key_bits: int = 8):
     """Library-yardstick input: each row's pages gathered and dequantized."""
     from repro_torch.core import kv_cache as KV
     from repro_torch.kernels.quant_attention import gather_rows
     kq, ks, kz, v = pool
     k = KV.dequantize_keys(gather_rows(kq, table), gather_rows(ks, table),
-                           gather_rows(kz, table), dtype)
+                           gather_rows(kz, table), dtype, bits=key_bits)
     return k, gather_rows(v, table).to(dtype)
 
 
@@ -904,6 +954,119 @@ def phase_new_kernels(dev, results: dict) -> None:
     torch.cuda.synchronize()
 
 
+# the paper's quantization variants of kernels 2, 3 and 6 beyond int8 keys
+# with fp8 values: (key bits, bf16 values)
+VARIANT_ROWS = ((4, False), (8, True))
+
+
+def variant_name(key_bits: int, bf16_values: bool) -> str:
+    return f"int{key_bits} keys, {'bf16' if bf16_values else 'fp8'} values"
+
+
+def kv_bytes_per_key(hkv: int, d: int, key_bits: int, bf16_values: bool) -> int:
+    """Bytes a live key costs the attention kernels: its key codes, its
+    values and its scale and zero, over the KV heads."""
+    return hkv * (d * key_bits // 8 + d * (2 if bf16_values else 1) + 8)
+
+
+def phase_variant_kernels(dev, results: dict) -> None:
+    """Kernels 2, 3 and 6 at the shapes of rows 2, 3 and 6 (qwen2-7b, G = 7:
+    4 rows over 16 pages of 128 with the trace's ragged lengths; a
+    128-token chunk at 256; 4 rows of 352 live slots of 2048) once with
+    int4 keys and fp8 values and once with int8 keys and bf16 values:
+    each held to its plain version, timed a call and on the device, with
+    its bound (the variant's bytes) and SDPA over the dequantized K/V."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import kv_cache as KV
+    from repro_torch.kernels import flash_prefill as FP
+    from repro_torch.kernels import quant_attention as QA
+
+    gen = torch.Generator(device=dev).manual_seed(2727)
+    B, H, Hkv, D, ps, ppr, lengths = 4, 28, 4, 128, 128, 16, [732, 296, 512, 41]
+    G = H // Hkv
+
+    def sdpa(q4, k, v, mask):
+        return library_time(lambda a, b, c, m: F.scaled_dot_product_attention(
+            a, b, c, attn_mask=m, scale=1.0),
+            [(q4, k.transpose(1, 2).repeat_interleave(G, dim=1),
+              v.transpose(1, 2).repeat_interleave(G, dim=1), mask)])
+
+    def row(name, what, fn, plain, sets, args, bytes_, ops, lib):
+        err = check_close(name, fn(*args), plain(*args), what)
+        ms, gms = time_ms(fn, sets), graph_ms(fn, sets)
+        plain_ms = time_ms(plain, [args], iters=5)
+        b = bound(bytes_, ops, BF16_FLOPS_PER_S)
+        out = {"what": what, "ms": ms, "graph_ms": gms, "plain_ms": plain_ms,
+               "max_abs_err": err, "bound_ms": b[0], "bound_by": b[1],
+               "library_ms": lib[0], "library_graph_ms": lib[1]}
+        results[name]["all_shapes"].append(out)
+        results[name]["err"] = max(results[name]["err"], err)
+        log(f"[kernels] {name} {what}: {ms:.4f} ms a call, {f4(gms)} ms on the device, "
+            f"bound {b[0]:.5f} ms ({b[1]}); plain {plain_ms:.4f} ms; SDPA {f4(lib[0])} ms "
+            f"a call, {f4(lib[1])} ms on the device; max abs err {err:.3e}")
+
+    results["paged_flash_prefill_attention"].setdefault("all_shapes", [])
+    for bits, bf16 in VARIANT_ROWS:
+        var = variant_name(bits, bf16)
+        per_key = kv_bytes_per_key(Hkv, D, bits, bf16)
+        # row 2: paged decode
+        n_pages = B * ppr + 1 + max(2, ppr - 2)
+        trash = B * ppr
+        pools = [make_pool(n_pages, ps, Hkv, D, gen, dev, bits, bf16) for _ in range(8)]
+        table = make_table(lengths, ps, ppr, trash, trash, gen, dev)
+        q = (torch.randn((B, H, D), generator=gen, device=dev) / math.sqrt(D)).to(torch.bfloat16)
+        base = torch.zeros((B,), dtype=torch.int32, device=dev)
+        length = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        k, v = gather_dense(pools[0], table, torch.bfloat16, bits)
+        mask = (torch.arange(k.shape[1], device=dev)[None] < length[:, None])[:, None, None, :]
+        live = sum(lengths)
+        row("paged_quant_decode_attention",
+            f"{var}: B={B} H={H} Hkv={Hkv} D={D} page={ps} pages={ppr} lengths={lengths}",
+            lambda *a: QA.paged_quant_decode_attention(*a, key_bits=bits),
+            lambda *a: QA.paged_quant_decode_attention_plain(*a, key_bits=bits),
+            [(q, *p, table, base, length) for p in pools], (q, *pools[0], table, base, length),
+            q.numel() * 2 + live * per_key + B * H * D * 4, 4 * live * H * D,
+            sdpa(q[:, :, None], k, v, mask))
+        del pools, k, v
+        # row 3: a 128-token chunk at 256 through the page table
+        C, pos0 = 128, 256
+        n_pages = 4 * ppr + 1 + max(2, ppr - 2)
+        trash = 4 * ppr
+        pools = [make_pool(n_pages, ps, Hkv, D, gen, dev, bits, bf16) for _ in range(8)]
+        table = make_table([pos0 + C], ps, ppr, trash, trash, gen, dev)
+        qc = (torch.randn((1, C, H, D), generator=gen, device=dev) / math.sqrt(D)).to(torch.bfloat16)
+        p0 = torch.tensor([pos0], dtype=torch.int32, device=dev)
+        k, v = gather_dense(pools[0], table, torch.bfloat16, bits)
+        qpos = pos0 + torch.arange(C, device=dev)
+        mask = (torch.arange(k.shape[1], device=dev)[None] <= qpos[:, None])[None, None]
+        row("paged_flash_prefill_attention",
+            f"{var}: B=1 C={C} pos0={pos0} H={H} Hkv={Hkv} D={D} page={ps}",
+            lambda *a: FP.paged_flash_prefill_attention(*a, key_bits=bits),
+            lambda *a: FP.paged_flash_prefill_attention_plain(*a, key_bits=bits),
+            [(qc, *p, table, p0) for p in pools], (qc, *pools[0], table, p0),
+            qc.numel() * 2 + (pos0 + C) * per_key + C * H * D * 4,
+            4 * H * D * sum(pos0 + i + 1 for i in range(C)),
+            sdpa(qc.transpose(1, 2), k, v, mask))
+        del pools, k, v
+        # row 6: the dense cache of Engine.generate's decode
+        S, dl = 2048, [352] * 4
+        caches = [make_pool(B, S, Hkv, D, gen, dev, bits, bf16) for _ in range(8)]
+        dlen = torch.tensor(dl, dtype=torch.int32, device=dev)
+        kq, ks, kz, vv = caches[0]
+        k = KV.dequantize_keys(kq, ks, kz, bits=bits)
+        mask = (torch.arange(S, device=dev)[None] < dlen[:, None])[:, None, None, :]
+        row("quant_decode_attention",
+            f"{var}: B={B} H={H} Hkv={Hkv} D={D} S={S} length={dl[0]}",
+            lambda *a: QA.quant_decode_attention(*a, key_bits=bits),
+            lambda *a: QA.quant_decode_attention_plain(*a, key_bits=bits),
+            [(q, *c, dlen) for c in caches], (q, *caches[0], dlen),
+            q.numel() * 2 + sum(dl) * per_key + B * H * D * 4, 4 * sum(dl) * H * D,
+            sdpa(q[:, :, None], k, vv.to(torch.bfloat16), mask))
+        del caches, k
+    torch.cuda.synchronize()
+
+
 def bound(bytes_: float, ops: float, peak_ops: float):
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
     t_ops = ops / peak_ops * 1e3
@@ -1070,7 +1233,7 @@ def phase_graphs(label: str, eng, specs, arrivals, eager_reqs, max_new: int,
         f"{k} {v:.2f} ms" for k, v in replay_ms.items()))
     K.reset_launch_counts()
     _, reqs, wall = serve_trace(eng, specs, arrivals, max_new=max_new, loop=loop)
-    counts = K.launch_counts()
+    counts = K.counts()
     s = eng.stats
     log(f"[graphs] {label}: launches during the trace: {counts}")
     assert all(r.done and len(r.generated) == max_new for r in reqs), "unfinished requests"
@@ -1137,7 +1300,11 @@ def profile_steps(label: str, step, steps: int = 4) -> dict:
     """Where a decode step's time goes: wall time per ``step()``, the
     host-device synchronizations of one step, and the device's busy share
     and top kernels under ``torch.profiler`` (reported, not asserted; "not
-    measured" where the profiler sees no device time)."""
+    measured" where the profiler sees no device time).  The profiler
+    records CUDA activity only: the device's kernels and the host's CUDA
+    runtime calls (which Kineto's CUDA activity includes), not the
+    thousands of PyTorch operator events an eager step makes on the host,
+    whose collection and aggregation cost the script minutes."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     step()
@@ -1155,7 +1322,7 @@ def profile_steps(label: str, step, steps: int = 4) -> dict:
     out = {"decode_step_ms": step_ms, "host_enqueue_ms": enqueue / steps * 1e3, **syncs}
     log(f"[profile] {label}: {syncs['syncs_per_step']} host-device synchronizations "
         f"per step at {syncs['sync_sites']}")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             step()
@@ -1203,9 +1370,9 @@ def profile_steps(label: str, step, steps: int = 4) -> dict:
         api.sort(reverse=True)
         out["runtime_calls"] = {n: {"host_ms_per_step": us / steps / 1e3,
                                     "calls_per_step": c / steps} for us, c, n in api[:6]}
-        log(f"[profile] {label}: host time in CUDA runtime calls per step: " + ", ".join(
+        log(f"[profile] {label}: host time in CUDA runtime calls per step: " + (", ".join(
             f"{n} {k['host_ms_per_step']:.2f} ms ({k['calls_per_step']:.0f})"
-            for n, k in out["runtime_calls"].items()))
+            for n, k in out["runtime_calls"].items()) or "not measured (none recorded)"))
     else:
         out["device_busy_share"] = "not measured"
         log(f"[profile] {label}: {step_ms:.1f} ms wall; the profiler saw no device "
@@ -1462,12 +1629,13 @@ GENERATE_KERNELS = ("quant_decode_attention", "flash_prefill_attention", "w4a8_m
 
 
 def phase_generate(eng, tag: str = "generate", prompt_len: int = 320,
-                   kernels=GENERATE_KERNELS, steps=None) -> dict:
+                   kernels=GENERATE_KERNELS, steps=None, profile: bool = True) -> dict:
     """Four greedy requests with equal-length prompts of ``prompt_len``
     tokens through the slot-synchronous ``Engine.generate`` (it decodes the
     batch at request 0's position, so unequal prompts would decode at the
     wrong offsets); ``tag`` heads its log lines, and every kernel of
-    ``kernels`` must launch.  Then request 0's prefill and a decode step
+    ``kernels`` must launch.  A decode step is profiled unless not
+    ``profile``.  Then request 0's prefill and a decode step
     kernel vs plain through ``steps`` (``compare_paths``' steps function;
     by default ``prefill_then_decode`` on token positions)."""
     import numpy as np
@@ -1488,7 +1656,7 @@ def phase_generate(eng, tag: str = "generate", prompt_len: int = 320,
     t0 = time.perf_counter()
     eng.generate(reqs, SM.SamplingParams(temperature=0.0, max_new_tokens=32))
     wall = time.perf_counter() - t0
-    counts = K.launch_counts()
+    counts = K.counts()
     s = eng.stats
     log(f"[{tag}] Engine.generate launches: {counts}")
     assert all(r.done and len(r.generated) == 32 for r in reqs), "unfinished requests"
@@ -1503,16 +1671,17 @@ def phase_generate(eng, tag: str = "generate", prompt_len: int = 320,
         f"{wall:.2f} s; "
         f"prefill {s.prefill_tps:.1f} tok/s ({s.prefill_s:.2f} s), decode "
         f"{s.decode_tps:.1f} tok/s ({summary['decode_step_ms']:.1f} ms a 4-row step)")
-    caches = [T.prefill(eng.params, cfg, eng.embed(np.asarray(p)[None]), eng.max_seq,
-                        eng.dispatch)[1] for p in prompts]
-    state = {"cache": E._concat_caches(caches)}
-    embeds = eng.embed(np.asarray([[p[-1]] for p in prompts]))
+    if profile:
+        caches = [T.prefill(eng.params, cfg, eng.embed(np.asarray(p)[None]), eng.max_seq,
+                            eng.dispatch)[1] for p in prompts]
+        state = {"cache": E._concat_caches(caches)}
+        embeds = eng.embed(np.asarray([[p[-1]] for p in prompts]))
 
-    def step():
-        _, state["cache"] = T.decode_step(eng.params, cfg, embeds, state["cache"],
-                                          eng.dispatch)
-    summary["profile"] = profile_steps(f"{cfg.name} Engine.generate decode step, 4 rows",
-                                       step)
+        def step():
+            _, state["cache"] = T.decode_step(eng.params, cfg, embeds, state["cache"],
+                                              eng.dispatch)
+        summary["profile"] = profile_steps(f"{cfg.name} Engine.generate decode step, 4 rows",
+                                           step)
     summary["kernel_vs_plain"] = compare_paths(f"{cfg.name} Engine.generate", eng,
                                                steps or prefill_then_decode, prompts[0],
                                                prompts[1][0])
@@ -3068,11 +3237,12 @@ def phase_big_dense(dev, results: dict):
     return [eng], summary
 
 
-def grouped_rows(label: str, pel, results: dict) -> list:
-    """``grouped_matmul`` on a served layer's own expert table ``pel`` (E =
-    8): decode as 4 rows x top-2 = 8 one-row slabs named by id, and a
-    128-token chunk at full capacity with the live rows a top-2 routing
-    gives; against the plain version, timed with its bound and bf16 bmm."""
+def grouped_rows(label: str, pel, results: dict, top: int = 2) -> list:
+    """``grouped_matmul`` on a served layer's own expert table ``pel``:
+    decode as 4 rows x top-``top`` one-row slabs named by id, and a
+    128-token chunk at full capacity with the live rows a top-``top``
+    routing gives; against the plain version, timed with its bound and
+    bf16 bmm."""
     import torch
     from repro_torch.core import quantization as Q
     from repro_torch.kernels import grouped_matmul as GM
@@ -3085,14 +3255,14 @@ def grouped_rows(label: str, pel, results: dict) -> list:
     rows = []
     for kind in ("decode", "prefill"):
         if kind == "decode":
-            ids = torch.cat([torch.randperm(E_ALL, generator=gen, device=dev)[:2]
+            ids = torch.cat([torch.randperm(E_ALL, generator=gen, device=dev)[:top]
                              for _ in range(4)]).to(torch.int32)
             E, M, kw = ids.numel(), 1, {"ids": ids}
             x = torch.randn((E, M, K), generator=gen, device=dev).to(torch.bfloat16)
             live_rows, slabs = E, int(torch.unique(ids).numel())
         else:
-            top = torch.randn((128, E_ALL), generator=gen, device=dev).topk(2, dim=-1).indices
-            counts = torch.bincount(top.reshape(-1), minlength=E_ALL)
+            picks = torch.randn((128, E_ALL), generator=gen, device=dev).topk(top, dim=-1).indices
+            counts = torch.bincount(picks.reshape(-1), minlength=E_ALL)
             E, M = E_ALL, 128
             kw = {"rows": counts.to(torch.int32)[:, None].contiguous()}
             x = torch.randn((E, M, K), generator=gen, device=dev)
@@ -4008,6 +4178,238 @@ def phase_train(dev, results: dict, card: str):
     return [params, new], summary
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the paper's models and its quantization variants
+# ---------------------------------------------------------------------------
+
+PAPER_REQUESTS = 6
+PAPER_NEW = 16
+DBRX_LAYERS = 16                 # of 40: see phase_dbrx
+# one engine for every variant at once: int4 keys, bf16 values, A16 and
+# weight groups of 128 (the JAX package's QuantConfig fields)
+QUANTVAR = dict(kv_key_bits=4, kv_value_fp8=False, act_bits=16, group_size=128)
+VARIANT_KERNELS = ("paged_quant_decode_attention", "paged_flash_prefill_attention",
+                   "quant_decode_attention")
+
+
+class VariantSpies:
+    """While entered: the launches of kernels 2, 3 and 6 by the (key bits,
+    value dtype) of the pool or cache they read, counted around the
+    dispatcher's ops (the warmup's eager runs and captures are the only
+    Python calls of a graph step)."""
+
+    def __init__(self):
+        self.by_variant = {n: collections.Counter() for n in VARIANT_KERNELS}
+
+    def __enter__(self):
+        from repro_torch import kernels as K
+        from repro_torch.runtime import dispatch as D
+        ops = {"paged_quant_decode_attention": "paged_decode_attention",
+               "paged_flash_prefill_attention": "paged_prefill_attention",
+               "quant_decode_attention": "decode_attention"}
+        self._orig = {op: getattr(D.Dispatcher, op) for op in ops.values()}
+
+        def spy(kernel, op):
+            orig = self._orig[op]
+
+            def inner(disp, qh, store, *a, **kw):
+                before = K.launch_counts()[kernel]
+                out = orig(disp, qh, store, *a, **kw)
+                n = K.launch_counts()[kernel] - before
+                if n:
+                    self.by_variant[kernel][f"int{store.key_bits}/{store.v.dtype}"] += n
+                return out
+            return inner
+        for kernel, op in ops.items():
+            setattr(D.Dispatcher, op, spy(kernel, op))
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from repro_torch.runtime import dispatch as D
+        for op, fn in self._orig.items():
+            setattr(D.Dispatcher, op, fn)
+
+    def __str__(self) -> str:
+        return "launches by (key bits, values): " + ", ".join(
+            f"{k} {dict(v)}" for k, v in self.by_variant.items())
+
+    def check(self, kernels, variant: str) -> None:
+        for k in kernels:
+            assert set(self.by_variant[k]) == {variant}, (k, dict(self.by_variant[k]))
+
+
+def serve_dense(dev, tag: str, cfg, flash: str, loop_kernels, idle_kernels=(),
+                generate_kernels=GENERATE_KERNELS, float_path: bool = False,
+                spies=None, variant: str = ""):
+    """A dense model at full width through ``EngineLoop`` (a 6-request
+    ``make_trace``, 16 new tokens, the shared prefix adopted, eagerly and
+    on its CUDA graphs: tokens equal, no capture after warmup, one graph
+    decode step profiled), one
+    chunk and one decode step kernel vs plain, then ``Engine.generate`` at
+    4 x 320 with no eager profile.  ``loop_kernels`` must launch on both
+    loop paths and ``idle_kernels`` never; the float path's count must be
+    positive exactly when ``float_path``; with ``spies`` (a
+    ``VariantSpies``) every launch of kernels 2, 3 and 6 read ``variant``.
+    Returns (engine holder, summary)."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.serving import engine as E
+
+    def check_counts(where: str, counts: dict, kernels) -> None:
+        for name in kernels:
+            assert counts[name] > 0, f"[{tag}] {name} never launched {where}: {counts}"
+        for name in idle_kernels:
+            assert counts[name] == 0, f"[{tag}] {name} launched {where}: {counts}"
+        assert (counts["float_matmul"] > 0) == float_path, (where, counts)
+
+    t0 = time.perf_counter()
+    eng = E.build_engine(cfg, seed=0, max_seq=2048, device=dev,
+                         flash_dir=str(ROOT / "build" / flash))
+    engine_line(tag, cfg, t0, dev, f"; quantization {cfg.quant}")
+    specs, arrivals = make_trace(cfg.vocab_size, seed=11, requests=PAPER_REQUESTS)
+    # the second prompt that shares the trace's 256-token prefix arrives
+    # last, when the first has been prefilled past it: the pool adopts it
+    specs = [specs[i] for i in (0, 1, 2, 4, 5, 3)]
+    log(f"[{tag}] trace: prompts {[len(p) for p in specs]}, arrivals {arrivals}; eager")
+    with spies if spies is not None else contextlib.nullcontext():
+        K.reset_launch_counts()
+        loop, reqs, wall = serve_trace(eng, specs, arrivals, max_new=PAPER_NEW)
+        counts = K.counts()
+    loop.close()
+    log(f"[{tag}] launches during the trace: {counts}" + (f"; {spies}" if spies else ""))
+    assert all(r.done and len(r.generated) == PAPER_NEW for r in reqs), "unfinished requests"
+    assert loop.pool.prefix_hits > 0, "the shared prefix was never adopted"
+    check_counts("on the eager EngineLoop", counts, loop_kernels)
+    assert eng.dispatch.fallbacks == [], eng.dispatch.fallbacks
+    summary = loop_summary(tag, loop, reqs, wall, eng, counts)
+    summary["prefix_hits_pages"] = loop.pool.prefix_hits
+    summary["graphs"], summary["profile_graphs"] = phase_graphs(
+        cfg.name, eng, specs, arrivals, reqs, PAPER_NEW, loop_kernels, spies=spies)
+    check_counts("inside the graphs", summary["graphs"]["launches"], loop_kernels)
+    prompt = next(p for p in specs if len(p) > 128)
+    summary["kernel_vs_plain"] = compare_paths(f"{cfg.name} EngineLoop", eng,
+                                               chunk_then_decode, prompt, prompt[128])
+    with spies if spies is not None else contextlib.nullcontext():
+        summary["generate"] = phase_generate(eng, tag=tag, kernels=generate_kernels,
+                                             profile=False)
+    check_counts("on Engine.generate", summary["generate"]["launches"], generate_kernels)
+    if spies is not None:
+        log(f"[{tag}] {spies}")
+        spies.check(VARIANT_KERNELS, variant)
+        summary["variant_launches"] = {k: dict(v) for k, v in spies.by_variant.items()}
+    summary["device_memory_gib"] = torch.cuda.memory_allocated(dev) / 2**30
+    return [eng], summary
+
+
+def phase_paper(dev, results: dict):
+    """The paper's two dense evaluation models at full width and depth
+    under the default quantization (W4A8, int8 lm_head and keys, fp8
+    values): llama3-8b (32 layers, 32/8 heads, d_ff 14336, vocab 128256)
+    and qwen2-1.5b (28 layers, 12/2 heads: G = 6, d_model 1536, tied
+    embeddings), each through ``serve_dense`` and released before the
+    next.  Returns (an empty holder, summary)."""
+    from repro_torch.configs import registry
+    out = {}
+    for arch in ("llama3-8b", "qwen2-1.5b"):
+        t_p = time.perf_counter()
+        holder, out[arch] = serve_dense(dev, "paper", registry.get(arch),
+                                        f"flash-{arch}", LOOP_KERNELS,
+                                        idle_kernels=("grouped_matmul",))
+        free_engine("paper", holder)
+        drop_flash(f"flash-{arch}")
+        out[arch]["phase_s"] = time.perf_counter() - t_p
+        log(f"[paper] {arch} took {out[arch]['phase_s']:.1f} s")
+    return [], out
+
+
+def phase_quantvar(dev, results: dict):
+    """qwen2-1.5b at full width and depth under ``QuantConfig(kv_key_bits=4,
+    kv_value_fp8=False, act_bits=16, group_size=128)``, built as the JAX
+    package's tests build variants (``dataclasses.replace(cfg, quant=...)``):
+    the paged pool and the dense caches hold int4 keys and bf16 values, and
+    every linear takes the reference's float path (A16, groups of 128).
+    ``serve_dense`` with kernels 2, 3 and 4 on the loop (kernel 1 never),
+    kernels 6, 7 and 4 on ``Engine.generate``, the float path's count
+    positive, and every attention launch over int4 keys and bf16 values."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.core import quantization as Q
+    cfg = dataclasses.replace(registry.get("qwen2-1.5b"), quant=Q.QuantConfig(**QUANTVAR))
+    FLOAT_PATH["allowed"] = True
+    try:
+        holder, summary = serve_dense(
+            dev, "quantvar", cfg, "flash-quantvar",
+            ("paged_quant_decode_attention", "paged_flash_prefill_attention", "rmsnorm"),
+            idle_kernels=("w4a8_matmul", "grouped_matmul"),
+            generate_kernels=("quant_decode_attention", "flash_prefill_attention", "rmsnorm"),
+            float_path=True, spies=VariantSpies(), variant="int4/torch.bfloat16")
+        from repro_torch import kernels as K
+        K.reset_launch_counts()
+    finally:
+        FLOAT_PATH["allowed"] = False
+    summary["quant"] = dict(QUANTVAR)
+    return holder, summary
+
+
+def phase_dbrx(dev, results: dict):
+    """dbrx-132b at full width (d_model 6144, 48/8 heads, 16 experts top-4
+    of d_ff 10752 in every layer, vocab 100352) and 16 of its 40 layers,
+    from seed 0, cut as grok-1 is: the 40 layers' ~66 GB of int4 weights
+    and their random init do not fit the script's time.  ``grouped_matmul``
+    at its layer 0's expert tables (decode 4 rows x top-4 by id, a chunk's
+    live rows), then a 4-request trace through ``EngineLoop`` eagerly and on
+    its graphs, both MoE branches through the grouped kernel (chunks by
+    live-row counts, decode by expert id, no ``take_experts``), one chunk
+    and one decode step kernel vs plain."""
+    import dataclasses
+    from repro_torch import kernels as K
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import engine as E
+
+    full = registry.get("dbrx-132b")
+    cfg = dataclasses.replace(full, num_layers=DBRX_LAYERS)
+    log(f"[dbrx] reduced: depth {DBRX_LAYERS} of {full.num_layers} layers (every width "
+        "kept): the 40 layers' int4 weights, about 66 GB, and their random init do not "
+        "fit the script's time")
+    t0 = time.perf_counter()
+    eng = E.build_engine(cfg, seed=0, max_seq=2048, device=dev,
+                         flash_dir=str(ROOT / "build" / "flash-dbrx"))
+    engine_line("dbrx", cfg, t0, dev, f"; {cfg.num_experts} experts top-"
+                f"{cfg.experts_per_tok}")
+    moe0 = T.layer_slice(eng.params["stacks"][0][0]["moe"], 0)
+    top = cfg.experts_per_tok
+    summary = {"reduced": {"num_layers": [full.num_layers, DBRX_LAYERS]},
+               "grouped": grouped_rows("dbrx-132b gate/up", moe0["w_gate"]["w"], results, top)
+               + grouped_rows("dbrx-132b down", moe0["w_down"]["w"], results, top)}
+    del moe0
+    specs, arrivals = make_trace(cfg.vocab_size, seed=12, requests=4)
+    log(f"[dbrx] trace: prompts {[len(p) for p in specs]}, arrivals {arrivals}; eager")
+    spy = MoeSpies()
+    with spy:
+        K.reset_launch_counts()
+        loop, reqs, wall = serve_trace(eng, specs, arrivals, max_new=BIG_NEW)
+        counts = K.counts()
+    loop.close()
+    log(f"[dbrx] launches during the trace: {counts}; {spy}")
+    assert all(r.done and len(r.generated) == BIG_NEW for r in reqs), "unfinished requests"
+    for name in MOE_KERNELS:
+        assert counts[name] > 0, f"{name} never launched on dbrx's EngineLoop: {counts}"
+    spy.check()
+    assert eng.dispatch.fallbacks == [], eng.dispatch.fallbacks
+    summary.update(loop_summary("dbrx", loop, reqs, wall, eng, counts))
+    summary["grouped_matmul_by_branch"] = spy.by_branch
+    graph_spy = MoeSpies()
+    summary["graphs"], summary["profile_graphs"] = phase_graphs(
+        "dbrx-132b", eng, specs, arrivals, reqs, BIG_NEW, MOE_KERNELS, spies=graph_spy)
+    log(f"[graphs] dbrx-132b: at warmup {graph_spy}")
+    graph_spy.check()
+    prompt = next(p for p in specs if len(p) > 128)
+    summary["kernel_vs_plain"] = compare_paths("dbrx-132b EngineLoop", eng,
+                                               chunk_then_decode, prompt, prompt[128])
+    return [eng], summary
+
+
 def drop_flash(name: str) -> None:
     """Delete a phase's Flash embedding (the card machine's disk is finite)."""
     import shutil
@@ -4025,9 +4427,11 @@ def main() -> int:
         print("no CUDA device: chip_smoke.py needs one GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import kernels as K
     from repro_torch.kernels import loader
 
     instrument()
+    guard_float_path()
     timings = {}
     t_start = time.perf_counter()
     OUT.mkdir(exist_ok=True)
@@ -4046,6 +4450,7 @@ def main() -> int:
     results: dict = {}
     phase_kernels(dev, results)
     phase_new_kernels(dev, results)
+    phase_variant_kernels(dev, results)
     timings["kernels"] = timing_split("kernels")
     eng, specs, arrivals, reqs, summary = phase_main_path(dev)
     summary["graphs"], summary["profile_graphs"] = phase_graphs(
@@ -4103,7 +4508,10 @@ def main() -> int:
                                 ("rwkv6", phase_rwkv6, "flash-rwkv6"),
                                 ("jamba", phase_jamba, "flash-jamba"),
                                 ("seamless", phase_seamless, "flash-seamless"),
-                                ("qwen2vl", phase_qwen2vl, "flash-qwen2vl")):
+                                ("qwen2vl", phase_qwen2vl, "flash-qwen2vl"),
+                                ("paper", phase_paper, "flash-llama3-8b"),
+                                ("quantvar", phase_quantvar, "flash-quantvar"),
+                                ("dbrx", phase_dbrx, "flash-dbrx")):
         t_p = time.perf_counter()
         holder, big[label] = phase(dev, results)
         free_engine(label, holder)
@@ -4117,6 +4525,7 @@ def main() -> int:
     train["phase_s"] = time.perf_counter() - t_p
     log(f"[train] phase took {train['phase_s']:.1f} s")
     timings["train"] = timing_split("train")
+    K.reset_launch_counts()          # the float path ran in no path since [quantvar]
 
     # launches: the sum over the three serving paths, each counted from zero
     paths = {"EngineLoop qwen2-7b": summary["launches"],
@@ -4157,6 +4566,20 @@ def main() -> int:
              "EngineLoop qwen2-vl-2b": big["qwen2vl"]["launches"],
              "EngineLoop qwen2-vl-2b, CUDA graphs": big["qwen2vl"]["graphs"]["launches"],
              "Engine.generate qwen2-vl-2b": big["qwen2vl"]["generate"]["launches"],
+             **{f"{path} {arch}{how}": launches
+                for arch in ("llama3-8b", "qwen2-1.5b")
+                for path, how, launches in (
+                    ("EngineLoop", "", big["paper"][arch]["launches"]),
+                    ("EngineLoop", ", CUDA graphs", big["paper"][arch]["graphs"]["launches"]),
+                    ("Engine.generate", "", big["paper"][arch]["generate"]["launches"]))},
+             **{f"{path} qwen2-1.5b, int4 keys, bf16 values, W4A16 g128{how}": launches
+                for path, how, launches in (
+                    ("EngineLoop", "", big["quantvar"]["launches"]),
+                    ("EngineLoop", ", CUDA graphs", big["quantvar"]["graphs"]["launches"]),
+                    ("Engine.generate", "", big["quantvar"]["generate"]["launches"]))},
+             f"EngineLoop dbrx-132b ({DBRX_LAYERS} of 40 layers)": big["dbrx"]["launches"],
+             f"EngineLoop dbrx-132b ({DBRX_LAYERS} of 40 layers), CUDA graphs":
+                 big["dbrx"]["graphs"]["launches"],
              f"training {TRAIN_ARCH}, {TRAIN_STEPS} AdamW steps": train["launches"]}
     kernels = []
     for name in KERNELS:
@@ -4176,13 +4599,17 @@ def main() -> int:
               "paged_decode_all_shapes": results["paged_quant_decode_attention"]["all_shapes"],
               "dense_decode_all_shapes": results["quant_decode_attention"]["all_shapes"],
               "dense_prefill_all_shapes": results["flash_prefill_attention"]["all_shapes"],
+              "paged_prefill_all_shapes":
+                  results["paged_flash_prefill_attention"]["all_shapes"],
               "main_path": summary, "kernel_vs_plain": checks,
               "generate_path": generate, "lora_path": lora, "gateway_path": gateway,
               "spill_path": spill, "glm4_path": glm4, "moe_path": moe,
               "gemma3_path": big["gemma3"], "qwen1.5-110b_path": big["qwen110b"],
               "grok1_path": big["grok1"], "rwkv6_path": big["rwkv6"],
               "jamba_path": big["jamba"], "seamless_path": big["seamless"],
-              "qwen2vl_path": big["qwen2vl"], "train_path": train,
+              "qwen2vl_path": big["qwen2vl"], "paper_paths": big["paper"],
+              "quantvar_path": big["quantvar"], "dbrx_path": big["dbrx"],
+              "train_path": train,
               "wstream": wstream, "timing_split": timings,
               "total_s": time.perf_counter() - t_start}
     (OUT / "chip_smoke.json").write_text(json.dumps(detail, indent=1))

@@ -49,6 +49,13 @@ __device__ __forceinline__ float int8_byte_to_float(uint32_t w_biased, int i) {
   return __int_as_float(__byte_perm(w_biased, 0x4B000000u, 0x7440 | i)) - 8388736.f;
 }
 
+// The int4 key code in bits shift .. shift + 3 of w (0..15) as float --
+// exactly, as int8_byte_to_float does: the code becomes the low mantissa
+// bits of 2^23, which is subtracted back out.
+__device__ __forceinline__ float int4_nibble_to_float(uint32_t w, int shift) {
+  return __int_as_float(0x4B000000u | ((w >> shift) & 0xFu)) - 8388608.f;
+}
+
 // fp8 e4m3 value byte -> float32 (values are stored scale-free).
 __device__ __forceinline__ float fp8_to_float(uint8_t byte) {
   __nv_fp8_e4m3 f;

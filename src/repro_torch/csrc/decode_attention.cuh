@@ -3,11 +3,15 @@
 // (csrc/paged_decode_attention.cu) and the dense kernel
 // (csrc/decode_attention.cu), which differ only in where a page of keys
 // lives (the ``Pages`` policy).  The dense cache is read as pages of 128
-// slots.
+// slots.  Keys are int8 (D bytes a row) or int4 (D / 2 bytes: column 2j in
+// the low nibble, 2j + 1 in the high one); values are fp8 e4m3 (D bytes) or
+// bf16 (2D bytes), each variant one instantiation of the same body
+// (``KBITS``, ``VBF16``).
 //
-// What bounds it on the H100: bytes.  Each live key costs D int8 key bytes,
-// D fp8 value bytes and 8 bytes of scale and zero, and meets only G = H / Hkv
-// queries (about 2G operations a byte).  At decode the live bytes are few
+// What bounds it on the H100: bytes.  Each live key costs its key bytes (D
+// at int8, D / 2 at int4), its value bytes (D at fp8, 2D at bf16) and 8
+// bytes of scale and zero, and meets only G = H / Hkv queries (about 2G
+// operations a byte).  At decode the live bytes are few
 // (~1,600 live keys of a 4-row qwen2-7b step: 1.7 MB a layer), so what a
 // launch costs is mostly the latency of its loads, and the design's job is
 // to have many of them in flight on many SMs at once.
@@ -20,8 +24,8 @@
 // (and the trash page) are never read.  The head tiles of one (row, KV
 // head) read the same keys and values and keep their own partials and
 // combine counter; G <= 16 is one tile.  A block of 4 warps walks its live
-// tiles of up to 64 keys (a tile never crosses a page).  Each tile's int8
-// keys, fp8 values and per-key scale and zero come in through cp.async (16
+// tiles of up to 64 keys (a tile never crosses a page).  Each tile's key
+// codes, values and per-key scale and zero come in through cp.async (16
 // bytes a thread, neighbouring threads on neighbouring bytes of a key row),
 // double-buffered, so the next tile lands while this one is scored.  Warp w
 // takes keys 16w..16w+15 of every tile, with its own online softmax: S =
@@ -30,11 +34,13 @@
 // its own running max and denominator (a lane holds rows g and g + 8; a
 // kernel for groups of at most 8 heads is compiled with rows 8..15
 // constant zero, so they cost it no registers), keys dequantized in
-// registers through dequant_key and rounded to bf16; then O += P.V on the
-// same MMA, P rounded to bf16 and the e4m3 values converted to bf16
-// (exact) in registers.  The key order inside a warp's 16 is permuted so
+// registers through dequant_key and rounded to bf16 (an int4 key byte holds
+// the two consecutive dims a B-fragment register takes); then O += P.V on
+// the same MMA, P rounded to bf16 and the e4m3 values converted to bf16
+// (exact) in registers, bf16 values taken as they are.  The key order
+// inside a warp's 16 is permuted so
 // that the S accumulators are P's A fragment and each value fragment comes
-// from whole 4-byte words.  At the end of the split the warps merge in
+// from whole 4-byte (fp8) or 8-byte (bf16) words.  At the end of the split the warps merge in
 // shared memory.  With one live split the block writes the output;
 // otherwise it writes its partial (running max m, denominator l,
 // unnormalised acc[heads, D], float32) to the scratch buffer, and the last
@@ -42,7 +48,9 @@
 // atomicAdd on the tile's counter after a __threadfence -- combines the
 // partials exactly (rescaled by exp(m_s - m), summed, divided by max(l,
 // 1e-30)) and resets the counter to 0 for the next launch or CUDA-graph
-// replay.  One launch, no allocation in the kernel.
+// replay.  One launch, no allocation in the kernel.  The stage buffers are
+// dynamic shared memory: two stages of int8 keys and bf16 values at D = 128
+// take 55 KB.
 //
 // Rounding against the plain version (kernels/quant_attention.py): keys are
 // rounded to bf16 after dequantization and P to bf16 before P.V, as there;
@@ -60,18 +68,27 @@ namespace decode {
 constexpr int TS = 64;                 // keys per staged tile
 constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
-constexpr int VP = 160;                // bytes per value row in shared memory:
-                                       // 40 words, conflict-free fragment loads
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int MAX_SPLITS = 256;        // splits a (row, KV head) at most
 constexpr int RT = 16;                 // query heads a block: the rows of one A tile
 
 constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
-template <int D>
+// D: head dim; KBITS: 8 or 4 (key bytes a row KB = D or D / 2); VBF16:
+// values bf16 (VB = 2D bytes a row) or fp8 e4m3 (VB = D).
+template <int D, int KBITS, bool VBF16>
 struct Geo {
   static_assert(D % 16 == 0 && D <= 128, "head dims: multiples of 16 up to 128");
-  static constexpr int KP = D + 16;                    // bytes per key row in shared memory
+  static_assert(KBITS == 8 || (D % 64 == 0), "int4 keys: head dims 64 and 128");
+  static_assert(!VBF16 || (D % 64 == 0), "bf16 values: head dims 64 and 128");
+  static constexpr int KB = D * KBITS / 8;             // key bytes a row
+  static constexpr int VB = VBF16 ? 2 * D : D;         // value bytes a row
+  static constexpr int KP = KB + 16;                   // bytes per key row in shared memory
+  // bytes per value row in shared memory: 8 words past a multiple of 32, so
+  // a warp's fragment loads (4 bytes a lane for fp8, 8 for bf16) are
+  // conflict-free
+  static constexpr int VP = (VB + 127) / 128 * 128 + 32;
+  static constexpr int KS = D / 4 * KBITS / 8;         // key bytes of one lane's D / 4 dims
   static constexpr int DP = (D + 31) / 32 * 32;        // value columns the P.V MMAs cover
   static constexpr int NB = DP / 8;                    // n8 column blocks of O
   static constexpr int KD = D / 16;                    // k16 steps of Q.K^T
@@ -79,9 +96,9 @@ struct Geo {
   static constexpr int MERGE = (3 * WARPS * RT + WARPS * RT * D + 2 * RT) * 4;
   static constexpr int COMBINE = (2 * MAX_SPLITS * RT + RT) * 4;
   // the stage buffers, reused by the warps' merge and the splits' combine
-  // (the combine area is the larger below D = 80)
+  // (the combine area is the larger below D = 80); dynamic shared memory
   static constexpr int SMEM = cmax(2 * STAGE, cmax(MERGE, COMBINE));
-  static_assert(SMEM <= 48 * 1024, "static shared memory");
+  static_assert(SMEM <= 227 * 1024, "shared memory");
 };
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -130,19 +147,55 @@ __device__ __forceinline__ uint32_t e4m3_pair_to_bf16x2(uint32_t x, uint32_t y, 
   return out;
 }
 
-// D / 16 words of one key row from shared memory (16-byte loads where the
-// row slice allows).
-template <int D>
-__device__ __forceinline__ void load_key_words(uint32_t (&w)[D / 16], const uint8_t* src) {
-  if constexpr (D % 64 == 0) {
+// NW = BYTES / 4 words of one lane's slice of a key row from shared memory
+// (16- or 8-byte loads where the slice allows).
+template <int BYTES>
+__device__ __forceinline__ void load_key_words(uint32_t (&w)[BYTES / 4], const uint8_t* src) {
+  static_assert(BYTES % 4 == 0, "whole words");
+  if constexpr (BYTES % 16 == 0) {
 #pragma unroll
-    for (int i = 0; i < D / 64; ++i) {
+    for (int i = 0; i < BYTES / 16; ++i) {
       const uint4 x = *reinterpret_cast<const uint4*>(src + 16 * i);
       w[4 * i] = x.x; w[4 * i + 1] = x.y; w[4 * i + 2] = x.z; w[4 * i + 3] = x.w;
     }
+  } else if constexpr (BYTES % 8 == 0) {
+#pragma unroll
+    for (int i = 0; i < BYTES / 8; ++i) {
+      const uint2 x = *reinterpret_cast<const uint2*>(src + 8 * i);
+      w[2 * i] = x.x; w[2 * i + 1] = x.y;
+    }
   } else {
 #pragma unroll
-    for (int i = 0; i < D / 16; ++i) w[i] = *reinterpret_cast<const uint32_t*>(src + 4 * i);
+    for (int i = 0; i < BYTES / 4; ++i) w[i] = *reinterpret_cast<const uint32_t*>(src + 4 * i);
+  }
+}
+
+// The four key codes of k16 step c of a lane (dims D/4 * t + 4c .. + 3), as
+// exact floats: int8, byte i of word c (biased by 0x80 in int8_byte_to_float);
+// int4, nibble i of halfword c (int4_nibble_to_float).
+template <int KBITS>
+__device__ __forceinline__ void key_codes(const uint32_t* w, int c, float (&k)[4]) {
+  if constexpr (KBITS == 8) {
+    const uint32_t x = w[c] ^ 0x80808080u;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) k[i] = int8_byte_to_float(x, i);
+  } else {
+    const uint32_t x = w[c / 2] >> (16 * (c % 2));
+#pragma unroll
+    for (int i = 0; i < 4; ++i) k[i] = int4_nibble_to_float(x, 4 * i);
+  }
+}
+
+// Value dims 32u + 4g + e (e = 0..3) of keys t and 4 + t (x0, x1: their
+// 4 bytes (fp8) or 8 bytes (bf16) there) -> the B-fragment register of
+// column e: two bf16, key t's in the low half.
+template <bool VBF16>
+__device__ __forceinline__ uint32_t value_pair(uint2 x0, uint2 x1, int e) {
+  if constexpr (VBF16) {
+    const uint32_t a = e < 2 ? x0.x : x0.y, b = e < 2 ? x1.x : x1.y;
+    return __byte_perm(a, b, e % 2 ? 0x7632 : 0x5410);
+  } else {
+    return e4m3_pair_to_bf16x2(x0.x, x1.x, e);
   }
 }
 
@@ -150,12 +203,14 @@ __device__ __forceinline__ void load_key_words(uint32_t (&w)[D / 16], const uint
 // positions (base + p) * ps + [0, size(p)); first(p) is the flat token index
 // (row of the [..., Hkv, D] arrays) of its first key.  [lo, hi) are the live
 // positions.  q: the tile's bf16 queries [G, D] (G <= ROWS heads of KV
-// head h; ROWS is 8 or RT); out: their f32 output [G, D]; part: the tile's
-// partials [splits][G * (D + 2)] and counter its combine counter (unused
-// when one split is live).
-template <int D, int ROWS, class Pages>
+// head h; ROWS is 8 or RT); kq: key codes, KB bytes a (token, head); v:
+// values, VB bytes a (token, head) (Geo); out: their f32 output [G, D];
+// part: the tile's partials [splits][G * (D + 2)] and counter its combine
+// counter (unused when one split is live).  The caller launches with
+// Geo::SMEM bytes of dynamic shared memory.
+template <int D, int ROWS, int KBITS, bool VBF16, class Pages>
 __device__ __forceinline__ void attend(const Pages& pg, const __nv_bfloat16* __restrict__ q,
-                                       const int8_t* __restrict__ kq,
+                                       const uint8_t* __restrict__ kq,
                                        const float* __restrict__ kscale,
                                        const float* __restrict__ kzero,
                                        const uint8_t* __restrict__ v,
@@ -164,9 +219,9 @@ __device__ __forceinline__ void attend(const Pages& pg, const __nv_bfloat16* __r
                                        int split, int splits) {
   static_assert(ROWS == 8 || ROWS == RT, "a tile holds 8 or 16 heads");
   constexpr bool TWO = ROWS > 8;              // rows 8..15 hold heads
-  using Gm = Geo<D>;
-  constexpr int KP = Gm::KP;
-  __shared__ __align__(16) uint8_t smem[Gm::SMEM];
+  using Gm = Geo<D, KBITS, VBF16>;
+  constexpr int KP = Gm::KP, VP = Gm::VP, KB = Gm::KB, VB = Gm::VB;
+  extern __shared__ __align__(16) uint8_t smem[];
   __shared__ int is_last;
   const int tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
@@ -196,11 +251,16 @@ __device__ __forceinline__ void attend(const Pages& pg, const __nv_bfloat16* __r
     const int p = it / tpp, off = it % tpp * TS;
     const int nt = min(TS, pg.size(p) - off);
     const size_t first = pg.first(p) + off;
-    for (int c = tid; c < TS * (D / 16); c += THREADS) {
-      const int r = c / (D / 16), ch = c % (D / 16);
+    for (int c = tid; c < TS * (KB / 16); c += THREADS) {
+      const int r = c / (KB / 16), ch = c % (KB / 16);
       const bool ok = r < nt;                 // past the tile: zero filled
-      const size_t at = ((first + r) * Hkv + h) * D + ch * 16;
+      const size_t at = ((first + r) * Hkv + h) * KB + ch * 16;
       mma::cp_async16(ks + r * KP + ch * 16, ok ? kq + at : kq, ok);
+    }
+    for (int c = tid; c < TS * (VB / 16); c += THREADS) {
+      const int r = c / (VB / 16), ch = c % (VB / 16);
+      const bool ok = r < nt;
+      const size_t at = ((first + r) * Hkv + h) * VB + ch * 16;
       mma::cp_async16(vs + r * VP + ch * 16, ok ? v + at : v, ok);
     }
     for (int r = tid; r < TS; r += THREADS) {
@@ -252,12 +312,12 @@ __device__ __forceinline__ void attend(const Pages& pg, const __nv_bfloat16* __r
       // is key 8jb + 4(n & 1) + n / 2, so this lane's accumulators hold keys
       // t, 4 + t, 8 + t, 12 + t -- P's k slots 2t, 2t + 1, 2t + 8, 2t + 9.
       float s[2][4];
-      uint32_t kw[2][Gm::KD];
+      uint32_t kw[2][Gm::KS / 4];
       float scale[2], zero[2];
 #pragma unroll
       for (int jb = 0; jb < 2; ++jb) {
         const int r = 16 * warp + 8 * jb + 4 * (g & 1) + (g >> 1);
-        load_key_words<D>(kw[jb], ks + r * KP + D / 4 * t);
+        load_key_words<Gm::KS>(kw[jb], ks + r * KP + Gm::KS * t);
         scale[jb] = sz[2 * r];
         zero[jb] = sz[2 * r + 1];
         s[jb][0] = s[jb][1] = s[jb][2] = s[jb][3] = 0.f;
@@ -266,11 +326,10 @@ __device__ __forceinline__ void attend(const Pages& pg, const __nv_bfloat16* __r
       for (int c = 0; c < Gm::KD; ++c) {
 #pragma unroll
         for (int jb = 0; jb < 2; ++jb) {
-          const uint32_t w = kw[jb][c] ^ 0x80808080u;
           float k[4];
+          key_codes<KBITS>(kw[jb], c, k);
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
-            k[i] = dequant_key(int8_byte_to_float(w, i), scale[jb], zero[jb]);
+          for (int i = 0; i < 4; ++i) k[i] = dequant_key(k[i], scale[jb], zero[jb]);
           mma::mma_bf16(s[jb], qa[c], mma::pack_bf16(k[0], k[1]), mma::pack_bf16(k[2], k[3]));
         }
       }
@@ -294,23 +353,28 @@ __device__ __forceinline__ void attend(const Pages& pg, const __nv_bfloat16* __r
           o[j][2 * hf + 1] *= corr;
         }
       }
-      // O += P.V.  Value word g + 8u of keys t, 4 + t, 8 + t, 12 + t gives,
-      // byte e, column g of n8 block 4u + e (dim 32u + 4g + e).
+      // O += P.V.  Column g of n8 block 4u + e is dim 32u + 4g + e: for keys
+      // t, 4 + t, 8 + t, 12 + t, value word g + 8u (fp8: byte e is dim
+      // 32u + 4g + e) or the two words at dim 32u + 4g (bf16: half e).
       const uint32_t pa[4] = {mma::pack_bf16(pr[0][0], pr[0][1]),
                               mma::pack_bf16(pr[1][0], pr[1][1]),
                               mma::pack_bf16(pr[0][2], pr[0][3]),
                               mma::pack_bf16(pr[1][2], pr[1][3])};
 #pragma unroll
       for (int u = 0; u < Gm::DP / 32; ++u) {
-        uint32_t xv[4];
+        uint2 xv[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          xv[i] = *reinterpret_cast<const uint32_t*>(vs + (16 * warp + 4 * i + t) * VP
-                                                     + 4 * (g + 8 * u));
+        for (int i = 0; i < 4; ++i) {
+          const uint8_t* row = vs + (16 * warp + 4 * i + t) * VP;
+          if constexpr (VBF16)
+            xv[i] = *reinterpret_cast<const uint2*>(row + 2 * (32 * u + 4 * g));
+          else
+            xv[i] = make_uint2(*reinterpret_cast<const uint32_t*>(row + 4 * (g + 8 * u)), 0u);
+        }
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          mma::mma_bf16(o[4 * u + e], pa, e4m3_pair_to_bf16x2(xv[0], xv[1], e),
-                        e4m3_pair_to_bf16x2(xv[2], xv[3], e));
+          mma::mma_bf16(o[4 * u + e], pa, value_pair<VBF16>(xv[0], xv[1], e),
+                        value_pair<VBF16>(xv[2], xv[3], e));
       }
     }
     __syncthreads();                          // every warp is done with this slot
@@ -439,9 +503,9 @@ __host__ __device__ inline int head_tiles(int G) { return (G + RT - 1) / RT; }
 // one combine counter a (row, KV head, head tile) (int32, padded to a
 // multiple of 4), then each one's ``splits`` partials of min(G, RT) *
 // (D + 2) floats.
-template <int D, int ROWS, class Pages>
+template <int D, int ROWS, int KBITS, bool VBF16, class Pages>
 __device__ __forceinline__ void attend_tile(const Pages& pg, const __nv_bfloat16* __restrict__ q,
-                                            const int8_t* __restrict__ kq,
+                                            const uint8_t* __restrict__ kq,
                                             const float* __restrict__ kscale,
                                             const float* __restrict__ kzero,
                                             const uint8_t* __restrict__ v,
@@ -452,14 +516,52 @@ __device__ __forceinline__ void attend_tile(const Pages& pg, const __nv_bfloat16
   const size_t at = (static_cast<size_t>(b * Hkv + h) * G + g0) * D;
   float* part = reinterpret_cast<float*>(scratch + ((gridDim.y * gridDim.z + 3) & ~3))
                 + static_cast<size_t>(tile) * splits * min(G, RT) * (D + 2);
-  attend<D, ROWS>(pg, q + at, kq, kscale, kzero, v, out + at, part, scratch + tile, h, Hkv,
-                  min(RT, G - g0), blockIdx.x, splits);
+  attend<D, ROWS, KBITS, VBF16>(pg, q + at, kq, kscale, kzero, v, out + at, part,
+                                scratch + tile, h, Hkv, min(RT, G - g0), blockIdx.x, splits);
 }
 
 // Grid of a launch: splits on x, one (row, KV head) pair per y, head tiles
 // on z.
 inline dim3 grid(int B, int Hkv, int G, int splits) {
   return dim3(splits, B * Hkv, head_tiles(G));
+}
+
+// Opt a kernel in to the dynamic shared memory it needs (above 48 KB).
+template <class Kernel>
+inline void allow_smem(Kernel kernel, int bytes) {
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// A launch's (key bits, value type) variant: int8 keys with fp8 values at
+// any head dim the kernels take, the other three at D = 64 and 128 only.
+// Calls ``run.template operator()<D, KBITS, VBF16>()``; false where the
+// variant has no instantiation.
+template <class Run>
+inline bool dispatch_variant(int D, int key_bits, int v_bf16, Run&& run) {
+  if (key_bits == 8 && !v_bf16) {
+    switch (D) {
+      case 16: run.template operator()<16, 8, false>(); return true;
+      case 32: run.template operator()<32, 8, false>(); return true;
+      case 48: run.template operator()<48, 8, false>(); return true;
+      case 64: run.template operator()<64, 8, false>(); return true;
+      case 80: run.template operator()<80, 8, false>(); return true;
+      case 96: run.template operator()<96, 8, false>(); return true;
+      case 112: run.template operator()<112, 8, false>(); return true;
+      case 128: run.template operator()<128, 8, false>(); return true;
+      default: return false;
+    }
+  }
+  if ((key_bits != 8 && key_bits != 4) || (D != 64 && D != 128)) return false;
+#define REPRO_DECODE_VARIANT(DIM, BITS, BF16)                       \
+  if (D == DIM && key_bits == BITS && (v_bf16 != 0) == BF16) {     \
+    run.template operator()<DIM, BITS, BF16>();                     \
+    return true;                                                    \
+  }
+  REPRO_DECODE_VARIANT(64, 8, true) REPRO_DECODE_VARIANT(128, 8, true)
+  REPRO_DECODE_VARIANT(64, 4, false) REPRO_DECODE_VARIANT(128, 4, false)
+  REPRO_DECODE_VARIANT(64, 4, true) REPRO_DECODE_VARIANT(128, 4, true)
+#undef REPRO_DECODE_VARIANT
+  return false;
 }
 
 }  // namespace decode

@@ -7,7 +7,10 @@ tensors it launches the kernel (built from ``repro_torch/csrc`` by
 launch would carry no gradient (the training forward runs kernels 4 and 7
 through their ``autograd.Function``s).  Every wrapper counts its launches in
 ``<wrapper>.launches``; a caller that replays a CUDA graph adds the
-launches its capture recorded (``add_launch_counts``).
+launches its capture recorded (``add_launch_counts``).  ``counts`` adds the
+dispatcher's float path for the quantized linears (``"float_matmul"``:
+A16 or group-wise scales, no kernel), counted, reset and replayed the same
+way, so that a run can show which path its linears took.
 """
 from __future__ import annotations
 
@@ -29,19 +32,32 @@ def wrappers() -> Dict[str, object]:
             "flash_prefill_attention": flash_prefill.flash_prefill_attention}
 
 
+def counted() -> Dict[str, object]:
+    """``wrappers()`` and the dispatcher's float path."""
+    from repro_torch.runtime import dispatch
+    return {**wrappers(), "float_matmul": dispatch.float_matmul}
+
+
 def launch_counts() -> Dict[str, int]:
+    """name -> launches of every kernel wrapper."""
     return {name: fn.launches for name, fn in wrappers().items()}
 
 
+def counts() -> Dict[str, int]:
+    """``launch_counts()`` and the float path's calls."""
+    return {name: fn.launches for name, fn in counted().items()}
+
+
 def reset_launch_counts() -> None:
-    for fn in wrappers().values():
+    """Zero every count of ``counts()``."""
+    for fn in counted().values():
         fn.launches = 0
 
 
 def add_launch_counts(counts: Dict[str, int]) -> None:
-    """Add ``counts`` (name -> launches) to the wrappers' counts: what one
-    replay of a CUDA graph launched, or, negated, what its capture counted
-    without launching."""
-    fns = wrappers()
+    """Add ``counts`` (name -> launches, over the names of ``counts()``) to
+    the counts: what one replay of a CUDA graph launched, or, negated, what
+    its capture counted without launching."""
+    fns = counted()
     for name, n in counts.items():
         fns[name].launches += n

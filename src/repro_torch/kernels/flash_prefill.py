@@ -3,8 +3,8 @@
 
 Ports of ``repro/kernels/flash_prefill.py``: ``flash_prefill_attention``
 (unquantized K/V; CUDA kernel ``csrc/flash_prefill_attention.cu``) and
-``paged_flash_prefill_attention`` (a prompt chunk over the quantized pool;
-``csrc/paged_prefill_attention.cu``).  ``FlashPrefillFunction`` runs the
+``paged_flash_prefill_attention`` (a prompt chunk over the quantized pool,
+int8 or int4 keys and fp8 or bf16 values; ``csrc/paged_prefill_attention.cu``).  ``FlashPrefillFunction`` runs the
 dense kernel in a training forward, with autograd of its plain version as
 the backward.
 """
@@ -14,10 +14,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import kv_cache as kvc
-from repro_torch.core import quantization as q
 from repro_torch.core.precision import DEFAULT_POLICY, PrecisionPolicy
 from repro_torch.kernels import loader
-from repro_torch.kernels.quant_attention import gather_rows
+from repro_torch.kernels.quant_attention import gather_rows, kernel_variant
 
 NEG_INF = -1e30
 # the reference flash_attention's default K-block
@@ -234,19 +233,9 @@ def paged_flash_prefill_attention(
     if dev.type != "cuda":
         raise NotImplementedError(f"no prefill-attention kernel for {dev}")
     loader.refuse_grad("paged_flash_prefill_attention", q_, k_scale, k_zero, v)
-    if key_bits != 8 or k_q.shape[-1] != D:
-        raise NotImplementedError("int4 keys: no CUDA prefill kernel yet")
-    if v.dtype != q.FP8_DTYPE:
-        raise NotImplementedError(f"values {v.dtype}: the kernel reads fp8 e4m3")
-    if D not in HEAD_DIMS:
-        raise NotImplementedError(f"D={D}: the kernel takes D in {HEAD_DIMS}")
-    if (k_q.dtype, k_scale.dtype, k_zero.dtype) != (torch.int8, torch.float32,
-                                                    torch.float32):
-        raise TypeError("pool dtypes must be int8 keys, float32 scale/zero")
+    variant = kernel_variant(q_, k_q, k_scale, k_zero, v, key_bits, head_dims=HEAD_DIMS)
     if table.dtype != torch.int32 or pos0.dtype != torch.int32:
         raise TypeError("table/pos0 must be int32")
-    if q_.dtype != torch.bfloat16:
-        raise TypeError(f"q dtype {q_.dtype}: the kernel reads bf16 queries")
     operands = (q_, k_q, k_scale, k_zero, v, table, pos0)
     if not all(t.is_contiguous() for t in operands):
         raise ValueError("prefill-attention operands must be contiguous")
@@ -257,7 +246,7 @@ def paged_flash_prefill_attention(
     code = lib.paged_prefill_attention_launch(
         q_.data_ptr(), k_q.data_ptr(), k_scale.data_ptr(), k_zero.data_ptr(),
         v.data_ptr(), table.data_ptr(), pos0.data_ptr(), out.data_ptr(),
-        B, C, Hkv, H // Hkv, D, ps, table.shape[1], loader.stream_ptr(dev))
+        B, C, Hkv, H // Hkv, D, ps, table.shape[1], *variant, loader.stream_ptr(dev))
     loader.check(code, "paged_flash_prefill_attention")
     paged_flash_prefill_attention.launches += 1
     return out

@@ -44,18 +44,18 @@ SIGNATURES = {
     # stream
     "w4a8_matmul_launch": "7Q6qQ",
     # q, kq, kscale, kzero, v, table, base, length, out, scratch,
-    # B, Hkv, G, D, ps, n_pages, window, splits, stream
-    "paged_decode_attention_launch": "10Q8qQ",
+    # B, Hkv, G, D, ps, n_pages, window, splits, key_bits, v_bf16, stream
+    "paged_decode_attention_launch": "10Q10qQ",
     # q, kq, kscale, kzero, v, table, pos0, out, B, C, Hkv, G, D, ps,
-    # n_pages, stream
-    "paged_prefill_attention_launch": "8Q7qQ",
+    # n_pages, key_bits, v_bf16, stream
+    "paged_prefill_attention_launch": "8Q9qQ",
     # x, w, y, rows, D, eps, is_bf16, stream
     "rmsnorm_launch": "3Q2qdqQ",
     # xq, sx, w, scale, zero, y, ids, rows, E, M, N, K, G, bits, stream
     "grouped_matmul_launch": "8Q6qQ",
     # q, kq, kscale, kzero, v, length, out, scratch, B, S, Hkv, G, D, splits,
-    # stream
-    "decode_attention_launch": "8Q6qQ",
+    # key_bits, v_bf16, stream
+    "decode_attention_launch": "8Q8qQ",
     # q, k, v, out, B, T, S, Hkv, G, D, causal, window, stream
     "flash_prefill_attention_launch": "4Q8qQ",
 }

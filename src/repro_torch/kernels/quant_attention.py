@@ -8,7 +8,9 @@ paged_decode_attention.cu``).  Both kernels share their body
 chooses the split count from shapes, and each wrapper hands the kernel a
 cached scratch buffer for the partials and combine counters.  A block takes
 up to ``HEAD_TILE`` query heads of one KV head (the rows of one tensor-core
-tile); a group of more takes ``head_tiles(G)`` blocks a split.
+tile); a group of more takes ``head_tiles(G)`` blocks a split.  The
+kernels read int8 or int4 keys (nibble pairs, D / 2 bytes a row) and fp8
+e4m3 or bf16 values, as the TPU kernels read values of any dtype.
 """
 from __future__ import annotations
 
@@ -66,20 +68,40 @@ def gather_rows(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return y.reshape(table.shape[0], y.shape[1] * y.shape[2], *y.shape[3:])
 
 
-def _check_decode_kernel_operands(q_, k_q, k_scale, k_zero, v, key_bits: int) -> None:
-    """What the CUDA decode kernels take; anything else raises on the card."""
+VARIANT_HEAD_DIMS = (64, 128)   # the head dims of every variant but int8 keys + fp8 values
+
+
+def kernel_variant(q_: torch.Tensor, k_q: torch.Tensor, k_scale: torch.Tensor,
+                   k_zero: torch.Tensor, v: torch.Tensor, key_bits: int,
+                   head_dims=None) -> tuple:
+    """What the CUDA attention kernels over the quantized cache take (the
+    decode kernels; the paged prefill kernel with ``head_dims``): int8 keys
+    of last dim D or int4 keys of last dim D / 2 (nibble pairs), fp8 e4m3
+    or bf16 values.  Returns (key_bits, 1 for bf16 values else 0), the
+    kernels' variant arguments; anything else raises on the card."""
     D = q_.shape[-1]
-    if key_bits != 8 or k_q.shape[-1] != D:
-        raise NotImplementedError("int4 keys: no CUDA decode kernel yet")
-    if v.dtype != q.FP8_DTYPE:
-        raise NotImplementedError(f"values {v.dtype}: the kernel reads fp8 e4m3")
-    if D % 16 or D > 128:
-        raise NotImplementedError(f"D={D}: the kernel takes a multiple of 16 up to 128")
+    if key_bits not in (4, 8) or k_q.shape[-1] != D * key_bits // 8:
+        raise NotImplementedError(f"keys of {key_bits} bits, last dim {k_q.shape[-1]} "
+                                  f"for D={D}: the kernels read int8 or int4 keys")
+    if v.dtype not in (q.FP8_DTYPE, torch.bfloat16):
+        raise NotImplementedError(f"values {v.dtype}: the kernels read fp8 e4m3 or bf16")
+    v_bf16 = int(v.dtype == torch.bfloat16)
+    if head_dims is None:
+        if (key_bits, v_bf16) == (8, 0):
+            if D % 16 or D > 128:
+                raise NotImplementedError(
+                    f"D={D}: the kernel takes a multiple of 16 up to 128")
+        elif D not in VARIANT_HEAD_DIMS:
+            raise NotImplementedError(f"D={D} with int{key_bits} keys and {v.dtype} values: "
+                                      f"the kernel takes D in {VARIANT_HEAD_DIMS}")
+    elif D not in head_dims:
+        raise NotImplementedError(f"D={D}: the kernel takes D in {head_dims}")
     if (k_q.dtype, k_scale.dtype, k_zero.dtype) != (torch.int8, torch.float32,
                                                     torch.float32):
-        raise TypeError("cache dtypes must be int8 keys, float32 scale/zero")
+        raise TypeError("cache dtypes must be int8 key codes, float32 scale/zero")
     if q_.dtype != torch.bfloat16:
         raise TypeError(f"q dtype {q_.dtype}: the kernel reads bf16 queries")
+    return key_bits, v_bf16
 
 
 def quant_decode_attention_plain(
@@ -136,7 +158,7 @@ def quant_decode_attention(
     if dev.type != "cuda":
         raise NotImplementedError(f"no decode-attention kernel for {dev}")
     loader.refuse_grad("quant_decode_attention", q_, k_scale, k_zero, v)
-    _check_decode_kernel_operands(q_, k_q, k_scale, k_zero, v, key_bits)
+    variant = kernel_variant(q_, k_q, k_scale, k_zero, v, key_bits)
     operands = (q_, k_q, k_scale, k_zero, v)
     if not all(t.is_contiguous() for t in operands):
         raise ValueError("decode-attention operands must be contiguous")
@@ -151,7 +173,7 @@ def quant_decode_attention(
         q_.data_ptr(), k_q.data_ptr(), k_scale.data_ptr(), k_zero.data_ptr(),
         v.data_ptr(), length.data_ptr(), out.data_ptr(),
         0 if scratch is None else scratch.data_ptr(), B, S, Hkv, G, D, splits,
-        loader.stream_ptr(dev))
+        *variant, loader.stream_ptr(dev))
     loader.check(code, "quant_decode_attention")
     quant_decode_attention.launches += 1
     return out
@@ -220,7 +242,7 @@ def paged_quant_decode_attention(
     if dev.type != "cuda":
         raise NotImplementedError(f"no decode-attention kernel for {dev}")
     loader.refuse_grad("paged_quant_decode_attention", q_, k_scale, k_zero, v)
-    _check_decode_kernel_operands(q_, k_q, k_scale, k_zero, v, key_bits)
+    variant = kernel_variant(q_, k_q, k_scale, k_zero, v, key_bits)
     if {table.dtype, base.dtype, length.dtype} != {torch.int32}:
         raise TypeError("table/base/length must be int32")
     operands = (q_, k_q, k_scale, k_zero, v, table, base, length)
@@ -237,7 +259,7 @@ def paged_quant_decode_attention(
         q_.data_ptr(), k_q.data_ptr(), k_scale.data_ptr(), k_zero.data_ptr(),
         v.data_ptr(), table.data_ptr(), base.data_ptr(), length.data_ptr(),
         out.data_ptr(), 0 if scratch is None else scratch.data_ptr(),
-        B, Hkv, G, D, ps, n_pages, int(window), splits, loader.stream_ptr(dev))
+        B, Hkv, G, D, ps, n_pages, int(window), splits, *variant, loader.stream_ptr(dev))
     loader.check(code, "paged_quant_decode_attention")
     paged_quant_decode_attention.launches += 1
     return out

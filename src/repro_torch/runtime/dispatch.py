@@ -7,9 +7,19 @@ Each op calls its kernel's wrapper (``repro_torch.kernels``), which picks
 by the tensors' device: the plain PyTorch version for CPU tensors, the
 Hopper kernel for CUDA tensors — or it raises.  Unlike the reference, the
 dispatcher never falls back: a configuration the kernels do not take on
-the card (int4 keys, group-wise weight scales, A16) raises
-``NotImplementedError`` there, so a run that finishes went through the
-kernels.  ``fallbacks`` stays empty by construction; callers assert it.
+the card raises ``NotImplementedError`` there, so a run that finishes went
+through the kernels.  ``fallbacks`` stays empty by construction; callers
+assert it.
+
+The quantized linears have two paths, chosen by name from facts known
+before the call, on every device.  The integer path (W4A8 / W8A8 with
+per-channel scales) runs kernel 1 or 5.  The float path, taken whenever
+``act_bits == 16`` or the weight has more than one scale group, is the
+reference's own (``repro.core.quantization.quant_matmul``, whose kernels
+refuse both): ``float_matmul`` dequantizes the weight to bf16 and
+multiplies with float32 sums, TF32 off.  No TPU kernel computes it, so
+``torch.matmul`` does; its calls are counted in ``float_matmul.launches``
+(``repro_torch.kernels.counts``), beside the kernels' launches.
 Where the reference's dense decode kernel refuses a windowed ring and
 falls back, the port runs its kernel over the ring's live slots (see
 ``decode_attention``).  Where it refuses T > 1 query tokens a row and
@@ -59,6 +69,46 @@ def _wants_grad(*tensors: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
+def _check_no_tf32(x: torch.Tensor) -> None:
+    if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("TF32 matmuls are on: the float linears sum in float32")
+
+
+def float_path(qcfg: q.QuantConfig, w) -> bool:
+    """Whether a packed weight takes the reference's float path: A16, or
+    group-wise scales (the integer correction term would be
+    group-dependent)."""
+    return qcfg.act_bits == 16 or w.scale.shape[-2] > 1
+
+
+def float_matmul(x: torch.Tensor, w, qcfg: q.QuantConfig, out_dtype=torch.bfloat16, *,
+                 ids: Optional[torch.Tensor] = None,
+                 rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The reference's float path (``quant_matmul``), op for op: the packed
+    weight, padding sliced off, dequantized to bf16, then bf16 operands
+    with float32 products and sums, cast to ``out_dtype``.  A
+    ``PackedLinear`` takes x [..., K]; a layer-sliced ``PackedExpertLinear``
+    takes x [G, E, C, K] -> [G, E, C, N] (the reference's per-expert
+    ``quant_matmul``), with ``ids`` [E] naming each slab's expert in the
+    whole table and ``rows`` [E, G] the live rows of each capacity segment:
+    the rows past them are zeros, and their outputs are written +0.0, as
+    the grouped kernel writes them.  Inside a CUDA graph the dequantized
+    weight is a transient of the graph's pool."""
+    _check_no_tf32(x)
+    float_matmul.launches += 1
+    if ids is not None:
+        w = planlib.take_experts(w, ids)
+    y = q.quant_matmul(x, planlib.unpack_linear(w), qcfg, out_dtype=out_dtype)
+    if rows is not None:
+        C = x.shape[2]
+        live = torch.arange(C, device=x.device)[None, None] < rows.t()[..., None]
+        y = torch.where(live[..., None], y, torch.zeros((), dtype=y.dtype, device=y.device))
+    return y
+
+
+float_matmul.launches = 0     # calls: counted as the kernel wrappers count launches
+
+
 class Dispatcher:
     """Resolves every hot op of the serving path to a kernel wrapper (or,
     with ``backend="reference"``, to its plain version)."""
@@ -82,21 +132,13 @@ class Dispatcher:
         if torch.is_tensor(w):
             if w.dim() != 2:
                 raise ValueError("stacked weights: slice one layer first")
-            if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
-                raise RuntimeError("TF32 matmuls are on: the bf16 linear sums in float32")
+            _check_no_tf32(x)
             y = torch.matmul(x.to(torch.bfloat16).float(), w.to(torch.bfloat16).float())
             return y.to(out_dtype)
         if w.data.dim() != 2:
             raise ValueError("stacked weights: slice one layer first")
-        eligible = (qcfg.act_bits == 8 and w.scale.shape[-2] == 1
-                    and w.bits in (4, 8))
-        if not eligible:
-            if x.is_cuda:
-                raise NotImplementedError(
-                    f"W{w.bits}A{qcfg.act_bits} with {w.scale.shape[-2]} scale "
-                    "groups: only per-channel W4A8/W8A8 has a CUDA kernel")
-            return q.quant_matmul(x, planlib.unpack_linear(w), qcfg,
-                                  out_dtype=out_dtype)
+        if float_path(qcfg, w):
+            return float_matmul(x, w, qcfg, out_dtype)
         lead, K = x.shape[:-1], x.shape[-1]
         if K != w.k:
             raise ValueError(f"reduction dim {K} != weight {w.k}")
@@ -130,12 +172,10 @@ class Dispatcher:
             raise ValueError(f"rows {rows.dtype} {tuple(rows.shape)}: int32 [{E}, {G}] wanted")
         if K != w.k:
             raise ValueError(f"reduction dim {K} != weight {w.k}")
-        if not (qcfg.act_bits == 8 and w.scale.shape[-2] == 1 and w.bits in (4, 8)):
-            raise NotImplementedError(
-                f"W{w.bits}A{qcfg.act_bits} experts with {w.scale.shape[-2]} scale "
-                "groups: only per-channel W4A8/W8A8 has a grouped kernel")
         if G * C == 0:                       # empty capacity: no rows at all
             return torch.zeros((G, E, C, w.n), dtype=out_dtype, device=x.device)
+        if float_path(qcfg, w):
+            return float_matmul(x, w, qcfg, out_dtype, ids=ids, rows=rows)
         # a view when C == 1 and G > 1 (decode through the capacity dispatch):
         # quantizing it would keep its strides, and the kernel reads rows
         xq, sx = q.quantize_activations(

@@ -1400,10 +1400,10 @@ class EngineLoop:
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
-        before = K.launch_counts()
+        before = K.counts()
         with loader.capture(graph, pool=self._graph_pool):
             self._step_body(key)
-        launched = {n: c - before[n] for n, c in K.launch_counts().items()
+        launched = {n: c - before[n] for n, c in K.counts().items()
                     if c != before[n]}
         K.add_launch_counts({n: -c for n, c in launched.items()})
         self._graphs[key] = graph

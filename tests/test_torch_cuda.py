@@ -59,6 +59,13 @@ T query tokens folded into the query-head axis (cross attention at
 prefill, G' = T * G = 64 and 320: 4 and 20 head tiles a KV head).  M-RoPE's
 axis index is built outside a CUDA graph capture and read inside it.
 
+The paper's quantization variants: kernels 2, 3 and 6 over int4 keys
+(nibble pairs) with fp8 and bf16 values and over int8 keys with bf16
+values, at D = 64 and 128 and G = 1, 6 and 16 (128-key pages, ragged
+lengths, a chunk off the tile edges); the dispatcher's float path (A16,
+group-wise scales) on the card against the same call on the CPU, linears
+and experts with live-row counts and ids.
+
 Training: the two kernels of the training forward under their
 ``autograd.Function``s at qwen2-1.5b's shapes (forward within the kernel
 tolerance, every input gradient equal to autograd of the plain version);
@@ -668,8 +675,13 @@ def test_unsupported_configurations_raise_on_the_card(dev):
     table = torch.zeros((1, PPR), dtype=torch.int32, device=dev)
     with pytest.raises(TypeError):
         QA.paged_quant_decode_attention(q, *pool, table, z, z + 1)
+    d48 = 48                                # bf16 values: the variants take D = 64, 128
+    pool48 = (torch.zeros((8, PS, HKV, d48), dtype=torch.int8, device=dev),
+              pool[1], pool[2], torch.zeros((8, PS, HKV, d48), dtype=torch.bfloat16,
+                                            device=dev))
     with pytest.raises(NotImplementedError):
-        QA.paged_quant_decode_attention(q.bfloat16(), *pool, table, z, z + 1, key_bits=4)
+        QA.paged_quant_decode_attention(torch.zeros((1, HKV, d48), dtype=torch.bfloat16,
+                                                    device=dev), *pool48, table, z, z + 1)
     dense = _dense_cache(1, 16, HKV, D, dev, 0)
     with pytest.raises(TypeError):
         QA.quant_decode_attention(q, *dense, 3)
@@ -682,6 +694,101 @@ def test_unsupported_configurations_raise_on_the_card(dev):
             WM.w4a8_matmul(xq, sx, w, scale, zero, bits=4, splits=bad)
     K.reset_launch_counts()
     assert set(K.launch_counts().values()) == {0}
+
+
+# ---------------------------------------------------------------------------
+# the paper's quantization variants: int4 keys, bf16 values, the float path
+# ---------------------------------------------------------------------------
+
+def _variant_kv(shape, bits, bf16, seed, dev):
+    """Keys and values of ``shape`` quantized as the serving path writes
+    them: int8 or int4 keys (nibble pairs), fp8 or bf16 values."""
+    g = torch.Generator().manual_seed(seed)
+    k = torch.randn(shape, generator=g)
+    v = torch.randn(shape, generator=g)
+    kq, ks, kz = KV.quantize_keys(k.bfloat16(), bits=bits)
+    vv = KV.cast_values(v, torch.bfloat16 if bf16 else Q.FP8_DTYPE)
+    return tuple(t.contiguous().to(dev) for t in (kq, ks, kz, vv))
+
+
+_VARIANTS = [(4, False), (4, True), (8, True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits,bf16", _VARIANTS)
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G,hkv", [(1, 8), (6, 2), (16, 2)])
+def test_attention_kernel_variants_match_plain(dev, bits, bf16, D, G, hkv):
+    """Kernels 2, 3 and 6 over each variant: the paged decode kernel on a
+    16-page table of 128-key pages (a page edge, one live key, a full
+    table, a row past its split), the paged prefill kernel on a 100-token
+    chunk at 37 (off the 64-key tiles), the dense decode kernel over 2048
+    slots; each launches once and agrees with its plain version."""
+    B, n_pages, H = 4, 16, hkv * G
+    P = B * n_pages + 1
+    pool = _variant_kv((P, 128, hkv, D), bits, bf16, seed=D + G + bits, dev=dev)
+    assert pool[0].shape[-1] == D * bits // 8
+    rng = np.random.default_rng(G + D)
+    table = rng.permutation(P - 1)[:B * n_pages].reshape(B, n_pages).astype(np.int32)
+    lengths = [129, 1, 2048, 700]
+    for b, L in enumerate(lengths):
+        table[b, -(-L // 128):] = P - 1
+    table = torch.from_numpy(table).to(dev)
+    length = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    base = torch.zeros((B,), dtype=torch.int32, device=dev)
+    q = (torch.randn((B, H, D), device=dev) / math.sqrt(D)).bfloat16()
+    counts = K.launch_counts()
+    got = QA.paged_quant_decode_attention(q, *pool, table, base, length, key_bits=bits)
+    _close(got, QA.paged_quant_decode_attention_plain(q, *pool, table, base, length,
+                                                      key_bits=bits), 2e-2)
+    C, pos0 = 100, 37
+    qc = (torch.randn((1, C, H, D), device=dev) / math.sqrt(D)).bfloat16()
+    p0 = torch.tensor([pos0], dtype=torch.int32, device=dev)
+    got = FP.paged_flash_prefill_attention(qc, *pool, table[3:], p0, key_bits=bits)
+    _close(got, FP.paged_flash_prefill_attention_plain(qc, *pool, table[3:], p0,
+                                                       key_bits=bits), 2e-2)
+    dense = _variant_kv((B, 2048, hkv, D), bits, bf16, seed=D * G + bits, dev=dev)
+    got = QA.quant_decode_attention(q, *dense, length, key_bits=bits)
+    _close(got, QA.quant_decode_attention_plain(q, *dense, length, key_bits=bits), 2e-2)
+    after = K.launch_counts()
+    for name in ("paged_quant_decode_attention", "paged_flash_prefill_attention",
+                 "quant_decode_attention"):
+        assert after[name] == counts[name] + 1, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits,act,gs", [(4, 16, 128), (8, 16, 0), (4, 8, 32)])
+def test_float_path_on_the_card_equals_the_cpu(dev, bits, act, gs):
+    """The float path (A16, group-wise scales) on the card against the same
+    call on the CPU: bf16 products summed in float32 in another order, TF32
+    off (1e-5 relative on float32 outputs), for a linear and for experts
+    with live-row counts and with ids; counted, no kernel launched."""
+    cfg = Q.QuantConfig(weight_bits=bits, act_bits=act, group_size=gs)
+    g = torch.Generator().manual_seed(bits + gs)
+    pl = RP.pack_linear(Q.quantize(torch.randn((1536, 1000), generator=g) * 0.02, bits,
+                                   group_size=gs))
+    x = torch.randn((4, 1536), generator=g).bfloat16()
+    pel = RP.pack_expert_linear(Q.quantize(torch.randn((4, 512, 300), generator=g) * 0.02,
+                                           bits, group_size=gs))
+    counts = torch.tensor([[5, 0], [1, 8], [8, 3], [0, 0]], dtype=torch.int32)
+    xe = torch.randn((2, 4, 8, 512), generator=g)
+    xe = (xe * (torch.arange(8)[None, None] < counts.t()[..., None])[..., None]).bfloat16()
+    ids = torch.tensor([2, 2, 0, 3], dtype=torch.int32)
+    xi = torch.randn((1, 4, 1, 512), generator=g).bfloat16()
+    on = lambda t: RP.map_tree(lambda a: a.to(dev), t)
+    d = PD.Dispatcher()
+    K.reset_launch_counts()
+    got = [d.linear(x.to(dev), on(pl), cfg, out_dtype=torch.float32),
+           d.grouped_matmul(xe.to(dev), on(pel), cfg, out_dtype=torch.float32,
+                            rows=counts.to(dev)),
+           d.grouped_matmul(xi.to(dev), on(pel), cfg, out_dtype=torch.float32,
+                            ids=ids.to(dev))]
+    assert K.counts()["float_matmul"] == 3 and set(K.launch_counts().values()) == {0}
+    want = [d.linear(x, pl, cfg, out_dtype=torch.float32),
+            d.grouped_matmul(xe, pel, cfg, out_dtype=torch.float32, rows=counts),
+            d.grouped_matmul(xi, pel, cfg, out_dtype=torch.float32, ids=ids)]
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-5, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------

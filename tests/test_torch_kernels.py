@@ -289,9 +289,11 @@ def test_grouped_matmul_wrapper_checks():
         GM.grouped_matmul(xq.float(), sx, *args, bits=4)
     with pytest.raises(ValueError):
         PD.Dispatcher().grouped_matmul(torch.zeros((1, 2, 3, 100)), pw, PQ.QuantConfig())
-    with pytest.raises(NotImplementedError):
-        PD.Dispatcher().grouped_matmul(torch.zeros((1, 2, 3, 128)), pw,
+    # A16 experts take the reference's float path (counted), no kernel
+    K.reset_launch_counts()
+    y = PD.Dispatcher().grouped_matmul(torch.zeros((1, 2, 3, 128)), pw,
                                        PQ.QuantConfig(act_bits=16))
+    assert y.shape == (1, 2, 3, 256) and K.counts()["float_matmul"] == 1
 
 
 @pytest.mark.parametrize("bits", [4, 8])
