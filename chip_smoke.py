@@ -356,6 +356,7 @@ def instrument() -> None:
     E.Engine.generate = timed("traces")(E.Engine.generate)
     HS.EmbeddingStore.create = classmethod(timed("flash")(HS.EmbeddingStore.create.__func__))
     HS.WeightGroupStore._put = timed("flash")(HS.WeightGroupStore._put)
+    HS.WeightGroupStore.flush = timed("flash")(HS.WeightGroupStore.flush)
 
 
 # whether the dispatcher's float path (A16, group-wise scales) may run: only
@@ -1102,13 +1103,14 @@ def step_name(key) -> str:
     return f"{kind}{n}" + ("+lora" if lora else "")
 
 
-def make_loop(engine, cuda_graphs: bool = False, prefill_token_budget: int = 256):
+def make_loop(engine, cuda_graphs: bool = False, prefill_token_budget: int = 256,
+              bucketing: bool = True):
     """The serving paths' ``EngineLoop``: 4 slots, 128-token chunks; eager on
     the card unless ``cuda_graphs``."""
     from repro_torch.serving import engine as E
     return E.EngineLoop(engine, max_slots=4, prefill_chunk=128,
                         prefill_token_budget=prefill_token_budget,
-                        cuda_graphs=cuda_graphs)
+                        cuda_graphs=cuda_graphs, bucketing=bucketing)
 
 
 @timed("traces")
@@ -1295,11 +1297,18 @@ def count_syncs(step) -> dict:
     return {"syncs_per_step": sum(where.values()), "sync_sites": dict(where.most_common())}
 
 
+# steps under the profiler: collecting its events costs the host far more
+# than the steps (an eager step launches 3,500-13,000 kernels), so the wall
+# is timed over ``steps`` unprofiled steps and the profile reads one
+PROFILED_STEPS = 1
+
+
 @timed("profile")
 def profile_steps(label: str, step, steps: int = 4) -> dict:
-    """Where a decode step's time goes: wall time per ``step()``, the
-    host-device synchronizations of one step, and the device's busy share
-    and top kernels under ``torch.profiler`` (reported, not asserted; "not
+    """Where a decode step's time goes: wall time per ``step()`` over
+    ``steps`` steps, the host-device synchronizations of one step, and the
+    device's busy share and top kernels of ``PROFILED_STEPS`` more under
+    ``torch.profiler`` (reported, not asserted; "not
     measured" where the profiler sees no device time).  The profiler
     records CUDA activity only: the device's kernels and the host's CUDA
     runtime calls (which Kineto's CUDA activity includes), not the
@@ -1307,30 +1316,33 @@ def profile_steps(label: str, step, steps: int = 4) -> dict:
     whose collection and aggregation cost the script minutes."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    step()
-    syncs = count_syncs(step)
-    gc.collect()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    enqueue = 0.0
-    for _ in range(steps):
-        t1 = time.perf_counter()
+    with spent_on("unprofiled"):
         step()
-        enqueue += time.perf_counter() - t1      # host time until the call returns
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / steps * 1e3
+        syncs = count_syncs(step)
+        gc.collect()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enqueue = 0.0
+        for _ in range(steps):
+            t1 = time.perf_counter()
+            step()
+            enqueue += time.perf_counter() - t1      # host time until the call returns
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / steps * 1e3
     out = {"decode_step_ms": step_ms, "host_enqueue_ms": enqueue / steps * 1e3, **syncs}
     log(f"[profile] {label}: {syncs['syncs_per_step']} host-device synchronizations "
         f"per step at {syncs['sync_sites']}")
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with spent_on("profiler"), profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
+        for _ in range(PROFILED_STEPS):
             step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    with spent_on("profiler"):
+        averages = prof.key_averages()
     kern = []          # device kernels only (host ops would count them twice)
     api = []           # the host's time in CUDA runtime calls (launches, copies, waits)
-    for e in prof.key_averages():
+    for e in averages:
         if not str(getattr(e, "device_type", "")).endswith("CUDA"):
             if e.key.startswith("cuda") and e.cpu_time_total > 0:
                 api.append((e.cpu_time_total, e.count, e.key))
@@ -1345,15 +1357,15 @@ def profile_steps(label: str, step, steps: int = 4) -> dict:
     if busy > 0:
         ours = sum(us for us, _c, n in kern if any(k in n for k in PORT_KERNEL_SYMBOLS))
         out["device_busy_share"] = busy / wall_us
-        out["profiled_step_ms"] = wall_us / steps / 1e3
-        out["device_ms_per_step"] = busy / steps / 1e3
-        out["port_kernel_ms_per_step"] = ours / steps / 1e3
-        out["device_launches_per_step"] = sum(c for _u, c, _n in kern) / steps
-        out["top_kernels"] = [{"name": n[:80], "ms_per_step": us / steps / 1e3,
-                               "launches_per_step": c / steps} for us, c, n in kern[:10]]
+        out["profiled_step_ms"] = wall_us / PROFILED_STEPS / 1e3
+        out["device_ms_per_step"] = busy / PROFILED_STEPS / 1e3
+        out["port_kernel_ms_per_step"] = ours / PROFILED_STEPS / 1e3
+        out["device_launches_per_step"] = sum(c for _u, c, _n in kern) / PROFILED_STEPS
+        out["top_kernels"] = [{"name": n[:80], "ms_per_step": us / PROFILED_STEPS / 1e3,
+                               "launches_per_step": c / PROFILED_STEPS} for us, c, n in kern[:10]]
         out["port_kernels"] = {
-            sym: {"ms_per_step": sum(us for us, _c, n in kern if sym in n) / steps / 1e3,
-                  "launches_per_step": sum(c for _u, c, n in kern if sym in n) / steps}
+            sym: {"ms_per_step": sum(us for us, _c, n in kern if sym in n) / PROFILED_STEPS / 1e3,
+                  "launches_per_step": sum(c for _u, c, n in kern if sym in n) / PROFILED_STEPS}
             for sym in PORT_KERNEL_SYMBOLS if any(sym in n for _u, _c, n in kern)}
         log(f"[profile] {label}: {step_ms:.1f} ms wall ({out['host_enqueue_ms']:.1f} ms "
             f"until the host's calls return); under the profiler "
@@ -1368,8 +1380,8 @@ def profile_steps(label: str, step, steps: int = 4) -> dict:
             f"{sym} {k['ms_per_step']:.3f} ms ({k['launches_per_step']:.0f})"
             for sym, k in out["port_kernels"].items()))
         api.sort(reverse=True)
-        out["runtime_calls"] = {n: {"host_ms_per_step": us / steps / 1e3,
-                                    "calls_per_step": c / steps} for us, c, n in api[:6]}
+        out["runtime_calls"] = {n: {"host_ms_per_step": us / PROFILED_STEPS / 1e3,
+                                    "calls_per_step": c / PROFILED_STEPS} for us, c, n in api[:6]}
         log(f"[profile] {label}: host time in CUDA runtime calls per step: " + (", ".join(
             f"{n} {k['host_ms_per_step']:.2f} ms ({k['calls_per_step']:.0f})"
             for n, k in out["runtime_calls"].items()) or "not measured (none recorded)"))
@@ -1596,17 +1608,24 @@ def compare_paths(label: str, eng, steps_fn, prompt, nxt) -> dict:
     return out
 
 
+# requests of the trace the plain path serves again for the greedy agreement
+PLAIN_TRACE_REQUESTS = 4
+
+
 @timed("kernel_vs_plain")
 def phase_kernel_vs_plain(eng, specs, arrivals, reqs):
     """The continuous path's layer check, plus the greedy agreement of the
-    whole trace on the plain path (printed, not asserted)."""
+    trace's first ``PLAIN_TRACE_REQUESTS`` requests on the plain path
+    (printed, not asserted)."""
     from repro_torch.serving import engine as E
     prompt = next(p for p in specs if len(p) > 128)
     out = compare_paths("EngineLoop", eng, chunk_then_decode, prompt, prompt[128])
     plain = E.Engine(eng.cfg, eng.params, eng.embedding, max_seq=eng.max_seq,
                      device=eng.device, backend="reference")
     t0 = time.perf_counter()
-    _, preqs, _ = serve_trace(plain, specs, arrivals)
+    n = PLAIN_TRACE_REQUESTS
+    _, preqs, _ = serve_trace(plain, specs[:n], arrivals[:n])
+    reqs = reqs[:n]
     same_req = sum(a.generated == b.generated for a, b in zip(reqs, preqs))
     agree = sum(sum(x == y for x, y in zip(a.generated, b.generated))
                 for a, b in zip(reqs, preqs))
@@ -1614,7 +1633,8 @@ def phase_kernel_vs_plain(eng, specs, arrivals, reqs):
     out["greedy"] = {"requests_identical": same_req, "requests": len(reqs),
                      "tokens_equal": agree, "tokens": total,
                      "plain_trace_s": time.perf_counter() - t0}
-    log(f"[check] greedy agreement over the trace (plain path on the card): "
+    log(f"[check] greedy agreement over the trace's first {n} requests (plain path on "
+        f"the card): "
         f"{same_req}/{len(reqs)} requests identical, {agree}/{total} tokens equal "
         f"position by position (printed, not asserted)")
     return out
@@ -2041,7 +2061,11 @@ def phase_gateway(eng, card: str) -> dict:
 # the DRAM pool of the [spill] runs: the plan's floor of one full row
 # (max_seq 2048 / page 128), half of the four rows' peak KV
 SPILL_POOL_PAGES = 16
+# new tokens of the sharing run and its all-DRAM reference (past the shared
+# prefix a row's pages turn cold only this late), and of the runs with
+# sharing off, whose rows outgrow the pool at once
 SPILL_NEW = 64
+SPILL_WAVES_NEW = 32
 SPILL_PATIENCE = 16
 
 
@@ -2069,8 +2093,8 @@ def spill_step_kind(before: dict, after: dict) -> str:
 
 
 @timed("traces")
-def drive_spill(loop, specs, per_step: bool = False):
-    """All requests submitted at step 0 (greedy, ``SPILL_NEW`` tokens), then
+def drive_spill(loop, specs, per_step: bool = False, max_new: int = SPILL_NEW):
+    """All requests submitted at step 0 (greedy, ``max_new`` tokens), then
     ``step()`` until idle.  With ``per_step`` each step is timed to the
     device's end, its host-device synchronizations counted under sync debug
     mode, its host time in ``_stage_wave`` summed, and its kind recorded.
@@ -2081,8 +2105,8 @@ def drive_spill(loop, specs, per_step: bool = False):
     from repro_torch.serving import engine as E
     from repro_torch.serving import sampling as SM
     eng = loop.eng
-    sp = SM.SamplingParams(temperature=0.0, max_new_tokens=SPILL_NEW)
-    reqs = [E.Request(uid=i, prompt_tokens=p, max_new_tokens=SPILL_NEW, sampling=sp)
+    sp = SM.SamplingParams(temperature=0.0, max_new_tokens=max_new)
+    reqs = [E.Request(uid=i, prompt_tokens=p, max_new_tokens=max_new, sampling=sp)
             for i, p in enumerate(specs)]
     waves, stage_s = [], [0.0]
     plan, stage = loop._plan_waves, loop._stage_wave
@@ -2133,7 +2157,7 @@ def drive_spill(loop, specs, per_step: bool = False):
                       "stage_host_ms": stage_s[0] * 1e3, "syncs": sum(where.values()),
                       "sync_sites": dict(where)})
     torch.cuda.synchronize()
-    assert all(r.done and len(r.generated) == SPILL_NEW for r in reqs), "unfinished requests"
+    assert all(r.done and len(r.generated) == max_new for r in reqs), "unfinished requests"
     return [r.generated for r in reqs], steps, waves
 
 
@@ -2154,14 +2178,69 @@ def step_table(steps) -> dict:
     return out
 
 
+def spill_runs(eng, label: str, make_loop_of, specs, want, plan, spies=None):
+    """The oversubscribed runs of ``[spill]``: for each (name, loop keyword
+    arguments, requests, new tokens) of ``plan`` (sharing on, sharing off,
+    sharing off with queue patience), a fresh eager loop ``make_loop_of(**kw)``
+    serves the first requests of ``specs``; every request's greedy tokens
+    must equal the head of ``want`` (an all-DRAM loop's), the staging reserve
+    come back whole and nothing stay on Flash.  Then the sharing run spilled
+    cold pages, the no-sharing run decoded in 2+ waves and the patience run
+    preempted a row and restored it.  Returns (records, tokens) by name."""
+    import contextlib
+    from repro_torch.serving import engine as E
+    runs, tokens = {}, {}
+    for name, kw, n, new in plan:
+        loop = make_loop_of(**kw)
+        eng.stats = E.EngineStats()
+        t0 = time.perf_counter()
+        with spies if spies is not None else contextlib.nullcontext():
+            got, _, waves = drive_spill(loop, specs[:n], max_new=new)
+        wall = time.perf_counter() - t0
+        s = eng.stats
+        differ = [i for i in range(n) if got[i] != want[i][:new]]
+        assert not differ, f"{label} {name}: greedy tokens differ from all-DRAM for {differ}"
+        r = {"requests": n, "new_tokens": new, "wall_s": wall,
+             "num_pages": loop.geom.num_pages, "staging_pages": loop.geom.staging_pages,
+             "peak_kv_pages": loop.peak_kv_pages, "cold_spilled_pages": s.cold_spilled_pages,
+             "spilled_pages": s.spilled_pages, "restored_pages": s.restored_pages,
+             "preemptions": s.preemptions, "max_waves": max(waves),
+             "steps_with_2plus_waves": sum(w >= 2 for w in waves), "decode_steps": len(waves),
+             "flash_bytes_written": loop.spill.flash.bytes_written,
+             "flash_bytes_read": loop.spill.flash.bytes_read,
+             "staging_hit_rate": s.flash_hit_rate, "staging_steps": len(s.flash_hit_rates),
+             "tokens_equal_all_dram": True}
+        assert loop.pool.staged_count == 0, loop.pool.staged_count
+        assert loop.pool.staging_free == loop.geom.staging_pages, loop.pool.staging_free
+        assert loop.spill.pages_on_flash == 0, loop.spill.pages_on_flash
+        assert 0.0 <= r["staging_hit_rate"] <= 1.0
+        log(f"{label} {name}: {n} requests ({new} new) in {wall:.2f} s, tokens equal to "
+            f"all-DRAM; peak KV {r['peak_kv_pages']} pages on a {r['num_pages']}-page pool; "
+            f"cold pages spilled {r['cold_spilled_pages']}; preemptions {r['preemptions']} "
+            f"(pages spilled {r['spilled_pages']}, restored {r['restored_pages']}); waves max "
+            f"{r['max_waves']} ({r['steps_with_2plus_waves']} of {r['decode_steps']} decode "
+            f"steps 2+); Flash written {r['flash_bytes_written'] / 2**20:.1f} MiB, read "
+            f"{r['flash_bytes_read'] / 2**20:.1f} MiB; staging hit rate "
+            f"{r['staging_hit_rate']:.3f} over {r['staging_steps']} steps; reserve returned, "
+            "nothing left on Flash")
+        runs[name], tokens[name] = r, got
+        loop.close()
+    if "sharing" in runs:
+        assert runs["sharing"]["cold_spilled_pages"] > 0, runs["sharing"]
+    assert runs["no_sharing"]["max_waves"] >= 2, runs["no_sharing"]
+    assert runs["patience"]["preemptions"] >= 1 and runs["patience"]["restored_pages"] > 0
+    return runs, tokens
+
+
 def phase_spill(eng) -> dict:
     """The Flash tier on full-width qwen2-7b: an ``EngineLoop`` whose DRAM
     pool holds ``SPILL_POOL_PAGES`` pages (4 slots, max_seq 2048, page 128,
     the default staging reserve of 14 pages) serves the spill trace three
-    times, eagerly: (1) prefix sharing on, (2) off, so every row's old pages
-    may spill and decodes need several staging waves, (3) off with a fifth
-    request queued and ``preempt_patience``, so rows are preempted to Flash
-    and restored.  Every request's greedy tokens must equal those of an
+    times, eagerly: (1) prefix sharing on (``SPILL_NEW`` new tokens), (2)
+    off, so every row's old pages may spill and decodes need several
+    staging waves, (3) off with a fifth request queued and
+    ``preempt_patience``, so rows are preempted to Flash and restored (2
+    and 3 ``SPILL_WAVES_NEW`` tokens).  Every request's greedy tokens must equal those of an
     all-DRAM loop on its graphs; run 2 again on a warmed loop's graphs must
     equal the eager run and capture nothing after warmup."""
     import torch
@@ -2184,55 +2263,20 @@ def phase_spill(eng) -> dict:
     ref.close()
     geom = eng.plan.kv_pool_geometry(eng.cfg, eng.max_seq, 4,
                                      dram_budget_bytes=SPILL_POOL_PAGES * pb)
-    log(f"[spill] qwen2-7b: prompts {[len(p) for p in specs]}, {SPILL_NEW} new tokens; "
+    log(f"[spill] qwen2-7b: prompts {[len(p) for p in specs]}, {SPILL_NEW} new tokens "
+        f"({SPILL_WAVES_NEW} with sharing off); "
         f"all-DRAM reference on graphs ({ref_pool} pages); the spill loops hold "
         f"{geom.num_pages} pages of {pb / 2**20:.2f} MiB ({geom.num_pages * pb / 2**20:.1f} "
         f"MiB) and a staging reserve of {geom.staging_pages}")
-    runs = {}
     K.reset_launch_counts()
-    for name, kw, n in (("sharing", {}, 4),
-                        ("no_sharing", {"prefix_sharing": False}, 4),
-                        ("patience", {"prefix_sharing": False,
-                                      "preempt_patience": SPILL_PATIENCE}, 5)):
-        loop = spill_loop(**kw)
-        eng.stats = E.EngineStats()
-        t0 = time.perf_counter()
-        got, _, waves = drive_spill(loop, specs[:n])
-        wall = time.perf_counter() - t0
-        s = eng.stats
-        differ = [i for i in range(n) if got[i] != want[i]]
-        assert not differ, f"[spill] {name}: greedy tokens differ from all-DRAM for {differ}"
-        r = {"requests": n, "wall_s": wall, "num_pages": loop.geom.num_pages,
-             "staging_pages": loop.geom.staging_pages, "peak_kv_pages": loop.peak_kv_pages,
-             "cold_spilled_pages": s.cold_spilled_pages, "spilled_pages": s.spilled_pages,
-             "restored_pages": s.restored_pages, "preemptions": s.preemptions,
-             "max_waves": max(waves), "steps_with_2plus_waves": sum(w >= 2 for w in waves),
-             "decode_steps": len(waves), "flash_bytes_written": loop.spill.flash.bytes_written,
-             "flash_bytes_read": loop.spill.flash.bytes_read,
-             "staging_hit_rate": s.flash_hit_rate, "staging_steps": len(s.flash_hit_rates),
-             "tokens_equal_all_dram": True}
-        assert loop.pool.staged_count == 0, loop.pool.staged_count
-        assert loop.pool.staging_free == loop.geom.staging_pages, loop.pool.staging_free
-        assert loop.spill.pages_on_flash == 0, loop.spill.pages_on_flash
-        assert 0.0 <= r["staging_hit_rate"] <= 1.0
-        log(f"[spill] {name}: {n} requests in {wall:.2f} s, tokens equal to all-DRAM; "
-            f"peak KV {r['peak_kv_pages']} pages on a {r['num_pages']}-page pool; cold pages "
-            f"spilled {r['cold_spilled_pages']}; preemptions {r['preemptions']} (pages "
-            f"spilled {r['spilled_pages']}, restored {r['restored_pages']}); waves max "
-            f"{r['max_waves']} ({r['steps_with_2plus_waves']} of {r['decode_steps']} decode "
-            f"steps 2+); Flash written {r['flash_bytes_written'] / 2**20:.1f} MiB, read "
-            f"{r['flash_bytes_read'] / 2**20:.1f} MiB; staging hit rate "
-            f"{r['staging_hit_rate']:.3f} over {r['staging_steps']} steps; reserve returned, "
-            "nothing left on Flash")
-        runs[name] = r
-        if name == "no_sharing":
-            eager_tokens = got
-        loop.close()
+    runs, tokens = spill_runs(eng, "[spill]", spill_loop, specs, want, (
+        ("sharing", {}, 4, SPILL_NEW),
+        ("no_sharing", {"prefix_sharing": False}, 4, SPILL_WAVES_NEW),
+        ("patience", {"prefix_sharing": False, "preempt_patience": SPILL_PATIENCE}, 5,
+         SPILL_WAVES_NEW)))
+    eager_tokens = tokens["no_sharing"]
     eager_counts = K.launch_counts()
-    assert runs["sharing"]["cold_spilled_pages"] > 0, runs["sharing"]
-    assert runs["no_sharing"]["max_waves"] >= 2, runs["no_sharing"]
     assert runs["no_sharing"]["peak_kv_pages"] > runs["no_sharing"]["num_pages"]
-    assert runs["patience"]["preemptions"] >= 1 and runs["patience"]["restored_pages"] > 0
     for name in LOOP_KERNELS:
         assert eager_counts[name] > 0, f"{name} never launched on the spill path: {eager_counts}"
     assert eng.dispatch.fallbacks == [], eng.dispatch.fallbacks
@@ -2241,7 +2285,7 @@ def phase_spill(eng) -> dict:
     rep = loop.warmup()
     eng.stats = E.EngineStats()
     K.reset_launch_counts()
-    got, steps, waves = drive_spill(loop, specs[:4], per_step=True)
+    got, steps, waves = drive_spill(loop, specs[:4], per_step=True, max_new=SPILL_WAVES_NEW)
     graph_counts = K.launch_counts()
     s = eng.stats
     assert got == eager_tokens, "[spill] graphs: greedy tokens differ from the eager run"
@@ -2495,6 +2539,14 @@ def phase_moe(dev) -> dict:
 WSTREAM_DENSE_RING = 7        # qwen2-7b: 7 slots for 28 groups
 WSTREAM_MOE_RING = 16         # moonshot: 16 slots for 48 groups (head + stack / 3)
 WSTREAM_MEMORY_SLACK = 0.05   # device weight bytes after the export vs the policy's
+# the later parts, each on its phase's engine: (ring slots, prompt lengths,
+# new tokens, seed).  With R of C groups a decode step installs 2 * (C - R)
+# groups (R < C / 2: all C), so gemma3-27b (10 groups of ~0.9 GB) reads ~1.8
+# GB a step through 9 slots and rwkv6-7b (32 groups of ~0.14 GB) ~2.2 GB
+# through 24; qwen2-1.5b's 28 groups of ~30 MB all install, ~0.8 GB
+WSTREAM_GEMMA = (9, [1100, 64, 300, 170], 8, 7)     # the 1100-token prompt wraps a ring
+WSTREAM_RWKV = (24, [300, 64, 200, 100], 8, 8)
+WSTREAM_QUANTVAR = (7, [400, 64, 300, 170], 8, 9)
 
 
 def wstream_trace(vocab: int, lens, seed: int):
@@ -2593,17 +2645,25 @@ def install_rate(ring, store, stack: int) -> dict:
 
 
 def phase_wstream(holder: list, label: str, ring_slots: int, lens, max_new: int,
-                  seed: int, spies=None) -> dict:
+                  seed: int, spies=None, kernels=None, idle_kernels=(),
+                  float_path: bool = False, warmup: bool = True) -> dict:
     """One part of ``[wstream]``: ``holder`` hands over the resident engine
     (its caller keeps no other reference).  An all-resident eager loop
     serves the trace; then a streamed engine is built from the same
-    parameters under a budget of the head plus ``ring_slots`` groups, the
-    resident engine is released, and the streamed loop (asked for CUDA
-    graphs, which the streaming gate turns off) serves the trace again: its
-    greedy tokens must equal the resident run's, the stack's device memory
-    must be freed, every kernel of the path must launch and nothing fall
-    back.  The Flash blobs are deleted at the end.  Every rate here reads
-    blobs the host has just written: page-cache reads."""
+    parameters under a budget of the head, ``ring_slots`` groups of stack 0
+    and every later stack (resident), the resident engine is released, and
+    the streamed loop (asked for CUDA graphs, which the streaming gate turns
+    off; with ``warmup``, a dense model's loop warms up and must capture
+    none) serves the trace again: its greedy tokens must equal the resident
+    run's, the stack's device memory must be freed, every kernel of the
+    path (``kernels``; by default the dense or MoE loop's) must launch,
+    ``idle_kernels`` never, the float path exactly when ``float_path``, and
+    nothing fall back.  Both loops decode the max_slots batch (the streamed
+    step always does; the resident loop is not bucketed), so a float path's
+    sums see the same row count.  A windowed or recurrent model keeps
+    prefix sharing and bucketing off.  The Flash blobs are deleted at the
+    end.  Every rate here reads blobs the host has just written: page-cache
+    reads."""
     import shutil
     import torch
     from repro_torch import kernels as K
@@ -2612,10 +2672,13 @@ def phase_wstream(holder: list, label: str, ring_slots: int, lens, max_new: int,
     eng = holder.pop()
     cfg = eng.cfg
     moe = bool(cfg.num_experts)
-    kernels = MOE_KERNELS if moe else LOOP_KERNELS
+    kernels = kernels or (MOE_KERNELS if moe else LOOP_KERNELS)
+    full_attn = all(pat.kind == "attn" and not pat.window
+                    for pats, _ in cfg.layer_plan() for pat in pats)
     specs = wstream_trace(cfg.vocab_size, lens, seed)
     eng.stats = E.EngineStats()
-    loop, reqs, res_wall = serve_trace(eng, specs, [0] * len(specs), max_new=max_new)
+    loop, reqs, res_wall = serve_trace(eng, specs, [0] * len(specs), max_new=max_new,
+                                       loop=make_loop(eng, bucketing=False))
     want = [r.generated for r in reqs]
     res = {"wall_s": res_wall, "decode_tok_per_s": eng.stats.decode_tps,
            "prefill_tok_per_s": eng.stats.prefill_tps}
@@ -2625,16 +2688,18 @@ def phase_wstream(holder: list, label: str, ring_slots: int, lens, max_new: int,
 
     full = RP.weight_stream_policy(cfg, eng.params)
     count = cfg.layer_plan()[0][1]
-    group_bytes = -(-(full.resident_bytes - full.head_bytes) // count)
-    budget = full.head_bytes + ring_slots * group_bytes
+    stack_bytes = RP._tree_nbytes(eng.params["stacks"][0])
+    group_bytes = -(-stack_bytes // count)
+    rest = full.resident_bytes - full.head_bytes - stack_bytes
+    budget = full.head_bytes + ring_slots * group_bytes + rest
     root = eng.embedding.flash.root
     free = shutil.disk_usage(root).free
-    log(f"[wstream] {label}: {count} groups of {group_bytes / 1e6:.2f} MB (stack "
-        f"{(full.resident_bytes - full.head_bytes) / 1e9:.2f} GB, head "
-        f"{full.head_bytes / 1e6:.1f} MB); budget head + {ring_slots} groups; Flash "
-        f"directory has {free / 1e9:.1f} GB free; all-resident eager run "
+    log(f"[wstream] {label}: stack 0 is {count} groups of {group_bytes / 1e6:.2f} MB "
+        f"({stack_bytes / 1e9:.2f} GB; later stacks {rest / 1e6:.1f} MB, head "
+        f"{full.head_bytes / 1e6:.1f} MB); budget head + {ring_slots} groups + later "
+        f"stacks; Flash directory has {free / 1e9:.1f} GB free; all-resident eager run "
         f"{res_wall:.2f} s")
-    assert free > 1.1 * (full.resident_bytes - full.head_bytes), "no room on Flash"
+    assert free > 1.1 * stack_bytes, "no room on Flash"
     params, emb = eng.params, eng.embedding
     torch.cuda.synchronize()
     mem_resident = torch.cuda.memory_allocated()
@@ -2647,7 +2712,8 @@ def phase_wstream(holder: list, label: str, ring_slots: int, lens, max_new: int,
     gc.collect()
     pol = streamed.weight_policy
     (spl,) = pol.streamed
-    assert spl.ring_groups == ring_slots and bool(spl.experts) == moe, pol
+    assert spl.stack == 0 and spl.ring_groups == ring_slots, pol
+    assert bool(spl.experts) == moe, pol
     freed = mem_resident - torch.cuda.memory_allocated()
     weights_after = full.resident_bytes - freed
     loop = make_loop(streamed, cuda_graphs=True)
@@ -2667,8 +2733,9 @@ def phase_wstream(holder: list, label: str, ring_slots: int, lens, max_new: int,
         f"the streamed stack's memory was not freed: {on_card} > {pol.resident_bytes}"
     assert not loop.cuda_graphs and "cuda_graphs" in loop.disabled_features
     assert loop.disabled_features.get("decode_bucketing", "").startswith("weight streaming")
+    assert full_attn or "prefix_sharing" in loop.disabled_features, loop.disabled_features
     rep = None
-    if not moe:
+    if warmup and not moe:
         rep = loop.warmup()
         assert rep["graphs"] == 0, rep
         log(f"[wstream] {label}: warmup {rep['warmup_s']:.1f} s, {rep['graphs']} graphs "
@@ -2683,12 +2750,15 @@ def phase_wstream(holder: list, label: str, ring_slots: int, lens, max_new: int,
             run = drive_wstream(loop, specs, max_new)
     else:
         run = drive_wstream(loop, specs, max_new)
-    counts = K.launch_counts()
+    counts = K.counts()
     s = streamed.stats
     differ = [i for i in range(len(specs)) if run["tokens"][i] != want[i]]
     assert not differ, f"[wstream] {label}: greedy tokens differ from all-resident for {differ}"
     for name in kernels:
         assert counts[name] > 0, f"{name} never launched on the streamed path: {counts}"
+    for name in idle_kernels:
+        assert counts[name] == 0, f"{name} launched on the streamed path: {counts}"
+    assert (counts["float_matmul"] > 0) == float_path, counts
     if spies is not None:
         spies.check()
     assert streamed.dispatch.fallbacks == [], streamed.dispatch.fallbacks
@@ -4351,6 +4421,62 @@ def phase_quantvar(dev, results: dict):
     return holder, summary
 
 
+# new tokens of the variant's spill runs: with prefix sharing off the four
+# rows' KV outgrows the pool within them (cold pages, two waves), and the
+# fifth request's wait ends in a preemption
+SPILL_VARIANT_NEW = 8
+SPILL_VARIANT_PATIENCE = 4
+
+
+def phase_spill_variant(eng) -> dict:
+    """``[spill]``'s oversubscribed pool on ``[quantvar]``'s engine: int4
+    keys and bf16 values move between the pool, the staging reserve and
+    Flash (``read_pages``/``write_pages``, the page spill store).  The
+    spill trace's four (five) prompts of 830-900 tokens on a
+    ``SPILL_POOL_PAGES``-page pool, eagerly, ``SPILL_VARIANT_NEW`` new
+    tokens each, prefix sharing off: cold pages spilled and 2+ staging
+    waves, then with the fifth request queued and queue patience a
+    preemption to Flash and its restore; each run token-equal to an
+    all-DRAM loop's tokens, the reserve returned and nothing left on Flash;
+    every kernel 2 and 3 launch read int4 keys and bf16 values.  (``[spill]``
+    itself also runs sharing on: the variants change no page's sharing.)
+    Every loop decodes the max_slots batch: a wave's smaller bucket would
+    change the float path's row count, and with it the order of its float32
+    sums."""
+    from repro_torch import kernels as K
+    from repro_torch.runtime import plan as RP
+    from repro_torch.serving import engine as E
+    specs = spill_trace(eng.cfg.vocab_size)
+    pb = RP.kv_page_bytes(eng.cfg, RP.kv_page_size(eng.max_seq))
+    kernels = ("paged_quant_decode_attention", "paged_flash_prefill_attention")
+
+    def loop_of(**kw):
+        return E.EngineLoop(eng, max_slots=4, prefill_chunk=128, prefill_token_budget=256,
+                            bucketing=False, cuda_graphs=False, **kw)
+    new = SPILL_VARIANT_NEW
+    ref = loop_of()
+    eng.stats = E.EngineStats()
+    want, _, _ = drive_spill(ref, specs, max_new=new)
+    ref.close()
+    spies = VariantSpies()
+    K.reset_launch_counts()
+    runs, _ = spill_runs(eng, "[spill] quantvar", functools.partial(
+        loop_of, dram_budget_bytes=SPILL_POOL_PAGES * pb), specs, want, (
+        ("no_sharing", {"prefix_sharing": False}, 4, new),
+        ("patience", {"prefix_sharing": False, "preempt_patience": SPILL_VARIANT_PATIENCE}, 5,
+         new)), spies=spies)
+    assert runs["no_sharing"]["cold_spilled_pages"] > 0, runs["no_sharing"]
+    counts = K.counts()
+    for name in kernels + ("rmsnorm", "float_matmul"):
+        assert counts[name] > 0, f"{name} never ran on the variant spill path: {counts}"
+    assert counts["w4a8_matmul"] == 0, counts
+    spies.check(kernels, "int4/torch.bfloat16")
+    assert eng.dispatch.fallbacks == [], eng.dispatch.fallbacks
+    log(f"[spill] quantvar: launches {counts}; {spies}")
+    return {"runs": runs, "launches": counts, "pool_page_bytes": pb,
+            "variant_launches": {k: dict(v) for k, v in spies.by_variant.items()}}
+
+
 def phase_dbrx(dev, results: dict):
     """dbrx-132b at full width (d_model 6144, 48/8 heads, 16 experts top-4
     of d_ff 10752 in every layer, vocab 100352) and 16 of its 40 layers,
@@ -4415,6 +4541,58 @@ def drop_flash(name: str) -> None:
     import shutil
     shutil.rmtree(ROOT / "build" / name, ignore_errors=True)
 
+
+
+def later_wstream(label: str, holder: list, wstream: dict, big: dict,
+                  timings: dict) -> None:
+    """The ``[wstream]`` parts that take over a later phase's engine before
+    it is released: gemma3-27b's windowed stack and rwkv6-7b's rwkv stack at
+    full depth, and ``[quantvar]``'s qwen2-1.5b through ``[spill]``'s
+    oversubscribed pool and then streamed (its group-wise A16 blobs).
+    jamba-1.5-large-398b at ``JAMBA_LAYERS`` layers is one stack of two
+    groups, which the policy keeps resident (a ring of two slots would hold
+    the whole stack), as the reference's does: the check says so."""
+    import torch
+    if label == "jamba":
+        eng = holder[0]
+        pol = eng.plan.weight_placement(eng.cfg, 1, expert_granular=False)
+        count = eng.cfg.layer_plan()[0][1]
+        assert count < 3 and not pol.active, pol
+        log(f"[wstream] jamba-1.5-large-398b ({JAMBA_LAYERS} of 72 layers): not streamed: "
+            f"its one stack has {count} groups of ~{pol.resident_bytes / count / 1e9:.1f} GB "
+            "and a 2-group stack stays resident under any budget (a ring cannot hold a strict "
+            "subset of it)")
+        wstream["jamba-1.5-large-398b"] = {"streamed": False, "groups": count,
+                                           "policy_resident_bytes": pol.resident_bytes}
+        return
+    parts = {"gemma3": ("gemma3-27b", WSTREAM_GEMMA, {"warmup": False}),
+             "rwkv6": ("rwkv6-7b", WSTREAM_RWKV, {"kernels": RWKV_KERNELS, "warmup": False}),
+             "quantvar": ("qwen2-1.5b quantvar", WSTREAM_QUANTVAR, {"warmup": False,
+                 "kernels": ("paged_quant_decode_attention", "paged_flash_prefill_attention",
+                             "rmsnorm"),
+                 "idle_kernels": ("w4a8_matmul", "grouped_matmul"), "float_path": True})}
+    if label not in parts:
+        return
+    name, (ring, lens, new, seed), kw = parts[label]
+    FLOAT_PATH["allowed"] = label == "quantvar"
+    try:
+        if label == "quantvar":
+            t0 = time.perf_counter()
+            big[label]["spill"] = phase_spill_variant(holder[0])
+            big[label]["spill"]["phase_s"] = time.perf_counter() - t0
+            log(f"[spill] quantvar part took {big[label]['spill']['phase_s']:.1f} s")
+            timings["spill quantvar"] = timing_split("spill quantvar")
+        t0 = time.perf_counter()
+        wstream[name] = phase_wstream(holder, name, ring, lens, new, seed=seed, **kw)
+        from repro_torch import kernels as K
+        K.reset_launch_counts()
+    finally:
+        FLOAT_PATH["allowed"] = False
+    wstream[name]["phase_s"] = time.perf_counter() - t0
+    log(f"[wstream] {name} part took {wstream[name]['phase_s']:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    timings[f"wstream {name}"] = timing_split(f"wstream {name}")
 
 
 def main() -> int:
@@ -4514,11 +4692,12 @@ def main() -> int:
                                 ("dbrx", phase_dbrx, "flash-dbrx")):
         t_p = time.perf_counter()
         holder, big[label] = phase(dev, results)
-        free_engine(label, holder)
-        drop_flash(flash)
         big[label]["phase_s"] = time.perf_counter() - t_p
         log(f"[{label}] phase took {big[label]['phase_s']:.1f} s")
         timings[label] = timing_split(label)
+        later_wstream(label, holder, wstream, big, timings)
+        free_engine(label, holder)
+        drop_flash(flash)
     t_p = time.perf_counter()
     holder, train = phase_train(dev, results, card)
     free_engine("train", holder)
@@ -4538,6 +4717,12 @@ def main() -> int:
              "EngineLoop qwen2-7b, Flash tier": spill["launches"],
              "EngineLoop qwen2-7b, Flash tier, CUDA graphs": spill["graph_launches"],
              "EngineLoop qwen2-7b, weights streamed": wstream["qwen2-7b"]["launches"],
+             "EngineLoop gemma3-27b, weights streamed": wstream["gemma3-27b"]["launches"],
+             "EngineLoop rwkv6-7b, weights streamed": wstream["rwkv6-7b"]["launches"],
+             "EngineLoop qwen2-1.5b, int4 keys, bf16 values, W4A16 g128, weights streamed":
+                 wstream["qwen2-1.5b quantvar"]["launches"],
+             "EngineLoop qwen2-1.5b, int4 keys, bf16 values, W4A16 g128, Flash tier":
+                 big["quantvar"]["spill"]["launches"],
              "EngineLoop glm4-9b": glm4["launches"],
              "EngineLoop glm4-9b, CUDA graphs": glm4["graphs"]["launches"],
              "Engine.generate glm4-9b": glm4["generate"]["launches"],

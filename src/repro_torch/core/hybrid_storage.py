@@ -32,6 +32,7 @@ leaf starts on a ``WEIGHT_ALIGN`` boundary, the layout of the slot itself.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import os
 import queue
 import threading
@@ -42,6 +43,87 @@ import torch
 
 # rows converted per chunk when a table is written to Flash
 EXPORT_CHUNK_ROWS = 8192
+# A blob is read in pieces of at most IO_PIECE_BYTES by IO_THREADS threads
+# at once: one thread copies out of the page cache at a few GB/s, and a
+# streamed step reads gigabytes.  A piece is large, and a blob of one piece
+# is one scatter read on the caller's thread, because every thread that
+# wakes takes the interpreter lock from the serving thread (an
+# expert-granular step reads thousands of blobs of a few MB).  Writes go
+# whole blobs a thread, since a file's buffered writes take its inode lock
+# in turn.
+IO_PIECE_BYTES = 32 << 20
+IO_THREADS = 4
+# blobs a WeightGroupStore export may hold in host memory while they are
+# written
+EXPORT_PENDING = 8
+
+_IOV_MAX = 1024          # buffers a preadv call takes (Linux's UIO_MAXIOV)
+
+_IO = {"pool": None}
+_IO_LOCK = threading.Lock()
+
+
+def _io_pool() -> concurrent.futures.ThreadPoolExecutor:
+    """The threads of the Flash reads and writes, started at first use."""
+    with _IO_LOCK:
+        if _IO["pool"] is None:
+            _IO["pool"] = concurrent.futures.ThreadPoolExecutor(
+                IO_THREADS, thread_name_prefix="flash-io")
+        return _IO["pool"]
+
+
+def _run_all(fn, jobs) -> None:
+    """``fn(*job)`` for every job, on the I/O threads where there are
+    several; waits for all of them before the first error is raised."""
+    if len(jobs) < 2:
+        for job in jobs:
+            fn(*job)
+        return
+    futures = [_io_pool().submit(fn, *job) for job in jobs]
+    concurrent.futures.wait(futures)
+    for f in futures:
+        f.result()
+
+
+def _pwrite_full(fd: int, view: memoryview, offset: int) -> None:
+    done = 0
+    while done < len(view):
+        done += os.pwrite(fd, view[done:], offset + done)
+
+
+def _pieces(views: Sequence[memoryview], limit: int) -> list:
+    """Cut byte views that lie back to back in a file into runs of at most
+    ``limit`` bytes (at most ``_IOV_MAX`` views each): [(file offset,
+    [views])], each run one scatter read."""
+    pieces, cur, cur_n, off = [], [], 0, 0
+    for view in views:
+        pos = 0
+        while pos < len(view):
+            take = min(len(view) - pos, limit - cur_n)
+            cur.append(view[pos:pos + take])
+            cur_n += take
+            pos += take
+            if cur_n == limit or len(cur) == _IOV_MAX:
+                pieces.append((off, cur))
+                off, cur, cur_n = off + cur_n, [], 0
+    if cur:
+        pieces.append((off, cur))
+    return pieces
+
+
+def _pread_full(fd: int, offset: int, views: List[memoryview], name: str) -> None:
+    """Fill ``views`` in turn from ``offset`` on (a short read goes on)."""
+    views = list(views)
+    while views:
+        k = os.preadv(fd, views, offset)
+        if not k:
+            raise EOFError(f"{name}: short blob")
+        offset += k
+        while views and k >= len(views[0]):
+            k -= len(views[0])
+            views.pop(0)
+        if k:
+            views[0] = views[0][k:]
 
 
 class FlashStore:
@@ -96,29 +178,32 @@ class FlashStore:
         self._read(mm.nbytes)
         return mm
 
-    def write_blob(self, name: str, arrays: Sequence[np.ndarray]) -> None:
-        """Write the arrays' bytes back to back as one file."""
-        with open(self.path(name), "wb") as f:
-            for a in arrays:
-                f.write(memoryview(np.ascontiguousarray(a)).cast("B"))
+    def write_blob(self, name: str,
+                   arrays: Sequence[np.ndarray]) -> concurrent.futures.Future:
+        """Write the arrays' bytes back to back as one file, on an I/O
+        thread: the bytes are counted at once, the future ends with the
+        write (the caller keeps ``arrays`` as they are until then)."""
         with self._count:
             self.bytes_written += sum(int(a.nbytes) for a in arrays)
+        return _io_pool().submit(self._write_file, self.path(name), arrays)
+
+    @staticmethod
+    def _write_file(path: str, arrays: Sequence[np.ndarray]) -> None:
+        with open(path, "wb") as f:
+            for a in arrays:
+                f.write(memoryview(np.ascontiguousarray(a)).cast("B"))
 
     def read_blob_into(self, name: str, outs: Sequence[np.ndarray]) -> None:
         """Fill the byte arrays ``outs`` in turn from one file that
-        ``write_blob`` wrote."""
-        n = 0
-        with open(self.path(name), "rb", buffering=0) as f:
-            for out in outs:
-                view = memoryview(out).cast("B")
-                got = 0
-                while got < len(view):
-                    k = f.readinto(view[got:])
-                    if not k:
-                        raise EOFError(f"{name}: short blob")
-                    got += k
-                n += got
-        self._read(n)
+        ``write_blob`` wrote, in pieces read in parallel."""
+        views = [memoryview(out).cast("B") for out in outs]
+        fd = os.open(self.path(name), os.O_RDONLY)
+        try:
+            _run_all(lambda off, run: _pread_full(fd, off, run, name),
+                     _pieces(views, IO_PIECE_BYTES))
+        finally:
+            os.close(fd)
+        self._read(sum(len(v) for v in views))
 
     def delete(self, name: str) -> None:
         """Drop a stored array and its backing file."""
@@ -177,12 +262,25 @@ class EmbeddingStore:
         """Write a [rows, dim] table in chunks: ``fill(start, stop)`` returns
         rows [start, stop) as a float tensor (any device); they are rounded
         to bf16 and stored as their uint16 bit patterns."""
-        mm = flash.create(name, (rows, dim), np.uint16)
-        for start in range(0, rows, EXPORT_CHUNK_ROWS):
-            stop = min(rows, start + EXPORT_CHUNK_ROWS)
-            chunk = fill(start, stop).to(torch.bfloat16).view(torch.int16)
-            mm[start:stop] = chunk.cpu().numpy().view(np.uint16)
-        mm.flush()
+        row_bytes = dim * np.dtype(np.uint16).itemsize
+        pending: list = []
+        with open(flash.path(name), "wb") as f:
+            f.truncate(rows * row_bytes)
+            try:
+                for start in range(0, rows, EXPORT_CHUNK_ROWS):
+                    stop = min(rows, start + EXPORT_CHUNK_ROWS)
+                    chunk = fill(start, stop).to(torch.bfloat16).view(torch.int16)
+                    data = memoryview(chunk.cpu().numpy()).cast("B")
+                    # the next chunk is made while this one is written
+                    pending.append(_io_pool().submit(_pwrite_full, f.fileno(), data,
+                                                     start * row_bytes))
+                    if len(pending) > 2:
+                        pending.pop(0).result()
+            finally:
+                concurrent.futures.wait(pending)
+            for w in pending:
+                w.result()
+        flash.open(name, (rows, dim), np.uint16)
         return cls(flash, name)
 
     def lookup(self, token_ids: np.ndarray,
@@ -468,14 +566,24 @@ class WeightGroupStore(_FlashPrefetcher):
         self._names: Dict[tuple, str] = {}
         self._specs: Dict[tuple, list] = {}
         self._group_nbytes: Dict[tuple, int] = {}
+        self._writes: Dict[tuple, concurrent.futures.Future] = {}
         super().__init__()
 
     # -- export (engine build time) -----------------------------------------
     def _put(self, key: tuple, name: str, tensors: Sequence[torch.Tensor]) -> None:
+        """Copy the leaves to the host and hand their blob to a writer
+        thread; ``flush`` (or a fetch of the key) waits for the write."""
         name = f"wgrp{id(self):x}_{name}"
         arrays = [_host_bytes(t) for t in tensors]
-        self.flash.write_blob(name, arrays)
+        self._wait_written(key)
         with self._lock:
+            oldest = next(iter(self._writes), None) \
+                if len(self._writes) >= EXPORT_PENDING else None
+        if oldest is not None:
+            self._wait_written(oldest)
+        write = self.flash.write_blob(name, arrays)
+        with self._lock:
+            self._writes[key] = write
             self._names[key] = name
             self._specs[key] = [(tuple(t.shape), t.dtype) for t in tensors]
             self._group_nbytes[key] = sum(int(a.nbytes) for a in arrays)
@@ -492,8 +600,24 @@ class WeightGroupStore(_FlashPrefetcher):
         """Persist ONE expert's slice of one layer group's expert tables."""
         self._put((stack, group, expert), f"s{stack}_g{group}_e{expert}", tensors)
 
+    def _wait_written(self, key: tuple) -> None:
+        with self._lock:
+            write = self._writes.pop(key, None)
+        if write is not None:
+            write.result()
+
+    def flush(self) -> None:
+        """Wait until every blob put so far is on Flash (raising a failed
+        write's error)."""
+        with self._lock:
+            writes, self._writes = list(self._writes.values()), {}
+        concurrent.futures.wait(writes)
+        for w in writes:
+            w.result()
+
     # -- prefetch pump -------------------------------------------------------
     def _load(self, key: tuple) -> WeightBlob:
+        self._wait_written(key)
         with self._lock:
             name, specs = self._names[key], self._specs[key]
         offsets, total = leaf_offsets(specs)
@@ -545,6 +669,7 @@ class WeightGroupStore(_FlashPrefetcher):
     def drop_all(self) -> None:
         """Stop the worker and delete every blob from Flash."""
         self.close()
+        self.flush()
         with self._lock:
             for name in self._names.values():
                 self.flash.delete(name)

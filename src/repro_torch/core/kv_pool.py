@@ -277,13 +277,17 @@ KV_FIELDS = ("k_q", "k_scale", "k_zero", "v")
 
 
 def _bytes_view(x: torch.Tensor) -> torch.Tensor:
-    """fp8 has no numpy dtype: its bytes travel as uint8."""
-    return x.view(torch.uint8) if x.dtype == q.FP8_DTYPE else x
+    """fp8 and bf16 have no numpy dtype: their bytes travel as uint8 and
+    int16."""
+    if x.dtype == q.FP8_DTYPE:
+        return x.view(torch.uint8)
+    return x.view(torch.int16) if x.dtype == torch.bfloat16 else x
 
 
 def read_pages(pool: PagedLayerKV, phys: Sequence[int]) -> Dict[str, np.ndarray]:
     """Every layer's bytes of physical pages ``phys`` of a stacked pool, as
-    host arrays [L, len(phys), page, ...] by field (fp8 values as uint8).  On
+    host arrays [L, len(phys), page, ...] by field (fp8 values as uint8,
+    bf16 values as int16).  On
     the card the pages are gathered on the device and copied into pinned
     memory without blocking, then the host waits once for the stream: the
     bytes are those of every kernel enqueued before."""

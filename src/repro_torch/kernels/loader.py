@@ -31,8 +31,11 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
+# --split-compile: a source's optimization passes run on 4 threads, so the
+# two decode sources (28 kernel instantiations each) no longer hold the
+# build back while the card's host has cores to spare
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "--split-compile=4", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # Every entry point takes one pointer to its arguments, packed by ``struct``
 # as 8-byte little-endian words (Q a pointer, q an int, d a float; csrc/

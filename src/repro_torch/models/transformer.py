@@ -363,21 +363,25 @@ def run_stack_group(gp: tuple, cfg: ModelConfig, stack_idx: int, mode: str,
                     group: int, pos, table, dispatch: D.Dispatcher,
                     policy: PrecisionPolicy = DEFAULT_POLICY,
                     collect: Optional[dict] = None,
-                    lora: Optional[dict] = None) -> torch.Tensor:
+                    lora: Optional[dict] = None, slot=None, valid_len=None,
+                    active=None, rows=None) -> torch.Tensor:
     """ONE layer group of one stack on the paged pool (modes "decode" and
     "prefill_paged", arguments as ``_run_stacks``'s): ``gp`` is the group's
     parameter tree (one dict per period pattern, no leading [count] axis;
-    a ring slot's), run against layer ``group`` of the stack's page pools.
-    The layers are the ones ``_run_stacks`` applies, in its order, so a pass
-    over every group is the resident step.  With ``collect`` a dict, the
-    group's MoE router ids land in ``collect["moe_ids"]`` [n_moe, B, T, K]."""
+    a ring slot's), run against layer ``group`` of the stack's page pools,
+    windowed rings and recurrent states.  The layers are the ones
+    ``_run_stacks`` applies, in its order and with its ``slot``,
+    ``valid_len``, ``active`` and ``rows``, so a pass over every group is
+    the resident step.  With ``collect`` a dict, the group's MoE router ids
+    land in ``collect["moe_ids"]`` [n_moe, B, T, K]."""
     patterns, _count = cfg.layer_plan()[stack_idx]
     ids = []
     for pi, pat in enumerate(patterns):
         sub = None if collect is None else {}
         x, _ = _apply_layer(x, gp[pi], cfg, pat, mode, positions,
                             layer_entry(cache["stacks"][stack_idx][pi], group), pos,
-                            table, dispatch, policy, sub, lora)
+                            table, dispatch, policy, sub, lora, slot=slot,
+                            valid_len=valid_len, active=active, rows=rows)
         if sub:
             ids.append(sub["moe_ids"])
     if collect is not None and ids:
@@ -518,8 +522,9 @@ def prefill_chunk_paged(params: dict, cfg: ModelConfig, embeds: torch.Tensor,
     ``last_idx + 1`` (the padded tail of a final chunk never reaches a
     windowed layer's ring).  The caller advances
     ``cache["pos"]`` once the whole prompt is in.  ``run_stacks(x, mode,
-    positions, pos, table, lora)`` replaces the resident stacks' run
-    (streamed weights).  ``lora["ids"]`` holds the row's one adapter id."""
+    positions, pos, table, lora, slot=, valid_len=)`` replaces the resident
+    stacks' run (streamed weights).  ``lora["ids"]`` holds the row's one
+    adapter id."""
     x = embeds.to(torch.bfloat16)
     B, C = x.shape[:2]
     if B != 1:
@@ -531,7 +536,8 @@ def prefill_chunk_paged(params: dict, cfg: ModelConfig, embeds: torch.Tensor,
     table = cache["table"]
     table_row = table.index_select(0, slot.long().clamp(max=table.shape[0] - 1))[0]
     if run_stacks is not None:
-        x = run_stacks(x, "prefill_paged", positions, pos0, table_row, lora)
+        x = run_stacks(x, "prefill_paged", positions, pos0, table_row, lora,
+                       slot=slot, valid_len=last_idx + 1)
     else:
         x = _run_stacks(x, params, cfg, "prefill_paged", positions, cache, pos0,
                         table_row, dispatch, policy, collect, lora, slot=slot,
@@ -557,7 +563,8 @@ def decode_step_bucketed(params: dict, cfg: ModelConfig, embeds: torch.Tensor,
     row, so a model with them decodes every slot in order (the loop turns
     bucketing off); the inactive rows' ring writes go to the ring pool's
     trash page, and their recurrent state is left as it was.
-    ``run_stacks`` as in ``prefill_chunk_paged``; ``lora["ids"]`` [b] in
+    ``run_stacks`` as in ``prefill_chunk_paged``, given ``active=`` and
+    ``rows=`` (the bucket's slots) instead; ``lora["ids"]`` [b] in
     bucket order.  Returns (logits [b, V] in
     bucket order, cache with ``pos`` advanced for the active rows)."""
     x = embeds.to(torch.bfloat16)
@@ -566,7 +573,8 @@ def decode_step_bucketed(params: dict, cfg: ModelConfig, embeds: torch.Tensor,
     pos = cache["pos"][idx]
     positions = pos[:, None] + torch.arange(T, device=x.device, dtype=pos.dtype)[None]
     if run_stacks is not None:
-        x = run_stacks(x, "decode", positions, pos, cache["table"][idx], lora)
+        x = run_stacks(x, "decode", positions, pos, cache["table"][idx], lora,
+                       active=active, rows=idx)
     else:
         x = _run_stacks(x, params, cfg, "decode", positions, cache, pos,
                         cache["table"][idx], dispatch, policy, collect, lora,

@@ -440,12 +440,15 @@ class Engine:
         # stack -> (group skeleton: meta tensors, per-leaf expert flags)
         self._stream_skel: Dict[int, tuple] = {}
         if self.weight_policy.active:
-            if any(pat.kind != "attn" for pats, _ in cfg.layer_plan() for pat in pats):
-                raise NotImplementedError(
-                    "weight streaming on a model with recurrent layers: the "
-                    "split step does not carry the chunk's row and real length "
-                    "or the decode rows' activity to the recurrent state "
-                    "(ROADMAP queue 1 item 14a)")
+            for sp in self.weight_policy.streamed:
+                pats = cfg.layer_plan()[sp.stack][0]
+                if sp.experts and not all(pat.moe for pat in pats):
+                    raise NotImplementedError(
+                        f"{cfg.name}: expert-granular streaming of stack {sp.stack}, "
+                        "which mixes dense and MoE FFNs: the reference flags its "
+                        "dense FFN leaves as expert tables and cannot export them "
+                        "(ROADMAP queue 3 item 5); stream it by whole groups "
+                        "(expert_streaming=False)")
             self._export_streamed_stacks()
         self.stats.dram_weight_bytes = self.weight_policy.resident_bytes
 
@@ -474,6 +477,7 @@ class Engine:
                                                   device="meta"), stacks[si]),
                 flags)
             stacks[si] = None
+        self.weight_store.flush()
         self.params = dict(self.params, stacks=tuple(stacks))
         self.plan.params = self.params
 
@@ -670,6 +674,7 @@ class EngineLoop:
                  prefill_token_budget: Optional[int] = None,
                  prefix_sharing: bool = True,
                  proactive_spill: bool = True,
+                 bucketing: bool = True,
                  flash_budget_bytes: Optional[int] = None,
                  default_sampling: Optional[SM.SamplingParams] = None,
                  max_queue: Optional[int] = None,
@@ -689,12 +694,6 @@ class EngineLoop:
         # an adopted page would not reproduce the row's ring or state)
         self._full_attn = all(pat.kind == "attn" and pat.window == 0
                               for pats, _ in cfg.layer_plan() for pat in pats)
-        if not self._full_attn and engine.weight_policy.active:
-            raise NotImplementedError(
-                "weight streaming on a model with sliding-window layers: the "
-                "split step does not carry the chunk's row and real length or "
-                "the decode rows' activity to the rings (ROADMAP queue 1 "
-                "item 13a)")
         # the reference's geometry, staging reserve included, so that page
         # ids, pool shapes and allocation match it step for step
         self.proactive = proactive_spill
@@ -751,12 +750,14 @@ class EngineLoop:
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._streams: Dict[int, dict] = {}
         self.rejected = 0
-        # batch-size bucketing gathers the active slots into the smallest
-        # covering bucket; MoE stacks decode every slot (expert capacity
-        # couples the batch's tokens in the reference, which gates them
-        # off), and so do windowed ones (a ring is addressed by batch row)
+        # batch-size bucketing (``bucketing``, the reference's switch)
+        # gathers the active slots into the smallest covering bucket; off,
+        # every decode step runs the max_slots batch.  MoE stacks decode
+        # every slot (expert capacity couples the batch's tokens in the
+        # reference, which gates them off), and so do windowed ones (a ring
+        # is addressed by batch row)
         no_moe = not any(pat.moe for pats, _ in cfg.layer_plan() for pat in pats)
-        self._bucketed = no_moe and self._full_attn and max_slots > 1
+        self._bucketed = bucketing and no_moe and self._full_attn and max_slots > 1
         # weight streaming: the split step runs every streamed stack group by
         # group out of its ring at max_slots shape, as the reference's does.
         # An expert ring installs the experts its router history predicts:
@@ -797,7 +798,7 @@ class EngineLoop:
             self.disabled_features["prefix_sharing"] = (
                 "windowed/recurrent stacks: an adopted KV page cannot "
                 "reproduce ring contents or recurrent state")
-        if not self._bucketed:
+        if bucketing and not self._bucketed:
             self.disabled_features["decode_bucketing"] = (
                 "weight streaming: the split step runs at max_slots shape only"
                 if self.wpolicy.active
@@ -1276,25 +1277,35 @@ class EngineLoop:
         else:
             self._expert_rings[si].prefetch(g, self._expert_pred[(si, g)])
 
+    def _group_state(self, si: int, g: int) -> List[torch.Tensor]:
+        """Layer ``g``'s recurrent state leaves in stack ``si`` (views): what
+        a run of the group updates in place rather than overwrites."""
+        return [leaf[g] for entry in self.cache["stacks"][si] if isinstance(entry, dict)
+                for leaf in entry.values()]
+
     def _run_expert_group(self, ering: ExpertWeightRing, spl, si: int, g: int,
-                          mode: str, x, positions, pos, table, lora) -> torch.Tensor:
+                          mode: str, x, positions, pos, table, lora, step_kw) -> torch.Tensor:
         """One expert-granular group: install the shared leaves and the
         predicted experts, run the group, then read the router's picks for
         the active rows; a routed expert that was cold is installed and the
-        group runs again (the group is a pure function of its slot and
-        inputs, so the last run is the resident step's, KV writes
-        included).  Prompt chunks install every expert and are left out of
+        group runs again from the state it had before its first run (the
+        recurrent state rows are restored from a copy; KV and ring writes
+        land where the first run's did), so the last run is the resident
+        step's.  Prompt chunks install every expert and are left out of
         the accounting, as are steps with no active row (warmup)."""
         def run(collect=None):
             return T.run_stack_group(ering.obtain(g), self.cfg, si, mode, x,
                                      positions, self.cache, g, pos, table,
-                                     self.eng.dispatch, collect=collect, lora=lora)
+                                     self.eng.dispatch, collect=collect, lora=lora,
+                                     **step_kw)
         if mode != "decode":
             ering.ensure(g, range(spl.experts))
             return run()
         stats = self.eng.stats
         n_new, shared_new = ering.ensure(g, self._expert_pred[(si, g)])
         installed = ering.installed(g)
+        state = self._group_state(si, g)
+        before = [t.clone() for t in state]
         collect: dict = {}
         out = run(collect)
         act = self._host_active
@@ -1314,6 +1325,8 @@ class EngineLoop:
                 break
             n_new += ering.ensure(g, missing)[0]
             self.expert_reruns += 1
+            for t, b in zip(state, before):
+                t.copy_(b)
             collect = {}
             out = run(collect)
             actual = picked(collect["moe_ids"])
@@ -1328,11 +1341,13 @@ class EngineLoop:
         return out
 
     def _stream_stacks(self, x, mode: str, positions, pos, table,
-                       lora: Optional[dict] = None) -> torch.Tensor:
+                       lora: Optional[dict] = None, **step_kw) -> torch.Tensor:
         """Every stack for one step in the split mode: resident stacks layer
         by layer, streamed ones group by group out of their ring, the chain
         successor's Flash reads queued before each install so they overlap
-        the group that computes."""
+        the group that computes.  ``step_kw``: a chunk's ``slot`` and
+        ``valid_len`` or a decode step's ``active`` and ``rows``, handed to
+        every group for its rings and recurrent states."""
         eng, cfg = self.eng, self.cfg
         for si, (_patterns, count) in enumerate(cfg.layer_plan()):
             ring = self._wstreams.get(si)
@@ -1341,16 +1356,17 @@ class EngineLoop:
                 if ring is None and ering is None:
                     gp = tuple(T.layer_slice(p, g) for p in eng.params["stacks"][si])
                     x = T.run_stack_group(gp, cfg, si, mode, x, positions, self.cache, g,
-                                          pos, table, eng.dispatch, lora=lora)
+                                          pos, table, eng.dispatch, lora=lora, **step_kw)
                     continue
                 self._prefetch_sg(*self._stream_next[(si, g)])
                 if ering is not None:
                     x = self._run_expert_group(ering, self.wpolicy.streamed_stack(si), si,
-                                               g, mode, x, positions, pos, table, lora)
+                                               g, mode, x, positions, pos, table, lora,
+                                               step_kw)
                 else:
                     x = T.run_stack_group(ring.obtain(g), cfg, si, mode, x, positions,
                                           self.cache, g, pos, table, eng.dispatch,
-                                          lora=lora)
+                                          lora=lora, **step_kw)
         return x
 
     def _prepare(self, key: Tuple[str, int, bool], warm: bool = False) -> None:

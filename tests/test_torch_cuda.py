@@ -37,7 +37,11 @@ bit for bit, in place, with no host wait; on qwen2-7b@tiny (6 groups, a
 2-slot ring) a prompt and its decode steps give the resident engine's
 logits bit for bit; on moonshot@tiny-moe with an emptied expert prediction
 every decode visit runs its group again and the logits still equal the
-resident engine's, with nothing falling back.
+resident engine's, with nothing falling back; gemma3-27b@tiny's windowed
+stack and rwkv6-7b@tiny's rwkv stack streamed give the resident chunk and
+decode logits bit for bit beside a row mid-prefill, and an all-MoE
+jamba@tiny expert group run again after a cold miss leaves its output and
+mamba state as one run does.
 
 The dense matmul kernel is split over K at decode widths and has two tile
 sizes (16 rows up to M = 16, 64 above): its cases give bit-identical
@@ -71,6 +75,7 @@ Training: the two kernels of the training forward under their
 tolerance, every input gradient equal to autograd of the plain version);
 a wrapper called on an input that requires grad raises; one qwen2-7b@tiny
 step's loss and gradients on the kernel route against the plain route."""
+import dataclasses
 import math
 
 import numpy as np
@@ -1254,6 +1259,98 @@ def test_expert_ring_rerun_equals_resident(dev, tmp_path):
     for loop in loops:
         loop.close()
     st.close()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["gemma3-27b@tiny", "rwkv6-7b@tiny"])
+def test_streamed_windowed_and_recurrent_steps_equal_resident(dev, tmp_path, arch):
+    """A stack of windowed layers (gemma3-27b@tiny) or of rwkv layers
+    (rwkv6-7b@tiny) through a 2-slot ring: two rows, the second admitted
+    while the first decodes (decode steps beside a row mid-prefill), give
+    the resident engine's chunk and decode logits bit for bit, with no
+    fallback."""
+    res, st = _same_weights(arch, tmp_path, dev, lambda head, _s: head)
+    assert st.weight_policy.streamed[0].ring_groups == 2
+    loops = [PE.EngineLoop(e, max_slots=2, prefill_chunk=16, prefill_token_budget=16,
+                           cuda_graphs=False) for e in (res, st)]
+    sp = PSM.SamplingParams(temperature=0.0, max_new_tokens=6)
+    for loop in loops:
+        loop.submit(PE.Request(uid=0, prompt_tokens=list(range(3, 23)), max_new_tokens=6,
+                               sampling=sp))
+    steps = 0
+    while loops[0].has_work():
+        if steps == 2:
+            for loop in loops:
+                loop.submit(PE.Request(uid=1, prompt_tokens=list(range(40, 77)),
+                                       max_new_tokens=4, sampling=sp))
+        for loop in loops:
+            loop.step()
+        torch.cuda.synchronize()
+        assert torch.equal(loops[0]._chunk_logits, loops[1]._chunk_logits)
+        assert torch.equal(loops[0].logits, loops[1].logits)
+        steps += 1
+    assert not loops[1].has_work() and st.stats.weight_group_hits > 0
+    assert res.dispatch.fallbacks == [] and st.dispatch.fallbacks == []
+    for loop in loops:
+        loop.close()
+    st.close()
+
+
+def expert_rerun_case(device, flash_dir):
+    """An all-MoE jamba-1.5-large-398b@tiny (every period layer's FFN an MoE
+    one, so its stack streams per expert) on ``device``: decode group 1 of
+    its expert-granular streamed loop runs with an empty expert prediction,
+    so its first run meets cold experts and it runs again.  Returns ((x,
+    recurrent state leaves) after that, the same after one run of the
+    resident layer slice from the same state, the re-runs, the fallbacks)."""
+    cfg = PR.get("jamba-1.5-large-398b@tiny")
+    cfg = dataclasses.replace(cfg, period=tuple(dataclasses.replace(p, moe=True)
+                                                for p in cfg.period))
+    dev = torch.device(device)
+    res = PE.build_engine(cfg, max_seq=64, device=dev, flash_dir=flash_dir)
+    eng = PE.Engine(cfg, res.params, res.embedding, max_seq=64, device=dev,
+                    weight_dram_budget_bytes=1)
+    try:
+        (spl,) = eng.weight_policy.streamed
+        assert spl.experts == cfg.num_experts and spl.stack == 0
+        loop = PE.EngineLoop(eng, max_slots=4, cuda_graphs=False)
+        g, B = 1, 4
+        gen = torch.Generator().manual_seed(3)
+        states = [leaf for e in loop.cache["stacks"][0] if isinstance(e, dict)
+                  for leaf in e.values()]
+        for leaf in states:
+            leaf.copy_(torch.randn(leaf.shape, generator=gen).to(leaf.dtype))
+        start = [t.clone() for t in states]
+        x = (torch.randn((B, 1, cfg.d_model), generator=gen) * 0.5).bfloat16().to(dev)
+        pos = torch.tensor([5, 9, 2, 7], dtype=torch.int32, device=dev)
+        table = loop.cache["table"][:B]
+        kw = dict(active=torch.ones(B, dtype=torch.bool, device=dev),
+                  rows=torch.arange(B, device=dev))
+        loop._host_active[:] = True
+        loop._expert_pred[(0, g)] = set()
+        runs0 = loop.expert_reruns
+        out = loop._run_expert_group(loop._expert_rings[0], spl, 0, g, "decode", x,
+                                     pos[:, None], pos, table, None, kw)
+        got = (out.clone(), [t.clone() for t in states])
+        for t, s in zip(states, start):
+            t.copy_(s)
+        gp = tuple(PT.layer_slice(p, g) for p in res.params["stacks"][0])
+        one = PT.run_stack_group(gp, cfg, 0, "decode", x, pos[:, None], loop.cache, g, pos,
+                                 table, eng.dispatch, **kw)
+        loop.close()
+        return (got, (one, [t.clone() for t in states]), loop.expert_reruns - runs0,
+                eng.dispatch.fallbacks)
+    finally:
+        eng.close()
+
+
+@pytest.mark.gpu
+def test_expert_group_rerun_leaves_mamba_state_as_one_run(dev, tmp_path):
+    (x, st), (x1, st1), reruns, fallbacks = expert_rerun_case(dev, str(tmp_path))
+    torch.cuda.synchronize()
+    assert reruns >= 1 and fallbacks == []
+    assert torch.equal(x, x1)
+    assert all(torch.equal(a, b) for a, b in zip(st, st1))
 
 
 # ---------------------------------------------------------------------------

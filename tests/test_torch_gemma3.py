@@ -478,14 +478,32 @@ def test_generate_greedy_tokens_equal_reference(engine_pairs, arch):
     assert pe.dispatch.fallbacks == []
 
 
-def test_weight_streaming_on_windowed_stacks_raises(tmp_path):
+def test_weight_streaming_on_windowed_stacks(tmp_path):
     """gemma3-27b@tiny (three periods of six layers) under a one-byte weight
-    budget streams its stack; the loop refuses it (ROADMAP 13a)."""
-    eng = PE.build_engine(PR.get("gemma3-27b@tiny"), max_seq=MAX_SEQ, device="cpu",
-                          flash_dir=str(tmp_path), weight_dram_budget_bytes=1)
+    budget streams its stack through a 2-slot ring: the loop builds, serves
+    the staggered trace (decode steps beside rows mid-prefill, slots reused)
+    with the resident engine's greedy tokens, and the blobs go at close."""
+    cfg = PR.get("gemma3-27b@tiny")
+    params = PT.init_params(cfg, torch.Generator().manual_seed(0), torch.device("cpu"),
+                            quantized=True)
+    res = PE.build_engine(cfg, max_seq=MAX_SEQ, device="cpu", params=params,
+                          flash_dir=str(tmp_path))
+    eng = PE.Engine(cfg, params, res.embedding, max_seq=MAX_SEQ, device="cpu",
+                    weight_dram_budget_bytes=1)
+    specs, arrivals = _trace(7)
+    sp = PS.SamplingParams(temperature=0.0, max_new_tokens=12)
+    kw = dict(max_slots=3, prefill_chunk=16, prefill_token_budget=16)
     try:
-        assert eng.weight_policy.active
-        with pytest.raises(NotImplementedError, match="13a"):
-            PE.EngineLoop(eng, max_slots=2)
+        assert eng.weight_policy.active and eng.params["stacks"][0] is None
+        out = []
+        for e in (eng, res):
+            loop = PE.EngineLoop(e, **kw)
+            out.append([r.generated for r in loop.run(
+                [PE.Request(uid=i, prompt_tokens=p, max_new_tokens=m, sampling=sp)
+                 for i, (p, m) in enumerate(specs)], arrivals=arrivals)])
+            loop.close()
+        assert out[0] == out[1] and all(out[0])
+        assert eng.stats.weight_group_hits > 0 and eng.dispatch.fallbacks == []
     finally:
         eng.close()
+    assert eng.weight_store.groups() == []

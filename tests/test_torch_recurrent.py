@@ -7,7 +7,7 @@ weights (converted by ``repro_torch.convert``) with ``max_seq`` 64.
 
 - ``EngineLoop``'s gates: prefix sharing and decode bucketing off with the
   reference's reasons (``disabled_features`` equal), whatever the stack's
-  window; an engine whose weights would stream refused (ROADMAP 14a);
+  window; an engine whose weights stream serving the resident tokens;
 - the greedy tokens of a trace with ragged prompts (final chunks padded;
   decode steps beside rows mid-prefill, whose state must stay frozen),
   eagerly and after ``warmup()`` on stand-in graphs (one capture a step
@@ -327,12 +327,27 @@ def test_generate_tokens_equal_reference(engine_pairs, arch):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_weight_streaming_on_recurrent_stacks_raises(engine_pairs, tmp_path, arch):
-    """A one-byte weight budget would stream every stack of 3+ groups: the
-    engine refuses before exporting anything (ROADMAP 14a)."""
+def test_weight_streaming_on_recurrent_stacks(engine_pairs, reference_runs, arch):
+    """A one-byte weight budget streams every stack of 3+ groups through a
+    2-slot ring (jamba's by whole groups: its mixed dense/MoE stack cannot
+    stream per expert, ROADMAP queue 3 item 5).  The streamed loop serves
+    the arch's trace (jamba's mid-prefill victim and preempted row
+    included) with the resident loop's greedy tokens and preemptions, and
+    the blobs go at close."""
     _je, pe = engine_pairs(arch)
-    assert pe.plan.weight_placement(pe.cfg, 1).active
-    with pytest.raises(NotImplementedError, match="14a"):
-        PE.Engine(pe.cfg, pe.params, pe.embedding, max_seq=MAX_SEQ, device="cpu",
-                  weight_dram_budget_bytes=1)
-    assert not list(tmp_path.iterdir())
+    want = reference_runs(arch)
+    eng = PE.Engine(pe.cfg, pe.params, pe.embedding, max_seq=MAX_SEQ, device="cpu",
+                    weight_dram_budget_bytes=1, expert_streaming=False)
+    sp = PS.SamplingParams(temperature=0.0, max_new_tokens=8)
+    try:
+        assert eng.weight_policy.active and eng.params["stacks"][0] is None
+        loop = PE.EngineLoop(eng, **_loop_kw(arch))
+        out = _serve(arch, loop, lambda u, p, m: PE.Request(
+            uid=u, prompt_tokens=p, max_new_tokens=m, sampling=sp))
+        loop.close()
+        assert [r.generated for r in out] == want["tokens"]
+        assert [r.preemptions for r in out] == want["preemptions"]
+        assert eng.stats.weight_group_hits > 0 and eng.dispatch.fallbacks == []
+    finally:
+        eng.close()
+    assert eng.weight_store.groups() == []

@@ -205,6 +205,45 @@ def test_weight_store_roundtrip_beside_page_spill(tmp_path):
         jstore.close()
 
 
+@pytest.mark.parametrize("piece", [5, 64])
+def test_flash_io_in_pieces_and_behind_the_export(tmp_path, monkeypatch, piece):
+    """Blobs read in pieces of ``piece`` bytes on the I/O threads (leaves
+    cut across piece boundaries, and whole at 64), written behind an export
+    that holds at most two pending blobs, and an embedding table written in
+    3-row chunks: every byte as put, the byte counts exact before any write
+    has ended, and ``flush`` leaving nothing pending."""
+    monkeypatch.setattr(HS, "IO_PIECE_BYTES", piece)
+    monkeypatch.setattr(HS, "EXPORT_PENDING", 2)
+    monkeypatch.setattr(HS, "EXPORT_CHUNK_ROWS", 3)
+    rng = np.random.default_rng(piece)
+    groups = [[torch.from_numpy(rng.integers(-128, 128, (1, 37)).astype(np.int8)),
+               torch.from_numpy(rng.normal(size=(1, 11)).astype(np.float32)).bfloat16(),
+               torch.from_numpy(rng.normal(size=(1, 3)).astype(np.float32))]
+              for _ in range(7)]
+    store = HS.WeightGroupStore(HS.FlashStore(str(tmp_path / "w")))
+    try:
+        for g, leaves in enumerate(groups):
+            store.put_group(0, g, leaves)
+        assert store.flash.bytes_written == sum(t.numel() * t.element_size()
+                                                for leaves in groups for t in leaves)
+        store.prefetch_group(0, 6)
+        for g in (6, 0, 3):
+            for a, b in zip(store.fetch_group(0, g).leaves, groups[g]):
+                assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+        store.flush()
+        assert store._writes == {}
+        assert store.flash.bytes_read == sum(store.group_nbytes(0, g) for g in (6, 0, 3))
+    finally:
+        store.drop_all()
+    table = rng.normal(size=(10, 6)).astype(np.float32)
+    emb = HS.EmbeddingStore.create(HS.FlashStore(str(tmp_path / "e")), 10, 6,
+                                   lambda a, b: torch.from_numpy(table[a:b]))
+    want = torch.from_numpy(table).bfloat16()
+    got = emb.lookup(np.array([[9, 0, 4]]))
+    assert torch.equal(got.view(torch.int16), want[[9, 0, 4]][None].view(torch.int16))
+    assert emb.dram_bytes_saved == table.size * 2
+
+
 # ---------------------------------------------------------------------------
 # whole-group streaming: qwen2-7b@tiny
 # ---------------------------------------------------------------------------
