@@ -17,6 +17,23 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    test; the dense prefill kernel also non-causal and windowed; the grouped
    kernel with expert ids (decode) and live-row counts (full-capacity
    prefill, routed and uneven).  Kernel, plain and library-yardstick times.
+2b. The slice of the modules with no TPU kernel.  ``[ops]``: the public ops
+   of ``kernels/ops.py`` at qwen2-7b's widths (a gate/up linear at M = 4
+   and 128, RMSNorm over 4 rows, decode attention over 352 live of 2048
+   slots, a 320-token prefill) against ``kernels/ref.py``, kernels 1, 4, 6
+   and 7 launched.  ``[geometry]``: a transpose -> slice -> transpose chain
+   over one layer's keys at 512 tokens fuses to one Region (C6) and moves
+   the composed ops' bytes exactly on the card.  ``[dryrun]``: the meta
+   dry run of the 40 ``ASSIGNED x INPUT_SHAPES`` cases against the card's
+   capacity, as a table; later, beside the builds of qwen2-7b and moonshot,
+   its prediction of each engine's device memory (packed parameters and
+   the KV pool) against the growth of ``memory_allocated`` across the build
+   and the loop's construction, within 5%.  ``[roofline]``: after the
+   profiled graph decode steps of qwen2-7b, moonshot, llama3-8b and
+   qwen2-1.5b, the step's bound from shapes (``analysis/roofline.py``: the
+   packed weights read, moonshot's routed experts only, the live KV, the
+   activations) against the profile's device time and the step's wall
+   time, beside the card's name and power limit.
 3. The continuous path: full-width qwen2-7b (random weights from a seed, 28
    layers) serves 8 greedy requests through ``EngineLoop.submit``/``step``
    (prompts of 40-700 tokens, a third sharing a 256-token prefix, staggered
@@ -280,10 +297,6 @@ KERNELS = tuple(SOURCES)
 LOOP_KERNELS = ("w4a8_matmul", "paged_quant_decode_attention",
                 "paged_flash_prefill_attention", "rmsnorm")
 MOE_KERNELS = ("grouped_matmul",) + LOOP_KERNELS
-# device-kernel names of the port's kernels in a profiler trace
-PORT_KERNEL_SYMBOLS = ("w4a8_kernel", "paged_decode_kernel", "paged_prefill_kernel",
-                       "rmsnorm_kernel", "grouped_kernel", "dense_decode_kernel",
-                       "flash_prefill_kernel")
 
 
 def log(msg: str) -> None:
@@ -379,6 +392,7 @@ def guard_float_path() -> None:
     K.reset_launch_counts = checked_reset
 
 
+@functools.lru_cache(maxsize=1)
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -955,6 +969,128 @@ def phase_new_kernels(dev, results: dict) -> None:
     torch.cuda.synchronize()
 
 
+def phase_ops(dev) -> dict:
+    """``[ops]``: the public ops of ``kernels/ops.py`` on the card at
+    qwen2-7b's widths (the shapes of ``PERF.md``'s kernel rows 1, 4, 6 and
+    7): a gate/up linear (K 3584, N 18944, int4) at M = 4 and 128, RMSNorm
+    over 4 rows of 3584, dense decode attention of 4 rows over 352 live of
+    2048 slots (G = 7), a 320-token causal prefill over a 1024-key cache,
+    each against its oracle in ``kernels/ref.py`` (integer matmul on the
+    unpacked weights; float32 attention and norm) at its kernel's
+    tolerance.  Kernels 1, 4, 6 and 7 must launch, counted from zero."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.core import quantization as Q
+    from repro_torch.kernels import ops as OPS
+    from repro_torch.kernels import ref as REF
+    from repro_torch.runtime import plan as RP
+    gen = torch.Generator(device=dev).manual_seed(2929)
+    errs = {}
+    K.reset_launch_counts()
+    pl = RP.pack_linear(Q.quantize(
+        torch.randn((3584, 18944), generator=gen, device=dev) * 0.02, 4))
+    wq = Q.unpack_int4(pl.data)
+    for M in (4, 128):
+        x = torch.randn((M, 3584), generator=gen, device=dev).to(torch.bfloat16)
+        got = OPS.quant_matmul_kernel(x, pl.data, pl.scale[0], pl.zero[0], bits=4)
+        xq, sx = Q.quantize_activations(x)
+        errs[f"quant_matmul_kernel M={M}"] = check_close(
+            "w4a8_matmul", got, REF.w4a8_matmul_ref(xq, sx, wq, pl.scale[0], pl.zero[0]),
+            f"[ops] gate/up M={M}")
+    del pl, wq
+    x = torch.randn((4, 3584), generator=gen, device=dev).to(torch.bfloat16)
+    w = 1.0 + 0.1 * torch.randn((3584,), generator=gen, device=dev)
+    errs["rmsnorm rows=4"] = check_close("rmsnorm", OPS.rmsnorm(x, w, 1e-6),
+                                         REF.rmsnorm_ref(x, w, 1e-6), "[ops] rows=4")
+    B, H, Hkv, D, S = 4, 28, 4, 128, 2048
+    q = (torch.randn((B, H, D), generator=gen, device=dev) / math.sqrt(D)).to(torch.bfloat16)
+    cache = make_pool(B, S, Hkv, D, gen, dev)
+    length = torch.full((B,), 352, dtype=torch.int32, device=dev)
+    errs["quant_decode_attention 352 of 2048"] = check_close(
+        "quant_decode_attention", OPS.quant_decode_attention(q, *cache, length),
+        REF.quant_decode_attention_ref(q, *cache, length), "[ops] 352 of 2048 slots")
+    del cache
+    q = (torch.randn((1, 320, H, D), generator=gen, device=dev) / math.sqrt(D)).to(torch.bfloat16)
+    k = torch.randn((1, 1024, Hkv, D), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((1, 1024, Hkv, D), generator=gen, device=dev).to(torch.bfloat16)
+    errs["flash_prefill T=320"] = check_close(
+        "flash_prefill_attention", OPS.flash_prefill(q, k, v),
+        REF.flash_prefill_ref(q, k, v), "[ops] T=320 S=1024 causal")
+    counts = K.counts()
+    for name in ("w4a8_matmul", "rmsnorm", "quant_decode_attention",
+                 "flash_prefill_attention"):
+        assert counts[name] > 0, f"[ops] {name} never launched: {counts}"
+    torch.cuda.synchronize()
+    log("[ops] kernels/ops.py against kernels/ref.py: " + ", ".join(
+        f"{k} max abs err {v:.3e}" for k, v in errs.items()) + f"; launches {counts}")
+    return {"max_abs_err": errs, "launches": counts}
+
+
+def phase_geometry(dev) -> dict:
+    """``[geometry]`` (C6): transpose -> slice -> transpose over one
+    qwen2-7b layer's keys at 512 tokens ([512, 4, 128] bf16: 2^18 elements,
+    the largest space the reference's Rule 2 fuses) -- heads 1-2 of tokens
+    128-383.  The fused plan has one stage and at most half the memory
+    operations of the staged chain; on the card its output is bit-equal to
+    the composed ``permute``/slice ops and to the staged plan.  Each is
+    timed a call (a plan builds its index tensors on the card each call)."""
+    import torch
+    from repro_torch.core import geometry as GEO
+    x = torch.randn((512, 4, 128), generator=torch.Generator(device=dev).manual_seed(6),
+                    device=dev).to(torch.bfloat16)
+    chain = [GEO.region_transpose((512, 4, 128), (1, 0, 2)),
+             GEO.region_slice((4, 512, 128), (1, 128, 0), (2, 256, 128)),
+             GEO.region_transpose((2, 256, 128), (1, 0, 2))]
+    numels = [2 ** 18, 2 ** 16, 2 ** 16]
+    t0 = time.perf_counter()
+    plan = GEO.fuse_chain(chain, numels)
+    fuse_s = time.perf_counter() - t0
+    staged = GEO.Plan(stages=[(list(step), n) for step, n in zip(chain, numels)])
+    assert plan.num_stages == 1, plan
+    assert 2 * plan.memory_ops <= staged.memory_ops, (plan.memory_ops, staged.memory_ops)
+
+    def composed(a):
+        return a.permute(1, 0, 2)[1:3, 128:384].permute(1, 0, 2).contiguous()
+    want = composed(x)
+    got = GEO.execute_plan(plan, x).reshape(want.shape)
+    assert got.device == x.device and torch.equal(got, want), "the fused plan moved other bytes"
+    assert torch.equal(GEO.execute_plan(staged, x).reshape(want.shape), want)
+    ms = {"fused": time_ms(lambda a: GEO.execute_plan(plan, a), [(x,)]),
+          "staged": time_ms(lambda a: GEO.execute_plan(staged, a), [(x,)]),
+          "composed": time_ms(composed, [(x,)])}
+    log(f"[geometry] K [512, 4, 128] bf16 -> transpose -> slice -> transpose: fused to "
+        f"{plan.num_stages} stage {plan.stages[0][0]} in {fuse_s:.2f} s on the host; "
+        f"memory ops {plan.memory_ops} against {staged.memory_ops} staged "
+        f"({plan.memory_ops / staged.memory_ops:.3f}); bit-equal to the composed ops "
+        f"on {x.device}; a call: fused {ms['fused']:.4f} ms, staged "
+        f"{ms['staged']:.4f} ms, permute/slice {ms['composed']:.4f} ms")
+    return {"stages": plan.num_stages, "memory_ops": plan.memory_ops,
+            "staged_memory_ops": staged.memory_ops, "fuse_s": fuse_s, "ms": ms}
+
+
+def phase_dryrun(dev) -> dict:
+    """``[dryrun]``: the meta dry run (``launch/dryrun.py``) of the 40
+    ``ASSIGNED x INPUT_SHAPES`` cases against this card's capacity, as a
+    table (OK/SKIP/FAIL, argument GiB, fits); records to ``OUT /
+    "dryrun"``.  No case may fail; the 7 full-attention archs
+    skip ``long_500k``."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import INPUT_SHAPES
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import mesh as MESH
+    mesh = MESH.make_host_mesh(dev)
+    recs = [DR.run_case(a, s, mesh, out_dir=str(OUT / "dryrun"))
+            for a in registry.ASSIGNED for s in INPUT_SHAPES]
+    log(f"[dryrun] {mesh.name}, {mesh.memory_bytes / 2**30:.2f} GiB, {mesh.size} chip "
+        f"{mesh.axis_names} = {mesh.shape}:")
+    for line in DR.summary_table(recs).splitlines():
+        log(f"[dryrun] {line}")
+    status = collections.Counter(r["status"] for r in recs)
+    assert len(recs) == 40 and status["FAIL"] == 0 and status["SKIP"] == 7, status
+    return {"status": dict(status), "fits": sum(r.get("fits", False) for r in recs),
+            "device_memory_bytes": mesh.memory_bytes}
+
+
 # the paper's quantization variants of kernels 2, 3 and 6 beyond int8 keys
 # with fp8 values: (key bits, bf16 values)
 VARIANT_ROWS = ((4, False), (8, True))
@@ -1139,6 +1275,35 @@ def serve_trace(engine, specs, arrivals, max_new: int = 32, loop=None, adapters=
     return loop, reqs, time.perf_counter() - t0
 
 
+def allocated_before_build(dev) -> int:
+    """The device memory live tensors hold before an engine's build (after
+    collecting what earlier phases left unreferenced)."""
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated(dev)
+
+
+def predicted_vs_allocated(label: str, cfg, max_seq: int, m0: int, dev) -> dict:
+    """``[dryrun]``: the dry run's prediction of an engine (the packed
+    parameters and its ``EngineLoop``'s KV pool, from shapes on the meta
+    device) against the growth of ``memory_allocated`` across the build
+    and the loop's construction, before any warmup; within 5%."""
+    import torch
+    from repro_torch.launch import dryrun as DR
+    with spent_on("dryrun"):
+        got = torch.cuda.memory_allocated(dev) - m0
+        pred = DR.engine_bytes(cfg, max_seq, max_slots=4)
+        total = pred["params"] + pred["kv_pool"]
+        rel = got / total - 1
+        log(f"[dryrun] {label}: predicted {total / 2**30:.3f} GiB (packed params "
+            f"{pred['params'] / 2**30:.3f} + KV pool {pred['kv_pool'] / 2**30:.3f}), "
+            f"measured {got / 2**30:.3f} GiB allocated by the build and the loop "
+            f"({100 * rel:+.2f}%)")
+        assert abs(rel) <= 0.05, f"{label}: the dry run is {100 * rel:+.2f}% off"
+    return {"predicted_bytes": total, **pred, "allocated_bytes": got, "rel_err": rel}
+
+
 def phase_main_path(dev):
     import torch
     from repro_torch import kernels as K
@@ -1146,9 +1311,12 @@ def phase_main_path(dev):
     from repro_torch.serving import engine as E
 
     cfg = registry.get("qwen2-7b")
+    m0 = allocated_before_build(dev)
     t0 = time.perf_counter()
     eng = E.build_engine(cfg, seed=0, max_seq=2048, device=dev)
+    loop = make_loop(eng)
     torch.cuda.synchronize()
+    memory = predicted_vs_allocated("qwen2-7b", cfg, 2048, m0, dev)
     log(f"[main] qwen2-7b: {cfg.num_layers} layers, d_model {cfg.d_model}, "
         f"{cfg.num_heads}/{cfg.num_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
         f"{cfg.padded_vocab_size}; weights + Flash embedding built in "
@@ -1158,7 +1326,7 @@ def phase_main_path(dev):
     log(f"[main] trace: prompts {[len(p) for p in specs]}, arrivals {arrivals}; "
         "eager (cuda_graphs=False)")
     K.reset_launch_counts()
-    loop, reqs, wall = serve_trace(eng, specs, arrivals)
+    loop, reqs, wall = serve_trace(eng, specs, arrivals, loop=loop)
     counts = K.launch_counts()
     s = eng.stats
     log(f"[main] launches during the trace: {counts}")
@@ -1175,7 +1343,7 @@ def phase_main_path(dev):
         "ttft_p50_ms": s.ttft(50) * 1e3, "ttft_p95_ms": s.ttft(95) * 1e3,
         "tpot_p50_ms": s.tpot(50) * 1e3, "tpot_p95_ms": s.tpot(95) * 1e3,
         "decode_tok_per_s": s.decode_tps, "prefill_tok_per_s": s.prefill_tps,
-        "launches": counts,
+        "launches": counts, "dryrun_memory": memory,
     }
     log(f"[main] {len(reqs)} requests, {new_tokens} new tokens in {wall:.2f} s; "
         f"TTFT p50 {summary['ttft_p50_ms']:.1f} ms p95 {summary['ttft_p95_ms']:.1f} ms; "
@@ -1186,7 +1354,7 @@ def phase_main_path(dev):
 
 
 def phase_graphs(label: str, eng, specs, arrivals, eager_reqs, max_new: int,
-                 kernels, spies=None) -> dict:
+                 kernels, spies=None, roofline: bool = False) -> dict:
     """The trace of an eager ``EngineLoop`` run again through a warmed loop's
     CUDA graphs (one per decode bucket, or the one 4-row step, and one per
     chunk size): warmup time and the device memory the graph pool reserves,
@@ -1196,7 +1364,8 @@ def phase_graphs(label: str, eng, specs, arrivals, eager_reqs, max_new: int,
     back.  ``spies`` (a context manager) wraps the warmup, whose eager runs
     and captures are the only Python calls the graphs' steps make.  Then a
     4-row decode step on the same graphs is profiled
-    (``profile_loop_decode``).  Returns (summary, profile)."""
+    (``profile_loop_decode``), with its ``[roofline]`` line if
+    ``roofline``.  Returns (summary, profile)."""
     import contextlib
     import statistics
     import torch
@@ -1266,7 +1435,7 @@ def phase_graphs(label: str, eng, specs, arrivals, eager_reqs, max_new: int,
         f"{s.recompiles_after_warmup} captures after warmup")
     # a graph decode step profiled on this loop: its graphs are already
     # captured, so the profile needs no second warmup
-    profile = profile_loop_decode(eng, specs, loop=loop)
+    profile = profile_loop_decode(eng, specs, loop=loop, roofline=roofline)
     assert eng.stats.recompiles_after_warmup == 0, "the profile captured a graph"
     loop.close()
     return summary, profile
@@ -1316,6 +1485,7 @@ def profile_steps(label: str, step, steps: int = 4) -> dict:
     whose collection and aggregation cost the script minutes."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.analysis import trace
     with spent_on("unprofiled"):
         step()
         syncs = count_syncs(step)
@@ -1339,34 +1509,8 @@ def profile_steps(label: str, step, steps: int = 4) -> dict:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     with spent_on("profiler"):
-        averages = prof.key_averages()
-    kern = []          # device kernels only (host ops would count them twice)
-    api = []           # the host's time in CUDA runtime calls (launches, copies, waits)
-    for e in averages:
-        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
-            if e.key.startswith("cuda") and e.cpu_time_total > 0:
-                api.append((e.cpu_time_total, e.count, e.key))
-            continue
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0)
-        if dev_us > 0:
-            kern.append((dev_us, e.count, e.key))
-    kern.sort(reverse=True)
-    busy = sum(k[0] for k in kern)
-    if busy > 0:
-        ours = sum(us for us, _c, n in kern if any(k in n for k in PORT_KERNEL_SYMBOLS))
-        out["device_busy_share"] = busy / wall_us
-        out["profiled_step_ms"] = wall_us / PROFILED_STEPS / 1e3
-        out["device_ms_per_step"] = busy / PROFILED_STEPS / 1e3
-        out["port_kernel_ms_per_step"] = ours / PROFILED_STEPS / 1e3
-        out["device_launches_per_step"] = sum(c for _u, c, _n in kern) / PROFILED_STEPS
-        out["top_kernels"] = [{"name": n[:80], "ms_per_step": us / PROFILED_STEPS / 1e3,
-                               "launches_per_step": c / PROFILED_STEPS} for us, c, n in kern[:10]]
-        out["port_kernels"] = {
-            sym: {"ms_per_step": sum(us for us, _c, n in kern if sym in n) / PROFILED_STEPS / 1e3,
-                  "launches_per_step": sum(c for _u, c, n in kern if sym in n) / PROFILED_STEPS}
-            for sym in PORT_KERNEL_SYMBOLS if any(sym in n for _u, _c, n in kern)}
+        out.update(trace.summarize(prof.key_averages(), PROFILED_STEPS, wall_us))
+    if out["device_busy_share"] != "not measured":
         log(f"[profile] {label}: {step_ms:.1f} ms wall ({out['host_enqueue_ms']:.1f} ms "
             f"until the host's calls return); under the profiler "
             f"{out['profiled_step_ms']:.1f} ms, device busy "
@@ -1379,22 +1523,81 @@ def profile_steps(label: str, step, steps: int = 4) -> dict:
         log(f"[profile] {label}: the port's kernels per step: " + ", ".join(
             f"{sym} {k['ms_per_step']:.3f} ms ({k['launches_per_step']:.0f})"
             for sym, k in out["port_kernels"].items()))
-        api.sort(reverse=True)
-        out["runtime_calls"] = {n: {"host_ms_per_step": us / PROFILED_STEPS / 1e3,
-                                    "calls_per_step": c / PROFILED_STEPS} for us, c, n in api[:6]}
         log(f"[profile] {label}: host time in CUDA runtime calls per step: " + (", ".join(
             f"{n} {k['host_ms_per_step']:.2f} ms ({k['calls_per_step']:.0f})"
             for n, k in out["runtime_calls"].items()) or "not measured (none recorded)"))
     else:
-        out["device_busy_share"] = "not measured"
         log(f"[profile] {label}: {step_ms:.1f} ms wall; the profiler saw no device "
             "time (device busy share not measured)")
     return out
 
 
+class MoeIds:
+    """While entered: the expert ids each MoE layer's router chose, in the
+    order the layers run (the third output of both MoE branches, the
+    reference's ``collect["moe_ids"]``)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe as M
+        self.ids = []
+        self._originals = originals = (M._dispatch_moe, M._dispatch_moe_tiny)
+
+        def recorded(fn):
+            def inner(*a, **kw):
+                out = fn(*a, **kw)
+                self.ids.append(out[2])
+                return out
+            return inner
+        M._dispatch_moe, M._dispatch_moe_tiny = (recorded(f) for f in originals)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from repro_torch.models import moe as M
+        M._dispatch_moe, M._dispatch_moe_tiny = self._originals
+
+
+def roofline_line(eng, loop, profile: dict) -> dict:
+    """``[roofline]``: the bound of the decode step just profiled
+    (``analysis.roofline.decode_step_bound`` from the engine's tree, each
+    row's keys read in that step, and for an MoE model the experts routed
+    in one more step, run eagerly under ``MoeIds``: a graph replay runs no
+    Python), set against the profile's
+    device time and the unprofiled steps' wall time."""
+    import torch
+    from repro_torch.analysis import roofline as RL
+    cfg = eng.cfg
+    active = [i for i, r in enumerate(loop.scheduler.running) if r is not None]
+    pos = loop.cache["pos"].tolist()
+    lens = [pos[i] for i in active]
+    expert_ids = None
+    if cfg.num_experts:
+        loop._launch = loop._step_body      # one step eagerly, even on a graph loop
+        try:
+            with MoeIds() as spy:
+                loop.step()
+            torch.cuda.synchronize()
+        finally:
+            del loop._launch
+        expert_ids = spy.ids
+    b = RL.decode_step_bound(cfg, eng.params, loop.max_slots, lens, expert_ids)
+    dev_ms = profile.get("device_ms_per_step")
+    sh = RL.shares(b.bound_s, dev_ms and dev_ms / 1e3, profile["decode_step_ms"] / 1e3)
+    pct = lambda x: x if isinstance(x, str) else f"{100 * x:.1f}%"   # noqa: E731
+    gb = {k: v / 1e9 for k, v in b.bytes.items()}
+    log(f"[roofline] {cfg.name} decode step, {loop.max_slots} rows, keys {lens}: bound "
+        f"{b.bound_s * 1e3:.3f} ms by {b.bound_by} ({b.total_bytes / 1e9:.3f} GB: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in gb.items() if v) + "; " + ", ".join(
+            f"{t} {n / 1e9:.2f} G" for t, n in b.ops.items()) + f" operations); device "
+        f"{f4(dev_ms)} ms of kernels -> {pct(sh['device_share'])}; wall "
+        f"{profile['decode_step_ms']:.2f} ms -> {pct(sh['wall_share'])}; on {card_line()}")
+    return {"bound_ms": b.bound_s * 1e3, "bound_by": b.bound_by, "bytes": b.bytes,
+            "ops": b.ops, "context_lens": lens, "device_ms": dev_ms,
+            "wall_ms": profile["decode_step_ms"], **sh, "card": card_line()}
+
+
 @timed("profile")
 def profile_loop_decode(eng, specs, steps: int = 4, cuda_graphs: bool = False,
-                        adapters=(None,) * 4, loop=None) -> dict:
+                        adapters=(None,) * 4, loop=None, roofline: bool = False) -> dict:
     """A full-batch ``EngineLoop`` step with four rows decoding (row i under
     adapter ``adapters[i]``), eager or (``cuda_graphs``, after ``warmup()``)
     replaying its CUDA graph; ``loop``: an idle loop already warmed (its
@@ -1421,6 +1624,9 @@ def profile_loop_decode(eng, specs, steps: int = 4, cuda_graphs: bool = False,
     out = profile_steps(f"{eng.cfg.name} EngineLoop decode step, 4 rows, {how}",
                         loop.step, steps)
     assert sum(r is not None for r in loop.scheduler.running) == 4, "a row finished early"
+    if roofline:
+        with spent_on("roofline"):
+            out["roofline"] = roofline_line(eng, loop, out)
     out["rows"] = 4
     while loop.has_work():
         loop.step()
@@ -2469,10 +2675,13 @@ def phase_moe(dev) -> dict:
 
     cfg = registry.get("moonshot-v1-16b-a3b")
     assert cfg.num_heads == cfg.num_kv_heads          # G = 1 in the paged kernels
+    m0 = allocated_before_build(dev)
     t0 = time.perf_counter()
     eng = E.build_engine(cfg, seed=0, max_seq=1024, device=dev,
                          flash_dir=str(ROOT / "build" / "flash-moe"))
+    loop = make_loop(eng)
     torch.cuda.synchronize()
+    memory = predicted_vs_allocated("moonshot-v1-16b-a3b", cfg, 1024, m0, dev)
     log(f"[moe] moonshot-v1-16b-a3b: {cfg.num_layers} layers, d_model {cfg.d_model}, "
         f"{cfg.num_heads}/{cfg.num_kv_heads} heads, {cfg.num_experts} experts top-"
         f"{cfg.experts_per_tok} of d_ff {cfg.d_ff}, vocab {cfg.padded_vocab_size}; built "
@@ -2483,7 +2692,7 @@ def phase_moe(dev) -> dict:
     spy = MoeSpies()
     with spy:
         K.reset_launch_counts()
-        loop, reqs, wall = serve_trace(eng, specs, arrivals, max_new=16)
+        loop, reqs, wall = serve_trace(eng, specs, arrivals, max_new=16, loop=loop)
         counts = K.launch_counts()
     s = eng.stats
     log(f"[moe] launches during the trace: {counts}; {spy}")
@@ -2506,6 +2715,7 @@ def phase_moe(dev) -> dict:
         "grouped_matmul_by_table": spy.tables, "take_experts_calls": spy.take_calls,
         "disabled_features": loop.disabled_features,
         "device_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+        "dryrun_memory": memory,
     }
     log(f"[moe] {len(reqs)} requests, {new_tokens} new tokens in {wall:.2f} s; TTFT p50 "
         f"{summary['ttft_p50_ms']:.1f} ms p95 {summary['ttft_p95_ms']:.1f} ms; TPOT p50 "
@@ -2518,7 +2728,8 @@ def phase_moe(dev) -> dict:
     # by expert id; every graph of each kind then holds grouped launches
     graph_spy = MoeSpies()
     summary["graphs"], summary["profile_graphs"] = phase_graphs(
-        "moonshot-v1-16b-a3b", eng, specs, arrivals, reqs, 16, MOE_KERNELS, spies=graph_spy)
+        "moonshot-v1-16b-a3b", eng, specs, arrivals, reqs, 16, MOE_KERNELS, spies=graph_spy,
+        roofline=True)
     log(f"[graphs] moonshot-v1-16b-a3b: at warmup {graph_spy}")
     graph_spy.check()
     per_graph = summary["graphs"]["graph_launches"]
@@ -4354,7 +4565,8 @@ def serve_dense(dev, tag: str, cfg, flash: str, loop_kernels, idle_kernels=(),
     summary = loop_summary(tag, loop, reqs, wall, eng, counts)
     summary["prefix_hits_pages"] = loop.pool.prefix_hits
     summary["graphs"], summary["profile_graphs"] = phase_graphs(
-        cfg.name, eng, specs, arrivals, reqs, PAPER_NEW, loop_kernels, spies=spies)
+        cfg.name, eng, specs, arrivals, reqs, PAPER_NEW, loop_kernels, spies=spies,
+        roofline=tag == "paper")
     check_counts("inside the graphs", summary["graphs"]["launches"], loop_kernels)
     prompt = next(p for p in specs if len(p) > 128)
     summary["kernel_vs_plain"] = compare_paths(f"{cfg.name} EngineLoop", eng,
@@ -4630,9 +4842,15 @@ def main() -> int:
     phase_new_kernels(dev, results)
     phase_variant_kernels(dev, results)
     timings["kernels"] = timing_split("kernels")
+    ops = phase_ops(dev)
+    timings["ops"] = timing_split("ops")
+    geometry = phase_geometry(dev)
+    timings["geometry"] = timing_split("geometry")
+    dryrun = phase_dryrun(dev)
+    timings["dryrun"] = timing_split("dryrun")
     eng, specs, arrivals, reqs, summary = phase_main_path(dev)
     summary["graphs"], summary["profile_graphs"] = phase_graphs(
-        "qwen2-7b", eng, specs, arrivals, reqs, 32, LOOP_KERNELS)
+        "qwen2-7b", eng, specs, arrivals, reqs, 32, LOOP_KERNELS, roofline=True)
     summary["profile"] = profile_loop_decode(eng, specs)
     checks = phase_kernel_vs_plain(eng, specs, arrivals, reqs)
     timings["main"] = timing_split("main")
@@ -4706,8 +4924,10 @@ def main() -> int:
     timings["train"] = timing_split("train")
     K.reset_launch_counts()          # the float path ran in no path since [quantvar]
 
-    # launches: the sum over the three serving paths, each counted from zero
-    paths = {"EngineLoop qwen2-7b": summary["launches"],
+    # launches: the sum over the public ops, the serving paths and training,
+    # each counted from zero
+    paths = {"kernels/ops.py at qwen2-7b's widths": ops["launches"],
+             "EngineLoop qwen2-7b": summary["launches"],
              "EngineLoop qwen2-7b, CUDA graphs": summary["graphs"]["launches"],
              "Engine.generate qwen2-7b": generate["launches"],
              "EngineLoop qwen2-7b, LoRA": lora["launches"],
@@ -4794,7 +5014,7 @@ def main() -> int:
               "jamba_path": big["jamba"], "seamless_path": big["seamless"],
               "qwen2vl_path": big["qwen2vl"], "paper_paths": big["paper"],
               "quantvar_path": big["quantvar"], "dbrx_path": big["dbrx"],
-              "train_path": train,
+              "train_path": train, "ops": ops, "geometry": geometry, "dryrun": dryrun,
               "wstream": wstream, "timing_split": timings,
               "total_s": time.perf_counter() - t_start}
     (OUT / "chip_smoke.json").write_text(json.dumps(detail, indent=1))

@@ -118,3 +118,31 @@ class ModelConfig:
             layers += self.num_layers * (d * qo + 2 * d * kv + qo * d)   # cross attention
         return {"embedding": embedding, "layers": layers + enc,
                 "lm_head": lm_head, "total": embedding + lm_head + layers + enc}
+
+    def active_param_count(self) -> int:
+        """Parameters a token passes through (the embedding excluded; an MoE
+        layer counted with ``experts_per_tok`` experts): the reference's N in
+        MODEL_FLOPS = 6 * N_active * D."""
+        if not self.num_experts:
+            return self.param_count()["total"] - self.param_count()["embedding"]
+        pc = dataclasses.replace(self, num_experts=self.experts_per_tok).param_count()
+        return pc["total"] - pc["embedding"]
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    """One step the dry run sizes: ``kind`` train | prefill | decode, over
+    ``global_batch`` sequences of ``seq_len`` tokens (decode: a cache of
+    ``seq_len`` slots and one new token a sequence)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}

@@ -26,13 +26,8 @@ from repro_torch.configs import (dbrx_132b, gemma3_27b, glm4_9b, grok_1_314b,
                                  seamless_m4t_large_v2)
 from repro_torch.configs.base import ATTN, LayerPattern, ModelConfig
 
-PAPER_MODELS = {
-    "qwen2-7b": qwen2_7b.CONFIG,
-    "qwen2-1.5b": qwen2_1_5b.CONFIG,
-    "llama3-8b": llama3_8b.CONFIG,
-}
-
-ARCHS: Dict[str, ModelConfig] = {
+# the architectures the dry run sizes (the reference's ASSIGNED)
+ASSIGNED: Dict[str, ModelConfig] = {
     "seamless-m4t-large-v2": seamless_m4t_large_v2.CONFIG,
     "moonshot-v1-16b-a3b": moonshot_v1_16b_a3b.CONFIG,
     "glm4-9b": glm4_9b.CONFIG,
@@ -42,7 +37,16 @@ ARCHS: Dict[str, ModelConfig] = {
     "qwen1.5-110b": qwen1_5_110b.CONFIG,
     "jamba-1.5-large-398b": jamba_1_5_large_398b.CONFIG,
     "gemma3-27b": gemma3_27b.CONFIG,
-    "qwen2-vl-2b": qwen2_vl_2b.CONFIG, **PAPER_MODELS}
+    "qwen2-vl-2b": qwen2_vl_2b.CONFIG,
+}
+
+PAPER_MODELS = {
+    "qwen2-7b": qwen2_7b.CONFIG,
+    "qwen2-1.5b": qwen2_1_5b.CONFIG,
+    "llama3-8b": llama3_8b.CONFIG,
+}
+
+ARCHS: Dict[str, ModelConfig] = {**ASSIGNED, **PAPER_MODELS}
 
 VARIANTS = ("reduced", "tiny", "tiny-moe")
 

@@ -47,6 +47,7 @@ import torch
 from repro_torch.configs import registry
 from repro_torch.serving import engine as E
 from repro_torch.serving import sampling as SM
+from repro_torch.serving import scheduler as S
 
 
 def main(argv: Optional[List[str]] = None) -> List[E.Request]:
@@ -160,6 +161,11 @@ def main(argv: Optional[List[str]] = None) -> List[E.Request]:
         out = loop.run(reqs)
         how = f"on {args.slots} slots"
     else:
+        # C4: balanced assignment against round-robin over 4 workers
+        bal = S.balance_requests(reqs, 4)
+        uni = S.uniform_requests(reqs, 4)
+        print(f"[serve] C4 makespan: balanced={S.makespan(bal):.0f} "
+              f"uniform={S.makespan(uni):.0f}")
         src = None
         if cfg.is_encdec:
             src = np.asarray(rng.normal(size=(len(reqs), 16, cfg.d_model)) * 0.02,

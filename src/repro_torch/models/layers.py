@@ -30,12 +30,16 @@ class ParamBuilder:
     N(0, 0.02) in float32 before quantization or the bf16 cast, the
     reference's recipe; torch cannot reproduce JAX's random bits, so parity
     tests convert the reference's own parameters instead
-    (``repro_torch.convert``)."""
+    (``repro_torch.convert``).  With no ``generator`` (on the ``meta``
+    device only) the builder draws nothing: every leaf gets the shape and
+    dtype a drawn one would have, and no storage."""
 
-    def __init__(self, generator: torch.Generator, device: torch.device,
+    def __init__(self, generator: Optional[torch.Generator], device: torch.device,
                  qcfg: Optional[q.QuantConfig] = None, quantized: bool = True):
         self.gen = generator
         self.device = torch.device(device)
+        if generator is None and self.device.type != "meta":
+            raise ValueError("a builder without a generator builds on the meta device only")
         self.qcfg = qcfg or q.QuantConfig()
         self.quantized = quantized
 
@@ -56,6 +60,8 @@ class ParamBuilder:
             return torch.zeros(full, dtype=dtype, device=self.device)
         if scale == 1.0 and len(shape) <= 1:
             return torch.ones(full, dtype=dtype, device=self.device)
+        if self.gen is None:
+            return torch.empty(full, dtype=dtype, device=self.device)
         return (torch.randn(full, generator=self.gen, device=self.device,
                             dtype=torch.float32) * scale).to(dtype)
 
@@ -76,6 +82,10 @@ class ParamBuilder:
             return {"w": self.param((in_dim, out_dim), lead=lead, scale=scale)}
         cls = RP.PackedExpertLinear if experts else RP.PackedLinear
         gs = self.qcfg.group_size
+        if self.gen is None:        # abstract: the packed carriers' shapes, stacked
+            return {"w": cls(*(torch.empty((*lead, *shape), dtype=dtype, device=self.device)
+                               for shape, dtype in RP.packed_layout(in_dim, out_dim, bits, gs)),
+                             bits, in_dim, out_dim)}
         carriers = None
         for i in range(lead[0] if lead else 1):
             wf = torch.randn((*lead[1:], in_dim, out_dim), generator=self.gen,

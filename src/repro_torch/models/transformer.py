@@ -89,7 +89,7 @@ def _pattern_params(b: L.ParamBuilder, cfg: ModelConfig, pat: LayerPattern,
     return p
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator,
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
                 device: torch.device, *, quantized: bool = False,
                 include_embedding: Optional[bool] = None) -> dict:
     """The model's parameters built directly on ``device``, with the
@@ -99,7 +99,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     tensor, ``lm_head`` a separate bf16 linear even where the config ties
     embeddings, as in the reference.  ``include_embedding`` (default: not
     ``quantized``) adds the bf16 ``embedding`` [padded_vocab, d]; a serving
-    engine keeps it on Flash instead (``serving.engine.build_engine``)."""
+    engine keeps it on Flash instead (``serving.engine.build_engine``).
+    With no ``generator`` (the ``meta`` device only) nothing is drawn:
+    ``abstract_params``."""
     _check_supported(cfg)
     if include_embedding is None:
         include_embedding = not quantized
@@ -117,6 +119,17 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     params["lm_head"] = b.linear(cfg.d_model, cfg.padded_vocab_size,
                                  bits=cfg.quant.lm_head_bits)
     return params
+
+
+def abstract_params(cfg: ModelConfig, *, quantized: bool = False,
+                    include_embedding: Optional[bool] = None) -> dict:
+    """``init_params``' tree on the ``meta`` device: every leaf with the
+    shape and dtype the drawn tree has, no storage and no draw (the
+    reference's ``abstract_params``; the dry run sizes a case from it).
+    The reference's ``param_specs`` (partition specs over a pod mesh) has
+    no counterpart on one card."""
+    return init_params(cfg, None, torch.device("meta"), quantized=quantized,
+                       include_embedding=include_embedding)
 
 
 def layer_slice(tree, i: int):

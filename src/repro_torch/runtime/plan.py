@@ -17,8 +17,10 @@
   layer-group slots, with the reference's byte counts — taken over the same
   packed leaves, so every decision and counter follows it.
 
-The reference's TPU tile solver is not part of the port: tiles are the CUDA
-kernels' own.
+The reference's TPU tile solver (``solve_tpu_blocks``, VMEM tiles on the
+(8, 128) lane grid) has no counterpart: tiles are the CUDA kernels' own.
+``core.tiling`` holds the paper's CPU solver (Table 2) and reads the W4A8
+kernel's tile choice (``kernel_tiles``).
 """
 from __future__ import annotations
 
@@ -79,6 +81,16 @@ def pack_linear(qt: q.QuantizedTensor) -> PackedLinear:
     zero = F.pad(qt.zero, (0, np_ - n), value=0.0)
     return PackedLinear(data=data, scale=scale, zero=zero, bits=qt.bits,
                         k=k, n=n)
+
+
+def packed_layout(k: int, n: int, bits: int, group_size: int = 0) -> tuple:
+    """(shape, dtype) of the data, scale and zero carriers that
+    ``pack_linear(q.quantize(w [k, n], bits, group_size=...))`` gives, from
+    the dims alone (an abstract parameter tree draws and quantizes nothing)."""
+    kp, np_ = _ceil_to(k, LANE), _ceil_to(n, N_ALIGN)
+    g = k // group_size if group_size and group_size < k else 1
+    return (((kp, np_ // 2 if bits == 4 else np_), torch.int8),
+            ((g, np_), torch.float32), ((g, np_), torch.float32))
 
 
 def unpack_linear(pl: PackedLinear) -> q.QuantizedTensor:

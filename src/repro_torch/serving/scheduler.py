@@ -7,14 +7,21 @@ frees; admission is priority, then deadline, then FIFO with the cost model
 as tie-break, bounded by slots, the token budget and the KV pages the
 request's context actually needs.  Under queue patience a running request
 is evicted (``maybe_preempt``); the engine spills its pages to Flash and
-restores them bit for bit on resume.  The reference's replica-balancing
-helpers are not ported (ROADMAP queue 1 item 19).
+restores them bit for bit on resume.
+
+The paper's multicore load balancing (C4) is ported too: ``balance_requests``
+assigns requests to workers by longest cost first onto the worker that
+finishes earliest at its rate, ``uniform_requests`` is the round-robin
+baseline and ``makespan`` the finish time of the slowest worker, with the
+reference's order and tie-breaks, so the assignments equal it bucket for
+bucket.
 """
 from __future__ import annotations
 
 import dataclasses
+import heapq
 import math
-from typing import TYPE_CHECKING, List, Optional, Tuple
+from typing import TYPE_CHECKING, List, Optional, Sequence, Tuple
 
 if TYPE_CHECKING:
     from repro_torch.serving.sampling import SamplingParams  # pragma: no cover
@@ -101,6 +108,43 @@ class Request:
         if n <= 1:
             return 0.0
         return (self.finish_t - self.first_token_t) / (n - 1)
+
+
+def balance_requests(requests: Sequence[Request], n_workers: int,
+                     rates: Optional[Sequence[float]] = None
+                     ) -> List[List[Request]]:
+    """Longest-cost-first assignment (the paper's "balanced", Fig. 4):
+    each request, by descending ``cost``, goes to the worker whose
+    normalized finish time (a min-heap of (time, worker)) is least;
+    ``rates`` are per-worker throughput weights (uniform when None)."""
+    rates = list(rates) if rates else [1.0] * n_workers
+    if len(rates) != n_workers:
+        raise ValueError(f"{len(rates)} rates for {n_workers} workers")
+    buckets: List[List[Request]] = [[] for _ in range(n_workers)]
+    heap = [(0.0, i) for i in range(n_workers)]
+    heapq.heapify(heap)
+    for req in sorted(requests, key=lambda r: -r.cost):
+        t, i = heapq.heappop(heap)
+        buckets[i].append(req)
+        heapq.heappush(heap, (t + req.cost / rates[i], i))
+    return buckets
+
+
+def uniform_requests(requests: Sequence[Request], n_workers: int
+                     ) -> List[List[Request]]:
+    """Round-robin (the paper's "uniform" baseline)."""
+    buckets: List[List[Request]] = [[] for _ in range(n_workers)]
+    for j, req in enumerate(requests):
+        buckets[j % n_workers].append(req)
+    return buckets
+
+
+def makespan(buckets: Sequence[Sequence[Request]],
+             rates: Optional[Sequence[float]] = None) -> float:
+    """The slowest worker's total cost over its rate."""
+    rates = list(rates) if rates else [1.0] * len(buckets)
+    return max((sum(r.cost for r in b) / rate) if b else 0.0
+               for b, rate in zip(buckets, rates))
 
 
 class ContinuousScheduler:

@@ -74,7 +74,11 @@ Training: the two kernels of the training forward under their
 ``autograd.Function``s at qwen2-1.5b's shapes (forward within the kernel
 tolerance, every input gradient equal to autograd of the plain version);
 a wrapper called on an input that requires grad raises; one qwen2-7b@tiny
-step's loss and gradients on the kernel route against the plain route."""
+step's loss and gradients on the kernel route against the plain route.
+
+The public ops (``kernels/ops.py``) on the card against their oracles
+(``kernels/ref.py``), kernels 1, 4, 6 and 7 counted; a fused Region plan
+(geometry compute) bit-equal to the composed ``permute``/slice ops."""
 import dataclasses
 import math
 
@@ -1528,3 +1532,66 @@ def test_train_step_kernel_route_matches_plain_route(dev):
         rel = float(torch.linalg.vector_norm(a.float() - b.float())
                     / torch.linalg.vector_norm(a.float()))
         assert rel < 2e-2, rel
+
+
+@pytest.mark.gpu
+def test_ops_on_the_card_match_the_oracles(dev):
+    """``kernels.ops`` on CUDA tensors launches kernels 1, 4, 6 and 7
+    (counted) and matches ``kernels.ref`` on the same inputs, at the
+    kernel-vs-plain tolerances; a float32 query, which the kernels do not
+    read, raises instead of falling back."""
+    from repro_torch.kernels import ops as OPS
+    from repro_torch.kernels import ref as REF
+    g = torch.Generator(device=dev).manual_seed(5)
+    K.reset_launch_counts()
+    for M, bits in ((4, 4), (40, 8)):
+        x = torch.randn((M, 512), generator=g, device=dev).bfloat16()
+        pl = RP.pack_linear(Q.quantize(torch.randn((512, 768), generator=g, device=dev)
+                                       * 0.02, bits))
+        y = OPS.quant_matmul_kernel(x, pl.data, pl.scale[0], pl.zero[0], bits=bits)
+        xq, sx = Q.quantize_activations(x)
+        wq = Q.unpack_int4(pl.data) if bits == 4 else pl.data
+        _close(y, REF.w4a8_matmul_ref(xq, sx, wq, pl.scale[0], pl.zero[0]), 1e-4)
+    x = torch.randn((4, 3584), generator=g, device=dev).bfloat16()
+    w = 1.0 + 0.1 * torch.randn((3584,), generator=g, device=dev)
+    _close(OPS.rmsnorm(x, w, 1e-6), REF.rmsnorm_ref(x, w, 1e-6), 2e-2)
+    B, S, Hkv, G, Dh = 2, 256, 2, 4, 64
+    q = (torch.randn((B, Hkv * G, Dh), generator=g, device=dev) / 8).bfloat16()
+    kq, ks, kz = KV.quantize_keys(torch.randn((B, S, Hkv, Dh), generator=g,
+                                              device=dev).bfloat16())
+    v = KV.cast_values(torch.randn((B, S, Hkv, Dh), generator=g, device=dev), Q.FP8_DTYPE)
+    length = torch.tensor([200, 77], dtype=torch.int32, device=dev)
+    cache = (kq.contiguous(), ks.contiguous(), kz.contiguous(), v)
+    _close(OPS.quant_decode_attention(q, *cache, length),
+           REF.quant_decode_attention_ref(q, *cache, length), 2e-2)
+    with pytest.raises(TypeError):
+        OPS.quant_decode_attention(q.float(), *cache, length)
+    qp = (torch.randn((1, 100, 8, 64), generator=g, device=dev) / 8).bfloat16()
+    kp = torch.randn((1, 100, 2, 64), generator=g, device=dev).bfloat16()
+    vp = torch.randn((1, 100, 2, 64), generator=g, device=dev).bfloat16()
+    for causal, window in ((True, 0), (False, 0), (True, 16)):
+        _close(OPS.flash_prefill(qp, kp, vp, causal=causal, window=window),
+               REF.flash_prefill_ref(qp, kp, vp, causal=causal, window=window), 2e-2)
+    counts = K.counts()
+    assert counts["w4a8_matmul"] == 2 and counts["rmsnorm"] == 1, counts
+    assert counts["quant_decode_attention"] == 1, counts
+    assert counts["flash_prefill_attention"] == 3, counts
+
+
+@pytest.mark.gpu
+def test_fused_geometry_plan_on_the_card_equals_composed_ops(dev):
+    """A transpose -> slice -> transpose chain over one layer's keys (512
+    tokens, 4 heads of 128: the largest space the reference's Rule 2
+    fuses) fuses to one Region and moves the composed ops' bytes exactly."""
+    from repro_torch.core import geometry as GEO
+    x = torch.randn((512, 4, 128), generator=torch.Generator(device=dev).manual_seed(0),
+                    device=dev).bfloat16()
+    chain = [GEO.region_transpose((512, 4, 128), (1, 0, 2)),
+             GEO.region_slice((4, 512, 128), (1, 128, 0), (2, 256, 128)),
+             GEO.region_transpose((2, 256, 128), (1, 0, 2))]
+    plan = GEO.fuse_chain(chain, [2 ** 18, 2 ** 16, 2 ** 16])
+    assert plan.num_stages == 1
+    assert 2 * plan.memory_ops <= sum(2 * r.numel for step in chain for r in step)
+    want = x.permute(1, 0, 2)[1:3, 128:384].permute(1, 0, 2)
+    got = GEO.execute_plan(plan, x)
+    assert got.device == x.device and torch.equal(got.reshape(want.shape), want)
