@@ -4317,6 +4317,7 @@ def phase_train(dev, results: dict, card: str):
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import kernels as K
+    from repro_torch.analysis import trace
     from repro_torch.configs import registry
     from repro_torch.data.pipeline import DataConfig, Pipeline
     from repro_torch.models import transformer as T
@@ -4396,6 +4397,12 @@ def phase_train(dev, results: dict, card: str):
             per_step.append({n: after[n] - before[n] for n in K.wrappers()})
     counts = K.launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
+    # the peak split: gradients take the parameters' dtypes and shapes
+    p_bytes = sum(t.numel() * t.element_size() for t in O.leaves(params))
+    s_bytes = sum(t.numel() * t.element_size() for t in O.leaves(state))
+    split = {"parameters": p_bytes / 2**30, "gradients": p_bytes / 2**30,
+             "optimizer_state": s_bytes / 2**30,
+             "rest": (peak - 2 * p_bytes - s_bytes) / 2**30}
     assert disp.fallbacks == [], disp.fallbacks
     for i, c in enumerate(per_step):
         for name in TRAIN_KERNELS:
@@ -4418,28 +4425,19 @@ def phase_train(dev, results: dict, card: str):
         f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)")
     summary.update(losses=losses, grad_norms=norms, held_out_loss=[eval_before, eval_after], step_wall_ms=[w * 1e3 for w in walls],
                    step_ms=wall * 1e3, tokens_per_s=tokens / wall, peak_memory_gib=peak / 2**30,
+                   memory_split_gib=split,
                    launches=counts, launches_per_step=per_step[0], optimizer=opt.kind)
 
     # the kernels' device time in one step
     with spent_on("profile"):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             params, state, m = step(params, state, batches[-1])
             torch.cuda.synchronize()
-    dev_ms = {sym: 0.0 for sym in ("rmsnorm_kernel", "flash_prefill_kernel")}
-    total_us = 0.0
-    for e in prof.key_averages():
-        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        us = getattr(e, "self_cuda_time_total", 0) if us is None else us
-        total_us += us
-        for sym in dev_ms:
-            if sym in e.key:
-                dev_ms[sym] += us / 1e3
-    summary["device_ms_per_step"] = total_us / 1e3
+    total_ms, dev_ms = trace.device_ms(prof, ("rmsnorm_kernel", "flash_prefill_kernel"))
+    summary["device_ms_per_step"] = total_ms
     summary["kernel_device_ms_per_step"] = dev_ms
-    log(f"[train] {card}: device time in a step {total_us / 1e3:.1f} ms"
-        + ("" if total_us else " (the profiler saw none: not measured)") + "; "
+    log(f"[train] {card}: device time in a step {total_ms:.1f} ms"
+        + ("" if total_ms else " (the profiler saw none: not measured)") + "; "
         + ", ".join(f"{k} {v:.3f} ms" for k, v in dev_ms.items()))
 
     # (d) one Adafactor step on the same tree
@@ -4457,6 +4455,441 @@ def phase_train(dev, results: dict, card: str):
     summary["adafactor"] = {"loss": float(am["loss"]), "grad_norm": float(am["grad_norm"]),
                             "leaves_moved": sum(moved), "leaves": len(moved)}
     return [params, new], summary
+
+
+# ---------------------------------------------------------------------------
+# phase 10b: training of the other layer kinds at full width
+# ---------------------------------------------------------------------------
+
+# (arch, layers kept or None for all, batch, sequence, optimizer kind or None
+# for default_opt_for's, the path's kernels, the variants of kernel 7)
+TRAIN18A = (
+    ("qwen2-vl-2b", None, 4, 512, None, ("rmsnorm", "flash_prefill_attention"),
+     ("causal",)),
+    ("seamless-m4t-large-v2", None, 4, 512, None,
+     ("rmsnorm", "flash_prefill_attention", "quant_decode_attention"),
+     ("causal", "non-causal")),
+    # one period of gemma3's 62 layers: five window-1024 layers and a global
+    # one; AdamW state for its 4.60 B parameters (2.82 B of them the
+    # embedding and lm_head at vocab 262,144) does not fit beside the rest
+    ("gemma3-27b", 6, 1, 2048, "adafactor", ("rmsnorm", "flash_prefill_attention"),
+     ("causal", "windowed")),
+    # 4 of 32 layers: 1.65 B parameters; 8 would be 2.76 B, ~80 GiB at
+    # [train]'s bytes a parameter under AdamW
+    ("rwkv6-7b", 4, 4, 512, None, ("rmsnorm",), ()),
+    ("jamba-1.5-large-398b@reduced", None, 4, 512, None,
+     ("rmsnorm", "flash_prefill_attention"), ("causal",)),
+)
+TRAIN18A_STEPS = 3
+PLAIN_SPREAD_BK = 64             # key block of the plain route's second summation order
+# where a leaf's gradient is past TRAIN_GRAD_REL_L2, the kernel route may
+# differ from the plain route by this many times the plain route's own
+# spread.  A weight's gradient sums its input rows: the pipeline's skewed
+# tokens (147 distinct in 4 x 512) repeat rows and the sum is coherent,
+# while distinct rows (qwen2-vl-2b's embeds; the encoder's N(0, 1) frames,
+# whose gradient reaches it only through the int8 keys' scale and zero)
+# cancel, and the same rounding reads larger.  tools/train_conditioning.py
+# on the card: qwen2-1.5b on uniform tokens or embeds spreads to 4.4-4.8e-2
+# and qwen2-vl-2b on the pipeline's tokens to 1.5e-2; the kernel route sits
+# at 0.93-1.08 times the spread in every case, and a route with one wrong
+# layer (layer 0's attention windowed at 256) at 19-28 (qwen2-vl) and up to
+# 32 (seamless) with its loss within TRAIN_LOSS_REL
+TRAIN_SPREAD_FACTOR = 1.5
+
+
+@contextlib.contextmanager
+def plain_key_blocks(bk: int):
+    """The plain prefill attention (``flash_attention``) over key blocks of
+    ``bk`` instead of its 1024: the same math, another summation order."""
+    from repro_torch.kernels import flash_prefill as FP
+    saved = FP.flash_attention
+    FP.flash_attention = functools.partial(saved, bk=bk)
+    try:
+        yield
+    finally:
+        FP.flash_attention = saved
+SEAMLESS_TRAIN_SRC = 128         # source frames a row: seq // 4
+
+
+class TrainSpies:
+    """Counts the training forward's ``autograd.Function`` applications:
+    kernel 7's by variant (causal, windowed, non-causal) and kernel 6's
+    (cross attention), by wrapping the classes the dispatcher looks up."""
+
+    def __init__(self):
+        self.prefill = collections.Counter()
+        self.decode = 0
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_prefill as FP
+        from repro_torch.kernels import quant_attention as QA
+        self._saved = (FP.FlashPrefillFunction, QA.QuantDecodeAttentionFunction)
+        spies = self
+        fp_cls, qa_cls = self._saved
+
+        class Prefill:
+            @staticmethod
+            def apply(q, k, v, causal, window):
+                spies.prefill["windowed" if window else
+                              "causal" if causal else "non-causal"] += 1
+                return fp_cls.apply(q, k, v, causal, window)
+
+        class Decode:
+            @staticmethod
+            def apply(*args):
+                spies.decode += 1
+                return qa_cls.apply(*args)
+        FP.FlashPrefillFunction, QA.QuantDecodeAttentionFunction = Prefill, Decode
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import flash_prefill as FP
+        from repro_torch.kernels import quant_attention as QA
+        FP.FlashPrefillFunction, QA.QuantDecodeAttentionFunction = self._saved
+
+    def take(self) -> dict:
+        out = {"prefill": dict(self.prefill), "decode": self.decode}
+        self.prefill.clear()
+        self.decode = 0
+        return out
+
+
+@timed("timing")
+def train18a_kernel_rows(dev, results: dict) -> dict:
+    """Kernel 7 windowed at gemma3-27b's training shape (row 7e: B = 1,
+    T = S = 2048, 32/16 heads of 128, window 1024) and non-causal at
+    seamless-m4t-large-v2's encoder (row 7f: B = 4, S = 128, 16/16 heads
+    of 64), kernel 6 folded at seamless's cross attention (row 6h: B = 4,
+    512 query tokens x 16 heads over 128 frames), each against its plain
+    version, timed a call and on the device beside its bound and SDPA, and
+    its ``autograd.Function``'s backward (``loader.plain_vjp``, autograd of
+    the plain version) timed a call."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import kv_cache as KV
+    from repro_torch.kernels import flash_prefill as FP
+    from repro_torch.kernels import loader
+    from repro_torch.kernels import quant_attention as QA
+    gen = torch.Generator(device=dev).manual_seed(31)
+    out = {}
+
+    def record(name, key, row, label):
+        results[name]["all_shapes"].append(row)
+        results[name]["err"] = max(results[name]["err"], row["err"])
+        out[key] = row
+        b = row["bound"]
+        log(f"[train18a] {key} {name} {label}: {row['ms']:.4f} ms a call, "
+            f"{f4(row['graph_ms'])} ms on the device, bound {b[0]:.5f} ms ({b[1]}); plain "
+            f"{row['plain_ms']:.4f} ms; SDPA {f4(row['library_ms'])} ms a call, "
+            f"{f4(row['library_graph_ms'])} ms on the device; backward (plain_vjp) "
+            f"{row['backward_ms']:.4f} ms a call; max abs err {row['err']:.3e}")
+
+    for key, B, T, H, Hkv, D, causal, window, what in (
+            ("7e", 1, 2048, 32, 16, 128, True, 1024, "windowed (gemma3-27b training)"),
+            ("7f", 4, 128, 16, 16, 64, False, 0, "non-causal (seamless-m4t encoder training)")):
+        q = (torch.randn((B, T, H, D), generator=gen, device=dev) / math.sqrt(D)).to(torch.bfloat16)
+        k = torch.randn((B, T, Hkv, D), generator=gen, device=dev).to(torch.bfloat16)
+        v = torch.randn((B, T, Hkv, D), generator=gen, device=dev).to(torch.bfloat16)
+        fn = lambda *a, c=causal, w=window: FP.flash_prefill_attention(*a, causal=c, window=w)  # noqa: E731
+        plain = lambda *a, c=causal, w=window: FP.flash_prefill_attention_plain(  # noqa: E731
+            *a, causal=c, window=w)
+        err = check_close("flash_prefill_attention", fn(q, k, v), plain(q, k, v),
+                          f"{what} B={B} T=S={T}")
+        G = H // Hkv
+        i = torch.arange(T, device=dev)
+        mask = None
+        if causal:
+            mask = i[None, :] <= i[:, None]
+            if window:
+                mask = mask & (i[:, None] - i[None, :] < window)
+        lib_ms, lib_gms = library_time(
+            lambda a, b_, c, m=mask: F.scaled_dot_product_attention(a, b_, c, attn_mask=m,
+                                                                   scale=1.0),
+            [(q.transpose(1, 2), k.transpose(1, 2).repeat_interleave(G, dim=1),
+              v.transpose(1, 2).repeat_interleave(G, dim=1))])
+        pairs = (int(mask.sum()) if mask is not None else T * T)
+        grad = torch.randn((B, T, H, D), generator=gen, device=dev)
+        bwd = lambda a, b_, c, g: loader.plain_vjp(plain, (a, b_, c), (True,) * 3, g)  # noqa: E731
+        record("flash_prefill_attention", key, dict(
+            err=err, ms=time_ms(fn, [(q, k, v)]), graph_ms=graph_ms(fn, [(q, k, v)]),
+            plain_ms=time_ms(plain, [(q, k, v)], iters=3), library_ms=lib_ms,
+            library_graph_ms=lib_gms, backward_ms=time_ms(bwd, [(q, k, v, grad)], iters=3),
+            bound=bound(q.numel() * 2 + 2 * k.numel() * 2 + B * T * H * D * 4,
+                        4 * B * H * D * pairs, BF16_FLOPS_PER_S),
+            shape=f"B={B} T=S={T} H={H} Hkv={Hkv} D={D} {what}"),
+            f"B={B} T=S={T} {H}/{Hkv} heads of {D}, {what}")
+        del q, k, v, grad, mask
+
+    B, Hkv, D, S, Tq = 4, 16, 64, SEAMLESS_TRAIN_SRC, 512
+    c = KV.quantized_cache(torch.randn((B, S, Hkv, D), generator=gen, device=dev).to(torch.bfloat16),
+                           torch.randn((B, S, Hkv, D), generator=gen, device=dev).to(torch.bfloat16))
+    q = (torch.randn((B, Hkv * Tq, D), generator=gen, device=dev) / math.sqrt(D)).to(torch.bfloat16)
+    args = (q, c.k_q, c.k_scale, c.k_zero, c.v, c.length)
+    err = check_close("quant_decode_attention", QA.quant_decode_attention(*args),
+                      QA.quant_decode_attention_plain(*args),
+                      f"folded cross attention B={B} G'={Tq} S={S} (training)")
+    kd = KV.dequantize_keys(c.k_q, c.k_scale, c.k_zero)
+    vd = c.v.to(torch.bfloat16)
+    lib_ms, lib_gms = library_time(lambda a, b_, cc: F.scaled_dot_product_attention(
+        a, b_, cc, scale=1.0), [(q.reshape(B, Hkv, Tq, D), kd.transpose(1, 2), vd.transpose(1, 2))])
+    grad = torch.randn((B, Hkv * Tq, D), generator=gen, device=dev)
+    bwd = lambda a, ks, kz, vv, g: loader.plain_vjp(  # noqa: E731
+        lambda a_, ks_, kz_, vv_: QA.quant_decode_attention_plain(a_, c.k_q, ks_, kz_, vv_, c.length),
+        (a, ks, kz, vv), (True,) * 4, g)
+    splits = QA.decode_splits(B, Hkv * QA.head_tiles(Tq), -(-S // QA.DENSE_BLOCK))
+    record("quant_decode_attention", "6h", dict(
+        err=err, ms=time_ms(QA.quant_decode_attention, [args]),
+        graph_ms=graph_ms(QA.quant_decode_attention, [args]),
+        plain_ms=time_ms(QA.quant_decode_attention_plain, [args], iters=5),
+        library_ms=lib_ms, library_graph_ms=lib_gms, splits=splits,
+        head_tiles=QA.head_tiles(Tq),
+        backward_ms=time_ms(bwd, [(q, c.k_scale, c.k_zero, c.v, grad)], iters=5),
+        bound=bound(q.numel() * 2 + B * S * Hkv * (2 * D + 8) + q.numel() * 4,
+                    4 * B * S * Hkv * Tq * D, BF16_FLOPS_PER_S),
+        shape=f"B={B} Hkv={Hkv} G'={Tq} D={D} S={S} full (seamless-m4t cross attention at "
+              "training: 512 query tokens folded into the head axis)"),
+        f"folded B={B} Hkv={Hkv} G'={Tq} S={S} ({splits} splits, {QA.head_tiles(Tq)} head tiles)")
+    del c, q, kd, vd, grad
+    torch.cuda.synchronize()
+    return out
+
+
+def train18a_model(dev, arch: str, layers, B: int, T: int, kind, kernels, variants,
+                   card: str) -> dict:
+    """One model of ``TRAIN18A`` at full width from seed 0: (a) one step's
+    loss (``TRAIN_LOSS_REL``) and every gradient leaf on the kernel route
+    against ``Dispatcher("reference")`` on the same parameters and batch,
+    with the same all-zero leaves on both; a leaf holds within
+    ``TRAIN_GRAD_REL_L2`` or, where the plain route differs from itself by
+    more under another summation order of the same math
+    (``plain_key_blocks``), within ``TRAIN_SPREAD_FACTOR`` times that
+    spread; (b) the path's kernels
+    launched in every step through their ``autograd.Function``s, nothing
+    fallen back; (c) ``TRAIN18A_STEPS`` optimizer steps with finite losses
+    and gradient norms, every leaf with a gradient above the optimizer's
+    eps moved by the first; (d) each step's wall time, tokens/s, peak
+    device memory and the kernels' device time in one profiled step.  The
+    parameters are freed before it returns."""
+    import dataclasses
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import kernels as K
+    from repro_torch.analysis import trace
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.launch.train import frontend_batch
+    from repro_torch.models import transformer as T_
+    from repro_torch.runtime import dispatch as D
+    from repro_torch.runtime import plan as RP
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import train_loop as TL
+
+    full = registry.get(arch)
+    cfg = full if layers is None else dataclasses.replace(full, num_layers=layers)
+    out = {"arch": arch, "batch": B, "seq": T, "card": card}
+    if layers is not None:
+        out["reduced"] = {"num_layers": [full.num_layers, layers]}
+    t0 = time.perf_counter()
+    params = T_.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    n_params = sum(t.numel() for t in O.leaves(params))
+    gib = sum(t.numel() * t.element_size() for t in O.leaves(params)) / 2**30
+    log(f"[train18a] {arch}: "
+        + (f"reduced: depth {layers} of {full.num_layers} layers (every width kept); "
+           if layers is not None else f"{cfg.num_layers} layers"
+           + (f" + {cfg.encoder_layers} encoder layers" if cfg.encoder_layers else "") + "; ")
+        + f"d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+        f"{cfg.resolved_head_dim}, vocab {cfg.padded_vocab_size}; {n_params:,} parameters "
+        f"({gib:.2f} GiB) built in {time.perf_counter() - t0:.1f} s")
+    data = Pipeline(DataConfig(batch_size=B, seq_len=T, vocab_size=cfg.vocab_size, seed=0))
+    gen = torch.Generator(device=dev).manual_seed(7)
+    batches = []
+    for step, b in enumerate(data.batches(TRAIN18A_STEPS + 1), start=1):
+        tb = frontend_batch(cfg, {k: torch.from_numpy(v).to(dev) for k, v in b.items()}, 0, step)
+        if cfg.is_encdec:
+            # N(0, 1) frames: the launcher's zeros would make every encoder row alike
+            tb["src_embeds"] = torch.randn((B, T // 4, cfg.d_model), generator=gen,
+                                           device=dev).to(torch.bfloat16)
+        batches.append(tb)
+    names = ["/".join(map(str, k)) for k, _ in RP.tree_leaves_with_path(params)]
+    spies = TrainSpies()
+
+    # (a) one step's loss and gradients, kernel route vs plain route
+    with spent_on("kernel_vs_plain"):
+        K.reset_launch_counts()
+        with spies:
+            (_kt, km), kgrads = TL.value_and_grad(params, cfg, batches[0],
+                                                  T_.StepCtx(cfg, remat=True))
+        once = {n: K.launch_counts()[n] for n in kernels}
+        fn_once = spies.take()
+        (_pt, pm), pgrads = TL.value_and_grad(
+            params, cfg, batches[0],
+            T_.StepCtx(cfg, remat=True, dispatch=D.Dispatcher("reference")))
+        loss_rel = abs(float(km["loss"]) - float(pm["loss"])) / abs(float(pm["loss"]))
+        kzero = [not bool(g.any()) for g in O.leaves(kgrads)]
+        gmax = [float(g.abs().max()) for g in O.leaves(kgrads)]
+        pzero = [not bool(g.any()) for g in O.leaves(pgrads)]
+        live = [(a, b) for a, b, z in zip(O.leaves(pgrads), O.leaves(kgrads), pzero) if not z]
+        worst, at, errs = _tree_rel_l2([a for a, _ in live], [b for _, b in live])
+        live_names = [n for n, z in zip(names, pzero) if not z]
+        del kgrads, live
+        spread = [0.0] * len(errs)
+        if worst >= TRAIN_GRAD_REL_L2:
+            # the plain route's own spread: the same exact math in another
+            # summation order (attention's online softmax over key blocks of
+            # PLAIN_SPREAD_BK), as the kernels sum in theirs
+            with plain_key_blocks(PLAIN_SPREAD_BK):
+                _, sgrads = TL.value_and_grad(
+                    params, cfg, batches[0],
+                    T_.StepCtx(cfg, remat=True, dispatch=D.Dispatcher("reference")))
+            _, _, spread = _tree_rel_l2(
+                [a for a, z in zip(O.leaves(pgrads), pzero) if not z],
+                [b for b, z in zip(O.leaves(sgrads), pzero) if not z])
+            del sgrads
+        del pgrads
+        over = [i for i, e in enumerate(errs) if e >= TRAIN_GRAD_REL_L2]
+    log(f"[train18a] {arch} kernel vs plain, one step: loss {float(km['loss']):.6f} vs "
+        f"{float(pm['loss']):.6f} (rel {loss_rel:.2e}, tolerance {TRAIN_LOSS_REL}); "
+        f"{len(names)} gradient leaves, {sum(pzero)} all zero on the plain route and "
+        f"{sum(kzero)} on the kernel route; worst rel L2 {worst:.2e} at {live_names[at]} "
+        f"(tolerance {TRAIN_GRAD_REL_L2}), median {sorted(errs)[len(errs) // 2]:.2e}; "
+        f"launches {once}; Functions {fn_once}")
+    if over:
+        log(f"[train18a] {arch}: {len(over)} of {len(errs)} leaves past {TRAIN_GRAD_REL_L2}; "
+            f"the plain route against itself with key blocks of {PLAIN_SPREAD_BK} (same "
+            "math, another order) differs there by: " + ", ".join(
+                f"{live_names[i]} {errs[i]:.2e} vs {spread[i]:.2e}" for i in over[:12])
+            + (" ..." if len(over) > 12 else "") + "; ratios " + "-".join(
+                f"{f(errs[i] / max(spread[i], 1e-30) for i in over):.2f}" for f in (min, max)))
+    if cfg.num_experts:
+        log(f"[train18a] {arch} MoE aux: load balance {float(km['moe_lb']):.4f} vs "
+            f"{float(pm['moe_lb']):.4f}, z {float(km['moe_z']):.4f} vs {float(pm['moe_z']):.4f}")
+    out["kernel_vs_plain"] = {
+        "loss": float(km["loss"]), "plain_loss": float(pm["loss"]), "loss_rel": loss_rel,
+        "grad_rel_l2_worst": worst, "grad_rel_l2_worst_leaf": live_names[at],
+        "grad_rel_l2": dict(zip(live_names, errs)),
+        "plain_spread_rel_l2": {live_names[i]: spread[i] for i in over},
+        "zero_leaves_plain": sum(pzero),
+        "zero_leaves_kernel": sum(kzero),
+        "zero_leaf_names": [n for n, z in zip(names, pzero) if z],
+        "launches_one_step": once, "functions_one_step": fn_once}
+
+    # (b), (c): optimizer steps on the kernel route
+    base = TL.default_opt_for(cfg)
+    # warmup of one step: at the default's first warmup step (lr / 100) a
+    # bf16 leaf's update rounds away
+    opt = dataclasses.replace(base, kind=kind or base.kind, warmup_steps=1)
+    disp = D.Dispatcher()
+    step_fn = TL.make_train_step(cfg, opt, remat=True, dispatch=disp)
+    state = O.init_state(opt, params)
+    moved = None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    K.reset_launch_counts()
+    losses, norms, walls, per_step, fns = [], [], [], [], []
+    with spent_on("train_steps"):
+        for b in batches[:TRAIN18A_STEPS]:
+            before = K.launch_counts()
+            t1 = time.perf_counter()
+            with spies:
+                new, state, m = step_fn(params, state, b)
+                losses.append(float(m["loss"]))      # waits for the step
+            walls.append(time.perf_counter() - t1)
+            if moved is None:    # the first update, while its input still lives
+                moved = [not torch.equal(a, b) for a, b in zip(O.leaves(new), O.leaves(params))]
+            params = new
+            norms.append(float(m["grad_norm"]))
+            after = K.launch_counts()
+            per_step.append({n: after[n] - before[n] for n in K.wrappers()})
+            fns.append(spies.take())
+    peak = torch.cuda.max_memory_allocated(dev)
+    counts = K.launch_counts()
+    # a leaf whose gradient lies far below the optimizer's eps (jamba's
+    # dt_proj: ~1e-11 against AdamW's 1e-8) takes an update of lr * g / eps,
+    # below its bf16 rounding; every other leaf with a gradient must move
+    tiny = [n for n, g, z in zip(names, gmax, pzero) if not z and g <= opt.eps]
+    stuck = [n for n, mv, g, z in zip(names, moved, gmax, pzero)
+             if not mv and not z and g > opt.eps]
+    finite = all(bool(torch.isfinite(t).all()) for t in O.leaves(params))
+    del new
+    tokens = B * T
+    log(f"[train18a] {arch}: {TRAIN18A_STEPS} {opt.kind} steps (lr {opt.lr}, warmup 1, "
+        f"remat): loss {' '.join(f'{x:.4f}' for x in losses)}; grad norm "
+        f"{' '.join(f'{x:.3f}' for x in norms)}; {sum(moved)}/{len(moved)} leaves moved in the "
+        f"first step "
+        f"({len(stuck)} with a gradient above the optimizer's eps {opt.eps:g} did not; "
+        f"below it: {tiny or 'none'}), all finite: {finite}")
+    log(f"[train18a] {arch} launches a step: {per_step[0]}; Functions a step: {fns[0]}; "
+        f"fallbacks {disp.fallbacks}")
+    log(f"[train18a] {card}: {arch} step wall "
+        + ", ".join(f"{w * 1e3:.1f}" for w in walls) + " ms, "
+        + ", ".join(f"{tokens / w:.0f}" for w in walls) + " tokens/s; peak device memory "
+        f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)")
+
+    # (d) the kernels' device time in one profiled step
+    syms = {"rmsnorm": "rmsnorm_kernel", "flash_prefill_attention": "flash_prefill_kernel",
+            "quant_decode_attention": "dense_decode_kernel"}
+    with spent_on("profile"):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            params, state, m = step_fn(params, state, batches[-1])
+            torch.cuda.synchronize()
+        total_ms, dev_ms = trace.device_ms(prof, [syms[n] for n in kernels])
+    log(f"[train18a] {card}: {arch} device time in a step {total_ms:.1f} ms"
+        + ("" if total_ms else " (the profiler saw none: not measured)") + "; "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in dev_ms.items()))
+    out.update(parameters=n_params, parameter_gib=gib, optimizer=opt.kind, losses=losses,
+               grad_norms=norms, step_wall_ms=[w * 1e3 for w in walls],
+               tokens_per_s=[tokens / w for w in walls], peak_memory_gib=peak / 2**30,
+               launches=counts, launches_per_step=per_step[0], functions_per_step=fns[0],
+               leaves_moved=sum(moved), leaves=len(moved), stuck=stuck, below_eps=tiny,
+               device_ms_per_step=total_ms, kernel_device_ms_per_step=dev_ms,
+               last_loss=float(m["loss"]))
+
+    assert loss_rel < TRAIN_LOSS_REL, (arch, float(km["loss"]), float(pm["loss"]))
+    for i in over:
+        assert errs[i] <= TRAIN_SPREAD_FACTOR * spread[i], (arch, live_names[i], errs[i],
+                                                            spread[i])
+    assert kzero == pzero, (arch, [n for n, a, b in zip(names, kzero, pzero) if a != b])
+    assert disp.fallbacks == [], disp.fallbacks
+    for i, c in enumerate(per_step):
+        for name in kernels:
+            assert c[name] > 0, f"{arch} step {i}: {name} never launched: {c}"
+        assert c == per_step[0], (arch, i, c, per_step[0])
+    for i, f in enumerate(fns):
+        assert f == fns[0], (arch, i, f, fns[0])
+        assert set(f["prefill"]) == set(variants), (arch, i, f)
+        assert (f["decode"] > 0) == ("quant_decode_attention" in kernels), (arch, i, f)
+        # each launch of kernel 7 or 6 came through its Function
+        assert sum(f["prefill"].values()) == per_step[i]["flash_prefill_attention"], (arch, f)
+        assert f["decode"] == per_step[i]["quant_decode_attention"], (arch, f)
+    assert all(math.isfinite(x) for x in losses + norms), (arch, losses, norms)
+    assert finite and not stuck, (arch, stuck[:8])
+    del params, state, m, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train18a(dev, results: dict, card: str, train: dict):
+    """Training of every other layer kind at full width (``TRAIN18A``):
+    first the memory of ``[train]``'s qwen2-1.5b AdamW step split into
+    parameters, gradients, optimizer state and the rest, then kernels 7
+    and 6 at the new training shapes (rows 7e, 7f, 6h), then each model in
+    turn through ``train18a_model``.  Returns (an empty holder, summary)."""
+    split = train["memory_split_gib"]
+    log(f"[train18a] {card}: [train]'s {train['arch']} AdamW step peaked at "
+        f"{train['peak_memory_gib']:.2f} GiB: parameters {split['parameters']:.2f}, "
+        f"gradients {split['gradients']:.2f}, optimizer state {split['optimizer_state']:.2f}, "
+        f"the rest (activations saved for remat, each layer's recompute, the float32 "
+        f"products and the logits of a 512-token chunk) {split['rest']:.2f} GiB")
+    summary = {"memory_split_gib_train": split,
+               "kernel_rows": train18a_kernel_rows(dev, results), "models": {}}
+    for arch, layers, B, T, kind, kernels, variants in TRAIN18A:
+        t0 = time.perf_counter()
+        summary["models"][arch] = train18a_model(dev, arch, layers, B, T, kind, kernels,
+                                                 variants, card)
+        summary["models"][arch]["phase_s"] = time.perf_counter() - t0
+        log(f"[train18a] {arch} took {summary['models'][arch]['phase_s']:.1f} s")
+    return [], summary
 
 
 # ---------------------------------------------------------------------------
@@ -4922,6 +5355,11 @@ def main() -> int:
     train["phase_s"] = time.perf_counter() - t_p
     log(f"[train] phase took {train['phase_s']:.1f} s")
     timings["train"] = timing_split("train")
+    t_p = time.perf_counter()
+    _, train18a = phase_train18a(dev, results, card, train)
+    train18a["phase_s"] = time.perf_counter() - t_p
+    log(f"[train18a] phase took {train18a['phase_s']:.1f} s")
+    timings["train18a"] = timing_split("train18a")
     K.reset_launch_counts()          # the float path ran in no path since [quantvar]
 
     # launches: the sum over the public ops, the serving paths and training,
@@ -4985,7 +5423,12 @@ def main() -> int:
              f"EngineLoop dbrx-132b ({DBRX_LAYERS} of 40 layers)": big["dbrx"]["launches"],
              f"EngineLoop dbrx-132b ({DBRX_LAYERS} of 40 layers), CUDA graphs":
                  big["dbrx"]["graphs"]["launches"],
-             f"training {TRAIN_ARCH}, {TRAIN_STEPS} AdamW steps": train["launches"]}
+             f"training {TRAIN_ARCH}, {TRAIN_STEPS} AdamW steps": train["launches"],
+             **{f"training {arch}"
+                + (f" ({r['reduced']['num_layers'][1]} of {r['reduced']['num_layers'][0]} "
+                   "layers)" if "reduced" in r else "")
+                + f", {TRAIN18A_STEPS} {r['optimizer']} steps": r["launches"]
+                for arch, r in train18a["models"].items()}}
     kernels = []
     for name in KERNELS:
         r = results[name]
@@ -5014,7 +5457,7 @@ def main() -> int:
               "jamba_path": big["jamba"], "seamless_path": big["seamless"],
               "qwen2vl_path": big["qwen2vl"], "paper_paths": big["paper"],
               "quantvar_path": big["quantvar"], "dbrx_path": big["dbrx"],
-              "train_path": train, "ops": ops, "geometry": geometry, "dryrun": dryrun,
+              "train_path": train, "train18a_paths": train18a, "ops": ops, "geometry": geometry, "dryrun": dryrun,
               "wstream": wstream, "timing_split": timings,
               "total_s": time.perf_counter() - t_start}
     (OUT / "chip_smoke.json").write_text(json.dumps(detail, indent=1))

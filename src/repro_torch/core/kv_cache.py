@@ -104,6 +104,21 @@ def init_layer_cache(batch: int, max_seq: int, kv_heads: int, head_dim: int,
         window=window, key_bits=key_bits)
 
 
+def quantized_cache(k: torch.Tensor, v: torch.Tensor, *, key_bits: int = 8,
+                    value_fp8: bool = True) -> LayerKVCache:
+    """A cache of exactly the S tokens k/v [B, S, H_kv, D], built out of
+    place from ``quantize_keys`` and ``cast_values`` (what ``append`` at
+    position 0 writes into an ``init_layer_cache`` of S slots): training's
+    cross caches, whose scale, zero and values carry a gradient as the
+    reference's do.  The key codes pass none (the rounding's gradient is
+    zero, the int8 cast cuts it); the fp8 cast stays in the graph, so the
+    values' cotangent is rounded to e4m3 on its way back, as XLA's is."""
+    kq, ks, kz = quantize_keys(k, bits=key_bits)
+    vdt = q.FP8_DTYPE if value_fp8 else torch.bfloat16
+    length = torch.tensor(k.shape[1], dtype=torch.int32, device=k.device)
+    return LayerKVCache(kq, ks, kz, cast_values(v, vdt), length, key_bits=key_bits)
+
+
 def roundtrip_kv(k: torch.Tensor, v: torch.Tensor, *, key_bits: int = 8,
                  v_dtype, dtype=torch.bfloat16):
     """Quantize-then-dequantize a K/V chunk: exactly the values the cache

@@ -182,6 +182,35 @@ def quant_decode_attention(
 quant_decode_attention.launches = 0
 
 
+class QuantDecodeAttentionFunction(torch.autograd.Function):
+    """``quant_decode_attention`` under autograd (training's cross attention
+    of an encoder-decoder: every query token over the encoder's quantized
+    K/V, folded into the head axis by the dispatcher): the forward launches
+    the kernel through the wrapper and saves its operands; the backward is
+    autograd of ``quant_decode_attention_plain`` recomputed from them
+    (``loader.plain_vjp``), the reference's ``decode_attention_ref``, which
+    XLA differentiates.  Gradients reach q, ``k_scale``, ``k_zero`` and the
+    values (fp8 values get an fp8 gradient, as XLA's cast transposes);
+    the int8 key codes and ``length`` take none.  ``apply(q, k_q, k_scale,
+    k_zero, v, length, key_bits)`` -> f32 [B, H, D]."""
+
+    @staticmethod
+    def forward(ctx, q_, k_q, k_scale, k_zero, v, length, key_bits):
+        ctx.save_for_backward(q_, k_q, k_scale, k_zero, v, length)
+        ctx.key_bits = key_bits
+        return quant_decode_attention(q_, k_q, k_scale, k_zero, v, length, key_bits=key_bits)
+
+    @staticmethod
+    def backward(ctx, grad):
+        q_, k_q, k_scale, k_zero, v, length = ctx.saved_tensors
+        needs = ctx.needs_input_grad
+        grads = loader.plain_vjp(
+            lambda a, b, c, d: quant_decode_attention_plain(a, k_q, b, c, d, length,
+                                                            key_bits=ctx.key_bits),
+            (q_, k_scale, k_zero, v), (needs[0], needs[2], needs[3], needs[4]), grad)
+        return grads[0], None, grads[1], grads[2], grads[3], None, None
+
+
 def paged_quant_decode_attention_plain(
         q_: torch.Tensor, k_q: torch.Tensor, k_scale: torch.Tensor,
         k_zero: torch.Tensor, v: torch.Tensor, table: torch.Tensor,

@@ -11,9 +11,13 @@ with checkpoints.
 the reference's ``--reduced`` flag is on whatever is passed (``store_true``
 with ``default=True``), so the port names the variant in ``--arch``
 instead.  Weights are random, drawn from ``--seed``.  It runs on ``cuda``
-(kernels 4 and 7 in the forward); ``--device cpu`` runs the plain PyTorch
-path.  Attention models with dense or MoE FFNs train; the others raise
-(ROADMAP queue 1 item 18a).
+(kernels 4 and 7 in the forward, and kernel 6 in an encoder-decoder's
+cross attention); ``--device cpu`` runs the plain PyTorch path.  Every
+layer kind trains.  The batches follow the reference's launcher: an
+encoder-decoder also gets ``src_embeds`` of zeros [batch, seq // 4,
+d_model]; a vision model gets ``embeds`` [batch, seq, d_model] of N(0, 1) x
+0.02 in place of its tokens, drawn on the device from a generator seeded
+with ``--seed`` and the step (``jax.random`` draws other numbers).
 """
 from __future__ import annotations
 
@@ -30,6 +34,25 @@ from repro_torch.serving.engine import resolve_device
 from repro_torch.training import checkpoint as CKPT
 from repro_torch.training import optimizer as O
 from repro_torch.training import train_loop as TL
+
+
+def frontend_batch(cfg, batch: dict, seed: int, step: int) -> dict:
+    """The pipeline's batch {"tokens", "labels", "mask"} as the reference's
+    launcher hands it to a model: an encoder-decoder's gains ``src_embeds``
+    (zeros, bf16 [B, T // 4, d]); a vision model's has ``embeds`` (bf16 [B,
+    T, d], N(0, 1) x 0.02 from a generator seeded with ``seed`` and
+    ``step``) in place of ``tokens``."""
+    B, T = batch["tokens"].shape
+    dev = batch["tokens"].device
+    if cfg.is_encdec:
+        batch = dict(batch, src_embeds=torch.zeros((B, T // 4, cfg.d_model),
+                                                   dtype=torch.bfloat16, device=dev))
+    if cfg.frontend == "vision":
+        gen = torch.Generator(device=dev).manual_seed(seed * 1_000_003 + step)
+        emb = torch.randn((B, T, cfg.d_model), generator=gen, device=dev)
+        batch = {"embeds": emb.to(torch.bfloat16) * 0.02, "labels": batch["labels"],
+                 "mask": batch["mask"]}
+    return batch
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
@@ -68,7 +91,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
     losses = []
     for i, batch in enumerate(data.batches(args.steps - start)):
         step = start + i + 1
-        tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        tb = frontend_batch(cfg, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()},
+                            args.seed, step)
         params, opt_state, metrics = step_fn(params, opt_state, tb)
         losses.append(float(metrics["loss"]))
         if step % args.log_every == 0 or step == args.steps:

@@ -5,7 +5,9 @@ pre-scale of the paper's mixed-precision policy, the training forward
 one-token decode against it (``Engine.generate``), chunked prefill and
 one-token decode against the paged pool (``EngineLoop``) — and an
 encoder-decoder's cross attention over the encoder's quantized K/V
-(``build_cross_cache``, ``cross_attention``).  Every self-attention entry
+(``build_cross_cache``, in place for serving; ``cross_cache_train``, out of
+place and differentiable for training; ``cross_attention``).  Every
+self-attention entry
 point takes ``lora``, the per-row multi-LoRA bypass on the q and v
 projections (C7; ``core.lora``).
 
@@ -50,7 +52,7 @@ def _project_qkv(x: torch.Tensor, p: dict, cfg: ModelConfig,
                  dispatch: D.Dispatcher, lora: Optional[dict] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """q/k/v projections of x, k and v reading x too (cross attention
-    projects its k and v from the encoder output in ``build_cross_cache``).
+    projects its k and v from the encoder output in ``_cross_kv``).
     ``lora``: the adapter tables ("wq_a", "wq_b", "wv_a",
     "wv_b") and each row's adapter id ("ids" [B]); the bypass is computed
     in float32 from the bf16 input, cast to the projection's dtype and
@@ -216,17 +218,34 @@ def attention_decode_paged(x: torch.Tensor, p: dict, cfg: ModelConfig,
     return L.apply_linear(out.reshape(B, T, -1), p["wo"], cfg.quant, dispatch)
 
 
+def _cross_kv(enc_out: torch.Tensor, p: dict, cfg: ModelConfig,
+              dispatch: D.Dispatcher) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross attention's k and v [B, S, H_kv, D], projected from the
+    encoder output enc_out [B, S, d] (no bias)."""
+    B, S = enc_out.shape[:2]
+    shape = (B, S, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return (L.apply_linear(enc_out, p["wk"], cfg.quant, dispatch).reshape(shape),
+            L.apply_linear(enc_out, p["wv"], cfg.quant, dispatch).reshape(shape))
+
+
 def build_cross_cache(enc_out: torch.Tensor, p: dict, cfg: ModelConfig,
                       cache: kvc.LayerKVCache, dispatch: D.Dispatcher) -> kvc.LayerKVCache:
     """One decoder layer's cross-attention cache: k/v projected from the
-    encoder output enc_out [B, S, d] (no bias) and quantized into ``cache``,
-    a dense cache of S slots written in place from slot 0 (the reference's
+    encoder output enc_out [B, S, d] and quantized into ``cache``, a dense
+    cache of S slots written in place from slot 0 (the reference's
     ``init_layer_cache`` + ``append``).  Returns it with ``length`` S."""
-    B, S = enc_out.shape[:2]
-    hd = cfg.resolved_head_dim
-    kp = L.apply_linear(enc_out, p["wk"], cfg.quant, dispatch).reshape(B, S, cfg.num_kv_heads, hd)
-    vp = L.apply_linear(enc_out, p["wv"], cfg.quant, dispatch).reshape(B, S, cfg.num_kv_heads, hd)
-    return kvc.append(cache, kp, vp, 0)
+    return kvc.append(cache, *_cross_kv(enc_out, p, cfg, dispatch), 0)
+
+
+def cross_cache_train(enc_out: torch.Tensor, p: dict, cfg: ModelConfig,
+                      dispatch: D.Dispatcher) -> kvc.LayerKVCache:
+    """``build_cross_cache`` for training: the same projections and
+    quantization, the cache built out of place (``kv_cache.quantized_cache``)
+    so that the gradient reaches ``wk`` through the keys' scale and zero
+    and ``wv`` through the fp8 values, as in the reference's train step."""
+    return kvc.quantized_cache(*_cross_kv(enc_out, p, cfg, dispatch),
+                               key_bits=cfg.quant.kv_key_bits,
+                               value_fp8=cfg.quant.kv_value_fp8)
 
 
 def cross_attention(x: torch.Tensor, p: dict, cfg: ModelConfig,

@@ -29,7 +29,9 @@ real token, so a padded chunk leaves the state an unpadded one would.  It
 is an int or a one-element int32 device tensor: every pick by it is an
 ``index_select`` on the device, so a CUDA graph replays the step for any
 value.  There is no TPU kernel for either scan (the reference computes both
-in XLA); both run as plain PyTorch on every device.
+in XLA); both run as plain PyTorch on every device, and autograd
+differentiates both for training (the per-block and per-token pieces are
+``unbind`` views, whose backward is one stack).
 """
 from __future__ import annotations
 
@@ -147,17 +149,22 @@ def selective_scan(a: torch.Tensor, bx: torch.Tensor, h0: torch.Tensor) -> torch
     """h_t = a_t h_{t-1} + bx_t over a [B, T, d, S] float32 block from the
     entry state h0 [B, d, S], T a multiple of ``SCAN_BLOCK``: the associative
     scan inside each block, a sequential fold across blocks.  Returns every
-    h_t [B, T, d, S]."""
+    h_t [B, T, d, S].  The blocks are stacked, not written into a buffer,
+    so autograd differentiates the scan (training) with the same bits."""
     B, T = a.shape[:2]
     nb = T // SCAN_BLOCK
     aa, hh = _assoc_scan(a.reshape(B, nb, SCAN_BLOCK, *a.shape[2:]),
                          bx.reshape(B, nb, SCAN_BLOCK, *bx.shape[2:]), dim=2)
-    h = torch.empty_like(hh)
+    blocks = []
     s = h0
-    for k in range(nb):
-        torch.add(aa[:, k] * s[:, None], hh[:, k], out=h[:, k])
-        s = h[:, k, -1]
-    return h.reshape(B, T, *a.shape[2:])
+    # unbind: one backward for every block, where a select's backward would
+    # write a zero tensor of the whole scan's size a block
+    for a_k, h_k in zip(aa.unbind(1), hh.unbind(1)):
+        blocks.append(a_k * s[:, None] + h_k)
+        s = blocks[-1][:, -1]
+    if nb == 1:         # a serving chunk or decode step: no copy of h
+        return blocks[0]
+    return torch.stack(blocks, dim=1).reshape(B, T, *a.shape[2:])
 
 
 def _mamba_inner(xz: torch.Tensor, p: dict, cfg: ModelConfig, conv_in: torch.Tensor,
@@ -316,14 +323,18 @@ def wkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     tokens (None: all), a padded step leaving S as it was.  Returns (y [B, T,
     H, dh], exit state)."""
     ys = []
+    # per-token views by unbind, whose backward stacks the tokens' gradients
+    # once: a select's backward would write a zero tensor of the whole
+    # [B, t, H, dh, dh] piece (1 GiB at rwkv6's width and 4 x 256 tokens) a token
+    rs, ws = r.unbind(1), w.unbind(1)
     for c0 in range(0, r.shape[1], RWKV_CHUNK):
         piece = slice(c0, c0 + RWKV_CHUNK)
         kv = k[:, piece, ..., :, None] * v[:, piece, ..., None, :]   # [B, t, H, dh, dh]
         ukv = u[None, None, :, :, None] * kv
-        for i in range(kv.shape[1]):
+        for i, (kv_t, ukv_t) in enumerate(zip(kv.unbind(1), ukv.unbind(1))):
             t = c0 + i
-            ys.append(torch.einsum("bhi,bhij->bhj", r[:, t], S + ukv[:, i]))
-            nxt = w[:, t, ..., None] * S + kv[:, i]
+            ys.append(torch.einsum("bhi,bhij->bhj", rs[t], S + ukv_t))
+            nxt = ws[t][..., None] * S + kv_t
             S = nxt if live is None else torch.where(live[t], nxt, S)
     return torch.stack(ys, dim=1), S
 

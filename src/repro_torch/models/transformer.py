@@ -1,8 +1,11 @@
 """Model assembly — port of ``repro.models.transformer``: parameters
 (attention, mamba or rwkv6 layers; dense or MoE FFN; the quantized serving
 tree or the float training tree), the training forward (``forward_hidden``,
-``forward_train``: attention layers with dense or MoE FFNs, each layer under
-``torch.utils.checkpoint`` when ``StepCtx.remat``), the two decode states — dense per-sequence caches
+``forward_train``: every layer kind the reference trains -- full or windowed
+attention, mamba and rwkv6 layers from a zero state, dense or MoE FFNs, an
+encoder-decoder's encoder and cross attention, ``embeds`` batches -- each
+layer under ``torch.utils.checkpoint`` when ``StepCtx.remat``), the two
+decode states — dense per-sequence caches
 (``init_cache``, ``prefill``, ``decode_step``: the slot-synchronous
 ``Engine.generate``) and the paged pool (``init_paged_cache``,
 ``prefill_chunk_paged``, ``decode_step`` / ``decode_step_bucketed``: the
@@ -438,50 +441,67 @@ def embed_tokens(params: dict, cfg: ModelConfig, tokens: torch.Tensor) -> torch.
 
 
 def _train_layer(x: torch.Tensor, pp: dict, cfg: ModelConfig, pat: LayerPattern,
-                 positions: torch.Tensor, ctx: StepCtx) -> Tuple[torch.Tensor, torch.Tensor]:
+                 positions: torch.Tensor, ctx: StepCtx,
+                 cross: Optional[kvc.LayerKVCache] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One layer in train mode (the reference ``_apply_pattern``'s "train"
-    branch): an attention layer with its dense FFN, or its MoE FFN at the
-    training capacity (``cfg.moe_capacity_factor``: tokens past it drop).
-    Returns (x, the layer's MoE aux [2]: load-balance loss, router
-    z-loss; zeros for a dense FFN)."""
+    branches): an attention layer (windowed where the pattern says) and, on
+    an encoder-decoder, its cross attention over ``cross``; a mamba layer
+    from a zero state; each with its dense FFN, or its MoE FFN at the
+    training capacity (``cfg.moe_capacity_factor``: tokens past it drop);
+    or an rwkv6 layer from a zero state, its time mix then its channel mix
+    with the state carried between them.  Returns (x, the layer's MoE aux
+    [2]: load-balance loss, router z-loss; zeros for a dense FFN)."""
     dsp = ctx.dispatch
+    B = x.shape[0]
+    aux = torch.zeros((2,), dtype=torch.float32, device=x.device)
     h = L.rms_norm(x, pp["ln1"], cfg.rms_eps, dsp)
-    x = x + A.attention_train(h, pp["attn"], cfg, pat, positions, dsp, ctx.policy)
+    if pat.kind == "rwkv":
+        st = S.init_rwkv_state(B, cfg, device=x.device)
+        y, st = S.rwkv_time_mix(h, pp["tm"], cfg, st, dsp)
+        x = x + y
+        h2 = L.rms_norm(x, pp["ln2"], cfg.rms_eps, dsp)
+        y2, _ = S.rwkv_channel_mix(h2, pp["tm"], cfg, st, dsp)
+        return x + y2, aux
+    if pat.kind == "mamba":
+        y, _ = S.mamba_forward(h, pp["mamba"], cfg, S.init_mamba_state(B, cfg, device=x.device),
+                               dsp)
+        x = x + y
+    else:
+        x = x + A.attention_train(h, pp["attn"], cfg, pat, positions, dsp, ctx.policy)
+        if cross is not None:
+            hc = L.rms_norm(x, pp["ln_cross"], cfg.rms_eps, dsp)
+            x = x + A.cross_attention(hc, pp["cross"], cfg, cross, dsp, ctx.policy)
     h2 = L.rms_norm(x, pp["ln2"], cfg.rms_eps, dsp)
     if pat.moe:
         y, aux = M.apply_moe(h2, pp["moe"], cfg, dispatch=dsp, full_capacity=False)
     else:
         y = L.apply_ffn(h2, pp["ffn"], cfg, dsp)
-        aux = torch.zeros((2,), dtype=torch.float32, device=x.device)
     return x + y, aux
 
 
-def _check_trainable(cfg: ModelConfig) -> None:
-    if cfg.is_encdec or cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: training an encoder-decoder or a model with a "
-            f"{cfg.frontend!r} frontend is ROADMAP queue 1 item 18a")
-    for patterns, _count in cfg.layer_plan():
-        for pat in patterns:
-            if pat.kind != "attn" or pat.window:
-                raise NotImplementedError(
-                    f"{cfg.name}: training {pat.kind} layers"
-                    + (f" with a {pat.window}-token window" if pat.window else "")
-                    + " is ROADMAP queue 1 item 18a; the port trains full-attention "
-                    "layers with dense or MoE FFNs")
+def _remat(fn, remat: bool, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` when ``remat``."""
+    if remat:
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def forward_hidden(params: dict, cfg: ModelConfig, batch: dict,
                    ctx: Optional[StepCtx] = None,
                    collect: Optional[list] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The training forward up to the final norm: batch {"tokens" [B, T]
-    (or "embeds" [B, T, d]), "positions"? [B, T]} -> (hidden [B, T, d]
-    bf16, MoE aux [2] summed over the layers in layer order).  The loss
-    takes it with a chunked lm_head and cross entropy
-    (``training.train_loop.chunked_cross_entropy``), so [B, T, V] logits
-    never exist whole.  ``collect``: if a list, each layer's output is
-    appended (parity tests)."""
-    _check_trainable(cfg)
+    (or "embeds" [B, T, d]: the vision frontend's), "positions"? [B, T],
+    "src_embeds" [B, S, d] (an encoder-decoder's source)} -> (hidden [B, T,
+    d] bf16, MoE aux [2] summed over the layers in layer order).  An
+    encoder-decoder first encodes the source (each encoder layer under
+    remat too) and builds every decoder layer's cross cache from it
+    (``attention.cross_cache_train``), as the reference's train-mode cache
+    holds cross K/V only; each decoder layer takes its cache as an input
+    of its checkpoint.  The loss takes the hidden state with a chunked
+    lm_head and cross entropy (``training.train_loop.chunked_cross_entropy``),
+    so [B, T, V] logits never exist whole.  ``collect``: if a list, each
+    decoder layer's output is appended (parity tests)."""
     ctx = ctx or StepCtx(cfg)
     if "tokens" in batch:
         x = embed_tokens(params, cfg, batch["tokens"])
@@ -491,17 +511,22 @@ def forward_hidden(params: dict, cfg: ModelConfig, batch: dict,
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(T, device=x.device)[None].expand(B, T)
+    cross = None
+    if cfg.is_encdec:
+        enc_out = encode(params, cfg, batch["src_embeds"], ctx.dispatch, ctx.policy,
+                         remat=ctx.remat)
+        cross = tuple(
+            tuple([A.cross_cache_train(enc_out, layer_slice(sp[pi]["cross"], li), cfg,
+                                       ctx.dispatch) for li in range(count)]
+                  for pi in range(len(patterns)))
+            for sp, (patterns, count) in zip(params["stacks"], cfg.layer_plan()))
     aux = torch.zeros((2,), dtype=torch.float32, device=x.device)
     for si, (patterns, count) in enumerate(cfg.layer_plan()):
         sp = params["stacks"][si]
         for li in range(count):
             for pi, pat in enumerate(patterns):
-                args = (x, layer_slice(sp[pi], li), cfg, pat, positions, ctx)
-                if ctx.remat:
-                    x, a = torch.utils.checkpoint.checkpoint(_train_layer, *args,
-                                                             use_reentrant=False)
-                else:
-                    x, a = _train_layer(*args)
+                x, a = _remat(_train_layer, ctx.remat, x, layer_slice(sp[pi], li), cfg, pat,
+                              positions, ctx, None if cross is None else cross[si][pi][li])
                 aux = aux + a
                 if collect is not None:
                     collect.append(x)
@@ -616,16 +641,18 @@ def _encoder_layer(x: torch.Tensor, pp: dict, cfg: ModelConfig, positions: torch
 
 def encode(params: dict, cfg: ModelConfig, src_embeds: torch.Tensor,
            dispatch: D.Dispatcher, policy: PrecisionPolicy = DEFAULT_POLICY,
-           collect: Optional[list] = None) -> torch.Tensor:
+           collect: Optional[list] = None, remat: bool = False) -> torch.Tensor:
     """The encoder-decoder's bidirectional encoder over src_embeds [B, S, d]
     (source positions 0..S-1), then ``enc_norm``.  ``collect``: if a list,
-    each encoder layer's output is appended."""
+    each encoder layer's output is appended; ``remat``: each layer under
+    ``torch.utils.checkpoint`` (training, as the reference's encoder scan
+    is checkpointed)."""
     x = src_embeds.to(torch.bfloat16)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     for li in range(cfg.encoder_layers):
-        x = _encoder_layer(x, layer_slice(params["encoder"], li), cfg, positions,
-                           dispatch, policy)
+        x = _remat(_encoder_layer, remat, x, layer_slice(params["encoder"], li), cfg,
+                   positions, dispatch, policy)
         if collect is not None:
             collect.append(x)
     return L.rms_norm(x, params["enc_norm"], cfg.rms_eps, dispatch)

@@ -33,8 +33,9 @@ use is holding the kernel path against the plain path on the card.
 
 Training: a kernel's output carries no gradient (every wrapper refuses a
 launch on tensors that require grad, ``kernels.loader.refuse_grad``), so
-under grad mode on the card ``rmsnorm`` and ``prefill_attention`` -- the
-two kernels of the training forward -- run through their
+under grad mode on the card ``rmsnorm``, ``prefill_attention`` and
+``decode_attention`` -- the kernels of the training forward, the last one
+an encoder-decoder's cross attention -- run through their
 ``autograd.Function`` (the kernel forward, autograd of the plain version
 backward; the JAX package has no backward kernel).  On the CPU their plain
 versions are differentiable as they stand.
@@ -225,6 +226,8 @@ class Dispatcher:
             out = QA.quant_decode_attention_plain(
                 *args, pos, key_bits=cache.key_bits,
                 compute_dtype=policy.compute_dtype)
+        elif q.is_cuda and _wants_grad(q, cache.k_scale, cache.k_zero, cache.v):
+            out = QA.QuantDecodeAttentionFunction.apply(*args, pos, cache.key_bits)
         else:
             out = QA.quant_decode_attention(*args, pos, key_bits=cache.key_bits)
         out = out.reshape(B, Hkv, T, G, D).transpose(1, 2).reshape(B, T, H, D)

@@ -64,12 +64,14 @@ def _global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in leaves(tree)))
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    """(grads as float32 scaled to a global norm of at most ``max_norm``,
-    the norm before clipping)."""
+def clip_scale(grads, max_norm: float):
+    """(the factor that scales ``grads`` to a global norm of at most
+    ``max_norm``, the norm before clipping): the reference's
+    ``clip_by_global_norm`` is ``g.float() * scale`` a leaf, which the
+    updates below apply to each leaf as they reach it, so no float32 copy
+    of the whole tree exists at once."""
     norm = _global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return unflatten(grads, [g.float() * scale for g in leaves(grads)]), norm
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0), norm
 
 
 # ---------------------------------------------------------------------------
@@ -87,12 +89,13 @@ def adamw_init(params) -> dict:
 def adamw_update(cfg: OptConfig, params, grads, state):
     step = state["step"] + 1
     lr = lr_schedule(cfg, step)
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    scale, gnorm = clip_scale(grads, cfg.grad_clip)
     stepf = step.float()
     b1c = 1 - torch.pow(cfg.b1, stepf)
     b2c = 1 - torch.pow(cfg.b2, stepf)
 
     def upd(p, g, m, v):
+        g = g.float() * scale
         m2 = cfg.b1 * m + (1 - cfg.b1) * g
         v2 = cfg.b2 * v + (1 - cfg.b2) * g * g
         mh = m2 / b1c
@@ -129,27 +132,35 @@ def adafactor_init(params) -> dict:
 def adafactor_update(cfg: OptConfig, params, grads, state):
     step = state["step"] + 1
     lr = lr_schedule(cfg, step)
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    scale, gnorm = clip_scale(grads, cfg.grad_clip)
     decay = 1.0 - torch.pow(step.float() + 1.0, -0.8)
 
     def upd(p, g, s):
-        g = g.float()
+        # each float32 temporary of a leaf's size is dropped once used: at
+        # gemma3-27b's embedding (262144 x 5376) one is 5.25 GiB
+        g = g.float() * scale
         g2 = g * g + 1e-30
         if _factored(p.shape):
             vr = decay * s["vr"] + (1 - decay) * g2.mean(-1)
             vc = decay * s["vc"] + (1 - decay) * g2.mean(-2)
+            del g2
             denom = (vr[..., None] * vc[..., None, :]
                      / torch.clamp(vr.mean(-1)[..., None, None], min=1e-30))
             update = g * torch.rsqrt(denom + 1e-30)
+            del denom
             new_s = {"vr": vr, "vc": vc}
         else:
             v = decay * s["v"] + (1 - decay) * g2
+            del g2
             update = g * torch.rsqrt(v + 1e-30)
             new_s = {"v": v}
+        del g
         # update clipping (Adafactor's RMS rule)
         rms = torch.sqrt(torch.mean(update * update) + 1e-30)
         update = update / torch.clamp(rms, min=1.0)
-        newp = p.float() - lr * update - lr * cfg.weight_decay * p.float()
+        pf = p.float()
+        newp = pf - lr * update - lr * cfg.weight_decay * pf
+        del pf, update
         return newp.to(p.dtype), new_s
 
     out = [upd(p, g, s) for p, g, s in zip(leaves(params), leaves(grads),

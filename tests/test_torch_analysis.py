@@ -12,7 +12,8 @@ held to the JAX package where it has a counterpart.
 * The dry-run CLI runs the 40 cases with ``--device-memory`` (7 skips, no
   failure) and refuses to guess a capacity without a card.
 * ``analysis.trace.summarize`` on stub profiler events gives the fields
-  ``chip_smoke.py``'s ``[profile]`` lines print; ``decode_step_bound``
+  ``chip_smoke.py``'s ``[profile]`` lines print, and ``device_ms`` sums
+  stub kineto events as its training profiles read them; ``decode_step_bound``
   equals a hand count at ``@tiny``.
 * ``models.shard_util`` and ``launch.mesh``: the one-card layout."""
 import dataclasses
@@ -238,6 +239,30 @@ def test_trace_summary_from_stub_events():
         "cudaMemcpyAsync": {"host_ms_per_step": 0.02, "calls_per_step": 2.0}}
     assert TR.summarize([_event("cudaLaunchKernel", 1, cpu_us=5.0, device=cpu)], 1,
                         100.0) == {"device_busy_share": "not measured"}
+
+
+def _kineto(name, ns, device):
+    return types.SimpleNamespace(name=lambda: name, duration_ns=lambda: ns,
+                                 device_type=lambda: device)
+
+
+def test_trace_device_ms_from_stub_kineto_events():
+    """``device_ms`` sums the CUDA events of a profiled run and those whose
+    name holds each symbol, in ms; host events count nowhere."""
+    from torch.autograd import DeviceType
+    events = [_kineto("rmsnorm_kernel(float const*)", 2_000_000, DeviceType.CUDA),
+              _kineto("void flash_prefill_kernel<128>", 3_500_000, DeviceType.CUDA),
+              _kineto("rmsnorm_kernel(float const*)", 500_000, DeviceType.CUDA),
+              _kineto("Memset (Device)", 250_000, DeviceType.CUDA),
+              _kineto("rmsnorm_kernel launch", 9_000_000, DeviceType.CPU)]
+    prof = types.SimpleNamespace(profiler=types.SimpleNamespace(
+        kineto_results=types.SimpleNamespace(events=lambda: events)))
+    total, by = TR.device_ms(prof, ("rmsnorm_kernel", "flash_prefill_kernel",
+                                    "dense_decode_kernel"))
+    assert total == 6.25
+    assert by == {"rmsnorm_kernel": 2.5, "flash_prefill_kernel": 3.5,
+                  "dense_decode_kernel": 0.0}
+    assert TR.device_ms(prof) == (6.25, {})
 
 
 def _packed_bytes(k, n, bits):

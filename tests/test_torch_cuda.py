@@ -72,7 +72,9 @@ and experts with live-row counts and ids.
 
 Training: the two kernels of the training forward under their
 ``autograd.Function``s at qwen2-1.5b's shapes (forward within the kernel
-tolerance, every input gradient equal to autograd of the plain version);
+tolerance, every input gradient equal to autograd of the plain version),
+kernel 7 windowed and non-causal and kernel 6 over a differentiable cross
+cache under theirs;
 a wrapper called on an input that requires grad raises; one qwen2-7b@tiny
 step's loss and gradients on the kernel route against the plain route.
 
@@ -1482,6 +1484,61 @@ def test_training_functions_at_qwen2_1_5b_shapes(dev):
         yb.backward(grad)
         for ta, tb in zip(a, b):
             _close(ta.grad, tb.grad, 1e-5)
+
+
+@pytest.mark.gpu
+def test_training_functions_of_the_other_layer_kinds(dev):
+    """Kernel 7 windowed and non-causal under ``FlashPrefillFunction`` and
+    kernel 6 under ``QuantDecodeAttentionFunction`` over a cache built out
+    of place (``quantized_cache``: fp8 values and the keys' scale and zero
+    carry a gradient; 64 query tokens folded into the head axis, as cross
+    attention calls it): the forward launches the kernel and equals the
+    plain version within the kernel tolerance; every input gradient equals
+    autograd of the plain version on the same inputs; the dispatcher takes
+    the Function for a cross cache that requires grad."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    q = (torch.randn((1, 96, 4, 128), generator=g, device=dev) / math.sqrt(128)).bfloat16()
+    k = torch.randn((1, 96, 2, 128), generator=g, device=dev).bfloat16()
+    qn = (torch.randn((2, 32, 4, 64), generator=g, device=dev) / 8).bfloat16()
+    kn = torch.randn((2, 32, 4, 64), generator=g, device=dev).bfloat16()
+    for (qq, kk, causal, window) in ((q, k, True, 32), (qn, kn, False, 0)):
+        a = [t.clone().requires_grad_(True) for t in (qq, kk, kk)]
+        b = [t.clone().requires_grad_(True) for t in (qq, kk, kk)]
+        before = K.launch_counts()["flash_prefill_attention"]
+        ya = FP.FlashPrefillFunction.apply(*a, causal, window)
+        assert K.launch_counts()["flash_prefill_attention"] == before + 1
+        yb = FP.flash_prefill_attention_plain(*b, causal=causal, window=window)
+        _close(ya.detach(), yb.detach(), 2e-2)
+        grad = torch.randn(ya.shape, generator=g, device=dev)
+        ya.backward(grad)
+        yb.backward(grad)
+        for ta, tb in zip(a, b):
+            _close(ta.grad, tb.grad, 1e-5)
+    kx = torch.randn((2, 32, 4, 64), generator=g, device=dev).bfloat16()
+    vx = (0.1 * torch.randn((2, 32, 4, 64), generator=g, device=dev)).bfloat16()
+    qd = (torch.randn((2, 4 * 64, 64), generator=g, device=dev) / 8).bfloat16()
+    grads = []
+    for use_fn in (True, False):
+        kk, vv, qq = (t.clone().requires_grad_(True) for t in (kx, vx, qd))
+        c = KV.quantized_cache(kk, vv)
+        args = (qq, c.k_q, c.k_scale, c.k_zero, c.v, c.length)
+        before = K.launch_counts()["quant_decode_attention"]
+        y = (QA.QuantDecodeAttentionFunction.apply(*args, 8) if use_fn
+             else QA.quant_decode_attention_plain(*args))
+        assert K.launch_counts()["quant_decode_attention"] == before + int(use_fn)
+        y.backward(torch.ones_like(y) * 1e-2)
+        grads.append((y.detach(), qq.grad, kk.grad, vv.grad))
+    (ya, *ga), (yb, *gb) = grads
+    _close(ya, yb, 2e-2)
+    for ta, tb in zip(ga, gb):
+        _close(ta, tb, 1e-5)
+    kk, vv = kx.clone().requires_grad_(True), vx.clone().requires_grad_(True)
+    c = KV.quantized_cache(kk, vv)
+    with pytest.raises(RuntimeError, match="autograd Function"):
+        QA.quant_decode_attention(qd, c.k_q, c.k_scale, c.k_zero, c.v, c.length)
+    out = PD.Dispatcher().decode_attention(qd.reshape(2, 64, 4, 64), c, c.length,
+                                           DEFAULT_POLICY, causal=False)
+    assert out.grad_fn is not None and out.shape == (2, 64, 4, 64)
 
 
 @pytest.mark.gpu

@@ -16,7 +16,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 PORT_FILES = sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")) + [
     "chip_smoke.py", "tools/ab_trees.py", "tools/host_time.py",
-    "tools/matmul_splits_sweep.py"]
+    "tools/matmul_splits_sweep.py", "tools/train_conditioning.py"]
 
 
 def _forbidden_imports(path: Path):

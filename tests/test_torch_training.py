@@ -215,9 +215,9 @@ def test_lr_schedule_and_clipping_match_reference():
     ptree = {"a": torch.from_numpy(tree["a"]), "b": (torch.from_numpy(tree["b"][0]),)}
     for max_norm in (0.5, 100.0):
         jc, jn = JO.clip_by_global_norm(jax.tree.map(jnp.asarray, tree), max_norm)
-        pc, pn = PO.clip_by_global_norm(ptree, max_norm)
+        scale, pn = PO.clip_scale(ptree, max_norm)
         np.testing.assert_allclose(float(pn), float(jn), rtol=OPT_REL)
-        for a, b in zip(jax.tree.leaves(jc), PO.leaves(pc)):
+        for a, b in zip(jax.tree.leaves(jc), [g.float() * scale for g in PO.leaves(ptree)]):
             np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=OPT_REL)
 
 
@@ -327,15 +327,6 @@ def test_launch_train_on_cpu(tmp_path, capsys):
     assert again["losses"] == []
     text = capsys.readouterr().out
     assert "[train] restored step 3" in text and "[train] done: loss" in text
-
-
-@pytest.mark.parametrize("arch", ("rwkv6-7b@tiny", "jamba-1.5-large-398b@tiny",
-                                  "gemma3-27b@reduced", "seamless-m4t-large-v2@reduced"))
-def test_untrained_layer_kinds_raise(arch):
-    cfg = PR.get(arch)
-    batch = {"tokens": torch.zeros((1, 8), dtype=torch.int64)}
-    with pytest.raises(NotImplementedError, match="18a"):
-        PT.forward_hidden({}, cfg, batch)
 
 
 def test_function_backward_is_plain_autograd_on_cpu():
