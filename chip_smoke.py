@@ -83,6 +83,24 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    equal the eager run with no capture after warmup, and each of its steps
    is timed, its syncs counted and its host time in ``_stage_wave`` summed
    (a decode step that stages nothing must make exactly one sync).
+   Then ``[kvflash]``, §4.1's per-layer KV spill on the same engine
+   (``KVSpillManager``, the reference's Figure-2 Flash: 1 GB/s, 15 us a
+   read): one row's whole prompt (1,536 and then 8,704 tokens) is
+   prefilled through kernel 7 into a dense cache; the tokens past the
+   last 512 of every layer go to Flash in blocks of 128 (int8 key codes,
+   fp8 values: 1 KiB a token; the key scales and zeros stay on the card);
+   then decode steps drive the 28 layers one by one, each joining its
+   layer's history from Flash to its device part before kernel 6 runs,
+   with and without the layer-ahead prefetch.  Hard checks: every spilled
+   step's logits bit-equal to the unspilled step's, a prefetch hit rate of
+   1.0 with the prefetch and every fetch a miss without it, 28 kernel-6
+   launches a step, no fallback, the Flash files deleted; and two cheap
+   ones: ``core/precision.py``'s ``attention_scores`` overflows fp16 under
+   ``UNSAFE_FP16_POLICY`` and not under the pre-scaled policy, and a
+   qwen2-7b gate weight through numpy -> ``load_prequantized`` ->
+   ``pack_linear`` gives kernel 1's output bit for bit at M = 4.  Each
+   step's wall, the Flash read time and bytes and the hidden share are
+   printed, not asserted.
 4c. ``[glm4]``, 16 query heads per KV head: full-width glm4-9b (40 layers,
    d_model 4096, 32/2 heads, d_ff 13696, vocab 151552; random weights from
    seed 0) serves 6 greedy requests of the qwen2-7b trace's kind (16 new
@@ -233,6 +251,8 @@ import functools
 import gc
 import json
 import math
+import os
+import statistics
 import subprocess
 import sys
 import time
@@ -1509,7 +1529,7 @@ def profile_steps(label: str, step, steps: int = 4) -> dict:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     with spent_on("profiler"):
-        out.update(trace.summarize(prof.key_averages(), PROFILED_STEPS, wall_us))
+        out.update(trace.summarize(prof, PROFILED_STEPS, wall_us))
     if out["device_busy_share"] != "not measured":
         log(f"[profile] {label}: {step_ms:.1f} ms wall ({out['host_enqueue_ms']:.1f} ms "
             f"until the host's calls return); under the profiler "
@@ -1639,14 +1659,17 @@ def profile_loop_decode(eng, specs, steps: int = 4, cuda_graphs: bool = False,
 # kernel path against plain path at full width, layer by layer
 # ---------------------------------------------------------------------------
 
-def run_layers(engine, x, mode, positions, pos, table, cache, fed, lora=None, **kw):
+def run_layers(engine, x, mode, positions, pos, table, cache, fed, lora=None, entry=None,
+               **kw):
     """Every layer of the model on ``x``, stack by stack and pattern by
     pattern, against the caches of ``cache["stacks"]``; with ``fed``
     (another run's per-layer outputs) layer i takes that run's output of
     layer i-1 instead of its own input, and the logits are taken on that
     run's last hidden state.  ``lora``: the step's adapter tables and ids;
-    ``kw``: a chunk's ``slot`` and ``valid_len`` (windowed layers).  An
-    encoder-decoder's layers read their cross caches, ``cache["cross"]``."""
+    ``entry(i, layer_cache)``: the cache layer i reads in place of its own
+    (``[kvflash]``'s history joined from Flash); ``kw``: a chunk's ``slot``
+    and ``valid_len`` (windowed layers).  An encoder-decoder's layers read
+    their cross caches, ``cache["cross"]``."""
     from repro_torch.core.precision import DEFAULT_POLICY
     from repro_torch.models import transformer as T
     cfg = engine.cfg
@@ -1656,9 +1679,11 @@ def run_layers(engine, x, mode, positions, pos, table, cache, fed, lora=None, **
         for li in range(count):
             for pi, pat in enumerate(patterns):
                 inp = x if fed is None or not outs else fed[len(outs) - 1]
+                layer_cache = T.layer_entry(cache["stacks"][si][pi], li)
+                if entry is not None:
+                    layer_cache = entry(len(outs), layer_cache)
                 x, _ = T._apply_layer(inp, T.layer_slice(engine.params["stacks"][si][pi], li),
-                                      cfg, pat, mode, positions,
-                                      T.layer_entry(cache["stacks"][si][pi], li), pos, table,
+                                      cfg, pat, mode, positions, layer_cache, pos, table,
                                       engine.dispatch, DEFAULT_POLICY, lora=lora,
                                       cross=None if cross is None else
                                       T.layer_entry(cross[si][pi], li), **kw)
@@ -2514,6 +2539,249 @@ def phase_spill(eng) -> dict:
     return {"runs": runs, "launches": eager_counts, "graph_launches": graph_counts,
             "graph_steps": table, "all_dram_graph_steps": ref_table,
             "graph_warmup": rep, "pool_page_bytes": pb}
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: §4.1's per-layer KV spill to Flash, with layer-ahead prefetch
+# ---------------------------------------------------------------------------
+
+KVFLASH_DRAM_TOKENS = 512        # a layer's newest tokens, kept on the card
+KVFLASH_BLOCK = 128              # tokens a spilled block
+# 1 and 8 MiB of spilled KV a layer: either side of the paper's crossover
+# (~3 MB a layer-step at qwen2-7b's compute time, bench_kv_flash.py)
+KVFLASH_CONTEXTS = (1536, 8704)
+KVFLASH_STEPS = 3
+# the paper's Figure-2 Flash, as benchmarks/bench_kv_flash.py sets it
+KVFLASH_SPEC = {"bandwidth_bytes_per_s": 1e9, "latency_s": 15e-6}
+
+
+def sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def kv_spill_layers(cache, ctx: int, mgr, dram_tokens: int, block: int) -> dict:
+    """Spill every layer's tokens [0, ctx - dram_tokens) of the one-row
+    dense ``cache`` to ``mgr`` in blocks of ``block`` (int8 key codes, fp8
+    values as their uint8 bits) and return the cache the card keeps: the
+    key and value slots from ctx - dram_tokens on (the last ``dram_tokens``
+    prompt tokens and the room to decode), and every slot's key scale and
+    zero (32 B a token at 4 KV heads), which stay on the card."""
+    import dataclasses
+    import torch
+    (stacked,), = cache["stacks"]
+    cut = ctx - dram_tokens
+    assert cut % block == 0 and stacked.k_q.shape[1] == 1, (cut, tuple(stacked.k_q.shape))
+    for i in range(stacked.k_q.shape[0]):
+        k = stacked.k_q[i, :, :cut].cpu().numpy()
+        v = stacked.v[i, :, :cut].view(torch.uint8).cpu().numpy()
+        for start in range(0, cut, block):
+            mgr.spill(i, k[:, start:start + block], v[:, start:start + block], start)
+    part = dataclasses.replace(stacked, k_q=stacked.k_q[:, :, cut:].clone(),
+                               v=stacked.v[:, :, cut:].clone())
+    return {"stacks": ((part,),), "pos": cache["pos"]}
+
+
+def joined_history(mgr, dev, prefetch: bool):
+    """``run_layers``'s ``entry`` for a spilled cache: before layer i, ask
+    for layer i + 1's blocks (``prefetch``; past the last layer, the next
+    step's layer 0), take layer i's (``gather``: blocking on its prefetch,
+    or a synchronous read) and join them on the card ahead of the layer's
+    device part, so kernel 6 reads the unspilled cache's bytes at the same
+    slots."""
+    import dataclasses
+    import torch
+    from repro_torch.core import quantization as q
+
+    def entry(i, part):
+        if prefetch:
+            mgr.prefetch_async(i + 1)
+        hk, hv = mgr.gather(i)
+        k = torch.from_numpy(hk).to(dev)
+        v = torch.from_numpy(hv).to(dev).view(q.FP8_DTYPE)
+        return dataclasses.replace(part, k_q=torch.cat([k, part.k_q], 1),
+                                   v=torch.cat([v, part.v], 1))
+    return entry
+
+
+def kvflash_context(eng, ctx: int, root: str, spec: dict, *, steps: int, dram_tokens: int,
+                    block: int, seed: int = 9) -> dict:
+    """One context of ``[kvflash]``: a ``ctx``-token prompt prefilled into a
+    dense cache of ctx + ``block`` slots, then ``steps`` decode steps at
+    position ctx (each re-writes the same slot, so every step reads the
+    same bytes) unspilled, spilled without prefetch and spilled with it,
+    the spilled ones under ``FlashSpec(simulate=True, **spec)`` in
+    ``root``.  Asserts the spilled logits bit-equal to the unspilled, the
+    hit and miss counts, the dense decode kernel's launches (on the card:
+    one a layer a step) and no fallback; deletes the blocks.  Returns the
+    steps' walls, Flash reads and launches, the decoded token and its
+    logits."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.core import hybrid_storage as HS
+    from repro_torch.models import transformer as T
+    cfg, dev = eng.cfg, eng.device
+    layers = cfg.num_layers
+    prompt = np.random.default_rng(seed).integers(0, cfg.vocab_size, ctx)
+    with spent_on("prefill"):
+        first, cache = T.prefill(eng.params, cfg, eng.embed(prompt[None]), ctx + block,
+                                 eng.dispatch)
+        nxt = int(first[0, :cfg.vocab_size].argmax())
+        emb = eng.embed(np.asarray([[nxt]], np.int64))
+        pos = torch.tensor(ctx, dtype=torch.int32, device=dev)
+        sync(dev)
+
+    def steps_of(c, entry=None, before=None):
+        walls, logits, launches = [], None, []
+        for _ in range(steps):
+            if before is not None:
+                before()
+            K.reset_launch_counts()
+            sync(dev)
+            t0 = time.perf_counter()
+            _, got = run_layers(eng, emb, "decode", pos.expand(1, 1), pos, None, c, None,
+                                entry=entry)
+            sync(dev)
+            walls.append(time.perf_counter() - t0)
+            launches.append(K.launch_counts())
+            assert logits is None or torch.equal(got, logits), "a step's logits moved"
+            logits = got
+        return walls, logits, launches
+
+    with spent_on("traces"):
+        base_walls, want, base_launches = steps_of(cache)
+    flash = HS.FlashStore(root, HS.FlashSpec(simulate=True, **spec))
+    mgr = HS.KVSpillManager(flash, layers, cfg.num_kv_heads, cfg.resolved_head_dim,
+                            dram_budget_tokens=dram_tokens, block_tokens=block)
+    try:
+        with spent_on("flash"):
+            part = kv_spill_layers(cache, ctx, mgr, dram_tokens, block)
+            del cache
+            sync(dev)
+        runs, spilled_launches = {}, collections.Counter()
+        with spent_on("traces"):
+            for name, prefetch in (("no_prefetch", False), ("prefetch", True)):
+                hits, misses = mgr.prefetch_hits, mgr.prefetch_misses
+                t_read, n_read = flash.read_time_s, flash.bytes_read
+                walls, got, launches = steps_of(
+                    part, joined_history(mgr, dev, prefetch),
+                    (lambda: mgr.prefetch_async(0)) if prefetch else None)
+                runs[name] = {"walls_s": walls,
+                              "kernel6_launches": [c["quant_decode_attention"]
+                                                   for c in launches],
+                              "hits": mgr.prefetch_hits - hits,
+                              "misses": mgr.prefetch_misses - misses,
+                              "read_time_s": (flash.read_time_s - t_read) / steps,
+                              "bytes_read": (flash.bytes_read - n_read) / steps}
+                assert torch.equal(got, want), \
+                    f"[kvflash] {ctx} tokens, {name}: spilled logits differ from unspilled"
+                for c in launches:
+                    spilled_launches.update(c)
+        spilled = mgr.spilled_tokens(0)
+    finally:
+        mgr.drop_all()
+    left = os.listdir(root)
+    assert not left, f"[kvflash] Flash files left: {left[:4]}"
+    n = layers * steps
+    assert (runs["prefetch"]["hits"], runs["prefetch"]["misses"]) == (n, 0), runs["prefetch"]
+    assert (runs["no_prefetch"]["hits"], runs["no_prefetch"]["misses"]) == (0, n), \
+        runs["no_prefetch"]
+    if dev.type == "cuda":
+        for launches in ([c["quant_decode_attention"] for c in base_launches],
+                         runs["no_prefetch"]["kernel6_launches"],
+                         runs["prefetch"]["kernel6_launches"]):
+            assert launches == [layers] * steps, f"kernel 6 launches a step: {launches}"
+    assert eng.dispatch.fallbacks == [], eng.dispatch.fallbacks
+    med = {"unspilled": statistics.median(base_walls),
+           **{k: statistics.median(r["walls_s"]) for k, r in runs.items()}}
+    read = runs["prefetch"]["read_time_s"]
+    hidden = 1.0 - (med["prefetch"] - med["unspilled"]) / read if read else None
+    return {"context": ctx, "spilled_tokens_a_layer": spilled,
+            "spilled_bytes_a_layer": spilled * cfg.num_kv_heads * cfg.resolved_head_dim * 2,
+            "unspilled_walls_s": base_walls, "runs": runs, "median_wall_s": med,
+            "hidden_share": hidden, "launches": dict(spilled_launches),
+            "next_token": nxt, "logits": want}
+
+
+@timed("kvflash")
+def phase_kvflash(eng, card: str) -> dict:
+    """``[kvflash]``: §4.1's decode loop over a KV cache spilled to the
+    reference's Figure-2 Flash, on the full-width qwen2-7b engine, at
+    ``KVFLASH_CONTEXTS`` (one row; the last ``KVFLASH_DRAM_TOKENS`` of a
+    layer on the card, the rest on Flash in blocks of ``KVFLASH_BLOCK``:
+    int8 key codes and fp8 values, 1 KiB a token at 4 KV heads of 128; the
+    key scales and zeros, 32 B a token, stay on the card).  Then the two
+    cheap checks: C5's fp16 overflow and the prequantized import through
+    kernel 1."""
+    import shutil
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.core import precision as PR
+    from repro_torch.core import quantization as q
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import plan as RP
+    dev = eng.device
+    root = str(ROOT / "build" / "flash-kvflash")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    out = {"card": card, "contexts": {}}
+    for ctx in KVFLASH_CONTEXTS:
+        r = kvflash_context(eng, ctx, root, KVFLASH_SPEC, steps=KVFLASH_STEPS,
+                            dram_tokens=KVFLASH_DRAM_TOKENS, block=KVFLASH_BLOCK)
+        del r["logits"]
+        out["contexts"][ctx] = r
+        med, runs = r["median_wall_s"], r["runs"]
+        hidden = "not measured" if r["hidden_share"] is None else f"{r['hidden_share']:.3f}"
+        log(f"[kvflash] {ctx} tokens ({r['spilled_tokens_a_layer']} a layer on Flash, "
+            f"{r['spilled_bytes_a_layer'] / 2**20:.2f} MiB): decode step wall (median of "
+            f"{KVFLASH_STEPS}) unspilled {1e3 * med['unspilled']:.2f} ms, spilled without "
+            f"prefetch {1e3 * med['no_prefetch']:.2f} ms, with prefetch "
+            f"{1e3 * med['prefetch']:.2f} ms; Flash read time a step "
+            f"{1e3 * runs['prefetch']['read_time_s']:.2f} ms for "
+            f"{runs['prefetch']['bytes_read'] / 2**20:.2f} MiB; hidden share {hidden}"
+            f"; logits bit-equal, prefetch hit rate 1.0, kernel 6 {eng.cfg.num_layers} "
+            f"launches a step ({card})")
+        for name in ("no_prefetch", "prefetch"):
+            log(f"[kvflash]   {ctx} tokens, {name}: step walls "
+                f"{[round(1e3 * w, 2) for w in runs[name]['walls_s']]} ms "
+                f"(unspilled {[round(1e3 * w, 2) for w in r['unspilled_walls_s']]})")
+    shutil.rmtree(root)
+    out["launches"] = {k: sum(r["launches"][k] for r in out["contexts"].values())
+                       for k in out["contexts"][KVFLASH_CONTEXTS[0]]["launches"]}
+    # C5: the paper's fp16 overflow, on the card (tests/test_precision.py's inputs)
+    x = torch.full((1, 2, 256), 40.0, device=dev)
+    unsafe = PR.attention_scores(x, x, 256, PR.UNSAFE_FP16_POLICY)
+    safe = PR.attention_scores(x, x, 256, PR.PrecisionPolicy(
+        compute_dtype=torch.float16, accum_dtype=torch.float16,
+        softmax_dtype=torch.float32, prescale_query=True))
+    assert unsafe.dtype == torch.float16 and bool(torch.isinf(unsafe).any())
+    assert not bool(torch.isinf(safe).any()), safe
+    out["fp16"] = {"unsafe_inf": int(torch.isinf(unsafe).sum()), "safe_max": float(safe.max())}
+    # the prequantized import: numpy carriers -> load_prequantized -> kernel 1
+    w = T.layer_slice(eng.params["stacks"][0][0], 0)["ffn"]["w_gate"]["w"]
+    qt = RP.unpack_linear(w)
+    back = RP.pack_linear(q.load_prequantized(
+        qt.data.cpu().numpy(), qt.scale.cpu().numpy()[0], qt.zero.cpu().numpy()[0],
+        qt.bits, qt.shape))
+    back = RP.PackedLinear(back.data.to(dev), back.scale.to(dev), back.zero.to(dev),
+                           back.bits, back.k, back.n)
+    xs = torch.randn((4, w.k), generator=torch.Generator(device=dev).manual_seed(9),
+                     device=dev).to(torch.bfloat16)
+    K.reset_launch_counts()
+    y0 = eng.dispatch.linear(xs, w, eng.cfg.quant)
+    y1 = eng.dispatch.linear(xs, back, eng.cfg.quant)
+    mm = K.launch_counts()["w4a8_matmul"]
+    assert torch.equal(y0, y1), "[kvflash] the prequantized gate weight's output differs"
+    assert dev.type != "cuda" or mm == 2, mm
+    out["prequantized"] = {"shape": list(qt.shape), "bits": qt.bits,
+                           "nbytes_logical": qt.nbytes_logical}
+    log(f"[kvflash] fp16 Q.K^T at 40 x 40 x 256: {out['fp16']['unsafe_inf']} inf under "
+        f"UNSAFE_FP16_POLICY, none pre-scaled (max {out['fp16']['safe_max']:.0f}); "
+        f"the gate weight {list(qt.shape)} int{qt.bits} through load_prequantized -> "
+        f"pack_linear -> kernel 1 at M = 4: bit-equal")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -5300,6 +5568,11 @@ def main() -> int:
     spill["phase_s"] = time.perf_counter() - t_spill
     log(f"[spill] phase took {spill['phase_s']:.1f} s")
     timings["spill"] = timing_split("spill")
+    t_kv = time.perf_counter()
+    kvflash = phase_kvflash(eng, card)
+    kvflash["phase_s"] = time.perf_counter() - t_kv
+    log(f"[kvflash] phase took {kvflash['phase_s']:.1f} s")
+    timings["kvflash"] = timing_split("kvflash")
     t_ws = time.perf_counter()
     holder = [eng]
     del eng
@@ -5374,6 +5647,7 @@ def main() -> int:
              "EngineService qwen2-7b, LoRA, CUDA graphs": gateway["launches"],
              "EngineLoop qwen2-7b, Flash tier": spill["launches"],
              "EngineLoop qwen2-7b, Flash tier, CUDA graphs": spill["graph_launches"],
+             "decode qwen2-7b, KV spilled to Flash": kvflash["launches"],
              "EngineLoop qwen2-7b, weights streamed": wstream["qwen2-7b"]["launches"],
              "EngineLoop gemma3-27b, weights streamed": wstream["gemma3-27b"]["launches"],
              "EngineLoop rwkv6-7b, weights streamed": wstream["rwkv6-7b"]["launches"],
@@ -5451,7 +5725,7 @@ def main() -> int:
                   results["paged_flash_prefill_attention"]["all_shapes"],
               "main_path": summary, "kernel_vs_plain": checks,
               "generate_path": generate, "lora_path": lora, "gateway_path": gateway,
-              "spill_path": spill, "glm4_path": glm4, "moe_path": moe,
+              "spill_path": spill, "kvflash_path": kvflash, "glm4_path": glm4, "moe_path": moe,
               "gemma3_path": big["gemma3"], "qwen1.5-110b_path": big["qwen110b"],
               "grok1_path": big["grok1"], "rwkv6_path": big["rwkv6"],
               "jamba_path": big["jamba"], "seamless_path": big["seamless"],

@@ -14,8 +14,10 @@ Two readings, each the least time the card could take for the work:
   ``model_flops`` (the reference's formula: 6 N D to train, 2 N D to
   prefill, 2 N_active a decoded token plus attention over the cache) and
   the bytes the case's arguments read once (``launch.dryrun``).  The
-  reference's HLO counts (compiled FLOPs, temp bytes) have no counterpart:
-  those columns read "not measured".
+  reference's HLO counts (compiled FLOPs, temp bytes) and
+  ``Roofline.useful_flop_ratio`` (analytic over compiled FLOPs) have no
+  counterpart: no compiled HLO exists, so those columns read "not
+  measured" (``analysis.trace`` is the port's record of a step).
 * Per ``EngineLoop`` decode step (``decode_step_bound``), counted from
   shapes: the packed bytes of every weight the step reads (int4 nibbles,
   scales and zeros, the int8 ``lm_head``; of an MoE layer's expert tables

@@ -2,27 +2,27 @@
 ``repro.analysis.hlo``.
 
 The reference parses the optimized HLO text of a compiled step for its
-FLOPs, bytes and collectives.  The port compiles no whole step: its record
-of a step is ``torch.profiler``'s, and ``summarize`` aggregates its
-``key_averages()`` over ``steps`` profiled steps taken in ``wall_us``
-microseconds of the host's clock:
+FLOPs, bytes and collectives (``repro.analysis.hlo``, which has no
+counterpart: the port compiles no whole step).  The port's record of a
+step is ``torch.profiler``'s, and ``summarize`` aggregates the raw kineto
+events of ``steps`` profiled steps taken in ``wall_us`` microseconds of
+the host's clock:
 
-* the device's kernels (events on the CUDA device with self device time):
-  time and launches per step, the device's busy share of the wall time, the
-  top kernels, and each of the port's hand-written kernels by its device
-  symbol (``PORT_KERNEL_SYMBOLS``);
+* the device's kernels (events on the CUDA device): time and launches per
+  step, the device's busy share of the wall time, the top kernels, and
+  each of the port's hand-written kernels by its device symbol
+  (``PORT_KERNEL_SYMBOLS``);
 * the host's time in CUDA runtime calls (launches, copies, waits; events on
   the host whose name starts with ``cuda``).
 
 Where the profiler saw no device time the busy share is "not measured".
-
-``device_ms`` reads a profiled run's device time from the raw kineto
-events, for runs with too many kernels for ``key_averages()``, which builds
-a Python object an event (~15 s for the ~150,000 kernels of an rwkv6-7b
-training step).
+``device_ms`` reads a profiled run's device time from the same events.
+Neither goes through ``key_averages()``, which builds a Python object an
+event (~15 s for the ~150,000 kernels of an rwkv6-7b training step).
 """
 from __future__ import annotations
 
+import collections
 from typing import Iterable
 
 # device-kernel names of the port's kernels in a profiler trace
@@ -31,31 +31,38 @@ PORT_KERNEL_SYMBOLS = ("w4a8_kernel", "paged_decode_kernel", "paged_prefill_kern
                        "flash_prefill_kernel")
 
 
-def _device_us(event) -> float:
-    us = getattr(event, "self_device_time_total", None)
-    return getattr(event, "self_cuda_time_total", 0) if us is None else us
+def _events(prof):
+    """The raw kineto events of a finished ``torch.profiler`` run."""
+    return prof.profiler.kineto_results.events()
 
 
-def summarize(averages: Iterable, steps: int, wall_us: float) -> dict:
+def summarize(prof, steps: int, wall_us: float) -> dict:
     """Per-step device time, launches, busy share, the port's kernels and
-    the runtime calls of ``steps`` profiled steps (``averages``: the
-    profiler's ``key_averages()``; ``wall_us``: the steps' wall time)."""
-    kern = []          # device kernels only (host ops would count them twice)
-    api = []           # the host's time in CUDA runtime calls
-    for e in averages:
-        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
-            if e.key.startswith("cuda") and e.cpu_time_total > 0:
-                api.append((e.cpu_time_total, e.count, e.key))
+    the runtime calls of ``steps`` profiled steps (``prof``: the finished
+    ``torch.profiler`` run; ``wall_us``: the steps' wall time), summed by
+    event name."""
+    from torch.autograd import DeviceType
+    dev_ns = collections.defaultdict(lambda: [0, 0])     # name -> [ns, count]
+    api_ns = collections.defaultdict(lambda: [0, 0])
+    for e in _events(prof):
+        name = e.name()
+        if e.device_type() == DeviceType.CUDA:
+            acc = dev_ns[name]
+        elif name.startswith("cuda"):
+            acc = api_ns[name]
+        else:
             continue
-        dev_us = _device_us(e)
-        if dev_us > 0:
-            kern.append((dev_us, e.count, e.key))
-    kern.sort(reverse=True)
+        acc[0] += e.duration_ns()
+        acc[1] += 1
+    # device kernels only (host ops would count them twice)
+    kern = sorted(((ns / 1e3, c, n) for n, (ns, c) in dev_ns.items() if ns > 0),
+                  reverse=True)
+    api = sorted(((ns / 1e3, c, n) for n, (ns, c) in api_ns.items() if ns > 0),
+                 reverse=True)
     busy = sum(k[0] for k in kern)
     if busy <= 0:
         return {"device_busy_share": "not measured"}
     ours = sum(us for us, _c, n in kern if any(k in n for k in PORT_KERNEL_SYMBOLS))
-    api.sort(reverse=True)
     return {
         "device_busy_share": busy / wall_us,
         "profiled_step_ms": wall_us / steps / 1e3,
@@ -79,7 +86,7 @@ def device_ms(prof, syms: Iterable[str] = ()) -> tuple:
     ms, from the raw kineto events."""
     from torch.autograd import DeviceType
     total, by = 0, {sym: 0 for sym in syms}
-    for e in prof.profiler.kineto_results.events():
+    for e in _events(prof):
         if e.device_type() != DeviceType.CUDA:
             continue
         total += e.duration_ns()

@@ -121,7 +121,7 @@ def embedding_from_reference(table: np.ndarray, flash_dir: str,
     """Export the reference engine's float32 embedding table (its Flash
     memmap) to the port's bf16 Flash store, in chunks."""
     rows, dim = table.shape
-    flash = HS.FlashStore(flash_dir)
+    flash = HS.FlashStore(flash_dir, HS.FlashSpec(simulate=False))
     return HS.EmbeddingStore.create(
         flash, rows, dim,
         lambda a, b: torch.from_numpy(np.asarray(table[a:b], np.float32)),

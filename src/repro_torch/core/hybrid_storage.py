@@ -1,20 +1,33 @@
 """DRAM-Flash hybrid storage (paper §4.1, C2) — port of
 ``repro.core.hybrid_storage``: the Flash embedding table, the paged-KV
-spill tier and the weight groups of streamed stacks.
+spill tier, the weight groups of streamed stacks, §4.1's per-layer KV
+spill (``KVSpillManager``) and the placement policy.
 
 "Flash" is a directory of disk-backed ``numpy.memmap`` arrays; "DRAM" is the
-device.  The embedding table lives on Flash and never occupies device
-memory: every step gathers only the rows of the tokens it feeds (one
-3584-wide bf16 row, 7 KiB, per token at qwen2-7b).
+device.  ``FlashSpec`` describes the simulated Flash, the reference's: the
+paper's UFS 4.0 at ~1 GB/s and 15 us a read.  With ``simulate`` on (the
+default, as in the reference) every read sleeps its latency plus its bytes
+over the bandwidth and adds that to ``read_time_s``: ``read_rows``,
+``read_slice``, ``read_all``, ``read_view`` and the port's
+``read_blob_into`` alike, so the paper's DRAM-Flash crossover reproduces
+on any disk.  Unlike the reference, which sleeps each read's own time, a
+store sleeps off its running debt and keeps a sleep's overshoot as credit
+(``FlashStore._throttle``): on a host with coarse timers a read of a few
+microseconds would otherwise wait a whole timer tick.  Every serving path builds its stores with
+``FlashSpec(simulate=False)``, as the reference's engine does, and so reads
+at the disk's (or the page cache's) own speed.
+
+The embedding table lives on Flash and never occupies device memory: every
+step gathers only the rows of the tokens it feeds (one 3584-wide bf16 row,
+7 KiB, per token at qwen2-7b).
 
 Unlike the reference, which stores the table in float32 and casts the
 gathered rows to bf16, the port stores the bf16 bits themselves (as
 uint16, since numpy has no bf16): the same round-to-nearest-even cast done
 once at export time, so every lookup returns the reference's bf16 rows bit
-for bit at half the Flash footprint.  Reads are not throttled: the
-reference builds its serving engines with ``simulate=False`` as well.
-Rows reach the device through a pinned ``StagedBuffer`` with a
-non-blocking copy, as every host-to-device input of the serving loop does.
+for bit at half the Flash footprint.  Rows reach the device through a
+pinned ``StagedBuffer`` with a non-blocking copy, as every host-to-device
+input of the serving loop does.
 
 ``PageSpillStore`` keeps KV pages the serving loop moved off the device:
 row snapshots of preempted requests and page-granular blobs of running
@@ -29,13 +42,23 @@ blob per (stack, group) and, for an expert-granular MoE stack, one per
 reads a blob into one host buffer -- pinned on the card, so the serving
 loop only enqueues a non-blocking copy into a device ring slot -- where each
 leaf starts on a ``WEIGHT_ALIGN`` boundary, the layout of the slot itself.
+
+``KVSpillManager`` is §4.1's dense KV spill: a layer's oldest KV blocks
+(int8 key codes, fp8 values as uint8 bits, [B, block, H, D] each) go to
+Flash, and the decode loop asks for layer i + 1's blocks
+(``prefetch_async``) before it takes layer i's (``gather``), so the read
+overlaps layer i's compute.  ``plan_embedding_placement`` is the paper's
+utilization-ordered DRAM/Flash placement (``runtime.plan.placement_for``
+sizes its entries).
 """
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
 import os
 import queue
 import threading
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -126,24 +149,62 @@ def _pread_full(fd: int, offset: int, views: List[memoryview], name: str) -> Non
             views[0] = views[0][k:]
 
 
+@dataclasses.dataclass
+class FlashSpec:
+    """Simulated Flash characteristics (defaults ~ UFS 4.0 mid-range, the
+    reference's)."""
+    bandwidth_bytes_per_s: float = 1e9      # paper assumes ~1 GB/s continuous
+    latency_s: float = 15e-6                # paper: ~15us slower than LPDDR5X
+    simulate: bool = True                   # throttle reads to the above
+
+
 class FlashStore:
     """Directory of memmap'd arrays; counts the bytes read and written
+    and, under a simulating ``spec``, the seconds the throttle charged
     (from any thread)."""
 
-    def __init__(self, root: str):
+    def __init__(self, root: str, spec: Optional[FlashSpec] = None):
         self.root = root
+        self.spec = spec or FlashSpec()
         os.makedirs(root, exist_ok=True)
         self._maps: Dict[str, np.memmap] = {}
         self._count = threading.Lock()
         self.bytes_read = 0
         self.bytes_written = 0
+        self.read_time_s = 0.0
+        self._owed = 0.0          # seconds charged and not yet slept (< 0: credit)
 
     def path(self, name: str) -> str:
         return os.path.join(self.root, name + ".bin")
 
+    def _throttle(self, nbytes: int) -> None:
+        """Charge one read's latency plus ``nbytes`` over the bandwidth (a
+        zero-byte read still pays the latency) to ``read_time_s``, and sleep
+        it off.  A sleep pays the store's running debt, not the read's own
+        time: where a host's sleeps overshoot (~1 ms a call on the card's
+        machine, whose timers are coarse) the reference's sleep a read
+        stretches an 80-us read to ~1 ms, so the overshoot is kept as
+        credit against the next reads, and a run waits the seconds it is
+        charged, to within one sleep's overshoot."""
+        if not self.spec.simulate:
+            return
+        t = self.spec.latency_s + nbytes / self.spec.bandwidth_bytes_per_s
+        with self._count:
+            self.read_time_s += t
+            owed = self._owed + t
+            self._owed = min(owed, 0.0)       # a positive debt is slept below
+        if owed <= 0:
+            return
+        t0 = time.perf_counter()
+        time.sleep(owed)
+        over = time.perf_counter() - t0 - owed
+        with self._count:
+            self._owed -= over
+
     def _read(self, nbytes: int) -> None:
         with self._count:
             self.bytes_read += nbytes
+        self._throttle(nbytes)
 
     def create(self, name: str, shape, dtype) -> np.memmap:
         """A writable zero-filled array on Flash (filled by the caller)."""
@@ -168,6 +229,18 @@ class FlashStore:
     def read_rows(self, name: str, rows: np.ndarray) -> np.ndarray:
         """Gather rows[i] along axis 0 (the embedding access pattern)."""
         out = np.asarray(self._maps[name][rows])
+        self._read(out.nbytes)
+        return out
+
+    def read_slice(self, name: str, start: int, stop: int) -> np.ndarray:
+        """Rows [start, stop) along axis 0, clamped as a numpy slice is."""
+        out = np.asarray(self._maps[name][start:stop])
+        self._read(out.nbytes)
+        return out
+
+    def read_all(self, name: str) -> np.ndarray:
+        """One whole stored array."""
+        out = np.asarray(self._maps[name])
         self._read(out.nbytes)
         return out
 
@@ -404,6 +477,101 @@ class _FlashPrefetcher:
             thread.join(timeout=10)
             if thread.is_alive():
                 raise RuntimeError("the Flash prefetch worker did not stop")
+
+
+@dataclasses.dataclass
+class SpillBlock:
+    layer: int
+    start: int            # token offset of this block
+    length: int
+
+
+class KVSpillManager(_FlashPrefetcher):
+    """Spill the oldest KV blocks of each layer to Flash; prefetch ahead
+    (paper §4.1, the reference's).  The decode loop calls, per layer:
+
+        mgr.prefetch_async(layer + 1)        # overlaps with layer's compute
+        hist = mgr.gather(layer)             # spilled K/V for this layer
+        ... attention over [hist ++ device part] ...
+
+    ``spill`` writes one block: key codes as ``k_dtype`` (int8), values as
+    ``v_dtype`` (uint8: the fp8 e4m3 bits, since numpy has no fp8).
+    ``gather`` concatenates a layer's blocks along the token axis in the
+    order they were spilled; with none spilled it returns two empty 1-d
+    arrays (and counts a miss), as the reference does.  Which blocks to
+    spill, and when (the reference's ``dram_budget_tokens``), is the
+    caller's choice: the class keeps the budget and the block length for
+    it.  Blob names carry the manager's id, so managers and the other
+    stores share one Flash root; ``drop_all`` stops the worker and deletes
+    every block."""
+
+    def __init__(self, flash: FlashStore, num_layers: int, kv_heads: int,
+                 head_dim: int, *, dram_budget_tokens: int,
+                 block_tokens: int = 128,
+                 k_dtype=np.int8, v_dtype=np.uint8):
+        self.flash = flash
+        self.num_layers = num_layers
+        self.kv_heads = kv_heads
+        self.head_dim = head_dim
+        self.dram_budget_tokens = dram_budget_tokens
+        self.block_tokens = block_tokens
+        self.k_dtype = k_dtype
+        self.v_dtype = v_dtype
+        self.blocks: Dict[int, List[SpillBlock]] = {i: [] for i in range(num_layers)}
+        super().__init__()
+
+    def _name(self, layer: int, start: int) -> str:
+        return f"kv{id(self):x}_l{layer}_s{start}"
+
+    def spill(self, layer: int, k_block: np.ndarray, v_block: np.ndarray,
+              start: int) -> None:
+        """Write one KV block (shape [B, block, H, D]) to Flash."""
+        blk = SpillBlock(layer=layer, start=start, length=k_block.shape[1])
+        name = self._name(layer, start)
+        self.flash.put(name + "_k", np.ascontiguousarray(k_block, dtype=self.k_dtype))
+        self.flash.put(name + "_v", v_block.view(self.v_dtype)
+                       if v_block.dtype != self.v_dtype else v_block)
+        with self._lock:
+            self.blocks[layer].append(blk)
+            self._cache.pop(layer, None)      # stale
+
+    def spilled_tokens(self, layer: int) -> int:
+        return sum(b.length for b in self.blocks[layer])
+
+    def _load(self, layer: int) -> Tuple[np.ndarray, np.ndarray]:
+        with self._lock:
+            blocks = list(self.blocks[layer])
+        ks, vs = [], []
+        for b in blocks:
+            name = self._name(layer, b.start)
+            ks.append(self.flash.read_all(name + "_k"))
+            vs.append(self.flash.read_all(name + "_v"))
+        if not ks:
+            return (np.zeros((0,), self.k_dtype), np.zeros((0,), self.v_dtype))
+        return np.concatenate(ks, axis=1), np.concatenate(vs, axis=1)
+
+    def _has(self, layer: int) -> bool:
+        return bool(self.blocks[layer])
+
+    def prefetch_async(self, layer: int) -> None:
+        self._request(layer % self.num_layers)
+
+    def gather(self, layer: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Spilled K/V for ``layer`` (blocking on an in-flight prefetch; a
+        synchronous load on a miss)."""
+        return self._obtain(layer)
+
+    def drop_all(self) -> None:
+        """Stop the worker and delete every spilled block from Flash."""
+        self.close()
+        with self._lock:
+            for layer, blocks in self.blocks.items():
+                for b in blocks:
+                    name = self._name(layer, b.start)
+                    self.flash.delete(name + "_k")
+                    self.flash.delete(name + "_v")
+                blocks.clear()
+            self._cache.clear()
 
 
 class PageSpillStore(_FlashPrefetcher):
@@ -677,3 +845,22 @@ class WeightGroupStore(_FlashPrefetcher):
             self._specs.clear()
             self._group_nbytes.clear()
             self._cache.clear()
+
+
+def plan_embedding_placement(param_sizes: Dict[str, int],
+                             dram_budget_bytes: int) -> Dict[str, str]:
+    """The paper's placement policy, utilization-ordered: the embedding
+    (1/vocab of it read a step) goes to Flash first; the layers and
+    ``lm_head`` (read whole every step) stay in DRAM while they fit."""
+    def utilization(name: str) -> int:
+        return 0 if "embedding" in name else 1
+    placement: Dict[str, str] = {}
+    used = 0
+    for name in sorted(param_sizes, key=utilization, reverse=True):
+        sz = param_sizes[name]
+        if used + sz <= dram_budget_bytes:
+            placement[name] = "dram"
+            used += sz
+        else:
+            placement[name] = "flash"
+    return placement

@@ -6,7 +6,9 @@ saturating fp8 e4m3 cast.  ``LayerKVCache`` is the dense per-sequence
 cache of the slot-synchronous ``Engine.generate`` path, laid out
 [B, max_seq, H_kv, D] as the reference's; a sliding-window layer's cache
 is a ring of ``min(window, max_seq)`` slots, position p in slot p mod size.
-The paged pool (``core.kv_pool``) shares the quantization below."""
+The paged pool (``core.kv_pool``) shares the quantization below.  The reference's ``abstract_layer_cache``
+(``ShapeDtypeStruct``s for its dry run) has no counterpart: the port's dry
+run builds the cache from ``meta`` tensors."""
 from __future__ import annotations
 
 import dataclasses

@@ -795,3 +795,9 @@ class KVPoolManager:
         self.row_res[row][idx] = RES_DRAM
         self.table[row, idx] = p
         return p
+
+    def device_table(self, device=torch.device("cpu")) -> torch.Tensor:
+        """The page table [num_slots, pages_per_row] as an int32 tensor on
+        ``device`` (a copy: the serving loop's graphs read theirs through a
+        ``StagedBuffer`` instead)."""
+        return torch.tensor(self.table, dtype=torch.int32, device=device)

@@ -3,8 +3,12 @@
 Asymmetric weight quantization (paper Eq. 1) to int4 (clip [0, 15], two
 unsigned nibbles per byte along the output axis) or int8 (clip [-128, 127])
 with per-output-channel (optionally per-group) scale/zero; symmetric
-per-row int8 activations; fp8 e4m3 KV values.  Every integer carrier is
-bit-identical to the reference's (both round half to even in float32).
+per-row int8 activations; fp8 e4m3 KV values; the prequantized import
+(``load_prequantized``, paper §3's adapter for GPTQ-style exports).  Every
+integer carrier is bit-identical to the reference's (both round half to
+even in float32).  The reference's ``abstract_quantized`` (a tree of
+``ShapeDtypeStruct``s) has no counterpart: the dry run builds ``meta``
+tensors (``runtime.plan.packed_layout``).
 """
 from __future__ import annotations
 
@@ -45,6 +49,12 @@ class QuantizedTensor:
     zero: torch.Tensor
     bits: int
     shape: tuple
+
+    @property
+    def nbytes_logical(self) -> int:
+        """Bytes of the logical weight at ``bits`` a value (the reference's
+        count: scales and zeros not included)."""
+        return int(np.prod(self.shape)) * self.bits // 8
 
 
 def _clip_range(bits: int):
@@ -171,3 +181,32 @@ def to_fp8(x: torch.Tensor) -> torch.Tensor:
 
 def from_fp8(x: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
     return x.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Prequantized import (GPTQ-style adapter, paper §3)
+# ---------------------------------------------------------------------------
+
+def load_prequantized(qweight: np.ndarray, scales: np.ndarray,
+                      zeros: np.ndarray, bits: int,
+                      logical_shape: tuple) -> QuantizedTensor:
+    """Adapter for externally quantized weights (e.g. GPTQ exports), the
+    reference's: ``qweight`` already in this module's layout (int8 carrier,
+    nibble pairs for 4 bits), scales and zeros per (group, channel) -- a 1-d
+    pair is one group.  Returns CPU tensors (int8 data, float32 scale and
+    zero); ``runtime.plan.pack_linear`` then gives the kernel's layout."""
+    scale = torch.from_numpy(np.array(scales, dtype=np.float32))
+    zero = torch.from_numpy(np.array(zeros, dtype=np.float32))
+    if scale.dim() == 1:
+        scale = scale[None, :]
+        zero = zero[None, :]
+    return QuantizedTensor(data=torch.from_numpy(np.array(qweight, dtype=np.int8)),
+                           scale=scale, zero=zero, bits=bits,
+                           shape=tuple(logical_shape))
+
+
+def maybe_quantize(w: torch.Tensor, bits: int, group_size: int = 0):
+    """Quantize unless bits >= 16 (then keep bf16)."""
+    if bits >= 16:
+        return w.to(torch.bfloat16)
+    return quantize(w, bits, group_size=group_size)

@@ -17,6 +17,10 @@ through the dispatcher's ``grouped_matmul`` op.
 Routing order follows the reference: ``jnp.argsort`` is stable, so the
 port sorts with ``stable=True``; ``lax.top_k`` breaks ties toward the lower
 index, which a stable descending sort reproduces.
+
+The reference's ``expert_parallel`` (the experts sharded over the 16-way
+"model" axis of a pod mesh, with its all-to-all) has no counterpart: one
+card holds every expert.
 """
 from __future__ import annotations
 

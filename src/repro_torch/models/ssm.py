@@ -31,7 +31,9 @@ is an int or a one-element int32 device tensor: every pick by it is an
 value.  There is no TPU kernel for either scan (the reference computes both
 in XLA); both run as plain PyTorch on every device, and autograd
 differentiates both for training (the per-block and per-token pieces are
-``unbind`` views, whose backward is one stack).
+``unbind`` views, whose backward is one stack).  The reference's
+``abstract_mamba_state`` / ``abstract_rwkv_state`` have no counterpart:
+``meta`` tensors give the states' shapes.
 """
 from __future__ import annotations
 

@@ -17,10 +17,16 @@
   layer-group slots, with the reference's byte counts — taken over the same
   packed leaves, so every decision and counter follows it.
 
+* The paper's DRAM/Flash placement of the embedding, the layers and
+  ``lm_head`` (``placement_for``), which every engine's plan starts from.
+
 The reference's TPU tile solver (``solve_tpu_blocks``, VMEM tiles on the
-(8, 128) lane grid) has no counterpart: tiles are the CUDA kernels' own.
-``core.tiling`` holds the paper's CPU solver (Table 2) and reads the W4A8
-kernel's tile choice (``kernel_tiles``).
+(8, 128) lane grid) and the tile solving of ``MatmulPlan`` /
+``build_plan`` / ``ExecutionPlan.presolve_tiles`` have no counterpart:
+tiles are the CUDA kernels' own, chosen at each launch.  ``core.tiling``
+holds the paper's CPU solver (Table 2) and reads the W4A8 kernel's tile
+choice (``kernel_tiles``).  The ``abstract_packed`` / ``spec_packed``
+builders are replaced by ``meta`` tensors (``packed_layout``).
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import hybrid_storage as HS
 from repro_torch.core import kv_pool
 from repro_torch.core import quantization as q
 
@@ -427,3 +434,19 @@ class ExecutionPlan:
                                       expert_granular=expert_granular)
         self.placement.update(policy.placement)
         return policy
+
+
+def placement_for(cfg, dram_budget_bytes: Optional[int] = None) -> Dict[str, str]:
+    """Utilization-ordered DRAM/Flash placement (paper §4.1, C2), with the
+    reference's byte counts: a bf16 embedding, ``weight_bits`` layers and
+    ``lm_head`` at ``max(lm_head_bits, 8)``.  The default budget fits
+    exactly the layers and ``lm_head``, so the embedding goes to Flash."""
+    pc = cfg.param_count()
+    sizes = {
+        "embedding": pc["embedding"] * 2,
+        "layers": pc["layers"] * cfg.quant.weight_bits // 8,
+        "lm_head": pc["lm_head"] * max(cfg.quant.lm_head_bits, 8) // 8,
+    }
+    if dram_budget_bytes is None:
+        dram_budget_bytes = sizes["layers"] + sizes["lm_head"]
+    return HS.plan_embedding_placement(sizes, dram_budget_bytes)

@@ -421,7 +421,8 @@ class Engine:
                  weight_ring_groups: int = 2, expert_streaming: bool = True):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.plan = RP.ExecutionPlan(quant_tag=cfg.quant.tag(), params=params)
+        self.plan = RP.ExecutionPlan(quant_tag=cfg.quant.tag(), params=params,
+                                     placement=RP.placement_for(cfg))
         self.params = params
         self.dispatch = D.Dispatcher(backend=backend)
         self.max_seq = max_seq
@@ -457,7 +458,7 @@ class Engine:
         expert-granular stack's expert tables one expert at a time, its
         shared leaves in the group's blob) and drop it from ``params``."""
         self.weight_store = HS.WeightGroupStore(
-            HS.FlashStore(self.embedding.flash.root),
+            HS.FlashStore(self.embedding.flash.root, HS.FlashSpec(simulate=False)),
             pin_memory=self.device.type == "cuda")
         stacks = list(self.params["stacks"])
         for sp in self.weight_policy.streamed:
@@ -710,7 +711,8 @@ class EngineLoop:
         self.pool = KP.KVPoolManager(self.geom, max_slots,
                                      prefix_sharing=prefix_sharing and self._full_attn)
         # KV pages spill beside the Flash embedding, with their own byte counts
-        self.spill = HS.PageSpillStore(HS.FlashStore(engine.embedding.flash.root))
+        self.spill = HS.PageSpillStore(HS.FlashStore(engine.embedding.flash.root,
+                                                      HS.FlashSpec(simulate=False)))
         self.scheduler = ContinuousScheduler(
             max_slots, engine.max_seq, self.pool, token_budget=token_budget,
             preempt_patience=preempt_patience,
@@ -1753,7 +1755,8 @@ def build_engine(cfg: ModelConfig, seed: int = 0, max_seq: int = 256,
     if params is None:
         params = T.init_params(cfg, gen, dev, quantized=True)
     if embedding is None:
-        flash = HS.FlashStore(str(flash_dir or DEFAULT_FLASH_DIR))
+        flash = HS.FlashStore(str(flash_dir or DEFAULT_FLASH_DIR),
+                              HS.FlashSpec(simulate=False))
         d = cfg.d_model
         embedding = HS.EmbeddingStore.create(
             flash, cfg.padded_vocab_size, d,

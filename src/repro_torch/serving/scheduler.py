@@ -188,12 +188,17 @@ class ContinuousScheduler:
                 r.deadline_s if r.deadline_s is not None else math.inf,
                 r.arrival_step, r.cost, r.uid)
 
+    @property
+    def active(self) -> List[Request]:
+        """The running requests, in slot order."""
+        return [r for r in self.running if r is not None]
+
     def has_work(self) -> bool:
         return bool(self.waiting) or any(r is not None for r in self.running)
 
     def _committed_tokens(self) -> int:
         return sum(len(r.context_tokens) + r.max_new_tokens - len(r.generated)
-                   for r in self.running if r is not None)
+                   for r in self.active)
 
     def need_pages(self, req: Request) -> int:
         """Pages of availability the request consumes on admission: its

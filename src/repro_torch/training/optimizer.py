@@ -4,6 +4,9 @@ schedule and global-norm clipping, as functional updates over a parameter
 tree of tensors (dicts by sorted key, tuples by index: the reference's
 flattening order).  Every step's arithmetic is float32 in the reference's
 op order; ``step`` is an int32 tensor, so nothing makes the host wait.
+The reference's ``abstract_state`` / ``state_specs`` (shapes and partition
+specs over a pod mesh) have no counterpart: ``meta`` tensors give the
+state's shapes on one card.
 """
 from __future__ import annotations
 

@@ -207,21 +207,30 @@ def test_roofline_and_tables_from_the_records(dryrun_records, capsys):
         DR.case_id(a, s) + ".json" for a, s in PAIRS)
 
 
-def _event(key, count, cpu_us=0.0, dev_us=0.0, device="DeviceType.CUDA"):
-    return types.SimpleNamespace(key=key, count=count, cpu_time_total=cpu_us,
-                                 self_device_time_total=dev_us, device_type=device)
+def _kineto(name, ns, device):
+    return types.SimpleNamespace(name=lambda: name, duration_ns=lambda: ns,
+                                 device_type=lambda: device)
+
+
+def _profile(events):
+    """A finished profiler run's stand-in: ``events`` as its kineto events."""
+    return types.SimpleNamespace(profiler=types.SimpleNamespace(
+        kineto_results=types.SimpleNamespace(events=lambda: events)))
 
 
 def test_trace_summary_from_stub_events():
-    cpu = "DeviceType.CPU"
-    events = [_event("void w4a8_kernel<4, 16>(...)", 8, dev_us=3000.0),
-              _event("rmsnorm_kernel(float const*)", 10, dev_us=200.0),
-              _event("paged_decode_kernel<128>", 4, dev_us=800.0),
-              _event("elementwise_kernel", 100, dev_us=2000.0),
-              _event("cudaGraphLaunch", 2, cpu_us=600.0, device=cpu),
-              _event("cudaMemcpyAsync", 4, cpu_us=40.0, device=cpu),
-              _event("aten::mm", 3, cpu_us=900.0, device=cpu)]
-    out = TR.summarize(events, steps=2, wall_us=12000.0)
+    from torch.autograd import DeviceType
+    cuda, cpu = DeviceType.CUDA, DeviceType.CPU
+    events = []
+    for name, count, us, device in (("void w4a8_kernel<4, 16>(...)", 8, 3000, cuda),
+                                    ("rmsnorm_kernel(float const*)", 10, 200, cuda),
+                                    ("paged_decode_kernel<128>", 4, 800, cuda),
+                                    ("elementwise_kernel", 100, 2000, cuda),
+                                    ("cudaGraphLaunch", 2, 600, cpu),
+                                    ("cudaMemcpyAsync", 4, 40, cpu),
+                                    ("aten::mm", 3, 900, cpu)):
+        events += [_kineto(name, us * 1000 // count, device) for _ in range(count)]
+    out = TR.summarize(_profile(events), steps=2, wall_us=12000.0)
     assert out["device_busy_share"] == 6000.0 / 12000.0
     assert out["profiled_step_ms"] == 6.0
     assert out["device_ms_per_step"] == 3.0
@@ -237,13 +246,8 @@ def test_trace_summary_from_stub_events():
     assert out["runtime_calls"] == {
         "cudaGraphLaunch": {"host_ms_per_step": 0.3, "calls_per_step": 1.0},
         "cudaMemcpyAsync": {"host_ms_per_step": 0.02, "calls_per_step": 2.0}}
-    assert TR.summarize([_event("cudaLaunchKernel", 1, cpu_us=5.0, device=cpu)], 1,
+    assert TR.summarize(_profile([_kineto("cudaLaunchKernel", 5000, cpu)]), 1,
                         100.0) == {"device_busy_share": "not measured"}
-
-
-def _kineto(name, ns, device):
-    return types.SimpleNamespace(name=lambda: name, duration_ns=lambda: ns,
-                                 device_type=lambda: device)
 
 
 def test_trace_device_ms_from_stub_kineto_events():
@@ -255,8 +259,7 @@ def test_trace_device_ms_from_stub_kineto_events():
               _kineto("rmsnorm_kernel(float const*)", 500_000, DeviceType.CUDA),
               _kineto("Memset (Device)", 250_000, DeviceType.CUDA),
               _kineto("rmsnorm_kernel launch", 9_000_000, DeviceType.CPU)]
-    prof = types.SimpleNamespace(profiler=types.SimpleNamespace(
-        kineto_results=types.SimpleNamespace(events=lambda: events)))
+    prof = _profile(events)
     total, by = TR.device_ms(prof, ("rmsnorm_kernel", "flash_prefill_kernel",
                                     "dense_decode_kernel"))
     assert total == 6.25

@@ -80,7 +80,13 @@ step's loss and gradients on the kernel route against the plain route.
 
 The public ops (``kernels/ops.py``) on the card against their oracles
 (``kernels/ref.py``), kernels 1, 4, 6 and 7 counted; a fused Region plan
-(geometry compute) bit-equal to the composed ``permute``/slice ops."""
+(geometry compute) bit-equal to the composed ``permute``/slice ops.
+
+§4.1's KV spill: kernel 6 over a history that went through a
+``KVSpillManager`` and was joined on the card ahead of the device part
+gives the unspilled cache's output bit for bit at qwen2-7b's shape (1,536
+and 8,704 tokens); ``analysis.trace.summarize``, which reads raw kineto
+events, equals the ``key_averages()`` aggregation it replaced."""
 import dataclasses
 import math
 
@@ -1051,7 +1057,7 @@ def test_page_spill_stage_restore_bit_exact(dev, tmp_path):
                   ).to(Q.FP8_DTYPE))
     ptrs = [getattr(pool, f).data_ptr() for f in KP.KV_FIELDS]
     want = {f: KP._bytes_view(getattr(pool, f)).clone() for f in KP.KV_FIELDS}
-    store = HS.PageSpillStore(HS.FlashStore(str(tmp_path)))
+    store = HS.PageSpillStore(HS.FlashStore(str(tmp_path), HS.FlashSpec(simulate=False)))
     try:
         src = [5, 0, 3]
         store.put(1, "s0p0", KP.read_pages(pool, src), pages=3)
@@ -1174,7 +1180,8 @@ def test_ring_install_lands_in_place(dev, tmp_path):
               "b": torch.randn((3, 17), device=dev, generator=gen),
               "c": torch.randn((3, 5, 9), device=dev, generator=gen).bfloat16()},)
     leaves = [t for _p, t in RP.tree_leaves_with_path(stack)]
-    store = HS.WeightGroupStore(HS.FlashStore(str(tmp_path)), pin_memory=True)
+    store = HS.WeightGroupStore(HS.FlashStore(str(tmp_path), HS.FlashSpec(simulate=False)),
+                               pin_memory=True)
     try:
         for g in range(3):
             store.put_group(0, g, [t[g] for t in leaves])
@@ -1652,3 +1659,79 @@ def test_fused_geometry_plan_on_the_card_equals_composed_ops(dev):
     want = x.permute(1, 0, 2)[1:3, 128:384].permute(1, 0, 2)
     got = GEO.execute_plan(plan, x)
     assert got.device == x.device and torch.equal(got.reshape(want.shape), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ctx", [1536, 8704])
+def test_dense_decode_over_history_joined_from_flash(dev, tmp_path, ctx):
+    """§4.1's spill at qwen2-7b's shape (G = 7, 4 KV heads of 128, one row
+    of ctx + 128 slots): the tokens before the last 512 go to a
+    ``KVSpillManager`` in blocks of 128 and come back, joined on the card
+    ahead of the device part; kernel 6 over the joined cache gives the
+    unspilled cache's output bit for bit (same bytes, same split)."""
+    S, cut = ctx + 128, ctx - 512
+    kq, ks, kz, v = _dense_cache(1, S, 4, 128, dev, ctx)
+    q = (torch.randn((1, 28, 128), device=dev) / math.sqrt(128)).bfloat16()
+    length = torch.tensor(ctx + 1, dtype=torch.int32, device=dev)
+    want = QA.quant_decode_attention(q, kq, ks, kz, v, length)
+    mgr = HS.KVSpillManager(HS.FlashStore(str(tmp_path), HS.FlashSpec(simulate=False)),
+                            1, 4, 128, dram_budget_tokens=512, block_tokens=128)
+    try:
+        hk, hv = kq[:, :cut].cpu().numpy(), v[:, :cut].view(torch.uint8).cpu().numpy()
+        for start in range(0, cut, 128):
+            mgr.spill(0, hk[:, start:start + 128], hv[:, start:start + 128], start)
+        mgr.prefetch_async(0)
+        gk, gv = mgr.gather(0)
+    finally:
+        mgr.drop_all()
+    jk = torch.cat([torch.from_numpy(gk).to(dev), kq[:, cut:]], 1)
+    jv = torch.cat([torch.from_numpy(gv).to(dev).view(Q.FP8_DTYPE), v[:, cut:]], 1)
+    before = QA.quant_decode_attention.launches
+    got = QA.quant_decode_attention(q, jk, ks, kz, jv, length)
+    assert QA.quant_decode_attention.launches == before + 1
+    assert torch.equal(jk, kq) and torch.equal(jv.view(torch.uint8), v.view(torch.uint8))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_trace_summary_equals_key_averages(dev):
+    """``analysis.trace.summarize`` reads the raw kineto events; on a
+    profiled run of the port's kernels its fields equal an aggregation of
+    the same run's ``key_averages()``, which it replaced."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.analysis import trace as TR
+    x = torch.randn((4, 3584), device=dev).bfloat16()
+    w = torch.randn((3584,), device=dev)
+    kq, ks, kz, v = _dense_cache(1, 2048, 4, 128, dev, 0)
+    q = (torch.randn((1, 28, 128), device=dev) / math.sqrt(128)).bfloat16()
+    length = torch.tensor(700, dtype=torch.int32, device=dev)
+    RN.rmsnorm(x, w, 1e-6)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            RN.rmsnorm(x, w, 1e-6)
+            QA.quant_decode_attention(q, kq, ks, kz, v, length)
+            y = (x.float() @ x.float().T).sum()
+        y.item()
+    got = TR.summarize(prof, 3, 5000.0)
+    kern, api = [], []
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA"):
+            if e.key.startswith("cuda") and e.cpu_time_total > 0:
+                api.append((e.cpu_time_total, e.count, e.key))
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        us = e.self_cuda_time_total if us is None else us
+        if us > 0:
+            kern.append((us, e.count, e.key))
+    kern.sort(reverse=True)
+    api.sort(reverse=True)
+    busy = sum(k[0] for k in kern)
+    assert got["device_ms_per_step"] == pytest.approx(busy / 3 / 1e3, rel=1e-6)
+    assert got["device_launches_per_step"] == sum(c for _u, c, _n in kern) / 3
+    assert [k["name"] for k in got["top_kernels"]] == [n[:80] for _u, _c, n in kern[:10]]
+    assert set(got["port_kernels"]) == {"rmsnorm_kernel", "dense_decode_kernel"}
+    assert [(n, k["calls_per_step"]) for n, k in got["runtime_calls"].items()] == \
+        [(n, c / 3) for _u, c, n in api[:6]]
+    for (us, _c, n), k in zip(api[:6], got["runtime_calls"].values()):
+        assert k["host_ms_per_step"] == pytest.approx(us / 3 / 1e3, rel=1e-6)

@@ -114,8 +114,14 @@ def test_paged_attention_refs_match_reference():
 # the host allocator
 # ---------------------------------------------------------------------------
 
+def _device_table(m):
+    t = np.asarray(m.device_table())
+    return str(t.dtype), t.tolist()
+
+
 def _state(m):
     return {"free": list(m._free), "table": m.table.tolist(),
+            "device_table": _device_table(m),
             "row_pages": [list(r) for r in m.row_pages],
             "refcount": m.refcount.tolist(), "row_shared": m.row_shared.tolist(),
             "index": sorted((p, k) for p, k in m._chain_of_page.items()),

@@ -86,6 +86,48 @@ def test_quantize_bitwise(bits, group_size):
     _same(JQ.dequantize(a), PQ.dequantize(b))
 
 
+@pytest.mark.parametrize("bits,group_size,scale_dims", [(4, 0, 1), (4, 0, 2), (8, 0, 1),
+                                                        (4, 16, 2), (8, 32, 2)])
+def test_load_prequantized_bitwise(bits, group_size, scale_dims):
+    """paper §3's import adapter: numpy carriers (a 1-d scale/zero pair is
+    one group) give the reference's QuantizedTensor bit for bit, its
+    logical byte count, and -- through pack_linear -- the integer path's
+    output of the weight they came from."""
+    rng = np.random.default_rng(10 * bits + group_size)
+    w = (rng.normal(size=(64, 96)) * 0.02).astype(np.float32)
+    src = JQ.quantize(jnp.asarray(w), bits, group_size=group_size)
+    data, scale, zero = (np.array(t) for t in (src.data, src.scale, src.zero))
+    if scale_dims == 1:
+        scale, zero = scale[0], zero[0]
+    a = JQ.load_prequantized(data, scale, zero, bits, (64, 96))
+    b = PQ.load_prequantized(data, scale, zero, bits, (64, 96))
+    for x, y in ((a.data, b.data), (a.scale, b.scale), (a.zero, b.zero)):
+        _same(x, y)
+    assert (a.bits, tuple(a.shape)) == (b.bits, tuple(b.shape))
+    assert a.nbytes_logical == b.nbytes_logical == 64 * 96 * bits // 8
+    data[...] = 0                          # the import holds its own copy
+    assert b.data.abs().sum() > 0
+    x = (rng.normal(size=(3, 64))).astype(np.float32)
+    qcfg = PQ.QuantConfig()
+    want = PQ.quant_matmul(torch.from_numpy(x), PQ.quantize(torch.from_numpy(w), bits,
+                                                            group_size=group_size), qcfg)
+    _same(CV.to_numpy(want), PQ.quant_matmul(torch.from_numpy(x), b, qcfg))
+
+
+@pytest.mark.parametrize("bits,group_size", [(4, 0), (8, 16), (16, 0), (32, 0)])
+def test_maybe_quantize_bitwise(bits, group_size):
+    w = (np.random.default_rng(bits).normal(size=(32, 48)) * 0.02).astype(np.float32)
+    a = JQ.maybe_quantize(jnp.asarray(w), bits, group_size=group_size)
+    b = PQ.maybe_quantize(torch.from_numpy(w), bits, group_size=group_size)
+    if bits >= 16:
+        assert b.dtype == torch.bfloat16
+        _same(a, b)
+        return
+    for x, y in ((a.data, b.data), (a.scale, b.scale), (a.zero, b.zero)):
+        _same(x, y)
+    assert a.nbytes_logical == b.nbytes_logical
+
+
 def test_pack_unpack_int4_bitwise():
     rng = np.random.default_rng(0)
     q = rng.integers(0, 16, size=(5, 32)).astype(np.int32)

@@ -126,8 +126,7 @@ def test_page_spill_store_roundtrip_matches_reference(tmp_path):
     vb = v8.view(torch.uint8).numpy()
     refs = []
     for hs, root in ((JHS, tmp_path / "ref"), (HS, tmp_path / "port")):
-        flash = (hs.FlashStore(str(root), hs.FlashSpec(simulate=False)) if hs is JHS
-                 else hs.FlashStore(str(root)))
+        flash = hs.FlashStore(str(root), hs.FlashSpec(simulate=False))
         store = hs.PageSpillStore(flash)
         try:
             store.put_page(5, 2, "s0p0", {"k_q": kq, "k_scale": ks, "v": vb},
@@ -158,7 +157,7 @@ def test_page_spill_store_roundtrip_matches_reference(tmp_path):
     assert flash.bytes_written == 3 * kq.nbytes + ks.nbytes + vb.nbytes + kq[:, 0].nbytes
     assert flash.bytes_read == 2 * kq.nbytes + ks.nbytes + vb.nbytes
     flash.put("kept", ks)                   # another process maps it read-only
-    again = HS.FlashStore(str(tmp_path / "port"))
+    again = HS.FlashStore(str(tmp_path / "port"), HS.FlashSpec(simulate=False))
     again.open("kept", ks.shape, ks.dtype)
     assert again.read_view("kept").tobytes() == ks.tobytes()
     assert again.bytes_read == ks.nbytes and again.nbytes("kept") == ks.nbytes
@@ -293,6 +292,7 @@ def test_residency_random_walk_matches_reference(seed):
 
 def _sched_state(s):
     return ([r.uid if r is not None else None for r in s.running],
+            [r.uid for r in s.active],
             [(r.uid, r.arrival_step, r.preemptions) for r in s.waiting])
 
 

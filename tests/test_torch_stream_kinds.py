@@ -388,7 +388,8 @@ def test_variant_pages_read_write_and_spill_bit_for_bit(tmp_path):
     for f in FIELDS:
         want = np.asarray(getattr(jp, f)[:, np.asarray(phys)])
         assert np.array_equal(_bits(got[f]), _bits(want)), f
-    spill = HS.PageSpillStore(HS.FlashStore(str(tmp_path / "port")))
+    spill = HS.PageSpillStore(HS.FlashStore(str(tmp_path / "port"),
+                                              HS.FlashSpec(simulate=False)))
     jspill = JHS.PageSpillStore(JHS.FlashStore(str(tmp_path / "ref"),
                                                JHS.FlashSpec(simulate=False)))
     try:

@@ -167,8 +167,8 @@ def test_weight_store_roundtrip_beside_page_spill(tmp_path):
     experts = [[torch.full((1, 4), e, dtype=torch.int8),
                 torch.full((1, 3), e / 3, dtype=torch.float32)] for e in range(3)]
     root = str(tmp_path / "flash")
-    store = HS.WeightGroupStore(HS.FlashStore(root))
-    spill = HS.PageSpillStore(HS.FlashStore(root))
+    store = HS.WeightGroupStore(HS.FlashStore(root, HS.FlashSpec(simulate=False)))
+    spill = HS.PageSpillStore(HS.FlashStore(root, HS.FlashSpec(simulate=False)))
     jstore = JHS.WeightGroupStore(JHS.FlashStore(str(tmp_path / "ref"),
                                                  JHS.FlashSpec(simulate=False)))
     try:
@@ -220,7 +220,8 @@ def test_flash_io_in_pieces_and_behind_the_export(tmp_path, monkeypatch, piece):
                torch.from_numpy(rng.normal(size=(1, 11)).astype(np.float32)).bfloat16(),
                torch.from_numpy(rng.normal(size=(1, 3)).astype(np.float32))]
               for _ in range(7)]
-    store = HS.WeightGroupStore(HS.FlashStore(str(tmp_path / "w")))
+    store = HS.WeightGroupStore(HS.FlashStore(str(tmp_path / "w"),
+                                              HS.FlashSpec(simulate=False)))
     try:
         for g, leaves in enumerate(groups):
             store.put_group(0, g, leaves)
@@ -236,8 +237,9 @@ def test_flash_io_in_pieces_and_behind_the_export(tmp_path, monkeypatch, piece):
     finally:
         store.drop_all()
     table = rng.normal(size=(10, 6)).astype(np.float32)
-    emb = HS.EmbeddingStore.create(HS.FlashStore(str(tmp_path / "e")), 10, 6,
-                                   lambda a, b: torch.from_numpy(table[a:b]))
+    emb = HS.EmbeddingStore.create(
+        HS.FlashStore(str(tmp_path / "e"), HS.FlashSpec(simulate=False)), 10, 6,
+        lambda a, b: torch.from_numpy(table[a:b]))
     want = torch.from_numpy(table).bfloat16()
     got = emb.lookup(np.array([[9, 0, 4]]))
     assert torch.equal(got.view(torch.int16), want[[9, 0, 4]][None].view(torch.int16))
